@@ -1,0 +1,890 @@
+"""Matcher: the match stage's model (counterpart of
+``phylign_tpu/models/matcher.py``).
+
+Holds one batch's packed Bloom bit-matrix on the device and scores query
+k-mers against it: hash -> Bloom row, gather + vertical popcount (the
+kernels of ``phylign_tpu_torch.ops.match``), integer threshold, top-k and
+hit compaction on the device; only the qualifying hits cross to the host.
+The text postprocessing stays on the host (``phylign_tpu.match``).
+
+Unsigned data live in signed tensors with the same bits: words and the hit
+buffer in int32, each XXH64 hash as two int64 halves below 2**32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from phylign_tpu.io.cobs import DeviceIndex
+from phylign_tpu.kmer import cobs_row_indices, encode_seq, rows_from_hashes
+from phylign_tpu_torch.ops.match import (
+    dedup_rows,
+    match_scores,
+    match_scores_dedup,
+    pack_row_indices,
+    round_up,
+)
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _copy_to_host_async(
+    t: torch.Tensor,
+) -> tuple[torch.Tensor, "torch.cuda.Event | None"]:
+    """Start a device-to-host copy into pinned memory; returns the host
+    tensor and the event to wait on before reading it (None on the CPU)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return host, ev
+
+
+def _compact_scores(
+    scores: torch.Tensor, d_pad: int, dtype: torch.dtype
+) -> torch.Tensor:
+    """Device-side transfer compaction: drop padding doc columns and
+    downcast to the smallest dtype that holds the largest possible score
+    before the device-to-host copy."""
+    return scores[:, :d_pad].to(dtype)
+
+
+def _topk_scores(
+    scores: torch.Tensor, cut: torch.Tensor, kk: int, d: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device-side threshold + top-k: returns (vals int32 [Q, kk], idx int32
+    [Q, kk], n_keep int32 [Q]).
+
+    ``cut`` is the per-query integer threshold (int32 [Q], computed on the
+    host in float64 by _int_cut so boundary hits match the full-matrix path
+    exactly). Docs with score >= cut survive; the rest come back as val 0 /
+    idx 0, and n_keep bounds the real count. When n_keep[q] > kk the caller
+    re-scores that query on the dense path.
+
+    ``torch.topk`` puts equal values in no promised order (jax.lax.top_k
+    puts the lower index first). No caller depends on it: a window with
+    n_keep <= kk holds every qualifying doc, a larger one is re-scored, and
+    the 03_match writer sorts by (-score, name)."""
+    s = scores[:, :d]
+    ok = s >= cut[:, None]
+    masked = torch.where(ok, s, torch.full_like(s, -1))
+    vals, idx = torch.topk(masked, kk, dim=1)
+    n_keep = ok.sum(dim=1, dtype=torch.int32)
+    keep = vals >= 0
+    zero = torch.zeros_like(vals)
+    return (
+        torch.where(keep, vals, zero).to(torch.int32),
+        torch.where(keep, idx, torch.zeros_like(idx)).to(torch.int32),
+        n_keep,
+    )
+
+
+def _rows_from_hashes(
+    hi: torch.Tensor, lo: torch.Tensor, s: int
+) -> torch.Tensor:
+    """Bloom row ``(hi * 2**32 + lo) % s`` elementwise in int64.
+
+    ``hi`` and ``lo`` are the XXH64 hash's halves, int64 values below 2**32.
+    Every term of ``((hi % s) * (2**32 % s) + lo % s) % s`` stays below 2**62
+    for s < 2**31, so the result is exact for every hash, including those
+    >= 2**63 that a reinterpretation of the uint64 as int64 would get wrong
+    (the JAX package's ``_rows_from_hashes_dev`` unrolls the same modulo in
+    uint32 steps)."""
+    return ((hi % s) * ((1 << 32) % s) + lo % s) % s
+
+
+def _hash_rows(
+    hi: torch.Tensor, lo: torch.Tensor, nk: torch.Tensor, s: int, pad_row: int
+) -> torch.Tensor:
+    """int32 [Q, K, H] Bloom rows; slots at or past a query's k-mer count
+    get the padding row."""
+    rows = _rows_from_hashes(hi, lo, s)
+    col = torch.arange(hi.shape[1], device=hi.device)
+    valid = col[None, :, None] < nk[:, None, None]
+    return torch.where(valid, rows, torch.full_like(rows, pad_row)).to(torch.int32)
+
+
+def _hash_topk(
+    words: torch.Tensor,
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    nk: torch.Tensor,
+    cut: torch.Tensor,
+    *,
+    s: int,
+    pad_row: int,
+    kk: int,
+    d: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Hash -> row, gather/popcount (the hand-written kernel on CUDA),
+    threshold + top-k, over device-resident raw query hashes: per batch only
+    the [Q] cut vector and the hit window cross the link."""
+    rows = _hash_rows(hi, lo, nk, s, pad_row)
+    scores = match_scores(words, rows)
+    return _topk_scores(scores, cut, kk, d)
+
+
+def _hash_topk_flat(
+    words: torch.Tensor,
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    nk: torch.Tensor,
+    cut: torch.Tensor,
+    *,
+    s: int,
+    pad_row: int,
+    kk: int,
+    d: int,
+    cap: int,
+) -> torch.Tensor:
+    """_hash_topk with the hit window compacted on the device: qualifying
+    (score << 16 | doc) pairs pack into one flat buffer of the queries'
+    take counts (take = min(n_keep, kk)). Returns ONE int32 tensor
+    [cap hits | Q n_keep | total] so the fetch is a single copy; total >
+    cap signals overflow (the caller refetches the dense window).
+
+    Every value fits int32 (score <= K <= 512 < 2**15, doc < 2**16); the
+    host views the buffer as uint32. Hits at positions >= cap are dropped:
+    they are routed to one scratch slot past the returned buffer, inside
+    the allocation, so nothing is written out of range and the scatter
+    needs no device-to-host sync."""
+    vals, idx, n_keep = _hash_topk(
+        words, hi, lo, nk, cut, s=s, pad_row=pad_row, kk=kk, d=d
+    )
+    q = hi.shape[0]
+    dev = hi.device
+    take = torch.clamp(n_keep, max=kk).to(torch.int64)
+    off = torch.cumsum(take, 0) - take
+    colk = torch.arange(kk, device=dev)
+    pos = off[:, None] + colk[None, :]
+    valid = (colk[None, :] < take[:, None]) & (pos < cap)
+    scratch = cap + q + 1
+    out = torch.zeros(scratch + 1, dtype=torch.int32, device=dev)
+    packed = (vals << 16) | idx
+    out.index_put_((torch.where(valid, pos, scratch).reshape(-1),), packed.reshape(-1))
+    out[cap : cap + q] = n_keep
+    out[cap + q] = take.sum().to(torch.int32)
+    return out[:scratch]
+
+
+@dataclass
+class DeviceQueryHashes:
+    """One query chunk's raw k-mer hashes, resident on the device.
+
+    Uploaded ONCE per read set (kmer.cobs_kmer_hashes output split into
+    halves) and reused by every batch's Matcher; the per-batch
+    ``% signature_size`` runs on the device inside _hash_topk. ``raw`` keeps
+    the host copy for the fallback paths (segmented queries, huge doc
+    counts, top-k window overflow re-fetch)."""
+
+    hi: torch.Tensor  # int64 [Q_pad, K, H], values < 2**32
+    lo: torch.Tensor  # int64 [Q_pad, K, H], values < 2**32
+    n_kmers: np.ndarray  # int32 [Q_pad] host (padding rows = 0)
+    raw: list[np.ndarray]  # per-query uint64 [n, H] host (REAL queries only)
+    q_real: int = -1  # real query count (<= Q_pad); results slice to this
+    # device twins, uploaded once per chunk: nk is constant, and the
+    # integer cut vector depends only on (nk, threshold), not on the batch
+    _nk_dev: torch.Tensor | None = None
+    _cut_dev: dict | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.hi.device
+
+    def nk_dev(self) -> torch.Tensor:
+        if self._nk_dev is None:
+            self._nk_dev = _to_device(self.n_kmers, self.device)
+        return self._nk_dev
+
+    def cut_dev(self, threshold: float) -> torch.Tensor:
+        if self._cut_dev is None:
+            self._cut_dev = {}
+        hit = self._cut_dev.get(threshold)
+        if hit is None:
+            hit = _to_device(_int_cut(threshold, self.n_kmers), self.device)
+            self._cut_dev[threshold] = hit
+        return hit
+
+    @classmethod
+    def build(
+        cls,
+        raw: list[np.ndarray],
+        device: str | torch.device = "cuda",
+        k_bucket: int = 64,
+        q_bucket: int = 1024,
+    ) -> "DeviceQueryHashes":
+        """``k_bucket`` pads the k-mer axis (a multiple of 32 keeps every
+        hash-path call on kernel B2 for 1-hash indexes); ``q_bucket`` pads
+        the query axis so read sets of similar size share layouts. Padding
+        rows carry nk=0, whose _int_cut is unreachable: they never emit
+        hits, and callers slice results back to q_real."""
+        q_real = len(raw)
+        qp = round_up(max(1, q_real), q_bucket)
+        nk = np.zeros(qp, np.int32)
+        nk[:q_real] = [r.shape[0] for r in raw]
+        h = raw[0].shape[1] if raw else 1
+        kp = round_up(int(nk.max(initial=1)), k_bucket)
+        hi = np.zeros((qp, kp, h), np.int64)
+        lo = np.zeros((qp, kp, h), np.int64)
+        if raw:
+            # one concatenate + one 2-D scatter (a python loop over tens of
+            # thousands of reads costs ~0.3 s per query set)
+            cat = np.concatenate(raw)
+            lens = nk.astype(np.int64)  # padded rows repeat 0 times
+            rows = np.repeat(np.arange(qp), lens)
+            cols = np.arange(len(cat)) - np.repeat(np.cumsum(lens) - lens, lens)
+            hi[rows, cols] = (cat >> np.uint64(32)).astype(np.int64)
+            lo[rows, cols] = (cat & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        dev = torch.device(device)
+        return cls(
+            hi=_to_device(hi, dev), lo=_to_device(lo, dev), n_kmers=nk,
+            raw=raw, q_real=q_real,
+        )
+
+
+def _int_cut(threshold: float, n_kmers: np.ndarray) -> np.ndarray:
+    """Smallest integer score satisfying ``score >= threshold * n`` in
+    float64 (the host/reference comparison), per query. Queries with no
+    k-mers get an impossible cut so they can never match."""
+    t = np.float64(threshold) * n_kmers.astype(np.float64)
+    cut = np.ceil(t).astype(np.int64)
+    # ceil gives the right integer except when t is itself integral (ceil
+    # keeps it) — i.e. cut >= t by construction; but guard float error:
+    cut = np.where(cut.astype(np.float64) < t, cut + 1, cut)
+    cut = np.where(n_kmers > 0, np.maximum(cut, 0), np.int64(1 << 30))
+    return cut.astype(np.int32)
+
+
+def device_index_bytes(didx: DeviceIndex) -> int:
+    """Exact device footprint of the word matrix an index occupies once
+    uploaded: from_device_index keeps the exact word width and adds one
+    zero row. The pipeline's HBM accountant admits uploads by it."""
+    return (didx.signature_size + 1) * max(didx.num_words, 1) * 4
+
+
+def upload_words(words: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """uint32 [S, W] host words (array or read-only memmap) -> int32
+    [S+1, max(W, 1)] on ``device`` with a zero padding row. For CUDA the
+    words are copied once into a pinned host tensor and sent with a
+    non-blocking copy; a memmap is only read."""
+    dev = torch.device(device)
+    s, w = words.shape
+    host = torch.empty(
+        (s + 1, max(w, 1)), dtype=torch.int32, pin_memory=dev.type == "cuda"
+    )
+    h = host.numpy()
+    h[:s, :w] = np.asarray(words).view(np.int32)
+    h[s] = 0
+    h[:s, w:] = 0
+    return host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+
+
+@dataclass
+class _HashDispatch:
+    """A dispatched hash-path scoring (Matcher.score_hits_hashes_begin):
+    the flat hit buffer's pinned host copy in flight, and what assembling
+    it needs."""
+
+    dq: DeviceQueryHashes
+    host: torch.Tensor
+    event: "torch.cuda.Event | None"
+    threshold: float
+    topn: int
+    k_max: int
+    kk: int
+    cap: int
+
+    def fetch(self) -> np.ndarray:
+        """Wait for the copy; the buffer as uint32 [cap + Q + 1]."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy().view(np.uint32)
+
+
+@dataclass
+class Matcher:
+    """Device-resident match model for one batch index."""
+
+    term_size: int
+    num_hashes: int
+    signature_size: int
+    doc_names: list[str]
+    words: torch.Tensor  # int32 [S+1, Wp] on the device
+    #: cross-query k-mer dedup (two-stage gather, ops.match.dedup_rows).
+    #: Opt-in (config match_dedup); scores are identical either way.
+    dedup: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.words.device
+
+    def _device_scores(self, packed: np.ndarray) -> torch.Tensor:
+        """Score one packed chunk, via the dedup path when enabled+profitable."""
+        if self.dedup:
+            dd = dedup_rows(packed, self.pad_row, self.words.shape[1])
+            if dd is not None:
+                return match_scores_dedup(
+                    self.words,
+                    _to_device(dd[0], self.device),
+                    _to_device(dd[1], self.device),
+                )
+        return match_scores(self.words, _to_device(packed, self.device))
+
+    @classmethod
+    def from_device_index(
+        cls, didx: DeviceIndex, device: str | torch.device = "cuda"
+    ) -> "Matcher":
+        return cls(
+            term_size=didx.term_size,
+            num_hashes=didx.num_hashes,
+            signature_size=didx.signature_size,
+            doc_names=didx.doc_names,
+            words=upload_words(didx.words, device),
+        )
+
+    @property
+    def pad_row(self) -> int:
+        return self.words.shape[0] - 1
+
+    def score(
+        self, seqs: list[bytes], threshold: float, k_max: int = 512
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Convenience host API: returns (scores[Q, D], keep[Q, D], n_kmers[Q]).
+
+        Queries longer than k_max+term_size-1 are split into k_max-k-mer
+        segments scored as separate device rows and summed — exact for any
+        query length with fixed device shapes.
+        """
+        per_query = [
+            cobs_row_indices(
+                encode_seq(s), self.term_size, self.signature_size, self.num_hashes
+            )
+            for s in seqs
+        ]
+        return self.score_rows(per_query, threshold, k_max)
+
+    def score_rows(
+        self, per_query: list[np.ndarray], threshold: float, k_max: int = 512
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """score() on pre-extracted per-query row-index arrays."""
+        n_kmers = np.array([r.shape[0] for r in per_query], np.int32)
+        seg_rows: list[np.ndarray] = []
+        owner: list[int] = []
+        for qi, r in enumerate(per_query):
+            if r.shape[0] == 0:
+                continue
+            for off in range(0, r.shape[0], k_max):
+                seg_rows.append(r[off : off + k_max])
+                owner.append(qi)
+        d = len(self.doc_names)
+        scores = np.zeros((len(per_query), d), np.int32)
+        if seg_rows:
+            n_real = len(seg_rows)
+            # bucket the packed k-mer axis to multiples of 64
+            k_pack = min(k_max, round_up(max(r.shape[0] for r in seg_rows), 64))
+            packed, _ = pack_row_indices(
+                seg_rows, k_pack, self.pad_row, self.num_hashes
+            )
+            dev_scores = self._device_scores(packed)
+            max_score = k_pack  # per-segment count <= valid k-mer slots
+            dtype = (
+                torch.uint8
+                if max_score <= 255
+                else torch.int16 if max_score <= 32767 else torch.int32
+            )
+            d_pad = min(dev_scores.shape[1], round_up(d, 256))
+            dev_scores = _compact_scores(dev_scores, d_pad, dtype)
+            seg_scores = dev_scores.cpu().numpy()[:n_real, :d].astype(np.int32)
+            np.add.at(scores, np.asarray(owner), seg_scores)
+        keep = (scores >= threshold * np.maximum(n_kmers, 1)[:, None]) & (
+            n_kmers[:, None] > 0
+        )
+        return scores, keep, n_kmers
+
+    def score_hits(
+        self, seqs: list[bytes], threshold: float, topn: int, k_max: int = 512
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """Per-query hits [(doc_idx, score)] with score >= threshold*n_kmers,
+        plus n_keep [Q] (the full qualifying count).
+
+        Device-side threshold + top-k, fetching only a kk-entry window per
+        query; a query re-scores on the full-matrix path when its
+        qualifying set overflows the window (n_keep > kk). Queries with
+        identical k-mer row multisets (duplicate reads, reverse-complement
+        duplicates) are scored once. Segmented (> k_max k-mer) queries use
+        the full path."""
+        all_rows = [
+            cobs_row_indices(
+                encode_seq(s), self.term_size, self.signature_size, self.num_hashes
+            )
+            for s in seqs
+        ]
+        return self._score_hits_rows(all_rows, threshold, topn, k_max)
+
+    def score_hits_raw(
+        self,
+        raw_hashes: list[np.ndarray],
+        threshold: float,
+        topn: int,
+        k_max: int = 512,
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """score_hits on precomputed RAW k-mer hashes (kmer.cobs_kmer_hashes):
+        a Bloom row is hash % signature_size, so callers scoring the same
+        reads against MANY batch indexes hash once and re-mod per batch."""
+        all_rows = [rows_from_hashes(r, self.signature_size) for r in raw_hashes]
+        return self._score_hits_rows(all_rows, threshold, topn, k_max)
+
+    def _score_hits_rows(
+        self,
+        all_rows: list[np.ndarray],
+        threshold: float,
+        topn: int,
+        k_max: int = 512,
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        rep_of, per_query = _dedup_row_sets(all_rows)
+        if len(per_query) < len(all_rows):
+            hits_u, n_keep_u = self.score_hits_unique(
+                per_query, threshold, topn, k_max
+            )
+            hits = [hits_u[j] for j in rep_of]
+            return hits, np.asarray([n_keep_u[j] for j in rep_of], np.int32)
+        return self.score_hits_unique(per_query, threshold, topn, k_max)
+
+    def score_hits_unique(
+        self,
+        per_query: list[np.ndarray],
+        threshold: float,
+        topn: int,
+        k_max: int = 512,
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """score_hits on pre-extracted per-query row-index arrays."""
+        d = len(self.doc_names)
+        n_kmers = np.array([r.shape[0] for r in per_query], np.int32)
+        segmented = any(r.shape[0] > k_max for r in per_query)
+        if d == 0 or d > 65535 or segmented:
+            scores, keep, _ = self.score_rows(per_query, threshold, k_max)
+            return _hits_from_full(scores, keep), keep.sum(axis=1).astype(np.int32)
+
+        kk = min(d, round_up(min(topn + 33, d), 32))
+        k_pack = round_up(max((r.shape[0] for r in per_query), default=1), 64)
+        packed, _ = pack_row_indices(
+            per_query, max(k_pack, 1), self.pad_row, self.num_hashes
+        )
+        dev_scores = self._device_scores(packed)
+        cut = _to_device(_int_cut(threshold, n_kmers), self.device)
+        vals, idx, n_keep = (
+            t.cpu().numpy() for t in _topk_scores(dev_scores, cut, kk, d)
+        )
+        return self._window_hits(
+            vals, idx, n_keep, lambda q: per_query[q], threshold, k_max, kk
+        )
+
+    def _window_hits(
+        self, vals, idx, n_keep, rows_of, threshold: float, k_max: int,
+        kk: int, device_lock=None,
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """Assemble per-query hit lists from a fetched top-k window; queries
+        whose qualifying set may overflow the window (n_keep > kk) re-score
+        via the full-matrix path using ``rows_of(q)`` host row indices."""
+        n_keep = np.array(n_keep)
+        hits: list[list[tuple[int, int]]] = []
+        redo: list[int] = []
+        for q in range(len(n_keep)):
+            m = int(n_keep[q])
+            take = min(m, kk)
+            if m > kk:
+                # the window may have cut a tie run: re-fetch the full row
+                redo.append(q)
+                hits.append([])
+                continue
+            hits.append(
+                [(int(idx[q, j]), int(vals[q, j])) for j in range(take)]
+            )
+        self._redo_overflow(
+            hits, n_keep, redo, rows_of, threshold, k_max, device_lock
+        )
+        return hits, n_keep.astype(np.int32)
+
+    def _redo_overflow(
+        self, hits, n_keep, redo, rows_of, threshold: float, k_max: int,
+        device_lock=None,
+    ) -> None:
+        """Re-score window-overflow queries via the full-matrix path.
+
+        ``device_lock``: callers that fetch outside the pipeline's device
+        lock (score_hits_hashes_end) pass it back in so this rare dense
+        re-dispatch is serialized against other device work."""
+        if not redo:
+            return
+        lock = device_lock if device_lock is not None else contextlib.nullcontext()
+        with lock:
+            scores, keep, _ = self.score_rows(
+                [rows_of(q) for q in redo], threshold, k_max
+            )
+        for row, q in enumerate(redo):
+            docs = np.nonzero(keep[row])[0]
+            hits[q] = [(int(dd), int(scores[row, dd])) for dd in docs]
+            hits[q].sort(key=lambda t: (-t[1], t[0]))
+            n_keep[q] = len(hits[q])  # keep header count == emitted set
+
+    def _window_hits_flat(
+        self, flat, n_keep, rows_of, threshold: float, k_max: int, kk: int,
+        device_lock=None,
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """_window_hits over the device-compacted flat uint32 (score|doc)
+        buffer (_hash_topk_flat): same hit lists, fewer fetched bytes."""
+        n_keep = np.array(n_keep)
+        take = np.minimum(n_keep, kk)
+        offs = np.cumsum(take) - take
+        ids = (flat & np.uint32(0xFFFF)).tolist()
+        vals = (flat >> np.uint32(16)).tolist()
+        # most queries have NO hits in a batch: share one empty list and
+        # touch only hit rows (no consumer mutates a hit list in place)
+        empty: list[tuple[int, int]] = []
+        hits: list[list[tuple[int, int]]] = [empty] * len(n_keep)
+        redo: list[int] = []
+        offs_l, take_l = offs.tolist(), take.tolist()
+        for q in np.flatnonzero(n_keep).tolist():
+            if n_keep[q] > kk:
+                redo.append(q)
+                continue
+            o, t = offs_l[q], take_l[q]
+            hits[q] = list(zip(ids[o : o + t], vals[o : o + t]))
+        self._redo_overflow(
+            hits, n_keep, redo, rows_of, threshold, k_max, device_lock
+        )
+        return hits, n_keep.astype(np.int32)
+
+    def score_hits_hashes_begin(
+        self, dq: DeviceQueryHashes, threshold: float, topn: int,
+        k_max: int = 512, cap: int | None = None,
+    ) -> _HashDispatch | None:
+        """Async half of score_hits_hashes: DISPATCH the device work and
+        start the hit buffer's copy to pinned host memory; returns the
+        dispatch (or None when this path does not apply — the caller then
+        uses the synchronous score_hits_hashes). The pipeline dispatches
+        under the device lock and fetches/assembles outside it.
+
+        ``cap`` bounds the compacted hit buffer; scatter overflow past it
+        falls back to the dense window fetch, so a too-small cap costs
+        time, never correctness."""
+        d = len(self.doc_names)
+        if (
+            self.dedup
+            or d == 0
+            or d > 65535
+            or dq.hi.shape[1] > k_max
+            or dq.hi.shape[2] != self.num_hashes
+            or self.signature_size >= 1 << 31  # int64 row arithmetic bound
+        ):
+            return None
+        kk = min(d, round_up(min(topn + 33, d), 32))
+        q_real = dq.q_real if dq.q_real >= 0 else len(dq.n_kmers)
+        full = q_real * min(kk, topn + 12)
+        cap = full if cap is None else max(256, min(int(cap), full))
+        out_dev = _hash_topk_flat(
+            self.words, dq.hi, dq.lo, dq.nk_dev(), dq.cut_dev(threshold),
+            s=self.signature_size, pad_row=self.pad_row, kk=kk, d=d, cap=cap,
+        )
+        host, event = _copy_to_host_async(out_dev)
+        return _HashDispatch(dq, host, event, threshold, topn, k_max, kk, cap)
+
+    def score_hits_hashes_end(
+        self, ctx: _HashDispatch, device_lock=None, fetched=None
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """Fetch + assemble a score_hits_hashes_begin dispatch.
+
+        Runs OUTSIDE the pipeline's device lock by design; the rare
+        overflow fallbacks below dispatch device work, so they re-acquire
+        ``device_lock`` when the caller provides it. ``fetched``: the
+        buffer already fetched by the caller (ctx.fetch())."""
+        dq, threshold, k_max, kk, cap = (
+            ctx.dq, ctx.threshold, ctx.k_max, ctx.kk, ctx.cap
+        )
+        out = ctx.fetch() if fetched is None else fetched
+        d = len(self.doc_names)
+        rows_of = lambda q: rows_from_hashes(  # noqa: E731
+            dq.raw[q], self.signature_size
+        )
+        q_real = dq.q_real if dq.q_real >= 0 else len(dq.n_kmers)
+        flat = out[:cap]
+        n_keep = out[cap : cap + len(dq.n_kmers)].astype(np.int32)
+        total = out[-1]
+        if int(total) <= cap:
+            hits, nk = self._window_hits_flat(
+                flat, n_keep, rows_of, threshold, k_max, kk,
+                device_lock=device_lock,
+            )
+            return hits[:q_real], nk[:q_real]
+        lock = device_lock if device_lock is not None else contextlib.nullcontext()
+        with lock:
+            vals, idx, n_keep = (
+                t.cpu().numpy()
+                for t in _hash_topk(
+                    self.words, dq.hi, dq.lo, dq.nk_dev(), dq.cut_dev(threshold),
+                    s=self.signature_size, pad_row=self.pad_row, kk=kk, d=d,
+                )
+            )
+        hits, nk = self._window_hits(
+            vals, idx, n_keep, rows_of, threshold, k_max, kk,
+            device_lock=device_lock,
+        )
+        return hits[:q_real], nk[:q_real]
+
+    def score_hits_hashes(
+        self,
+        dq: DeviceQueryHashes,
+        threshold: float,
+        topn: int,
+        k_max: int = 512,
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """score_hits over DEVICE-RESIDENT raw hashes: the per-batch row
+        computation (% signature_size) runs on the device, so scoring a read
+        set against many batches uploads the queries once, not once per
+        batch. Identical to score_hits_raw (tested); falls back to it for
+        the dedup / segmented / huge-doc-count cases."""
+        ctx = self.score_hits_hashes_begin(dq, threshold, topn, k_max)
+        if ctx is None:
+            return self.score_hits_raw(dq.raw, threshold, topn, k_max)
+        return self.score_hits_hashes_end(ctx)
+
+
+def _acc_chunk_scores(
+    acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor
+) -> torch.Tensor:
+    """acc += this row block's partial scores, in place."""
+    return acc.add_(match_scores(words, row_idx))
+
+
+@dataclass
+class ChunkedMatcher:
+    """Row-chunked match model: scores an index LARGER than the device
+    budget.
+
+    The signature rows stream through the device in fixed blocks: each
+    query k-mer row index is remapped into the current block (or to the
+    block's zero padding row when it falls outside), the block is scored
+    with the SAME kernels, and per-(query, doc) scores accumulate on the
+    device across blocks. Exact vs Matcher for num_hashes == 1 (the 661k
+    database's value) because a 1-hash score is a plain sum over k-mer rows;
+    multi-hash indexes need the AND of rows that may straddle blocks and
+    must use Matcher.
+
+    The whole index streams once per query super-pass, so
+    ``queries_per_pass`` is sized by the [Q, D] score accumulator budget
+    (default 256 MB)."""
+
+    term_size: int
+    num_hashes: int
+    signature_size: int
+    doc_names: list[str]
+    words_host: np.ndarray  # uint32 [S, W] on HOST (array or memmap)
+    row_chunk: int  # signature rows per device block
+    acc_budget_bytes: int = 256 << 20
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        if self.num_hashes != 1:
+            raise ValueError(
+                "ChunkedMatcher requires num_hashes == 1 (a multi-hash "
+                "k-mer ANDs rows that may straddle row blocks); "
+                f"got {self.num_hashes}. Use Matcher."
+            )
+        self.device = torch.device(self.device)
+
+    @classmethod
+    def from_device_index(
+        cls, didx: DeviceIndex, hbm_budget_mb: int,
+        device: str | torch.device = "cuda", **kw,
+    ) -> "ChunkedMatcher":
+        """Size row blocks so block + accumulator + a second block fit the
+        given budget."""
+        w = max(1, didx.num_words)
+        acc = kw.get("acc_budget_bytes", 256 << 20)
+        usable = max(64 << 20, hbm_budget_mb * 1_000_000 - acc)
+        rows = max(1024, int(usable // 2 // (w * 4)))  # 2 blocks in flight
+        return cls(
+            term_size=didx.term_size,
+            num_hashes=didx.num_hashes,
+            signature_size=didx.signature_size,
+            doc_names=didx.doc_names,
+            words_host=np.asarray(didx.words),
+            row_chunk=min(rows, didx.signature_size),
+            device=device,
+            **kw,
+        )
+
+    @property
+    def pad_row(self) -> int:
+        """GLOBAL padding sentinel: outside every block's [r0, r1) range, so
+        padding slots always remap to the block's zero row."""
+        return 1 << 30
+
+    def _score_pass(self, packed: np.ndarray) -> torch.Tensor:
+        """Accumulated scores [Q, 32*W] for one query super-pass (device)."""
+        s, w = self.words_host.shape
+        q = packed.shape[0]
+        acc = torch.zeros((q, 32 * w), dtype=torch.int32, device=self.device)
+        idx2 = packed.reshape(q, -1)  # [Q, K] int32 global rows (H == 1)
+        for r0 in range(0, s, self.row_chunk):
+            r1 = min(r0 + self.row_chunk, s)
+            block = np.zeros((self.row_chunk + 1, w), np.uint32)
+            block[: r1 - r0] = self.words_host[r0:r1]
+            # rows outside this block -> the block's zero padding row
+            loc = np.where((idx2 >= r0) & (idx2 < r1), idx2 - r0, self.row_chunk)
+            # the host prepares the next block while this one's kernel runs
+            _acc_chunk_scores(
+                acc,
+                _to_device(block.view(np.int32), self.device),
+                _to_device(loc.astype(np.int32), self.device),
+            )
+        return acc
+
+    def score_rows(
+        self, per_query: list[np.ndarray], threshold: float, k_max: int = 512
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Matcher.score_rows semantics (full [Q, D] scores on host)."""
+        d = len(self.doc_names)
+        n_kmers = np.array([r.shape[0] for r in per_query], np.int32)
+        kp = round_up(max((r.shape[0] for r in per_query), default=1), 64)
+        packed, _ = pack_row_indices(
+            per_query, max(kp, 1), self.pad_row, self.num_hashes
+        )
+        scores = self._score_pass(packed).cpu().numpy()[:, :d].astype(np.int32)
+        keep = (scores >= threshold * np.maximum(n_kmers, 1)[:, None]) & (
+            n_kmers[:, None] > 0
+        )
+        return scores, keep, n_kmers
+
+    def score_hits(
+        self, seqs: list[bytes], threshold: float, topn: int, k_max: int = 512
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """Matcher.score_hits contract (same dedup, same top-k window +
+        tie-overflow refetch), with the index streamed in row blocks."""
+        all_rows = [
+            cobs_row_indices(
+                encode_seq(s), self.term_size, self.signature_size, self.num_hashes
+            )
+            for s in seqs
+        ]
+        return self._score_hits_rows(all_rows, threshold, topn)
+
+    def score_hits_raw(
+        self, raw_hashes: list[np.ndarray], threshold: float, topn: int,
+        k_max: int = 512,
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        """Matcher.score_hits_raw twin: precomputed raw k-mer hashes."""
+        all_rows = [rows_from_hashes(r, self.signature_size) for r in raw_hashes]
+        return self._score_hits_rows(all_rows, threshold, topn)
+
+    def _score_hits_rows(
+        self, all_rows: list[np.ndarray], threshold: float, topn: int
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        rep_of, per_query = _dedup_row_sets(all_rows)
+        hits_u, n_keep_u = self._score_hits_unique(per_query, threshold, topn)
+        if len(per_query) < len(all_rows):
+            return (
+                [hits_u[j] for j in rep_of],
+                np.asarray([n_keep_u[j] for j in rep_of], np.int32),
+            )
+        return hits_u, n_keep_u
+
+    def _score_hits_unique(
+        self, per_query: list[np.ndarray], threshold: float, topn: int
+    ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
+        d = len(self.doc_names)
+        n_kmers_all = np.array([r.shape[0] for r in per_query], np.int32)
+        w = max(1, self.words_host.shape[1])
+        q_pass = max(64, int(self.acc_budget_bytes // (32 * w * 4)))
+        hits: list[list[tuple[int, int]]] = []
+        n_keep_out: list[int] = []
+        for off in range(0, len(per_query), q_pass):
+            part = per_query[off : off + q_pass]
+            n_kmers = n_kmers_all[off : off + q_pass]
+            kp = round_up(max((r.shape[0] for r in part), default=1), 64)
+            packed, _ = pack_row_indices(
+                part, max(kp, 1), self.pad_row, self.num_hashes
+            )
+            acc = self._score_pass(packed)
+            if d == 0 or d > 65535:
+                scores = acc.cpu().numpy()[:, :d].astype(np.int32)
+                keep = (
+                    scores >= threshold * np.maximum(n_kmers, 1)[:, None]
+                ) & (n_kmers[:, None] > 0)
+                hits.extend(_hits_from_full(scores, keep))
+                n_keep_out.extend(keep.sum(axis=1).astype(int).tolist())
+                continue
+            kk = min(d, round_up(min(topn + 33, d), 32))
+            cut = _to_device(_int_cut(threshold, n_kmers), self.device)
+            vals, idx, n_keep = (
+                t.cpu().numpy() for t in _topk_scores(acc, cut, kk, d)
+            )
+            scores_full = None
+            for qi in range(len(part)):
+                m = int(n_keep[qi])
+                if m > kk:  # tie overflow: read this query's full row
+                    if scores_full is None:
+                        scores_full = acc.cpu().numpy()[:, :d]
+                    row = scores_full[qi]
+                    cut_q = int(_int_cut(threshold, n_kmers[qi : qi + 1])[0])
+                    docs = np.nonzero(row >= cut_q)[0]
+                    hl = [(int(dd), int(row[dd])) for dd in docs]
+                    hl.sort(key=lambda t: (-t[1], t[0]))
+                    hits.append(hl)
+                    n_keep_out.append(len(hl))
+                    continue
+                hits.append(
+                    [(int(idx[qi, j]), int(vals[qi, j])) for j in range(m)]
+                )
+                n_keep_out.append(m)
+        return hits, np.asarray(n_keep_out, np.int32)
+
+
+def _dedup_row_sets(
+    rows: list[np.ndarray],
+) -> tuple[list[int], list[np.ndarray]]:
+    """Group queries by identical k-mer row-index arrays.
+
+    Returns (rep_of, unique): rep_of[q] is the index into ``unique`` whose
+    row MULTISET equals rows[q]'s. Scores are a sum over k-mer slots, so any
+    order-permutation of the same rows yields identical scores for every
+    document — which collapses exact duplicate reads AND reverse-complement
+    duplicates (canonical k-mers are strand-invariant; RC merely reverses
+    their position order)."""
+    seen: dict[tuple[int, bytes], int] = {}
+    rep_of: list[int] = []
+    unique: list[np.ndarray] = []
+    for r in rows:
+        if r.ndim == 1 or r.shape[-1] == 1:
+            # 1 hash (the 661k DB): plain value sort, no lexsort machinery
+            canon = np.sort(r.reshape(-1), kind="stable")
+        else:  # [n, H]: lexicographic row sort
+            canon = r[np.lexsort(r.T[::-1])] if r.shape[0] else r
+        key = (r.shape[0], canon.tobytes())
+        j = seen.get(key)
+        if j is None:
+            j = len(unique)
+            seen[key] = j
+            unique.append(r)
+        rep_of.append(j)
+    return rep_of, unique
+
+
+def _hits_from_full(
+    scores: np.ndarray, keep: np.ndarray
+) -> list[list[tuple[int, int]]]:
+    out = []
+    for q in range(scores.shape[0]):
+        docs = np.nonzero(keep[q])[0]
+        row = [(int(d), int(scores[q, d])) for d in docs]
+        row.sort(key=lambda t: (-t[1], t[0]))
+        out.append(row)
+    return out

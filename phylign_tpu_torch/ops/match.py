@@ -1,0 +1,285 @@
+"""Device match engine: k-mer containment scoring over a packed Bloom
+bit-matrix (the counterpart of ``phylign_tpu/ops/match.py``).
+
+Data model (as in the JAX package; unsigned data are held in int32 tensors
+with the same bits, since torch's uint32 support is partial):
+
+  words     int32 [S+1, Wp]   uint32 bits of the packed bit-matrix: doc d at
+                              word d//32, bit d%32. Row S is all zero (the
+                              padding row). Wp is the exact word count.
+  row_idx   int32 [Q, K] or [Q, K, H]
+                              per query, K k-mer slots of Bloom rows (S for
+                              padding); with H > 1 hashes a k-mer hits a doc
+                              only if all H rows have its bit.
+  scores    int32 [Q, 32*Wp]  per (query, doc) hit counts, doc d at column d.
+
+Implementations with identical results:
+  * ``match_scores_ref``  plain PyTorch, runs anywhere; the CPU path and the
+                          reference the kernels are held to.
+  * ``match_scores_b1``   CUDA kernel B1 (replaces the Pallas
+                          ``match_scores_pallas``): any H, any K.
+  * ``match_scores_b2``   CUDA kernel B2 (replaces ``match_scores_pallas_v2``):
+                          H == 1, K % 32 == 0, bit-plane counters.
+``match_scores`` picks by the tensor's device: the plain version for a CPU
+tensor, a kernel for a CUDA tensor, never one for the other.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+#: the kernels stage a block's row indices in at most this much shared
+#: memory (the launch needs no opt-in above 48 KB)
+SMEM_BYTES = 48 * 1024
+#: threads per block of the kernels
+BLOCK_THREADS = 256
+#: bit planes kernel B2 is built for (K up to 2**14 - 1)
+B2_PLANES = range(6, 15)
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_device_words(words: np.ndarray, lane_words: int = 1) -> np.ndarray:
+    """[S, W] uint32 -> [S+1, Wp] with Wp a multiple of ``lane_words`` and a
+    final all-zero padding row. The kernels take any Wp, so the port keeps
+    the exact width (lane_words=1); other widths serve held-to-JAX tests."""
+    s, w = words.shape
+    wp = round_up(max(w, 1), lane_words)
+    out = np.zeros((s + 1, wp), dtype=np.uint32)
+    out[:s, :w] = words
+    return out
+
+
+def pack_row_indices(
+    rows_per_query: list[np.ndarray], k_max: int, pad_row: int, num_hashes: int = 1
+) -> tuple[np.ndarray, np.ndarray]:
+    """Stack per-query [n_kmers, H] row-index arrays into [Q, K, H] int32 plus
+    the per-query valid k-mer counts [Q] int32. Queries with more than k_max
+    k-mers are rejected (caller buckets by length)."""
+    q = len(rows_per_query)
+    out = np.full((q, k_max, num_hashes), pad_row, dtype=np.int32)
+    counts = np.zeros(q, dtype=np.int32)
+    for i, r in enumerate(rows_per_query):
+        n = r.shape[0]
+        if n > k_max:
+            raise ValueError(f"query {i} has {n} k-mers > k_max={k_max}")
+        out[i, :n] = r
+        counts[i] = n
+    return out, counts
+
+
+# --- plain PyTorch version ----------------------------------------------------
+
+#: bytes of the [q, K, Wp, 32] bit intermediate per chunk of queries
+_REF_CHUNK_BYTES = 256 << 20
+
+
+def match_scores_ref(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
+    """Gather + vertical popcount in plain PyTorch, exact.
+
+    words int32 [S+1, Wp]; row_idx int32 [Q, K] or [Q, K, H]. Returns int32
+    [Q, 32*Wp]. The rows of a k-mer's H hashes are ANDed, then bit b of word
+    w is summed over K into column 32*w + b. Chunked over Q: unchunked, the
+    [Q, K, Wp, 32] intermediate is 2.3 GB at Q=2048, K=128, Wp=68."""
+    if row_idx.dim() == 2:
+        row_idx = row_idx.unsqueeze(-1)
+    q, k, h = row_idx.shape
+    wp = words.shape[1]
+    out = torch.empty((q, 32 * wp), dtype=torch.int32, device=words.device)
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    step = max(1, _REF_CHUNK_BYTES // max(1, k * wp * 32 * 4))
+    for q0 in range(0, q, step):
+        g = words[row_idx[q0 : q0 + step].long()]  # [q, K, H, Wp]
+        a = g[:, :, 0]
+        for j in range(1, h):
+            a = a & g[:, :, j]
+        # (x >> b) & 1 is bit b for negative int32 too (arithmetic shift)
+        bits = (a.unsqueeze(-1) >> shifts) & 1  # [q, K, Wp, 32]
+        out[q0 : q0 + step] = bits.sum(dim=1, dtype=torch.int32).reshape(
+            -1, 32 * wp
+        )
+    return out
+
+
+# --- hand-written CUDA kernels -------------------------------------------------
+
+_launch_lock = threading.Lock()
+_launches = {"match_popcount_b1": 0, "match_popcount_b2": 0}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    with _launch_lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _launch_lock:
+        for name in _launches:
+            _launches[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _launch_lock:
+        _launches[name] += 1
+
+
+def launch_geometry(wp: int, k: int, h: int) -> tuple[int, int]:
+    """(qt, wt): queries per block and word-threads per query. A block
+    has qt * wt <= BLOCK_THREADS threads and stages qt*K*H int32 row
+    indices in shared memory; when Wp > BLOCK_THREADS a thread loops over
+    words w, w + wt, ..."""
+    wt = min(wp, BLOCK_THREADS)
+    qt = min(BLOCK_THREADS // wt, SMEM_BYTES // (4 * k * h))
+    if qt < 1:
+        raise ValueError(
+            f"K*H = {k * h} row indices per query exceed the kernels' "
+            f"{SMEM_BYTES} bytes of shared memory"
+        )
+    return qt, wt
+
+
+def b2_planes(k: int) -> int:
+    """Bit planes that hold a count up to K: ceil(log2(K + 1))."""
+    return max(1, int(k).bit_length())
+
+
+def _check_kernel_args(
+    words: torch.Tensor, row_idx: torch.Tensor, what: str
+) -> torch.Tensor:
+    if words.device.type != "cuda" or row_idx.device != words.device:
+        raise ValueError(
+            f"{what} runs on CUDA tensors on one device; got words on "
+            f"{words.device}, row_idx on {row_idx.device}"
+        )
+    if words.dtype != torch.int32 or row_idx.dtype != torch.int32:
+        raise TypeError(
+            f"{what} takes int32 words and row_idx; got {words.dtype}, "
+            f"{row_idx.dtype}"
+        )
+    if words.dim() != 2 or row_idx.dim() not in (2, 3):
+        raise ValueError(
+            f"{what}: words must be [S+1, Wp] and row_idx [Q, K(, H)]; got "
+            f"{tuple(words.shape)}, {tuple(row_idx.shape)}"
+        )
+    if not (words.is_contiguous() and row_idx.is_contiguous()):
+        raise ValueError(f"{what} takes contiguous tensors")
+    if words.shape[0] >= 1 << 31:
+        raise ValueError(f"{what}: {words.shape[0]} rows exceed int32 indices")
+    return row_idx if row_idx.dim() == 3 else row_idx.unsqueeze(-1)
+
+
+def _launch(name: str, words, row_idx3, arg6: int) -> torch.Tensor:
+    from phylign_tpu_torch.ops import _kernels
+
+    q, k, h = row_idx3.shape
+    wp = words.shape[1]
+    if q == 0 or k * h == 0:
+        return torch.zeros((q, 32 * wp), dtype=torch.int32, device=words.device)
+    qt, wt = launch_geometry(wp, k, h)
+    out = torch.empty((q, 32 * wp), dtype=torch.int32, device=words.device)
+    lib = _kernels.library("match_popcount")
+    fn = getattr(lib, f"phylign_{name}")
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        err = fn(
+            words.data_ptr(), words.shape[0], wp, row_idx3.data_ptr(),
+            q, k, arg6, qt, wt, out.data_ptr(), stream,
+        )
+    _kernels.check(lib, err, name)
+    _count_launch(name)
+    return out
+
+
+def match_scores_b1(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
+    """Kernel B1 (replaces ``phylign_tpu/ops/match.py:match_scores_pallas``):
+    any H, any K. CUDA tensors only; same contract as match_scores_ref."""
+    r3 = _check_kernel_args(words, row_idx, "match_popcount_b1")
+    return _launch("match_popcount_b1", words, r3, r3.shape[2])
+
+
+def match_scores_b2(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
+    """Kernel B2 (replaces ``match_scores_pallas_v2``): H == 1 and K a
+    multiple of 32. CUDA tensors only; same contract as match_scores_ref."""
+    r3 = _check_kernel_args(words, row_idx, "match_popcount_b2")
+    q, k, h = r3.shape
+    planes = b2_planes(k)
+    if h != 1 or k % 32 or planes not in B2_PLANES:
+        raise ValueError(
+            f"match_popcount_b2 takes H == 1 and K % 32 == 0 with "
+            f"K < 2**{B2_PLANES[-1]}; got K={k}, H={h}"
+        )
+    return _launch("match_popcount_b2", words, r3, planes)
+
+
+def select_kernel(k: int, h: int) -> str:
+    """The kernel for K slots of H hashes: B2 when H == 1 and K % 32 == 0
+    (every hash-path call of a 1-hash index: K is bucketed to 64), B1
+    otherwise."""
+    if h == 1 and k % 32 == 0 and b2_planes(k) in B2_PLANES:
+        return "match_popcount_b2"
+    return "match_popcount_b1"
+
+
+def match_scores(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
+    """Dispatch by device: the plain version for a CPU tensor, the kernel
+    of select_kernel for a CUDA tensor. Any other device raises."""
+    if words.device.type == "cpu":
+        return match_scores_ref(words, row_idx)
+    if words.device.type != "cuda":
+        raise ValueError(f"no match kernel for device {words.device}")
+    h = row_idx.shape[2] if row_idx.dim() == 3 else 1
+    if select_kernel(row_idx.shape[1], h) == "match_popcount_b2":
+        return match_scores_b2(words, row_idx)
+    return match_scores_b1(words, row_idx)
+
+
+# --- cross-query k-mer dedup (two-stage gather) --------------------------------
+
+#: bytes below which the unique-row table is small enough for the dedup to
+#: pay (the value the JAX package uses; not yet measured on a GPU)
+DEDUP_FAST_BYTES = 40 << 20
+
+#: dedup pays only when stage-1 (U big-gathers) + stage-2 (N small-table
+#: gathers) undercuts N big-gathers (the JAX package's breakeven)
+DEDUP_MAX_FRAC = 0.55
+
+
+def dedup_rows(
+    row_idx: np.ndarray, pad_row: int, wp: int
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """Host half of the two-stage dedup gather: unique row indices (padded
+    to a power-of-two bucket with ``pad_row``) + inverse indices, or None
+    when the dedup would not be profitable (low cross-query duplication, or
+    a unique table too large)."""
+    flat = row_idx.reshape(-1)
+    from phylign_tpu import native
+
+    nat = native.native_unique_inverse(flat)
+    if nat is not None:
+        uniq, inv = nat
+    else:
+        uniq, inv = np.unique(flat, return_inverse=True)
+        inv = inv.astype(np.int32)
+    u, n = uniq.size, flat.size
+    up = 1 << max(10, int(np.ceil(np.log2(u + 1))))
+    if up * wp * 4 > DEDUP_FAST_BYTES or u > DEDUP_MAX_FRAC * n:
+        return None
+    uniq_pad = np.full(up, pad_row, np.int32)
+    uniq_pad[:u] = uniq
+    return uniq_pad, inv.reshape(row_idx.shape)
+
+
+def match_scores_dedup(
+    words: torch.Tensor, uniq_pad: torch.Tensor, inv: torch.Tensor
+) -> torch.Tensor:
+    """Two-stage scoring: gather the chunk's unique Bloom rows into a small
+    table, then score against it. Identical to match_scores(words, row_idx)
+    for the (uniq, inv) pair of dedup_rows: padding slots index ``pad_row``,
+    whose row is all zero in both tables."""
+    return match_scores(words[uniq_pad.long()].contiguous(), inv.contiguous())

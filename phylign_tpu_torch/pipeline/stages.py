@@ -1,0 +1,997 @@
+"""The match half of the pipeline: preprocess -> match -> filter (the
+counterpart of ``phylign_tpu/pipeline/stages.py``), over the same on-disk
+layout, so intermediates are drop-in comparable:
+
+    intermediate/00_queries_preprocessed/{stem}.fa      (rule fix_query)
+    intermediate/01_queries_merged/{merged}.fa          (rule concatenate_queries)
+    intermediate/03_match/{batch}____{merged}.gz        (rule decompress_and_run_cobs)
+    intermediate/04_filter/{merged}.fa                  (rule translate_matches)
+
+Host-side work (xz decode, index loading) runs on thread pools; device work
+serializes through the scheduler's device lock, and all of it is queued on
+the device's current CUDA stream. Every unit is benchmark-logged and
+manifest-checkpointed. The align stage is not ported yet (ROADMAP queue A,
+items 5-9).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from phylign_tpu.config import Config
+from phylign_tpu.io import cobs as cobs_io
+from phylign_tpu.io.fastx import (
+    FastxRecord,
+    normalize_and_merge,
+    read_fastx_file,
+    write_fasta,
+    xopen_read,
+    xopen_write,
+)
+from phylign_tpu.match.filter import filter_queries_streaming, write_filtered_fasta
+from phylign_tpu.match.postprocess import read_match_file
+from phylign_tpu.pipeline.manifest import Manifest, atomic_write_via
+from phylign_tpu.pipeline.scheduler import Job, Scheduler
+from phylign_tpu_torch.models.matcher import (
+    ChunkedMatcher,
+    DeviceQueryHashes,
+    Matcher,
+    _dedup_row_sets,
+    device_index_bytes,
+)
+from phylign_tpu_torch.ops._kernels import KernelError
+from phylign_tpu_torch.utils.bench import benchmark
+from phylign_tpu_torch.utils.platform import resolve_device
+
+log = logging.getLogger("phylign_tpu_torch.pipeline")
+
+
+class QuerySet:
+    """One merged read set, prepared once and shared across batch match jobs.
+
+    records    parsed merged FASTA records (output order);
+    rep_of     int64 [n_records] -> index into the UNIQUE query list
+               (duplicate reads / RC duplicates share canonical k-mer
+               multisets, so they score identically against every batch);
+    uraw       per-unique-query raw XXH64 hashes (uint64 [n, H]);
+    device_chunk(off, size) lazily uploads a unique-query slice's hashes to
+    the device ONCE (models.matcher.DeviceQueryHashes) — every batch then
+    mods + gathers on the device with no per-batch query upload."""
+
+    def __init__(
+        self,
+        records: list[FastxRecord],
+        rep_of: np.ndarray,
+        uraw: list[np.ndarray],
+        device: torch.device,
+    ):
+        self.records = records
+        self.rep_of = rep_of
+        self.uraw = uraw
+        self.device = device
+        self._dq: dict = {}
+        self._lock = threading.Lock()
+        # adaptive fetch-cap hint: max qualifying-hit total any batch has
+        # produced for this read set so far (None = no history). Later
+        # batches size their compacted device->host hit buffer from it
+        # instead of the worst-case topn+ties window.
+        self.hit_hint: int | None = None
+
+    def device_chunk(self, off: int, size: int) -> DeviceQueryHashes:
+        key = (off, size)
+        with self._lock:
+            hit = self._dq.get(key)
+        if hit is not None:
+            return hit
+        dq = DeviceQueryHashes.build(self.uraw[off : off + size], self.device)
+        with self._lock:
+            # bound device residency: keep at most TWO chunk layouts
+            # (evicting the least-recent layout keeps device memory at ~2x
+            # the query hash set; in-flight users keep their tensors alive
+            # via ordinary references)
+            sizes = {s for (_, s) in self._dq}
+            if size not in sizes and len(sizes) >= 2:
+                drop = next(iter(self._dq))[1]  # oldest layout's size
+                for k in [k for k in self._dq if k[1] == drop]:
+                    del self._dq[k]
+            return self._dq.setdefault(key, dq)
+
+
+class _IndexCache:
+    """Device-resident Matcher cache keyed by index CONTENT hash.
+
+    Repeated runs (or several query files) over the same batches skip the
+    index upload. The byte budget is carved out of the pipeline's device
+    memory accountant once at init, so cached indexes can never starve
+    transient uploads."""
+
+    def __init__(self, budget_mb: int):
+        import collections
+
+        self.budget = budget_mb
+        self.used = 0
+        self.items: "collections.OrderedDict[tuple, tuple]" = (
+            collections.OrderedDict()
+        )
+        self.lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key):
+        with self.lock:
+            it = self.items.get(key)
+            if it is None:
+                self.misses += 1
+                return None
+            self.items.move_to_end(key)
+            self.hits += 1
+            return it[0]
+
+    def put(self, key, matcher, mb: int) -> bool:
+        """Insert; True iff the cache now owns the device bytes."""
+        if mb > self.budget:
+            return False
+        with self.lock:
+            if key in self.items:
+                return False  # already owned; caller keeps its reservation
+            while self.used + mb > self.budget and self.items:
+                _, (_old, omb) = self.items.popitem(last=False)
+                self.used -= omb  # device memory frees when the ref drops
+            self.items[key] = (matcher, mb)
+            self.used += mb
+            return True
+
+
+#: process-global device index cache: a service keeps hot batch indexes
+#: RESIDENT in device memory across query workloads (the device-level
+#: analogue of the reference's keep_cobs_indexes cache). Content-hash keys
+#: (with the device) make staleness impossible.
+_global_index_cache: "_IndexCache | None" = None
+_global_index_cache_lock = threading.Lock()
+
+
+def _shared_index_cache(cache_mb: int) -> "_IndexCache | None":
+    global _global_index_cache
+    if cache_mb <= 0:
+        return None
+    with _global_index_cache_lock:
+        if _global_index_cache is None:
+            _global_index_cache = _IndexCache(cache_mb)
+        else:
+            # devices are shared process-wide: keep the largest budget
+            _global_index_cache.budget = max(
+                _global_index_cache.budget, cache_mb
+            )
+        return _global_index_cache
+
+
+class Pipeline:
+    def __init__(
+        self,
+        config: Config,
+        workdir: str | Path = ".",
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        if config.mesh_shape not in ("1x1", "", None):
+            raise NotImplementedError(
+                f"mesh_shape {config.mesh_shape!r}: multi-GPU matching is not "
+                "yet ported (ROADMAP queue A item 11, parallel/); use 1x1"
+            )
+        self.cfg = config
+        self.root = Path(workdir)
+        self.inter = self.root / config.intermediate_dir
+        self.out = self.root / config.output_dir
+        self.logs = self.root / config.logs_dir
+        self.manifest = Manifest(self.inter)
+        self.sched = Scheduler(
+            workers=config.effective_threads(),
+            max_ram_mb=config.max_ram_gb * 1024,
+            max_io_heavy=config.max_io_heavy_threads,
+            hbm_mb=int(config.device_hbm_gb * 1024),
+        )
+        for d in ("00_queries_preprocessed", "01_queries_merged", "03_match",
+                  "04_filter"):
+            (self.inter / d).mkdir(parents=True, exist_ok=True)
+        self.out.mkdir(parents=True, exist_ok=True)
+        cache_mb = int(config.device_index_cache_gb * 1024)
+        # never let the cache take more than half the device budget
+        cache_mb = min(cache_mb, int(config.device_hbm_gb * 1024) // 2)
+        self._index_cache = None
+        if cache_mb > 0:
+            self.sched.hbm.acquire(cache_mb)  # carve the budget out once
+            self._index_cache = _shared_index_cache(cache_mb)
+        # capacity left for transient (non-cached) index uploads; indexes
+        # that cannot fit here with align headroom stream row-chunked
+        self._hbm_transient_mb = int(config.device_hbm_gb * 1024) - cache_mb
+        # per-stem query cache: parsed records + raw k-mer hashes. A Bloom
+        # row is hash % signature_size, so one hashing pass serves every
+        # batch. Guarded by a lock — match jobs run on scheduler threads.
+        self._query_cache: dict = {}
+        self._query_cache_lock = threading.Lock()
+
+    # --- paths ---------------------------------------------------------------
+
+    def batches(self) -> list[str]:
+        return [
+            ln.strip()
+            for ln in Path(self.root / self.cfg.batches).read_text().splitlines()
+            if ln.strip()
+        ]
+
+    def cobs_path(self, batch: str) -> Path:
+        return self.root / self.cfg.download_dir / "cobs" / f"{batch}.cobs_classic.xz"
+
+    def merged_fa(self, stem: str) -> Path:
+        return self.inter / "01_queries_merged" / f"{stem}.fa"
+
+    def match_path(self, batch: str, stem: str) -> Path:
+        return self.inter / "03_match" / f"{batch}____{stem}.gz"
+
+    def filter_path(self, stem: str) -> Path:
+        return self.inter / "04_filter" / f"{stem}.fa"
+
+    # --- stage 0+1: preprocess & merge --------------------------------------
+
+    def preprocess(self, inputs: Sequence[str]) -> str:
+        stem, records = normalize_and_merge(inputs)
+        merged = self.merged_fa(stem)
+        if self.manifest.done("merge", stem, [str(merged)]):
+            return stem
+        with benchmark(self.logs, "fix_query", stem):
+            from phylign_tpu.io.fastx import file_stem, normalize_record
+
+            for p in inputs:
+                out0 = (
+                    self.inter / "00_queries_preprocessed" / f"{file_stem(p)}.fa"
+                )
+                with open(out0, "w") as f:
+                    write_fasta(
+                        f, (normalize_record(r) for r in read_fastx_file(p))
+                    )
+            tmp, commit = atomic_write_via(merged)
+            with open(tmp, "w") as f:
+                write_fasta(f, records)
+            commit()
+        self.manifest.mark("merge", stem, [str(merged)])
+        return stem
+
+    # --- stage 2+3: match ----------------------------------------------------
+
+    def _query_set(self, stem: str, term_size: int, num_hashes: int) -> QuerySet:
+        """The merged read set prepared ONCE per (stem, k, H) and shared by
+        every batch's match job: parsed records, raw k-mer hashes (a Bloom
+        row is just `hash % signature_size` per batch), the duplicate-read
+        dedup, and lazily-uploaded device-resident hash chunks."""
+        src = self.merged_fa(stem)
+        st = src.stat()  # mtime+size key: a regenerated file invalidates
+        key = ("match", stem, term_size, num_hashes, st.st_mtime_ns, st.st_size)
+        with self._query_cache_lock:
+            hit = self._query_cache.get(key)
+        if hit is not None:
+            return hit
+        from phylign_tpu.kmer import cobs_kmer_hashes_batch, encode_seq
+
+        records = list(read_fastx_file(src))
+        raw = cobs_kmer_hashes_batch(
+            [encode_seq(r.seq.encode()) for r in records],
+            term_size,
+            num_hashes,
+        )
+        rep_of, uraw = _dedup_row_sets(raw)
+        qs = QuerySet(records, np.asarray(rep_of, np.int64), uraw, self.device)
+        with self._query_cache_lock:
+            # one read set live at a time per cache family
+            for k in [k for k in self._query_cache if k[0] == "match"]:
+                del self._query_cache[k]
+            self._query_cache[key] = qs
+        return qs
+
+    def _commit_match_output(
+        self, batch: str, stem: str, qs: QuerySet, hits_u, nk_u, doc_names,
+    ) -> Path:
+        """Write + atomically commit one batch's 03_match file and mark the
+        manifest — the ONE place encoding that contract (shared by the job
+        path and the pipelined path, which must stay byte-identical for
+        manifest-based fallback/resume)."""
+        out = self.match_path(batch, stem)
+        tmp, commit = atomic_write_via(out)
+        with xopen_write(tmp) as f:
+            self._write_match_unique(
+                f, qs, hits_u, nk_u, doc_names, keep=self.cfg.nb_best_hits
+            )
+        commit()
+        self.manifest.mark("match", f"{batch}____{stem}", [str(out)])
+        return out
+
+    def match_one_batch(self, batch: str, stem: str) -> Path:
+        out = self.match_path(batch, stem)
+        if self.manifest.done("match", f"{batch}____{stem}", [str(out)]):
+            return out
+        with benchmark(self.logs, "run_cobs", f"{batch}____{stem}"):
+            didx = self._load_index(batch)
+            qs = self._query_set(stem, didx.term_size, didx.num_hashes)
+            hits_u, nk_u = self._score_batch(didx, qs)
+            self._commit_match_output(
+                batch, stem, qs, hits_u, nk_u, didx.doc_names
+            )
+        if (
+            self.cfg.index_load_mode != "mem-stream"
+            and not self.cfg.keep_cobs_indexes
+        ):
+            # reference semantics: the decompressed index is temp() unless
+            # keep_cobs_indexes
+            del didx  # release the mmap before unlinking
+            self.drop_index_cache(batch)
+        return out
+
+    def _decompression_dir(self) -> Path:
+        # reference default: intermediate/02_cobs_decompressed
+        if self.cfg.decompression_dir:
+            return self.root / self.cfg.decompression_dir
+        return self.inter / "02_cobs_decompressed"
+
+    def _load_index(self, batch: str) -> cobs_io.DeviceIndex:
+        """Honor the reference's index_load_mode semantics:
+          mem-stream  decode xz straight into the in-RAM device repack;
+          mem-disk    cache the device-format index on disk, load fully;
+          mmap-disk   cache on disk, memmap word rows on demand.
+        Both disk modes return a read-only memmap; the upload copies it
+        once into pinned memory (models.matcher.upload_words)."""
+        mode = self.cfg.index_load_mode
+        if mode == "mem-stream":
+            idx = cobs_io.read_classic_index(self.cobs_path(batch))
+            return cobs_io.to_device_index(idx)
+        if mode not in ("mem-disk", "mmap-disk"):
+            raise ValueError(f"unknown index_load_mode: {mode}")
+        cache = self._decompression_dir() / batch
+        for _attempt in range(3):
+            meta = cache / "meta.json"
+            built = not meta.exists()
+            if built:
+                idx = cobs_io.read_classic_index(self.cobs_path(batch))
+                didx = cobs_io.to_device_index(idx)
+                cobs_io.save_device_index(cache, didx)
+                del idx
+            else:
+                try:
+                    os.utime(meta)  # LRU stamp for utils.diskbudget
+                except OSError:
+                    pass
+            try:
+                out = cobs_io.load_device_index(cache, mmap=True)
+            except OSError:
+                continue  # evicted by a concurrent budget pass; rebuild
+            if built:
+                # enforce AFTER the memmap opens: POSIX keeps an unlinked
+                # file readable through the open map
+                self._enforce_cache_budget()
+            return out
+        # cache dir is being evicted faster than we can rebuild (budget
+        # ~0): serve the index straight from the xz decode
+        idx = cobs_io.read_classic_index(self.cobs_path(batch))
+        return cobs_io.to_device_index(idx)
+
+    def _enforce_cache_budget(self) -> None:
+        """LRU-evict the persistent disk caches down to cache_max_disk_gb
+        (utils.diskbudget), after each cache-entry build."""
+        gb = self.cfg.cache_max_disk_gb
+        if not gb or gb <= 0:
+            return
+        from phylign_tpu.utils.diskbudget import enforce_budget
+
+        dirs = [self._decompression_dir()]
+        if self.cfg.asm_cache:
+            # the align stage's decoded-assembly cache shares the budget
+            if self.cfg.decompression_dir:
+                d = self.root / self.cfg.decompression_dir / "asms"
+            else:
+                d = self.inter / "02_asms_decoded"
+            d.mkdir(parents=True, exist_ok=True)
+            dirs.append(d)
+        enforce_budget(dirs, int(gb * 1e9))
+
+    def drop_index_cache(self, batch: str | None = None) -> None:
+        """Remove cached decompressed indexes (keep_cobs_indexes=False
+        semantics)."""
+        import shutil
+
+        d = self._decompression_dir()
+        if not d.exists():
+            return
+        targets = [d / batch] if batch else list(d.iterdir())
+        for t in targets:
+            if t.is_dir():
+                shutil.rmtree(t)
+
+    #: device memory held back from transient match-index budgeting for the
+    #: align stage's flush buffers (two 640 MB slots + margin)
+    ALIGN_RESERVE_MB = 1536
+
+    def _chunk_budget_mb(self) -> int:
+        """Per-call device budget for row-chunked (oversized-index) scoring
+        — THE shared definition; the pipelined guard must estimate with the
+        same number _score_batch_begin routes/acquires with."""
+        return max(256, self._hbm_transient_mb - self.ALIGN_RESERVE_MB)
+
+    def _score_batch_begin(self, didx: cobs_io.DeviceIndex, qs: QuerySet) -> dict:
+        """DISPATCH one batch's scoring; pair with _score_batch_end.
+
+        Only UNIQUE queries are scored (qs.rep_of broadcasts the results to
+        duplicates), and on the resident path their hashes are
+        device-resident: the per-batch work is one hash -> kernel -> top-k
+        -> compaction sequence plus the hit buffer's copy.
+
+        Paths that must fetch internally (empty batch, oversized/chunked
+        index, dedup/raw fallback) return a {"sync": results} state; the
+        async path returns the dispatched slots so the caller can fetch
+        many batches together (_match_pipelined). The device memory
+        accountant bounds how many transient indexes are resident at once."""
+        records = qs.records
+        use_device = didx.num_docs > 0 and len(records) > 0
+        if not use_device:
+            return {"sync": ([[] for _ in qs.uraw], [0] * len(qs.uraw))}
+        hbm_mb = max(1, device_index_bytes(didx) // 1_000_000)
+        # an index too big to sit resident next to the align stage's device
+        # buffers streams row-chunked through the device instead (exact for
+        # the 661k database's 1-hash indexes)
+        chunk_budget = self._chunk_budget_mb()
+        if didx.num_hashes == 1 and hbm_mb > chunk_budget:
+            return {"sync": self._score_batch_chunked(didx, qs, chunk_budget)}
+        key = matcher = None
+        if self._index_cache is not None and hbm_mb <= self._index_cache.budget:
+            key = (self._index_hash(didx), str(self.device))
+            matcher = self._index_cache.get(key)
+        transient = matcher is None
+        if transient:
+            self.sched.hbm.acquire(hbm_mb)
+        try:
+            if matcher is None:
+                matcher = Matcher.from_device_index(didx, self.device)
+            matcher.dedup = self.cfg.match_dedup
+            chunk = self.cfg.device_query_chunk
+            if not isinstance(chunk, int):  # "auto": bound the transient
+                # [Q, 32*Wp] int32 score matrix at ~256 MB per call,
+                # quantized DOWN to a power of two so batches of different
+                # widths share at most a handful of chunk layouts (the
+                # QuerySet device-hash cache is keyed by (off, size))
+                wp = max(1, int(didx.words.shape[1]))
+                chunk = max(1024, min(32768, (256 << 20) // (wp * 128)))
+                chunk = 1 << (chunk.bit_length() - 1)
+            use_hashes = not matcher.dedup and didx.num_docs <= 65535
+            thr, topn = self.cfg.cobs_kmer_thres, self.cfg.nb_best_hits
+            # adaptive fetch cap from this read set's history: 4x the
+            # largest per-batch hit total seen, power-of-two quantized. A
+            # too-small cap overflows into the dense-window fallback
+            # (correct, slower); the first batch uses the safe worst case.
+            cap_hint = None
+            if qs.hit_hint is not None:
+                cap_hint = 1 << max(12, (4 * qs.hit_hint + 2048).bit_length())
+            slots: list = []
+            # dispatch under the device lock, fetch + assemble OUTSIDE it;
+            # slots keep chunk order even if some chunks take the
+            # synchronous paths
+            with self.sched.device_lock:
+                for off in range(0, len(qs.uraw), chunk):
+                    if use_hashes:
+                        dqc = qs.device_chunk(off, chunk)
+                        ctx = matcher.score_hits_hashes_begin(
+                            dqc, thr, topn, cap=cap_hint
+                        )
+                        if ctx is not None:
+                            slots.append(("pending", ctx))
+                        else:
+                            slots.append(
+                                ("done", matcher.score_hits_hashes(dqc, thr, topn))
+                            )
+                    else:
+                        slots.append(
+                            (
+                                "done",
+                                matcher.score_hits_raw(
+                                    qs.uraw[off : off + chunk], thr, topn
+                                ),
+                            )
+                        )
+        except BaseException:
+            if transient:
+                self.sched.hbm.release(hbm_mb)
+            raise
+        return {
+            "matcher": matcher,
+            "slots": slots,
+            "transient": transient,
+            "key": key,
+            "hbm_mb": hbm_mb,
+        }
+
+    def _score_batch_end(
+        self, st: dict, fetched: dict | None = None, qs: QuerySet | None = None
+    ) -> tuple[list[list[tuple[int, int]]], list[int]]:
+        """FETCH + assemble a _score_batch_begin dispatch. ``fetched`` maps
+        slot index -> already-fetched host buffer (the grouped fetch of
+        _match_pipelined); missing slots fetch individually. ``qs`` (when
+        given) records the batch's hit total as the adaptive-cap hint for
+        later batches."""
+        if "sync" in st:
+            return st["sync"]
+        matcher = st["matcher"]
+        hits_u: list[list[tuple[int, int]]] = []
+        nk_u: list[int] = []
+        try:
+            for si, (kind, payload) in enumerate(st["slots"]):
+                if kind == "pending":
+                    pre = None if fetched is None else fetched.get(si)
+                    hl, nk = matcher.score_hits_hashes_end(
+                        payload,
+                        device_lock=self.sched.device_lock,
+                        fetched=pre,
+                    )
+                else:
+                    hl, nk = payload
+                hits_u.extend(hl)
+                nk_u.extend(int(x) for x in nk)
+        finally:
+            if st["transient"]:
+                st["transient"] = False  # abort paths must not double-release
+                if st["key"] is not None:
+                    # on success ownership moves to the cache's budget
+                    self._index_cache.put(st["key"], matcher, st["hbm_mb"])
+                self.sched.hbm.release(st["hbm_mb"])
+        if qs is not None:
+            emitted = sum(len(h) for h in hits_u)
+            qs.hit_hint = max(qs.hit_hint or 0, emitted)
+        return hits_u, nk_u
+
+    def _score_batch(
+        self, didx: cobs_io.DeviceIndex, qs: QuerySet
+    ) -> tuple[list[list[tuple[int, int]]], list[int]]:
+        """Score all queries against one batch index, device-chunked.
+        Returns UNIQUE-query (hit lists, qualifying counts); qs.rep_of
+        broadcasts them to records at write time (_write_match_unique)."""
+        return self._score_batch_end(self._score_batch_begin(didx, qs), qs=qs)
+
+    @staticmethod
+    def _write_match_unique(
+        fp,
+        qs: QuerySet,
+        hits_u: list[list[tuple[int, int]]],
+        nk_u: Sequence[int],
+        names: Sequence[str],
+        keep: int,
+    ) -> None:
+        """Emit the 03_match text contract straight from unique-query hit
+        lists: resolve + sort by (-score, name) + top-n-cut + render ONCE
+        per UNIQUE query, then stream per-record headers + the shared hit
+        block in a single write. The sort makes the output independent of
+        the order of hits within a device window."""
+        from phylign_tpu.io.cobs import strip_rid
+        from phylign_tpu.match.postprocess import top_n_with_ties
+
+        text_u: list[str] = []
+        for hl in hits_u:
+            if not hl:
+                text_u.append("")
+                continue
+            hits = [(names[di], sc) for di, sc in hl]
+            hits.sort(key=lambda x: (-x[1], x[0]))
+            text_u.append(
+                "".join(
+                    f"_{strip_rid(n)}\t{s}\n"
+                    for n, s in top_n_with_ties(hits, keep)
+                )
+            )
+        nk_l = [int(x) for x in nk_u]
+        parts: list[str] = []
+        for rec, j in zip(qs.records, qs.rep_of.tolist()):
+            parts.append(f"*{rec.name}\t{nk_l[j]}\n")
+            parts.append(text_u[j])
+        fp.write("".join(parts))
+
+    def _score_batch_chunked(
+        self, didx: cobs_io.DeviceIndex, qs: QuerySet, budget_mb: int
+    ) -> tuple[list[list[tuple[int, int]]], list[int]]:
+        """Score one OVERSIZED batch by streaming signature-row blocks
+        (models.matcher.ChunkedMatcher): the index never sits resident. The
+        whole index streams once per query super-pass, so every query
+        scores in ONE call rather than device_query_chunk slices."""
+        log.info(
+            "index %s exceeds the transient device budget (%d MB): "
+            "row-chunked scoring",
+            didx.doc_names[0] if didx.doc_names else "?", budget_mb,
+        )
+        cm = ChunkedMatcher.from_device_index(
+            didx, hbm_budget_mb=budget_mb, device=self.device
+        )
+        self.sched.hbm.acquire(budget_mb)
+        try:
+            with self.sched.device_lock:
+                hits_u, nk_u = cm.score_hits_raw(
+                    qs.uraw,
+                    self.cfg.cobs_kmer_thres,
+                    self.cfg.nb_best_hits,
+                )
+        finally:
+            self.sched.hbm.release(budget_mb)
+        return hits_u, [int(x) for x in nk_u]
+
+    #: (filename, mtime_ns, size) -> content hash; avoids re-hashing a
+    #: memmapped on-disk device index's words every run
+    _index_hash_memo: dict = {}
+
+    @staticmethod
+    def _index_hash(didx: cobs_io.DeviceIndex) -> str:
+        """Content hash of a device index (blake2b over the packed word
+        matrix + geometry) — the index-cache key."""
+        import hashlib
+
+        memo_key = getattr(didx, "source_sig", None)
+        if memo_key is not None:
+            hit = Pipeline._index_hash_memo.get(memo_key)
+            if hit is not None:
+                return hit
+        hb = hashlib.blake2b(digest_size=16)
+        hb.update(
+            f"{didx.signature_size}:{didx.num_docs}:"
+            f"{didx.term_size}:{didx.num_hashes}".encode()
+        )
+        hb.update(memoryview(np.ascontiguousarray(didx.words)))
+        digest = hb.hexdigest()
+        if memo_key is not None:
+            Pipeline._index_hash_memo[memo_key] = digest
+        return digest
+
+    def match(self, stem: str, batches: list[str] | None = None) -> list[Path]:
+        batches = batches if batches is not None else self.batches()
+        try:
+            return self._match_pipelined(stem, batches)
+        except KernelError:
+            raise  # the job path runs the same kernels: never retry them
+        except Exception:
+            # the manifest makes the job path resume where the pipelined
+            # path stopped; the job path adds per-batch OOM-escalation
+            # retries (scheduler.run_one)
+            log.warning(
+                "pipelined match failed; falling back to the job "
+                "scheduler", exc_info=True,
+            )
+        jobs = [
+            Job(
+                name=f"match:{b}",
+                fn=lambda b=b: self.match_one_batch(b, stem),
+                mem_mb=self._index_mem_mb(b),
+                io_heavy=True,
+                priority=999,  # reference: Snakefile:413
+            )
+            for b in batches
+        ]
+        results = self.sched.run(jobs)
+        return [results[f"match:{b}"] for b in batches]
+
+    def _match_pipelined(
+        self, stem: str, batches: list[str], group_size: int = 8
+    ) -> list[Path]:
+        """The match stage as ONE dispatch/fetch pipeline over batches.
+
+        Batches are dispatched in order (their device work queues back to
+        back on the stream, each hit buffer's copy to pinned memory started
+        with it) and fetched in GROUPS of ``group_size``. Index decode /
+        mmap-open prefetches on a thread pool ahead of dispatch. Host
+        assembly + the 03_match write happen at group-flush time, off the
+        dispatch critical path."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        outs: dict[str, Path] = {}
+        todo: list[str] = []
+        for b in batches:
+            out = self.match_path(b, stem)
+            if self.manifest.done("match", f"{b}____{stem}", [str(out)]):
+                outs[b] = out
+            else:
+                todo.append(b)
+        if not todo:
+            return [outs[b] for b in batches]
+
+        drop_cache = (
+            self.cfg.index_load_mode != "mem-stream"
+            and not self.cfg.keep_cobs_indexes
+        )
+
+        # FIFO turnstile for RAM acquisition: prefetch workers reserve in
+        # BATCH order, so an out-of-order worker can never hold budget the
+        # in-order consumer is waiting on (RamPool wakeups are unordered).
+        # A blocked worker at the turnstile holds nothing.
+        turn = threading.Condition()
+        next_turn = [0]
+
+        def load_one(i: int, b: str):
+            mem = self._index_mem_mb(b)
+            with turn:
+                while i != next_turn[0]:
+                    turn.wait()
+            try:
+                self.sched.ram.acquire(mem)
+            finally:
+                with turn:  # always pass the turn, even on interrupt
+                    next_turn[0] += 1
+                    turn.notify_all()
+            try:
+                return self._load_index(b), mem
+            except BaseException:
+                self.sched.ram.release(mem)
+                raise
+
+        group: list[dict] = []
+
+        def abort_item(it: dict) -> None:
+            """Release what an unfinished group item still holds (the RAM
+            reservation is returned at dispatch time, so only the
+            transient device reservation and the bench context remain)."""
+            st = it.get("st") or {}
+            if st.get("transient"):
+                st["transient"] = False
+                self.sched.hbm.release(st["hbm_mb"])
+            cm = it.get("bench")
+            if cm is not None:
+                it["bench"] = None
+                cm.__exit__(None, None, None)
+
+        def flush_group() -> None:
+            if not group:
+                return
+            gi = 0
+            try:
+                # wait for every pending hit-buffer copy of the group
+                fetched_all = {
+                    (g2, si): payload.fetch()
+                    for g2, it in enumerate(group)
+                    for si, (kind, payload) in enumerate(
+                        it["st"].get("slots", ())
+                    )
+                    if kind == "pending"
+                }
+                for gi, it in enumerate(group):
+                    b = it["batch"]
+                    fetched = {
+                        si: arr
+                        for (g2, si), arr in fetched_all.items()
+                        if g2 == gi
+                    }
+                    # _score_batch_end releases the item's transient device
+                    # memory in its own finally (marking st["transient"]
+                    # False), so the except arm below never double-releases
+                    hits_u, nk_u = self._score_batch_end(
+                        it["st"], fetched=fetched or None, qs=it["qs"]
+                    )
+                    outs[b] = self._commit_match_output(
+                        b, stem, it["qs"], hits_u, nk_u, it["doc_names"]
+                    )
+                    cm = it.get("bench")
+                    it["bench"] = None  # abort_item must not exit it twice
+                    if cm is not None:
+                        cm.__exit__(None, None, None)
+                    if drop_cache:
+                        it.pop("st", None)
+                        self.drop_index_cache(b)
+            except BaseException:
+                for it in group[gi:]:
+                    abort_item(it)
+                group.clear()
+                raise
+            group.clear()
+
+        lookahead = max(2 * group_size, 4)
+        pf_workers = max(1, min(self.cfg.max_io_heavy_threads, 8))
+        with benchmark(self.logs, "match_pipelined", stem), ThreadPoolExecutor(
+            pf_workers, thread_name_prefix="idx-prefetch"
+        ) as pool:
+            futs: dict[str, object] = {}
+            try:
+                for i, b in enumerate(todo):
+                    for j in range(i, min(i + lookahead, len(todo))):
+                        nb = todo[j]
+                        if nb not in futs:
+                            futs[nb] = pool.submit(load_one, j, nb)
+                    didx, mem = futs.pop(b).result()
+                    try:
+                        qs = self._query_set(
+                            stem, didx.term_size, didx.num_hashes
+                        )
+                        # never enter a blocking device-memory acquire while
+                        # holding dispatched-but-unflushed work only THIS
+                        # thread can release: flush first if the pool looks
+                        # too tight (advisory check; after a flush the only
+                        # remaining holders release independently)
+                        if group:
+                            need = max(1, device_index_bytes(didx) // 1_000_000)
+                            if (
+                                didx.num_hashes == 1
+                                and need > self._chunk_budget_mb()
+                            ):
+                                # this index will stream row-chunked with a
+                                # chunk_budget reservation; multi-hash
+                                # indexes have NO chunked fallback and
+                                # acquire their full size
+                                need = self._chunk_budget_mb()
+                            if self.sched.hbm.available() < need:
+                                flush_group()
+                        bench_cm = benchmark(
+                            self.logs, "run_cobs", f"{b}____{stem}"
+                        )
+                        bench_cm.__enter__()
+                        try:
+                            st = self._score_batch_begin(didx, qs)
+                        except BaseException:
+                            bench_cm.__exit__(None, None, None)
+                            raise
+                    finally:
+                        # the upload has consumed the host index bytes;
+                        # return the reservation now — holding it across
+                        # group flushes is what made the prefetchers
+                        # deadlockable
+                        self.sched.ram.release(mem)
+                    group.append(
+                        {
+                            "batch": b, "qs": qs, "st": st,
+                            "bench": bench_cm,
+                            "doc_names": didx.doc_names,
+                        }
+                    )
+                    del didx  # drop the mmap/decoded words reference
+                    # flush the FIRST couple of batches early: their hit
+                    # totals establish the adaptive fetch-cap hint
+                    eff = 2 if qs.hit_hint is None else group_size
+                    if len(group) >= eff:
+                        flush_group()
+                flush_group()
+            except BaseException:
+                for it in group:
+                    abort_item(it)
+                group.clear()
+                raise
+            finally:
+                for f in futs.values():  # unconsumed prefetch reservations
+                    try:
+                        _, mem = f.result()
+                        self.sched.ram.release(mem)
+                    except BaseException:
+                        pass
+        return [outs[b] for b in batches]
+
+    def _index_mem_mb(self, batch: str) -> int:
+        """Decompressed-size RAM reservation for the scheduler, from
+        data/decompressed_indexes_sizes.txt when present, else estimated
+        from the xz size."""
+        sizes = self._index_sizes()
+        if batch in sizes:
+            return max(64, int(sizes[batch] / 1e6))
+        p = self.cobs_path(batch)
+        try:
+            # xz ratio on these indexes is ~5-8x; reserve decompressed estimate
+            return max(64, int(p.stat().st_size * 8 / 1e6))
+        except OSError:
+            return 256
+
+    def _index_sizes(self) -> dict[str, int]:
+        if not hasattr(self, "_index_sizes_cache"):
+            table: dict[str, int] = {}
+            p = self.root / "data" / "decompressed_indexes_sizes.txt"
+            if p.exists():
+                for line in p.read_text().splitlines():
+                    parts = line.split()
+                    if len(parts) >= 2:
+                        name = Path(parts[0]).name.replace(".cobs_classic.xz", "")
+                        table[name] = int(parts[1])
+            self._index_sizes_cache = table
+        return self._index_sizes_cache
+
+    # --- stage 4: filter -----------------------------------------------------
+
+    def filter(self, stem: str, batches: list[str] | None = None) -> Path:
+        batches = batches if batches is not None else self.batches()
+        out = self.filter_path(stem)
+        if self.manifest.done("filter", stem, [str(out)]):
+            return out
+        with benchmark(self.logs, "translate_matches", stem):
+            parsed = None
+            reserved_mb = 0
+            if self.cfg.filter_mode != "streaming":
+                # RAM-account the in-memory parse: decompressed text ~8x the
+                # .gz plus parsed arrays; fall back to the constant-memory
+                # streaming path when the estimate exceeds the RAM budget
+                est_mb = max(
+                    64,
+                    int(
+                        sum(
+                            self.match_path(b, stem).stat().st_size
+                            for b in batches
+                            if self.match_path(b, stem).exists()
+                        )
+                        * 12
+                        / 1e6
+                    ),
+                )
+                if est_mb > self.sched.ram.total:
+                    log.warning(
+                        "match files too large for the in-RAM filter "
+                        "(~%d MB est > %d MB budget); streaming instead",
+                        est_mb, self.sched.ram.total,
+                    )
+                else:
+                    self.sched.ram.acquire(est_mb)
+                    reserved_mb = est_mb
+                    parsed = self._parse_matches_native(batches, stem)
+            handles = []
+            try:
+                if parsed is not None:
+                    # native fast path: array filter over interned accessions
+                    from phylign_tpu.match.filter import filter_queries_arrays
+
+                    filtered = filter_queries_arrays(
+                        read_fastx_file(self.merged_fa(stem)),
+                        parsed,
+                        self.cfg.nb_best_hits,
+                    )
+                else:
+                    # streaming lockstep merge: constant memory in #queries
+                    handles = [
+                        xopen_read(self.match_path(b, stem)) for b in batches
+                    ]
+                    streams = {
+                        b: read_match_file(h) for b, h in zip(batches, handles)
+                    }
+                    filtered = filter_queries_streaming(
+                        read_fastx_file(self.merged_fa(stem)),
+                        streams,
+                        self.cfg.nb_best_hits,
+                    )
+                tmp, commit = atomic_write_via(out)
+                with open(tmp, "w") as f:
+                    write_filtered_fasta(f, filtered)
+                commit()
+            finally:
+                for h in handles:
+                    h.close()
+                if reserved_mb:
+                    self.sched.ram.release(reserved_mb)
+        self.manifest.mark("filter", stem, [str(out)])
+        return out
+
+    def _parse_matches_native(self, batches: list[str], stem: str):
+        """Natively parse all match files into arrays, or None to stream in
+        python (native library unavailable, or a file the strict C parser
+        rejects)."""
+        import gzip
+        import lzma
+        from concurrent.futures import ThreadPoolExecutor
+
+        from phylign_tpu.native import get_lib, native_parse_match_text
+
+        if get_lib() is None:
+            return None
+
+        def load(b):
+            p = str(self.match_path(b, stem))
+            opener = (
+                gzip.open
+                if p.endswith(".gz")
+                else lzma.open if p.endswith(".xz") else open
+            )
+            with opener(p, "rb") as f:
+                data = f.read()  # zlib releases the GIL; parse is C
+            return b, native_parse_match_text(data)
+
+        try:
+            with ThreadPoolExecutor(max_workers=4) as ex:
+                parsed = dict(ex.map(load, batches))
+        except ValueError as e:
+            log.warning("native match parse failed (%s); streaming instead", e)
+            return None
+        return parsed

@@ -1,0 +1,149 @@
+"""The port's boundaries: it imports no jax, it picks the plain PyTorch
+version only for CPU tensors, it never moves to the CPU on its own, kernel
+failures are not retried, and the unported entry points say so."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import phylign_tpu_torch
+from phylign_tpu.config import Config
+from phylign_tpu_torch import cli
+from phylign_tpu_torch.ops import _kernels
+from phylign_tpu_torch.ops import match as opm
+from phylign_tpu_torch.pipeline import stages
+from phylign_tpu_torch.utils.platform import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_no_module_imports_jax():
+    """Every module of the package, imported in a fresh interpreter,
+    leaves jax out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import phylign_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert len(mods) >= 10, mods\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_cpu_tensors_take_the_plain_version():
+    rng = np.random.default_rng(0)
+    words = torch.from_numpy(rng.integers(-(2**31), 2**31, (9, 2)).astype(np.int32))
+    words[-1] = 0
+    rows = torch.from_numpy(rng.integers(0, 9, (3, 64)).astype(np.int32))
+    assert torch.equal(opm.match_scores(words, rows), opm.match_scores_ref(words, rows))
+
+
+@pytest.mark.parametrize("fn", [opm.match_scores_b1, opm.match_scores_b2])
+def test_kernels_refuse_cpu_tensors(fn):
+    words = torch.zeros((9, 2), dtype=torch.int32)
+    rows = torch.zeros((3, 64), dtype=torch.int32)
+    before = opm.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(words, rows)
+    assert opm.launch_counts() == before
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="is_available"):
+            resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_launch_counts_reset():
+    opm.reset_launch_counts()
+    assert set(opm.launch_counts()) == {"match_popcount_b1", "match_popcount_b2"}
+    assert not any(opm.launch_counts().values())
+
+
+def test_kernel_error_is_not_retried(tmp_path, monkeypatch):
+    """A kernel build/launch failure in the pipelined path propagates; the
+    job path (which runs the same kernels) is not tried."""
+    pl = stages.Pipeline(Config(batches="b.txt"), tmp_path, device="cpu")
+
+    def boom(stem, batches):
+        raise _kernels.KernelError("launch failed")
+
+    job_calls = []
+    monkeypatch.setattr(pl, "_match_pipelined", boom)
+    monkeypatch.setattr(pl, "match_one_batch", lambda b, s: job_calls.append(b))
+    with pytest.raises(_kernels.KernelError):
+        pl.match("stem", ["b1"])
+    assert job_calls == []
+
+
+def test_other_errors_fall_back_to_the_job_path(tmp_path, monkeypatch):
+    pl = stages.Pipeline(Config(batches="b.txt"), tmp_path, device="cpu")
+
+    def boom(stem, batches):
+        raise RuntimeError("transient")
+
+    monkeypatch.setattr(pl, "_match_pipelined", boom)
+    monkeypatch.setattr(pl, "match_one_batch", lambda b, s: f"{b}:{s}")
+    assert pl.match("stem", ["b1", "b2"]) == ["b1:stem", "b2:stem"]
+
+
+def test_mesh_is_not_ported(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        stages.Pipeline(Config(mesh_shape="2x1"), tmp_path, device="cpu")
+
+
+@pytest.mark.parametrize("cmd", ["map", "all"])
+def test_unported_commands_exit_nonzero(cmd):
+    with pytest.raises(SystemExit) as e:
+        cli.main([cmd, "--device", "cpu"])
+    assert "not yet ported" in str(e.value.code)
+    assert "ROADMAP" in str(e.value.code)
+
+
+def test_kernel_build_is_lazy_and_keyed_by_source():
+    """Nothing is built at import; the library's name carries a hash of
+    the source and flags, under build/phylign_tpu_torch."""
+    assert _kernels._libs == {} or not torch.cuda.is_available()
+    p = _kernels._lib_path("match_popcount")
+    assert p.parent == REPO / "build" / "phylign_tpu_torch"
+    assert p.name.startswith("libmatch_popcount_") and p.suffix == ".so"
+    assert (_kernels.SRC_DIR / "match_popcount.cu").exists()
+    assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
+    assert phylign_tpu_torch.__version__
+
+
+def test_benchmark_log_survives_missing_io_counters(tmp_path, monkeypatch):
+    """On hosts whose /proc/<pid>/io lacks ``rchar``, psutil's io_counters
+    raises ValueError; the port's stage logger writes its row with zero
+    FS columns instead of failing the stage."""
+    import psutil
+
+    from phylign_tpu_torch.utils import bench
+
+    class NoIO:
+        def io_counters(self):
+            raise ValueError("b'rchar' field was not found in /proc/1/io")
+
+    monkeypatch.setattr(psutil, "Process", NoIO)
+    with bench.benchmark(tmp_path, "run_cobs", "b____s"):
+        pass
+    lines = (tmp_path / "benchmarks" / "run_cobs" / "b____s.txt").read_text().splitlines()
+    assert lines[0] == bench.HEADER
+    assert lines[1].split("\t")[5:7] == ["0", "0"]
