@@ -3,13 +3,18 @@
 every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py          # from the repository root, one GPU
+    python3 chip_smoke.py --kernels-only --baseline-src OLD.cu
+                                   # phase 2 only, with the kernels of an
+                                   # older match_popcount.cu timed beside
 
 Phases, each printing one JSON line:
   1 environment: versions, the card's name and power limit, and the
     kernels' build from phylign_tpu_torch/csrc/ (nvcc, sm_90a);
   2 kernels B1/B2 against match_scores_ref at the match stage's shapes
-    (S = 2,000,000 Bloom rows x 68 words = 2,169 docs, 544 MB), bit-exact,
-    with CUDA-event times of both;
+    (S = 2,000,000 Bloom rows x 68 words = 2,169 docs, 544 MB), bit-exact
+    on every row set, timed with CUDA events over ROTATION row sets in
+    turn (so the L2 does not serve one launch the last one's rows), with
+    each case's distinct rows, bytes, bound and share of the bound;
   3 the synthetic fixture (three 1-hash batches + one 3-hash batch) end to
     end through ``python -m phylign_tpu_torch.cli match``; every 03_match
     file must equal the numpy oracle's rendering, and both kernels must
@@ -47,19 +52,63 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+#: the H100's memory rate and its non-tensor 32-bit rate (NVIDIA's data
+#: sheet, SXM, 700 W): the bounds of the kernel table
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12
+#: row sets each kernel is timed over in rotation, so that the 50 MB L2
+#: does not serve one launch the rows of the one before
+ROTATION = 6
+#: phase 2's cases: (kernel, Q, K, H); real slots 120 per query (a 150 bp
+#: read), the rest padding, and the last 8 queries all padding
+CASES = {
+    # the hash path of a 1-hash index: Q=2048 queries, K=128 slots
+    "b2_h1": ("match_popcount_b2", 2048, 128, 1),
+    "b1_h1": ("match_popcount_b1", 2048, 128, 1),
+    # a 3-hash index: K=96, Q=1000
+    "b1_h3": ("match_popcount_b1", 1000, 96, 3),
+    # K not a multiple of 32 (B1 only): 120 slots, none of them padding
+    "b1_h1_k120": ("match_popcount_b1", 2048, 120, 1),
+    # the calls phases 4 and 3 make: 9,216 (bucketed) unique reads on a
+    # 1-hash batch; 1,024 reads on a 3-hash batch
+    "b2_h1_q9216": ("match_popcount_b2", 9216, 128, 1),
+    "b1_h3_q1024": ("match_popcount_b1", 1024, 128, 3),
+}
+#: the case of each kernel in the kernel table: its main-path call
+MAIN_CASE = {"match_popcount_b2": "b2_h1_q9216", "match_popcount_b1": "b1_h3_q1024"}
+
+
+def cuda_ms(fn, reps: int, n_args: int = 1) -> float:
+    """Mean ms per call of fn(i), i cycling over n_args argument sets."""
     import torch
 
-    fn()
+    for i in range(n_args):
+        fn(i)
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(reps):
-        fn()
+    for r in range(reps):
+        fn(r % n_args)
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def gather_bound(rows, wp: int) -> dict:
+    """The least time for one call: each distinct row read once (counted
+    from these inputs, the padding row included), the row indices read
+    once and the scores written once, at HBM_BYTES_PER_S; the operations,
+    one 32-bit AND or add per gathered word, at INT32_OPS_PER_S."""
+    import torch
+
+    q, k, h = rows.shape
+    distinct = int(torch.unique(rows).numel())
+    nbytes = distinct * 4 * wp + rows.numel() * 4 + q * 32 * wp * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = q * k * h * wp / INT32_OPS_PER_S * 1e3
+    return dict(distinct_rows=distinct, bytes=nbytes, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def random_words(gen, rows: int):
@@ -78,44 +127,106 @@ def random_words(gen, rows: int):
     return w
 
 
-def phase_kernels(label: str) -> dict:
-    """B2 and B1 against the plain version at the main path's shapes."""
+def case_rows(gen, q: int, k: int, h: int):
+    import torch
+
+    rows = torch.randint(0, S, (q, k, h), dtype=torch.int32, device="cuda", generator=gen)
+    rows[:, 120:] = S
+    rows[q - 8 :] = S
+    return rows
+
+
+class Pr2Kernels:
+    """Kernels B1/B2 as the parent commit built them (PR 2's design), from a
+    copy of its csrc/match_popcount.cu given with --baseline-src: built
+    with the same flags, bound with PR 2's interface and launch geometry,
+    and timed beside this tree's kernels on the same inputs."""
+
+    def __init__(self, src: Path):
+        import ctypes
+        import subprocess
+
+        from phylign_tpu_torch.ops import _kernels
+
+        out = ROOT / "build" / "chip_smoke_pr2" / "libpr2_match_popcount.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(out), str(src)],
+                       check=True, capture_output=True, text=True, timeout=900)
+        self.lib = ctypes.CDLL(str(out))
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        for fn in (self.lib.phylign_match_popcount_b1, self.lib.phylign_match_popcount_b2):
+            fn.restype = i32
+            fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32, p, p]
+
+    def __call__(self, name: str, words, rows):
+        import torch
+
+        q, k, h = rows.shape
+        wp = words.shape[1]
+        wt = min(wp, 256)  # PR 2's ops/match.py:launch_geometry
+        qt = min(256 // wt, 48 * 1024 // (4 * k * h))
+        out = torch.empty((q, 32 * wp), dtype=torch.int32, device=words.device)
+        arg6 = h if name.endswith("b1") else max(1, k.bit_length())
+        err = getattr(self.lib, f"phylign_{name}")(
+            words.data_ptr(), words.shape[0], wp, rows.data_ptr(), q, k, arg6, qt, wt,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+        if err:
+            raise RuntimeError(f"PR 2's {name} failed to launch: cudaError {err}")
+        return out
+
+
+def phase_kernels(label: str, baseline: Pr2Kernels | None) -> dict:
+    """B1 and B2 against the plain version at the main path's shapes:
+    bit-exact on every row set, then timed over ROTATION row sets in turn
+    (and PR 2's design beside them with --baseline-src: PR 2, this tree,
+    this tree, PR 2)."""
     import torch
 
     from phylign_tpu_torch.ops import match as opm
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     words = torch.cat([random_words(gen, S), torch.zeros((1, WP), dtype=torch.int32, device="cuda")])
-    cases = {
-        # the hash path of a 1-hash index: Q=2048 queries, K=128 slots
-        # (120 k-mers of a 150 bp read + 8 padding slots)
-        "b2_h1": ("match_popcount_b2", 2048, 128, 1),
-        "b1_h1": ("match_popcount_b1", 2048, 128, 1),
-        # a 3-hash index: K=96, Q=1000 with 8 all-padding queries
-        "b1_h3": ("match_popcount_b1", 1000, 96, 3),
-        # the calls phases 4 and 3 make: 9,216 (bucketed) unique reads on a
-        # 1-hash batch; 1,024 reads on a 3-hash batch
-        "b2_h1_q9216": ("match_popcount_b2", 9216, 128, 1),
-        "b1_h3_q1024": ("match_popcount_b1", 1024, 128, 3),
-    }
     out = {}
-    for case, (name, q, k, h) in cases.items():
-        rows = torch.randint(0, S, (q, k, h), dtype=torch.int32, device="cuda", generator=gen)
-        rows[:, 120:] = S
-        rows[q - 8 :] = S
+    for case, (name, q, k, h) in CASES.items():
+        sets = [case_rows(gen, q, k, h) for _ in range(ROTATION)]
         fn = opm.match_scores_b1 if name.endswith("b1") else opm.match_scores_b2
-        got = fn(words, rows)
-        want = opm.match_scores_ref(words, rows)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max().item())
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"{case}: kernel {name} differs from match_scores_ref (max |err| {err})")
-        if int(got[q - 8 :].abs().sum().item()) != 0:
-            raise AssertionError(f"{case}: all-padding queries scored non-zero")
-        ms = cuda_ms(lambda: fn(words, rows), 20)
-        plain_ms = cuda_ms(lambda: opm.match_scores_ref(words, rows), 3)
-        out[case] = dict(kernel=name, q=q, k=k, h=h, max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        emit("kernels", case=case, S=S, Wp=WP, card=label, **out[case])
+        err = 0
+        for rows in sets:
+            got = fn(words, rows)
+            want = opm.match_scores_ref(words, rows)
+            torch.cuda.synchronize()
+            err = max(err, int((got - want).abs().max().item()))
+            if err != 0 or not torch.equal(got, want):
+                raise AssertionError(f"{case}: kernel {name} differs from match_scores_ref (max |err| {err})")
+            if int(got[q - 8 :].abs().sum().item()) != 0:
+                raise AssertionError(f"{case}: all-padding queries scored non-zero")
+            if baseline is not None and not torch.equal(baseline(name, words, rows), want):
+                raise AssertionError(f"{case}: PR 2's {name} differs from match_scores_ref")
+        reps = 6 * ROTATION
+        times = []
+        for who in ("pr2", "new", "new", "pr2") if baseline is not None else ("new",):
+            run = (lambda i: baseline(name, words, sets[i])) if who == "pr2" else (lambda i: fn(words, sets[i]))
+            times.append((who, cuda_ms(run, reps, ROTATION)))
+        ms = min(t for w, t in times if w == "new")
+        bounds = [gather_bound(r, WP) for r in sets]
+        bound = {
+            "distinct_rows": sum(b["distinct_rows"] for b in bounds) / ROTATION,
+            "bytes": sum(b["bytes"] for b in bounds) / ROTATION,
+            "bound_ms": sum(b["bound_ms"] for b in bounds) / ROTATION,
+            "bound_by": bounds[0]["bound_by"],
+        }
+        plain_ms = cuda_ms(lambda i: opm.match_scores_ref(words, sets[i]), 2, 2)
+        out[case] = dict(
+            kernel=name, q=q, k=k, h=h, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **bound, bound_share=bound["bound_ms"] / ms,
+            geometry=list(opm.launch_geometry(WP, k, h)),
+        )
+        if baseline is not None:
+            out[case]["times"] = times
+            out[case]["pr2_ms"] = min(t for w, t in times if w == "pr2")
+        emit("kernels", case=case, S=S, Wp=WP, rotation=ROTATION, card=label, **out[case])
+        del sets
     del words
     torch.cuda.empty_cache()
     return out
@@ -125,8 +236,8 @@ def add_multi_hash_batch(wd: Path, name: str = "synthetic_h3__01", seed: int = 5
     """A 3-hash batch whose genomes carry some of the fixture's reads."""
     import numpy as np
 
-    from phylign_tpu.io import cobs as iocobs
-    from phylign_tpu.io.fastx import read_fastx_file
+    from phylign_tpu_torch.io import cobs as iocobs
+    from phylign_tpu_torch.io.fastx import read_fastx_file
 
     rng = np.random.default_rng(seed)
     reads = [r.seq.encode() for p in sorted((wd / "input").iterdir()) for r in read_fastx_file(p)]
@@ -143,9 +254,9 @@ def add_multi_hash_batch(wd: Path, name: str = "synthetic_h3__01", seed: int = 5
 
 def oracle_text(didx, records, threshold: float, keep: int) -> str:
     """The 03_match text the numpy oracle gives for ``records``."""
-    from phylign_tpu.kmer import encode_seq
-    from phylign_tpu.match.oracle import query_index
-    from phylign_tpu.match.postprocess import QueryMatches, write_match_file
+    from phylign_tpu_torch.kmer import encode_seq
+    from phylign_tpu_torch.match.oracle import query_index
+    from phylign_tpu_torch.match.postprocess import QueryMatches, write_match_file
 
     ms = []
     for r in records:
@@ -157,10 +268,10 @@ def oracle_text(didx, records, threshold: float, keep: int) -> str:
 
 
 def phase_fixture(work: Path) -> dict:
-    from phylign_tpu import testing
-    from phylign_tpu.config import Config
-    from phylign_tpu.io import cobs as iocobs
-    from phylign_tpu.io.fastx import read_fastx_file
+    from phylign_tpu_torch import testing
+    from phylign_tpu_torch.config import Config
+    from phylign_tpu_torch.io import cobs as iocobs
+    from phylign_tpu_torch.io.fastx import read_fastx_file
     from phylign_tpu_torch import cli
     from phylign_tpu_torch.ops import match as opm
 
@@ -200,8 +311,8 @@ def make_full_geometry(wd: Path, n_batches: int, n_reads: int, seed: int):
     import numpy as np
     import torch
 
-    from phylign_tpu.io import cobs as iocobs
-    from phylign_tpu.kmer import cobs_kmer_hashes_batch, encode_seq, revcomp
+    from phylign_tpu_torch.io import cobs as iocobs
+    from phylign_tpu_torch.kmer import cobs_kmer_hashes_batch, encode_seq, revcomp
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -251,9 +362,9 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     import numpy as np
     import torch
 
-    from phylign_tpu.config import Config
-    from phylign_tpu.io import cobs as iocobs
-    from phylign_tpu.io.fastx import read_fastx_file
+    from phylign_tpu_torch.config import Config
+    from phylign_tpu_torch.io import cobs as iocobs
+    from phylign_tpu_torch.io.fastx import read_fastx_file
     from phylign_tpu_torch.ops import match as opm
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
@@ -308,9 +419,18 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     return counts
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline-src", type=Path, default=None,
+                    help="a copy of the parent commit's csrc/match_popcount.cu: time "
+                    "PR 2's kernels beside this tree's in phase 2")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phase 2 only (no kernel table, no ok line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -324,10 +444,13 @@ def main() -> int:
 
     label = gpu_label()
     build_s = _kernels.build_all()
+    baseline = Pr2Kernels(args.baseline_src) if args.baseline_src else None
     emit("environment", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, card=label, build_seconds=build_s)
 
-    kern = phase_kernels(label)
+    kern = phase_kernels(label, baseline)
+    if args.kernels_only:
+        return 0
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -337,14 +460,16 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    main_case = {"match_popcount_b2": "b2_h1", "match_popcount_b1": "b1_h3"}
     table = []
-    for name, case in main_case.items():
+    for name, case in MAIN_CASE.items():
         k = kern[case]
         table.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=c3[name] + c4[name], max_abs_err=k["max_abs_err"],
-            ms=k["ms"], plain_ms=k["plain_ms"],
+            launches=c3[name] + c4[name], launches_phase3=c3[name], launches_phase4=c4[name],
+            case=case, max_abs_err=max(v["max_abs_err"] for v in kern.values() if v["kernel"] == name),
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            bound_share=k["bound_share"], distinct_rows=k["distinct_rows"], bytes=k["bytes"],
+            library_ms=None,
         ))
     print(json.dumps({"kernels": table}), flush=True)
     print(label, flush=True)

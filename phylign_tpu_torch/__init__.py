@@ -2,10 +2,11 @@
 NVIDIA Hopper GPU.
 
 Module names follow the JAX package, so each counterpart sits at the same
-path. Host code with no framework in it (FASTA/COBS IO, k-mer hashing, the
-native host library, match postprocessing and filtering, the config, the
-manifest and scheduler) is imported from ``phylign_tpu``; nothing here
-imports ``jax``.
+path. The port is self-contained: it keeps its own copies of the host code
+it needs (FASTA/COBS IO, k-mer hashing, the native host library, match
+postprocessing and filtering, the config, the manifest and scheduler, the
+synthetic fixture) and imports nothing of ``phylign_tpu`` and nothing of
+``jax``.
 
 Ported so far: the ``match`` entry point (preprocess -> match -> filter).
 
@@ -22,6 +23,6 @@ Ported so far: the ``match`` entry point (preprocess -> match -> filter).
                                          package (tests).
 """
 
-from phylign_tpu.version import __version__
+from phylign_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

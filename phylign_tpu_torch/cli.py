@@ -13,11 +13,13 @@ Queries default to ``input/*``.
 from __future__ import annotations
 
 import argparse
+import glob
 import logging
 import sys
+from pathlib import Path
 
-from phylign_tpu.cli import _inputs, _load_config, _wait_for_peers
-from phylign_tpu.version import __version__
+from phylign_tpu_torch.config import Config
+from phylign_tpu_torch.version import __version__
 
 NOT_PORTED = (
     "not yet ported to phylign_tpu_torch: the align stage is ROADMAP "
@@ -26,8 +28,114 @@ NOT_PORTED = (
 )
 
 
+def _load_config(args) -> Config:
+    p = Path(args.config)
+    if not p.exists() and not p.is_absolute():
+        wd = Path(getattr(args, "workdir", "."))
+        if (wd / p).exists():  # default config.yaml lives in the workdir
+            p = wd / p
+    cfg = Config.from_yaml(p) if p.exists() else Config()
+    over = {}
+    if getattr(args, "batches", None):
+        over["batches"] = args.batches
+    if getattr(args, "nb_best_hits", None) is not None:
+        over["nb_best_hits"] = args.nb_best_hits
+    if getattr(args, "threshold", None) is not None:
+        over["cobs_kmer_thres"] = args.threshold
+    return cfg.with_overrides(**over)
+
+
+def _inputs(args) -> list[str]:
+    if args.queries:
+        return list(args.queries)
+    found = []
+    for suf in ("fa", "fasta", "fq", "fastq"):
+        found += glob.glob(f"input/*.{suf}") + glob.glob(f"input/*.{suf}.gz")
+    if not found:
+        sys.exit("no query files given and none found under input/")
+    return sorted(found)
+
+
+def _wait_for_peers(
+    paths,
+    what: str,
+    timeout_s: float,
+    poll_s: float = 2.0,
+    stall_s: float = 900.0,
+):
+    """Rank-0 completion barrier for multi-process runs over a shared
+    filesystem: block until every peer output exists (peers write atomically
+    via tmp-then-rename, so existence == complete), with progress logs and a
+    timeout. Replaces the global barrier Snakemake's DAG gives the reference
+    for free (its Snakefile:490-520,566-579).
+
+    Peer-failure detection: beyond the absolute timeout, the barrier tracks
+    PROGRESS — outputs appearing, or any pending peer's in-progress tmp/
+    bench files advancing — and aborts after ``stall_s`` seconds with no
+    movement. A crashed peer rank thus fails rank 0 in minutes with a
+    pointed message, not after the 1-day absolute timeout (the reference
+    gets this from the cluster scheduler's job-failure reporting,
+    Makefile:118-131)."""
+    import time
+
+    def activity_stamp(missing):
+        """Newest mtime of any in-flight artifact near the missing outputs:
+        .tmp siblings (atomic-rename staging) and the per-stage benchmark
+        logs peers append to while working."""
+        newest = 0.0
+        for p in missing:
+            for cand in (p.parent,):
+                try:
+                    for q in cand.iterdir():
+                        name = q.name
+                        if name.endswith(".tmp") or name.startswith(p.name):
+                            try:
+                                newest = max(newest, q.stat().st_mtime)
+                            except OSError:
+                                pass
+                except OSError:
+                    pass
+        return newest
+
+    t0 = time.monotonic()
+    last = -1
+    last_progress = time.monotonic()
+    last_stamp = 0.0
+    while True:
+        missing = [p for p in paths if not p.exists()]
+        if not missing:
+            return
+        if len(missing) != last:
+            print(
+                f"rank 0: waiting on {len(missing)} {what} file(s) from "
+                f"peer processes (next: {missing[0].name})",
+                flush=True,
+            )
+            last = len(missing)
+            last_progress = time.monotonic()
+        stamp = activity_stamp(missing)
+        if stamp > last_stamp:
+            last_stamp = stamp
+            last_progress = time.monotonic()
+        stalled = time.monotonic() - last_progress
+        if stall_s > 0 and stalled > stall_s:
+            sys.exit(
+                f"rank 0: no peer progress for {stalled:.0f}s while waiting "
+                f"on {len(missing)} {what} file(s) (e.g. {missing[0]}) — a "
+                "peer rank likely crashed; check its logs, re-run that rank "
+                "(resume skips finished batches), then re-run this rank"
+            )
+        if time.monotonic() - t0 > timeout_s:
+            sys.exit(
+                f"rank 0: timed out after {timeout_s:.0f}s waiting on "
+                f"{len(missing)} {what} file(s) (e.g. {missing[0]}); "
+                "re-run this rank to resume once peers finish"
+            )
+        time.sleep(poll_s)
+
+
 def cmd_match(args) -> None:
-    from phylign_tpu.parallel.launch import shard_batches
+    from phylign_tpu_torch.parallel.launch import shard_batches
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
     if args.distributed is not None:

@@ -5,7 +5,7 @@ Holds one batch's packed Bloom bit-matrix on the device and scores query
 k-mers against it: hash -> Bloom row, gather + vertical popcount (the
 kernels of ``phylign_tpu_torch.ops.match``), integer threshold, top-k and
 hit compaction on the device; only the qualifying hits cross to the host.
-The text postprocessing stays on the host (``phylign_tpu.match``).
+The text postprocessing stays on the host (``phylign_tpu_torch.match``).
 
 Unsigned data live in signed tensors with the same bits: words and the hit
 buffer in int32, each XXH64 hash as two int64 halves below 2**32.
@@ -19,8 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from phylign_tpu.io.cobs import DeviceIndex
-from phylign_tpu.kmer import cobs_row_indices, encode_seq, rows_from_hashes
+from phylign_tpu_torch.io.cobs import DeviceIndex
+from phylign_tpu_torch.kmer import cobs_row_indices, encode_seq, rows_from_hashes
 from phylign_tpu_torch.ops.match import (
     dedup_rows,
     match_scores,

@@ -121,8 +121,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "match_popcount":
         for fn in (lib.phylign_match_popcount_b1, lib.phylign_match_popcount_b2):
             fn.restype = i32
-            # words, n_rows, wp, row_idx, q, k, h|planes, qt, wt, out, stream
-            fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32, p, p]
+            # words, n_rows, wp, row_idx, q, k, h, planes, qt, wt, staged,
+            # via_smem, out, stream
+            fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32, i32, i32, i32, p, p]
     lib.phylign_cuda_error_string.restype = ctypes.c_char_p
     lib.phylign_cuda_error_string.argtypes = [i32]
 

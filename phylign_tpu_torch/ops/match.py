@@ -19,7 +19,9 @@ Implementations with identical results:
   * ``match_scores_b1``   CUDA kernel B1 (replaces the Pallas
                           ``match_scores_pallas``): any H, any K.
   * ``match_scores_b2``   CUDA kernel B2 (replaces ``match_scores_pallas_v2``):
-                          H == 1, K % 32 == 0, bit-plane counters.
+                          H == 1, K % 32 == 0.
+Both kernels are one CUDA kernel (csrc/match_popcount.cu) that counts in
+carry-save bit planes.
 ``match_scores`` picks by the tensor's device: the plain version for a CPU
 tensor, a kernel for a CUDA tensor, never one for the other.
 """
@@ -31,13 +33,17 @@ import threading
 import numpy as np
 import torch
 
-#: the kernels stage a block's row indices in at most this much shared
-#: memory (the launch needs no opt-in above 48 KB)
-SMEM_BYTES = 48 * 1024
-#: threads per block of the kernels
-BLOCK_THREADS = 256
-#: bit planes kernel B2 is built for (K up to 2**14 - 1)
+#: threads per block, at most: one per (query, word), so at Wp = 68 a
+#: block holds one query (the fastest tile measured, PERF.md)
+BLOCK_THREADS = 128
+#: shared memory a block takes, at most, for its staged row indices and,
+#: apart, for its counts before they are stored
+STAGE_BYTES = 48 * 1024
+OUT_BYTES = 48 * 1024
+#: bit planes kernel B2 takes (K up to 2**14 - 1)
 B2_PLANES = range(6, 15)
+#: the largest K (planes = bit_length(K) <= 16)
+K_MAX = (1 << 16) - 1
 
 
 def round_up(x: int, m: int) -> int:
@@ -129,23 +135,26 @@ def _count_launch(name: str) -> None:
         _launches[name] += 1
 
 
-def launch_geometry(wp: int, k: int, h: int) -> tuple[int, int]:
-    """(qt, wt): queries per block and word-threads per query. A block
-    has qt * wt <= BLOCK_THREADS threads and stages qt*K*H int32 row
-    indices in shared memory; when Wp > BLOCK_THREADS a thread loops over
-    words w, w + wt, ..."""
-    wt = min(wp, BLOCK_THREADS)
-    qt = min(BLOCK_THREADS // wt, SMEM_BYTES // (4 * k * h))
-    if qt < 1:
-        raise ValueError(
-            f"K*H = {k * h} row indices per query exceed the kernels' "
-            f"{SMEM_BYTES} bytes of shared memory"
-        )
-    return qt, wt
+def launch_geometry(wp: int, k: int, h: int) -> tuple[int, int, int, int]:
+    """(qt, wt, staged, via_smem): a block of qt queries x wt threads, a
+    thread per (query, word) of up to BLOCK_THREADS words; whether the
+    block stages its qt * K * H row indices in shared memory (when they fit
+    STAGE_BYTES, else it reads them from device memory), and whether its
+    counts go out through shared memory (when they fit OUT_BYTES)."""
+    if k > K_MAX:
+        raise ValueError(f"K={k} slots need more than 16 bit planes (K <= {K_MAX})")
+    wt = min(max(wp, 1), BLOCK_THREADS)
+    qt = max(1, BLOCK_THREADS // wt)
+    fit = STAGE_BYTES // (4 * k * h)
+    staged = int(fit > 0)
+    if staged:
+        qt = min(qt, fit)
+    return qt, wt, staged, int(qt * wp * 128 <= OUT_BYTES)
 
 
 def b2_planes(k: int) -> int:
-    """Bit planes that hold a count up to K: ceil(log2(K + 1))."""
+    """Bit planes that hold a count up to K: ceil(log2(K + 1)) (both
+    kernels count in carry-save planes)."""
     return max(1, int(k).bit_length())
 
 
@@ -174,22 +183,23 @@ def _check_kernel_args(
     return row_idx if row_idx.dim() == 3 else row_idx.unsqueeze(-1)
 
 
-def _launch(name: str, words, row_idx3, arg6: int) -> torch.Tensor:
+def _launch(name: str, words, row_idx3) -> torch.Tensor:
     from phylign_tpu_torch.ops import _kernels
 
     q, k, h = row_idx3.shape
     wp = words.shape[1]
-    if q == 0 or k * h == 0:
-        return torch.zeros((q, 32 * wp), dtype=torch.int32, device=words.device)
-    qt, wt = launch_geometry(wp, k, h)
     out = torch.empty((q, 32 * wp), dtype=torch.int32, device=words.device)
+    if q == 0:
+        return out
+    if k * h == 0:
+        return out.zero_()
+    qt, wt, staged, via_smem = launch_geometry(wp, k, h)
     lib = _kernels.library("match_popcount")
-    fn = getattr(lib, f"phylign_{name}")
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = fn(
+        err = getattr(lib, f"phylign_{name}")(
             words.data_ptr(), words.shape[0], wp, row_idx3.data_ptr(),
-            q, k, arg6, qt, wt, out.data_ptr(), stream,
+            q, k, h, b2_planes(k), qt, wt, staged, via_smem, out.data_ptr(), stream,
         )
     _kernels.check(lib, err, name)
     _count_launch(name)
@@ -198,9 +208,10 @@ def _launch(name: str, words, row_idx3, arg6: int) -> torch.Tensor:
 
 def match_scores_b1(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
     """Kernel B1 (replaces ``phylign_tpu/ops/match.py:match_scores_pallas``):
-    any H, any K. CUDA tensors only; same contract as match_scores_ref."""
+    any H, any K up to K_MAX. CUDA tensors only; same contract as
+    match_scores_ref."""
     r3 = _check_kernel_args(words, row_idx, "match_popcount_b1")
-    return _launch("match_popcount_b1", words, r3, r3.shape[2])
+    return _launch("match_popcount_b1", words, r3)
 
 
 def match_scores_b2(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
@@ -214,7 +225,7 @@ def match_scores_b2(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
             f"match_popcount_b2 takes H == 1 and K % 32 == 0 with "
             f"K < 2**{B2_PLANES[-1]}; got K={k}, H={h}"
         )
-    return _launch("match_popcount_b2", words, r3, planes)
+    return _launch("match_popcount_b2", words, r3)
 
 
 def select_kernel(k: int, h: int) -> str:
@@ -258,7 +269,7 @@ def dedup_rows(
     when the dedup would not be profitable (low cross-query duplication, or
     a unique table too large)."""
     flat = row_idx.reshape(-1)
-    from phylign_tpu import native
+    from phylign_tpu_torch import native
 
     nat = native.native_unique_inverse(flat)
     if nat is not None:

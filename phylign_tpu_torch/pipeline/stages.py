@@ -25,9 +25,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from phylign_tpu.config import Config
-from phylign_tpu.io import cobs as cobs_io
-from phylign_tpu.io.fastx import (
+from phylign_tpu_torch.config import Config
+from phylign_tpu_torch.io import cobs as cobs_io
+from phylign_tpu_torch.io.fastx import (
     FastxRecord,
     normalize_and_merge,
     read_fastx_file,
@@ -35,10 +35,10 @@ from phylign_tpu.io.fastx import (
     xopen_read,
     xopen_write,
 )
-from phylign_tpu.match.filter import filter_queries_streaming, write_filtered_fasta
-from phylign_tpu.match.postprocess import read_match_file
-from phylign_tpu.pipeline.manifest import Manifest, atomic_write_via
-from phylign_tpu.pipeline.scheduler import Job, Scheduler
+from phylign_tpu_torch.match.filter import filter_queries_streaming, write_filtered_fasta
+from phylign_tpu_torch.match.postprocess import read_match_file
+from phylign_tpu_torch.pipeline.manifest import Manifest, atomic_write_via
+from phylign_tpu_torch.pipeline.scheduler import Job, Scheduler
 from phylign_tpu_torch.models.matcher import (
     ChunkedMatcher,
     DeviceQueryHashes,
@@ -246,7 +246,7 @@ class Pipeline:
         if self.manifest.done("merge", stem, [str(merged)]):
             return stem
         with benchmark(self.logs, "fix_query", stem):
-            from phylign_tpu.io.fastx import file_stem, normalize_record
+            from phylign_tpu_torch.io.fastx import file_stem, normalize_record
 
             for p in inputs:
                 out0 = (
@@ -277,7 +277,7 @@ class Pipeline:
             hit = self._query_cache.get(key)
         if hit is not None:
             return hit
-        from phylign_tpu.kmer import cobs_kmer_hashes_batch, encode_seq
+        from phylign_tpu_torch.kmer import cobs_kmer_hashes_batch, encode_seq
 
         records = list(read_fastx_file(src))
         raw = cobs_kmer_hashes_batch(
@@ -385,7 +385,7 @@ class Pipeline:
         gb = self.cfg.cache_max_disk_gb
         if not gb or gb <= 0:
             return
-        from phylign_tpu.utils.diskbudget import enforce_budget
+        from phylign_tpu_torch.utils.diskbudget import enforce_budget
 
         dirs = [self._decompression_dir()]
         if self.cfg.asm_cache:
@@ -572,8 +572,8 @@ class Pipeline:
         per UNIQUE query, then stream per-record headers + the shared hit
         block in a single write. The sort makes the output independent of
         the order of hits within a device window."""
-        from phylign_tpu.io.cobs import strip_rid
-        from phylign_tpu.match.postprocess import top_n_with_ties
+        from phylign_tpu_torch.io.cobs import strip_rid
+        from phylign_tpu_torch.match.postprocess import top_n_with_ties
 
         text_u: list[str] = []
         for hl in hits_u:
@@ -932,7 +932,7 @@ class Pipeline:
             try:
                 if parsed is not None:
                     # native fast path: array filter over interned accessions
-                    from phylign_tpu.match.filter import filter_queries_arrays
+                    from phylign_tpu_torch.match.filter import filter_queries_arrays
 
                     filtered = filter_queries_arrays(
                         read_fastx_file(self.merged_fa(stem)),
@@ -972,7 +972,7 @@ class Pipeline:
         import lzma
         from concurrent.futures import ThreadPoolExecutor
 
-        from phylign_tpu.native import get_lib, native_parse_match_text
+        from phylign_tpu_torch.native import get_lib, native_parse_match_text
 
         if get_lib() is None:
             return None

@@ -1,5 +1,7 @@
-"""Per-stage benchmark logging: ``phylign_tpu.utils.bench.benchmark`` with
-the same TSV rows under logs/benchmarks/{rule}/{wildcards}.txt, except that
+"""Per-stage benchmark logging: the port's copy of
+``phylign_tpu.utils.bench.benchmark``, with the same TSV rows under
+logs/benchmarks/{rule}/{wildcards}.txt (the reference's GNU-time contract,
+scripts/benchmark.py:17-46), except that
 the per-process I/O counters are optional. ``psutil.Process().io_counters()``
 raises ValueError on kernels whose /proc/<pid>/io lacks the ``rchar`` field
 (seen in sandboxed Linux hosts); the JAX package's version then fails the
@@ -15,12 +17,12 @@ import time
 from contextlib import contextmanager
 from pathlib import Path
 
-from phylign_tpu.utils.bench import HEADER
-
 try:
     import psutil
 except ImportError:  # pragma: no cover
     psutil = None
+
+HEADER = "real(s)\tsys(s)\tuser(s)\tpercent_CPU\tmax_RAM(kb)\tFS_inputs\tFS_outputs\twall_clock"
 
 
 def _io_counts() -> tuple[int, int] | None:

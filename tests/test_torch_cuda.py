@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from phylign_tpu import testing as fixture_mod
-from phylign_tpu.config import Config
-from phylign_tpu.io import cobs as iocobs
-from phylign_tpu.io.fastx import read_fastx_file
+from phylign_tpu_torch import testing as fixture_mod
+from phylign_tpu_torch.config import Config
+from phylign_tpu_torch.io import cobs as iocobs
+from phylign_tpu_torch.io.fastx import read_fastx_file
 from phylign_tpu_torch.models import matcher as tm
 from phylign_tpu_torch.ops import match as opm
 from phylign_tpu_torch.pipeline.stages import Pipeline
@@ -32,8 +32,9 @@ def cuda():
 
 
 SHAPES = [
-    # (S, Wp, Q, K, H): one query per block (Wp=300), many (Wp=1), the
-    # main path's width (Wp=68), K up to the B2 limit
+    # (S, Wp, Q, K, H): many queries per block (Wp = 1, 2, 3, 5), words
+    # looped over (Wp = 300), the main path's width (Wp = 68), K up to the
+    # B2 limit; K % 32 != 0 only on B1
     (100, 1, 5, 32, 1),
     (100, 3, 37, 64, 1),
     (1000, 68, 50, 128, 1),
@@ -43,6 +44,18 @@ SHAPES = [
     (50, 2, 700, 512, 1),
     (50, 5, 11, 64, 3),
     (2000, 68, 13, 4064, 1),
+    # K % 8 != 0; H = 2 with K = 33 (four groups plus a remainder)
+    (1000, 68, 50, 120, 1),
+    (1000, 68, 97, 33, 2),
+    # Q below the SM count
+    (3000, 68, 131, 128, 3),
+    # Q = 2049: more blocks than the card holds at once
+    (3000, 68, 2049, 128, 1),
+    # Wp % 4 != 0 at a real width; H = 5 (the runtime-H instance)
+    (3000, 70, 1000, 100, 2),
+    (200, 8, 40, 300, 5),
+    # 16 planes (K >= 4096), indices read from device memory (K*H*4 > 48 KB)
+    (100, 4, 6, 5000, 3),
 ]
 
 
@@ -67,6 +80,51 @@ def test_kernels_equal_plain_version(cuda, s, wp, q, k, h):
             name == "match_popcount_b2" and h == 1 and k % 32 == 0
         ) + (name == picked)
         assert after[name] - before[name] == launched
+
+
+@pytest.mark.parametrize(
+    "threads,stage_bytes,out_bytes,s,wp,q,k,h",
+    [
+        # words looped over, counts stored straight to device memory
+        (128, 48 * 1024, 1024, 500, 300, 40, 37, 3),
+        # indices read from device memory, 3 queries a block
+        (256, 256, 48 * 1024, 3000, 68, 300, 128, 1),
+        # 42 queries a block, the last one short
+        (128, 48 * 1024, 48 * 1024, 3000, 3, 1000, 64, 1),
+    ],
+)
+def test_geometries(cuda, monkeypatch, threads, stage_bytes, out_bytes, s, wp, q, k, h):
+    """Other block shapes than the default: words looped over, indices not
+    staged, counts stored straight."""
+    monkeypatch.setattr(opm, "BLOCK_THREADS", threads)
+    monkeypatch.setattr(opm, "STAGE_BYTES", stage_bytes)
+    monkeypatch.setattr(opm, "OUT_BYTES", out_bytes)
+    g = torch.Generator(device=cuda).manual_seed(q + k)
+    words = torch.randint(-(2**31), 2**31, (s + 1, wp), dtype=torch.int32, device=cuda, generator=g)
+    words[s] = 0
+    rows = torch.randint(0, s + 1, (q, k, h), dtype=torch.int32, device=cuda, generator=g)
+    assert torch.equal(opm.match_scores(words, rows), opm.match_scores_ref(words, rows))
+
+
+def test_misaligned_table_and_clamped_rows(cuda):
+    """A word table that does not start on 16 bytes (a view one 12-byte
+    row in) is read in place; row indices outside [0, S] read the clamped
+    rows, as XLA's gather does."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    big = torch.randint(-(2**31), 2**31, (402, 3), dtype=torch.int32, device=cuda, generator=g)
+    big[-1] = 0
+    words = big[1:]
+    assert words.data_ptr() % 16
+    rows = torch.randint(0, 401, (20, 64, 1), dtype=torch.int32, device=cuda, generator=g)
+    want = opm.match_scores_ref(words, rows)
+    assert torch.equal(opm.match_scores_b2(words, rows), want)
+    bad = rows.clone()
+    bad[0, :5] = 10**6
+    bad[1, :5] = -7
+    clamped = rows.clone()
+    clamped[0, :5] = 400
+    clamped[1, :5] = 0
+    assert torch.equal(opm.match_scores_b1(words, bad), opm.match_scores_ref(words, clamped))
 
 
 def test_hash_topk_flat_equals_cpu(cuda):

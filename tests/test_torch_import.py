@@ -1,7 +1,9 @@
-"""The port's boundaries: it imports no jax, it picks the plain PyTorch
+"""The port's boundaries: it imports nothing of jax or of the JAX package
+(``phylign_tpu``), eagerly or lazily, it picks the plain PyTorch
 version only for CPU tensors, it never moves to the CPU on its own, kernel
 failures are not retried, and the unported entry points say so."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -11,8 +13,8 @@ import pytest
 import torch
 
 import phylign_tpu_torch
-from phylign_tpu.config import Config
 from phylign_tpu_torch import cli
+from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.ops import _kernels
 from phylign_tpu_torch.ops import match as opm
 from phylign_tpu_torch.pipeline import stages
@@ -21,9 +23,58 @@ from phylign_tpu_torch.utils.platform import resolve_device
 REPO = Path(__file__).resolve().parents[1]
 
 
+def _forbidden(name: str) -> bool:
+    return any(name == p or name.startswith(p + ".") for p in ("jax", "phylign_tpu"))
+
+
+PORT_SOURCES = sorted(
+    str(p.relative_to(REPO))
+    for p in [*(REPO / "phylign_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+)
+
+
+@pytest.mark.parametrize("rel", PORT_SOURCES)
+def test_source_imports_nothing_of_jax_or_the_jax_package(rel):
+    """A static scan of every import statement, at top level and inside
+    functions (a lazy import runs only when its function does), plus
+    importlib calls spelled with a literal name."""
+    tree = ast.parse((REPO / rel).read_text(), rel)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and _forbidden(str(node.args[0].value))
+        ):
+            bad.append(node.args[0].value)
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_scan_sees_lazy_imports():
+    """The scan's own check: a lazy import of the JAX package inside a
+    function is found."""
+    src = "def f():\n    from phylign_tpu.kmer import encode_seq\n    import jax.numpy\n"
+    found = [
+        n for n in ast.walk(ast.parse(src))
+        if isinstance(n, (ast.Import, ast.ImportFrom))
+        and _forbidden(getattr(n, "module", None) or n.names[0].name)
+    ]
+    assert len(found) == 2
+    assert not _forbidden("phylign_tpu_torch.kmer")
+
+
 def test_no_module_imports_jax():
     """Every module of the package, imported in a fresh interpreter,
-    leaves jax out of sys.modules."""
+    leaves jax and the JAX package (phylign_tpu, phylign_tpu.*) out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import phylign_tpu_torch as p\n"
@@ -31,7 +82,7 @@ def test_no_module_imports_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 10, mods\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phylign_tpu'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -18,6 +18,7 @@ from phylign_tpu.io import cobs as iocobs
 from phylign_tpu.kmer import cobs_kmer_hashes_batch, encode_seq, rows_from_hashes
 from phylign_tpu.models import matcher as jm
 from phylign_tpu_torch.convert import matcher_from_jax, query_hashes_from_jax
+from phylign_tpu_torch.io import cobs as t_iocobs
 from phylign_tpu_torch.models import matcher as tm
 
 CPU = torch.device("cpu")
@@ -32,9 +33,11 @@ def canon(hits):
 
 
 @pytest.fixture(scope="module")
-def fixture():
+def fixture(tmp_path_factory):
     """70 docs (3 words), reads planted into docs (shared blocks -> ties)
-    plus random misses, and duplicate reads."""
+    plus random misses, and duplicate reads. The index file is written
+    once; the JAX package and the port each read it into their own
+    DeviceIndex (returned as ``didx`` and ``tdidx``)."""
     rng = np.random.default_rng(21)
     docs = []
     shared = _ascii(rng, 400)
@@ -43,9 +46,10 @@ def fixture():
         if d % 7 == 0:
             g = g[:1000] + shared + g[1000:]
         docs.append((f"{d:04d}_doc{d:03d}", [g]))
-    didx = iocobs.to_device_index(
-        iocobs.build_classic_index(docs, term_size=31, fpr=0.05)
-    )
+    path = tmp_path_factory.mktemp("torch_matcher") / "b.cobs_classic.xz"
+    iocobs.write_classic_index(path, iocobs.build_classic_index(docs, term_size=31, fpr=0.05))
+    didx = iocobs.to_device_index(iocobs.read_classic_index(path))
+    tdidx = t_iocobs.to_device_index(t_iocobs.read_classic_index(path))
     reads = []
     for i in range(40):
         if i % 2:
@@ -56,7 +60,7 @@ def fixture():
             reads.append(g[off : off + 150])
     reads += [shared[:150], shared[100:250], reads[0], b"ACGT" * 5]
     raw = cobs_kmer_hashes_batch([encode_seq(r) for r in reads], 31, 1)
-    return didx, docs, reads, raw
+    return didx, tdidx, docs, reads, raw
 
 
 class TestRowsFromHashes:
@@ -213,7 +217,7 @@ class TestMatcherAgainstJax:
     def test_score_hits_hashes_and_raw(self, fixture, thr, topn):
         """thr=0.0: every doc qualifies for every query -> n_keep = 70 >
         kk, the dense re-score of every query."""
-        didx, _, _, raw = fixture
+        didx, tdidx, _, _, raw = fixture
         jmat = jm.Matcher.from_device_index(didx)
         tmat = matcher_from_jax(jmat, CPU)
         jdq = jm.DeviceQueryHashes.build(raw)
@@ -230,10 +234,10 @@ class TestMatcherAgainstJax:
     def test_from_device_index_and_async_halves(self, fixture):
         """The port's own upload path (not via convert) and the
         begin/end split with a small cap (overflow -> dense fetch)."""
-        didx, _, _, raw = fixture
-        tmat = tm.Matcher.from_device_index(didx, CPU)
-        assert tmat.words.shape == (didx.signature_size + 1, didx.num_words)
-        assert tmat.words.numel() * 4 == tm.device_index_bytes(didx)
+        didx, tdidx, _, _, raw = fixture
+        tmat = tm.Matcher.from_device_index(tdidx, CPU)
+        assert tmat.words.shape == (tdidx.signature_size + 1, tdidx.num_words)
+        assert tmat.words.numel() * 4 == tm.device_index_bytes(tdidx)
         assert int(tmat.words[-1].abs().sum()) == 0
         jmat = jm.Matcher.from_device_index(didx)
         tdq = tm.DeviceQueryHashes.build(raw, CPU)
@@ -246,7 +250,7 @@ class TestMatcherAgainstJax:
             assert canon(h) == canon(want_h)
 
     def test_dedup_segmented_and_multi_hash(self, fixture):
-        didx, docs, reads, raw = fixture
+        didx, tdidx, docs, reads, raw = fixture
         jmat = jm.Matcher.from_device_index(didx)
         tmat = matcher_from_jax(jmat, CPU)
         # dedup: the hash path declines, the raw path scores via dedup_rows
@@ -263,12 +267,16 @@ class TestMatcherAgainstJax:
         np.testing.assert_array_equal(tn, jn)
         assert canon(th) == canon(jh)
         # a 3-hash index (kernel B1's domain on CUDA)
-        idx3 = iocobs.to_device_index(
-            iocobs.build_classic_index(docs[:40], term_size=31, num_hashes=3, fpr=0.05)
+        c3 = iocobs.build_classic_index(docs[:40], term_size=31, num_hashes=3, fpr=0.05)
+        idx3 = iocobs.to_device_index(c3)
+        tidx3 = t_iocobs.to_device_index(
+            t_iocobs.ClassicIndex(**{f: getattr(c3, f) for f in (
+                "term_size", "canonicalize", "doc_names", "num_hashes",
+                "signature_size", "rows")})
         )
         raw3 = cobs_kmer_hashes_batch([encode_seq(r) for r in reads], 31, 3)
         j3 = jm.Matcher.from_device_index(idx3)
-        t3 = tm.Matcher.from_device_index(idx3, CPU)
+        t3 = tm.Matcher.from_device_index(tidx3, CPU)
         jh, jn = j3.score_hits_hashes(jm.DeviceQueryHashes.build(raw3), 0.7, 2)
         th, tn = t3.score_hits_hashes(tm.DeviceQueryHashes.build(raw3, CPU), 0.7, 2)
         np.testing.assert_array_equal(tn, jn)
@@ -280,12 +288,12 @@ class TestMatcherAgainstJax:
 
     @pytest.mark.parametrize("row_chunk_div", [1, 5])
     def test_chunked_matcher(self, fixture, row_chunk_div):
-        didx, _, _, raw = fixture
+        didx, tdidx, _, _, raw = fixture
         kw = dict(
-            term_size=didx.term_size, num_hashes=1,
-            signature_size=didx.signature_size, doc_names=didx.doc_names,
-            words_host=np.asarray(didx.words),
-            row_chunk=-(-didx.signature_size // row_chunk_div),
+            term_size=tdidx.term_size, num_hashes=1,
+            signature_size=tdidx.signature_size, doc_names=tdidx.doc_names,
+            words_host=np.asarray(tdidx.words),
+            row_chunk=-(-tdidx.signature_size // row_chunk_div),
         )
         jc = jm.ChunkedMatcher(**kw)
         tc = tm.ChunkedMatcher(**kw, device=CPU)
@@ -298,7 +306,7 @@ class TestMatcherAgainstJax:
             tm.ChunkedMatcher(**{**kw, "num_hashes": 2}, device=CPU)
 
     def test_convert_round_trip(self, fixture):
-        didx, _, _, raw = fixture
+        didx, tdidx, _, _, raw = fixture
         jmat = jm.Matcher.from_device_index(didx, use_pallas=True)  # 128-word lanes
         tmat = matcher_from_jax(jmat, CPU)
         np.testing.assert_array_equal(

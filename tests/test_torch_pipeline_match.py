@@ -4,8 +4,10 @@ synthetic fixture (two 1-hash batches plus one 3-hash batch) and every
 ``03_match`` file (decompressed) and the ``04_filter`` FASTA must be
 byte-identical to the JAX ``Pipeline``'s on the same inputs, on the
 pipelined path, the job path (match_one_batch), the row-chunked path and
-the dedup path. A last test permutes every top-k window on the device and
-expects the same bytes: nothing downstream depends on the tie order of
+the dedup path. Each side builds its own Config from the same YAML and
+reads the same index files. The batches' word widths (1 and 6 words) are
+not multiples of 4. A last test permutes every top-k window on the device
+and expects the same bytes: nothing downstream depends on the tie order of
 ``torch.topk``.
 """
 
@@ -18,10 +20,11 @@ import pytest
 import torch
 
 from phylign_tpu import testing as fixture_mod
-from phylign_tpu.config import Config
+from phylign_tpu.config import Config as JaxConfig
 from phylign_tpu.io import cobs as iocobs
 from phylign_tpu.io.fastx import read_fastx_file
 from phylign_tpu.pipeline.stages import Pipeline as JaxPipeline
+from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.models import matcher as tm
 from phylign_tpu_torch.pipeline.stages import Pipeline as TorchPipeline
 
@@ -47,21 +50,44 @@ def add_multi_hash_batch(wd: Path, name: str = "synthetic_h3__01", seed: int = 5
         f.write(name + "\n")
 
 
+def add_wide_batch(wd: Path, name: str = "synthetic_wide__01", n_docs: int = 170, seed: int = 6):
+    """A 1-hash batch of 170 short genomes (Wp = 6 words), some carrying
+    fixture reads, so doc columns past the first word are exercised."""
+    rng = np.random.default_rng(seed)
+    reads = [
+        r.seq.encode()
+        for p in sorted((wd / "input").iterdir())
+        for r in read_fastx_file(p)
+    ]
+    docs = []
+    for g in range(n_docs):
+        seq = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 400))
+        if g % 23 == 5:
+            seq = seq[:200] + reads[g % len(reads)] + seq[200:]
+        docs.append((f"{g:04d}_SAMW{g:05d}", [seq]))
+    idx = iocobs.build_classic_index(docs, term_size=31, num_hashes=1, fpr=0.1)
+    iocobs.write_classic_index(wd / "cobs" / f"{name}.cobs_classic.xz", idx)
+    with open(wd / "data" / "batches_small.txt", "a") as f:
+        f.write(name + "\n")
+
+
 @pytest.fixture(scope="module")
 def base(tmp_path_factory) -> Path:
     wd = tmp_path_factory.mktemp("torch_pipe") / "base"
     fixture_mod.make_fixture(wd, n_batches=2, seed=42)
     add_multi_hash_batch(wd)
+    add_wide_batch(wd)
     return wd
 
 
 def run(base: Path, dst: Path, pipeline_cls, path: str, **kw) -> dict:
     """One preprocess -> match -> filter run on a copy of ``base``; returns
     {relative path: bytes} of the 03_match (decompressed) and 04_filter
-    outputs."""
+    outputs. Each package reads the YAML with its own Config."""
     wd = dst
     shutil.copytree(base, wd)
-    cfg = Config.from_yaml(wd / "config.yaml")
+    config_cls = JaxConfig if pipeline_cls is JaxPipeline else Config
+    cfg = config_cls.from_yaml(wd / "config.yaml")
     if path == "dedup":
         cfg.match_dedup = True
     if path == "chunked":
@@ -108,7 +134,7 @@ def test_match_outputs_byte_identical(base, tmp_path, path, monkeypatch):
         monkeypatch.setattr(tm.ChunkedMatcher, "_score_pass", spy)
     want = jax_output(base, tmp_path, path)
     got = run(base, tmp_path / f"torch_{path}", TorchPipeline, path, device="cpu")
-    assert len(want) == 4  # 3 batches' 03_match + the 04_filter FASTA
+    assert len(want) == 5  # 4 batches' 03_match + the 04_filter FASTA
     assert sorted(got) == sorted(want)
     for name in want:
         assert got[name] == want[name], name

@@ -10,8 +10,8 @@ self-deadlock."""
 
 import threading
 
-from phylign_tpu import testing as fixture_mod
-from phylign_tpu.config import Config
+from phylign_tpu_torch import testing as fixture_mod
+from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.pipeline.stages import Pipeline
 
 
