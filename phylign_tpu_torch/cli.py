@@ -1,13 +1,13 @@
 """Command line of the PyTorch/CUDA port.
 
-    python -m phylign_tpu_torch.cli match [--config config.yaml]
+    python -m phylign_tpu_torch.cli {match,map,all} [--config config.yaml]
         [--workdir .] [--device cuda|cpu] [queries ...]
 
 ``match`` runs k-mer matching + candidate filtering (intermediate/01..04),
-with the same arguments as ``phylign-tpu match`` plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels). ``map``
-and ``all`` (the align stage) are not yet ported: they exit non-zero.
-Queries default to ``input/*``.
+``map`` the align stage + aggregation + stats (intermediate/05_map,
+output/*.sam_summary.gz and .stats), ``all`` both. The arguments are those
+of ``phylign-tpu`` plus ``--device`` (default ``cuda``; ``cpu`` runs the
+plain PyTorch versions of the kernels). Queries default to ``input/*``.
 """
 
 from __future__ import annotations
@@ -21,10 +21,9 @@ from pathlib import Path
 from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.version import __version__
 
-NOT_PORTED = (
-    "not yet ported to phylign_tpu_torch: the align stage is ROADMAP "
-    "queue A items 5-10 (chain -> extend -> fused -> engine -> stages/CLI "
-    "-> aligner); run `python -m phylign_tpu.cli {cmd}` meanwhile"
+NO_DISTRIBUTED = (
+    "--distributed is not yet ported to phylign_tpu_torch "
+    "(ROADMAP queue A item 11, parallel/)"
 )
 
 
@@ -139,10 +138,7 @@ def cmd_match(args) -> None:
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
     if args.distributed is not None:
-        sys.exit(
-            "--distributed is not yet ported to phylign_tpu_torch "
-            "(ROADMAP queue A item 11, parallel/)"
-        )
+        sys.exit(NO_DISTRIBUTED)
     cfg = _load_config(args)
     pl = Pipeline(cfg, args.workdir, device=args.device)
     stem = pl.preprocess(_inputs(args))
@@ -165,8 +161,44 @@ def cmd_match(args) -> None:
     print(f"match done: {out}")
 
 
-def cmd_not_ported(args) -> None:
-    sys.exit(f"{args.cmd}: " + NOT_PORTED.format(cmd=args.cmd))
+def cmd_map(args) -> None:
+    from phylign_tpu_torch.parallel.launch import shard_batches
+    from phylign_tpu_torch.pipeline.stages import Pipeline
+
+    if args.distributed is not None:
+        sys.exit(NO_DISTRIBUTED)
+    cfg = _load_config(args)
+    pl = Pipeline(cfg, args.workdir, device=args.device)
+    stem = pl.preprocess(_inputs(args))
+    num = args.num_processes or 1
+    pid = args.process_id or 0
+    mine = shard_batches(pl.batches(), num, pid)
+    pl.align(stem, mine)
+    if num > 1:
+        if pid != 0:
+            print(
+                f"process {pid}: aligned {len(mine)} batch(es); "
+                "rank 0 aggregates once all ranks finish"
+            )
+            return
+        _wait_for_peers(
+            [pl.map_path(b, stem) for b in pl.batches()],
+            "map", args.peer_wait_timeout, stall_s=args.peer_stall_timeout,
+        )
+    out = pl.aggregate(stem)
+    pl.stats(stem)
+    print(f"map done: {out}")
+
+
+def cmd_all(args) -> None:
+    from phylign_tpu_torch.pipeline.stages import Pipeline
+
+    if args.distributed is not None:
+        sys.exit(NO_DISTRIBUTED)
+    cfg = _load_config(args)
+    pl = Pipeline(cfg, args.workdir, device=args.device)
+    out = pl.run_all(_inputs(args))
+    print(f"pipeline done: {out}")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -215,13 +247,11 @@ def main(argv: list[str] | None = None) -> None:
         p.add_argument("queries", nargs="*", help="query fast[aq] files")
 
     common(sub.add_parser("match", help="k-mer match + filter"))
-    common(sub.add_parser("map", help="align + aggregate + stats (not yet ported)"))
-    common(sub.add_parser("all", help="match + map (not yet ported)"))
+    common(sub.add_parser("map", help="align + aggregate + stats"))
+    common(sub.add_parser("all", help="match + map"))
 
     args = ap.parse_args(argv)
-    {"match": cmd_match, "map": cmd_not_ported, "all": cmd_not_ported}[
-        args.cmd
-    ](args)
+    {"match": cmd_match, "map": cmd_map, "all": cmd_all}[args.cmd](args)
 
 
 if __name__ == "__main__":

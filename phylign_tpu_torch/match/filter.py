@@ -95,6 +95,18 @@ def write_filtered_fasta(fp: TextIO, queries: Iterable[FilteredQuery]) -> None:
         fp.write(f">{q.qname} {com}\n{q.seq}\n")
 
 
+def read_filtered_fasta(
+    records: Iterable[FastxRecord],
+) -> list[FilteredQuery]:
+    """Inverse of write_filtered_fasta (consumed by the align stage like
+    batch_align.py:126-171 load_qdicts)."""
+    out = []
+    for r in records:
+        cands = [("", a, 0) for a in r.comment.split(",")] if r.comment else []
+        out.append(FilteredQuery(r.name, r.seq, cands))
+    return out
+
+
 def filter_queries_arrays(
     query_records: Iterable[FastxRecord],
     parsed: "Mapping[str, object]",  # batch -> native.ParsedMatchFile

@@ -117,11 +117,24 @@ class Scheduler:
         self.ram = RamPool(max_ram_mb)
         self.io_sem = threading.Semaphore(max(1, max_io_heavy))
         self.device_lock = threading.Lock()
+        # Align flushes interleave host phases (selection, traceback) with
+        # device phases inside one call; two slots let one batch's host work
+        # overlap another's device work while still bounding concurrent
+        # device buffers (the plane pass can reach ~0.5 GB).
+        self.device_slots = threading.BoundedSemaphore(2)
         # Device-memory accountant: index uploads reserve device bytes
         # BEFORE the upload, so an upload can overlap another batch's
         # scoring without over-committing device memory. The device_lock
         # then only serializes compute submissions.
         self.hbm = RamPool(hbm_mb)
+
+    def flush_slot(self, hbm_mb: int = 640) -> "_FlushSlot":
+        """Context guarding one align device flush: a device slot AND a
+        device-memory reservation for its buffers (the extension's
+        traceback plane can reach ~0.5 GB; charging it here keeps two
+        concurrent align flushes plus resident match indexes within the
+        device budget)."""
+        return _FlushSlot(self, hbm_mb)
 
     def run(self, jobs: list[Job]) -> dict[str, Any]:
         """Run all jobs; returns name -> result. Raises the first error after
@@ -175,3 +188,20 @@ class Scheduler:
             raise err
         return results
 
+
+class _FlushSlot:
+    """Re-entrant-safe (stateless) combined device-slot + memory context."""
+
+    def __init__(self, sched: "Scheduler", hbm_mb: int):
+        self.sched = sched
+        self.hbm_mb = hbm_mb
+
+    def __enter__(self):
+        self.sched.device_slots.acquire()
+        self.sched.hbm.acquire(self.hbm_mb)
+        return self
+
+    def __exit__(self, *exc):
+        self.sched.hbm.release(self.hbm_mb)
+        self.sched.device_slots.release()
+        return False

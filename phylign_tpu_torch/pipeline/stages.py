@@ -1,17 +1,18 @@
-"""The match half of the pipeline: preprocess -> match -> filter (the
-counterpart of ``phylign_tpu/pipeline/stages.py``), over the same on-disk
-layout, so intermediates are drop-in comparable:
+"""The end-to-end pipeline: preprocess -> match -> filter -> align ->
+aggregate -> stats (the counterpart of ``phylign_tpu/pipeline/stages.py``),
+over the same on-disk layout, so intermediates are drop-in comparable:
 
     intermediate/00_queries_preprocessed/{stem}.fa      (rule fix_query)
     intermediate/01_queries_merged/{merged}.fa          (rule concatenate_queries)
     intermediate/03_match/{batch}____{merged}.gz        (rule decompress_and_run_cobs)
     intermediate/04_filter/{merged}.fa                  (rule translate_matches)
+    intermediate/05_map/{batch}____{merged}.sam.gz      (rule batch_align_minimap2)
+    output/{merged}.sam_summary.gz, .stats              (aggregate_sams, final_stats)
 
-Host-side work (xz decode, index loading) runs on thread pools; device work
-serializes through the scheduler's device lock, and all of it is queued on
-the device's current CUDA stream. Every unit is benchmark-logged and
-manifest-checkpointed. The align stage is not ported yet (ROADMAP queue A,
-items 5-9).
+Host-side work (xz decode, index loading, tar streaming, anchor collection)
+runs on thread pools; device work serializes through the scheduler's device
+lock and flush slots, and all of it is queued on the device's current CUDA
+stream. Every unit is benchmark-logged and manifest-checkpointed.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from phylign_tpu_torch.align.engine import AlignParams, align_batch
 from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.io import cobs as cobs_io
 from phylign_tpu_torch.io.fastx import (
@@ -35,7 +37,13 @@ from phylign_tpu_torch.io.fastx import (
     xopen_read,
     xopen_write,
 )
-from phylign_tpu_torch.match.filter import filter_queries_streaming, write_filtered_fasta
+from phylign_tpu_torch.io.sam import aggregate_sams, write_batch_sam
+from phylign_tpu_torch.io.stats import compute_stats
+from phylign_tpu_torch.match.filter import (
+    filter_queries_streaming,
+    read_filtered_fasta,
+    write_filtered_fasta,
+)
 from phylign_tpu_torch.match.postprocess import read_match_file
 from phylign_tpu_torch.pipeline.manifest import Manifest, atomic_write_via
 from phylign_tpu_torch.pipeline.scheduler import Job, Scheduler
@@ -47,7 +55,7 @@ from phylign_tpu_torch.models.matcher import (
     device_index_bytes,
 )
 from phylign_tpu_torch.ops._kernels import KernelError
-from phylign_tpu_torch.utils.bench import benchmark
+from phylign_tpu_torch.utils.bench import RamSampler, benchmark
 from phylign_tpu_torch.utils.platform import resolve_device
 
 log = logging.getLogger("phylign_tpu_torch.pipeline")
@@ -198,7 +206,7 @@ class Pipeline:
             hbm_mb=int(config.device_hbm_gb * 1024),
         )
         for d in ("00_queries_preprocessed", "01_queries_merged", "03_match",
-                  "04_filter"):
+                  "04_filter", "05_map"):
             (self.inter / d).mkdir(parents=True, exist_ok=True)
         self.out.mkdir(parents=True, exist_ok=True)
         cache_mb = int(config.device_index_cache_gb * 1024)
@@ -229,6 +237,9 @@ class Pipeline:
     def cobs_path(self, batch: str) -> Path:
         return self.root / self.cfg.download_dir / "cobs" / f"{batch}.cobs_classic.xz"
 
+    def asms_path(self, batch: str) -> Path:
+        return self.root / self.cfg.download_dir / "asms" / f"{batch}.tar.xz"
+
     def merged_fa(self, stem: str) -> Path:
         return self.inter / "01_queries_merged" / f"{stem}.fa"
 
@@ -237,6 +248,9 @@ class Pipeline:
 
     def filter_path(self, stem: str) -> Path:
         return self.inter / "04_filter" / f"{stem}.fa"
+
+    def map_path(self, batch: str, stem: str) -> Path:
+        return self.inter / "05_map" / f"{batch}____{stem}.sam.gz"
 
     # --- stage 0+1: preprocess & merge --------------------------------------
 
@@ -390,13 +404,23 @@ class Pipeline:
         dirs = [self._decompression_dir()]
         if self.cfg.asm_cache:
             # the align stage's decoded-assembly cache shares the budget
-            if self.cfg.decompression_dir:
-                d = self.root / self.cfg.decompression_dir / "asms"
-            else:
-                d = self.inter / "02_asms_decoded"
-            d.mkdir(parents=True, exist_ok=True)
-            dirs.append(d)
+            ad = self._asm_cache_dir()
+            if ad:
+                dirs.append(Path(ad))
         enforce_budget(dirs, int(gb * 1e9))
+
+    def _asm_cache_dir(self) -> str | None:
+        if not self.cfg.asm_cache:
+            return None
+        # prefer the persistent decompression dir (the reference's cache
+        # location for decompressed artifacts, config.yaml:131-138) so the
+        # decode pass survives `intermediate/` cleanup between runs
+        if self.cfg.decompression_dir:
+            d = self.root / self.cfg.decompression_dir / "asms"
+        else:
+            d = self.inter / "02_asms_decoded"
+        d.mkdir(parents=True, exist_ok=True)
+        return str(d)
 
     def drop_index_cache(self, batch: str | None = None) -> None:
         """Remove cached decompressed indexes (keep_cobs_indexes=False
@@ -995,3 +1019,210 @@ class Pipeline:
             log.warning("native match parse failed (%s); streaming instead", e)
             return None
         return parsed
+
+    # --- stage 5: align ------------------------------------------------------
+
+    def _filtered_query_set(self, stem: str):
+        """Parsed filtered queries + a shared sketch cache, loaded ONCE per
+        stem and reused by every batch's align job (the reference re-reads
+        the 04_filter FASTA and batch_align.py re-builds its query dicts per
+        batch, 305x; ref Snakefile:549-555). The sketch dict is shared
+        across concurrent batch jobs — align_batch fills it lazily."""
+        src = self.filter_path(stem)
+        st = src.stat()  # mtime+size key: a regenerated file invalidates
+        key = ("filtered", stem, st.st_mtime_ns, st.st_size)
+        with self._query_cache_lock:
+            hit = self._query_cache.get(key)
+        if hit is not None:
+            return hit
+        queries = read_filtered_fasta(read_fastx_file(src))
+        # pre-sketch every query with candidates in ONE threaded native
+        # minimizer pass (align producers otherwise sketch lazily, one
+        # ctypes call per read — measured first-order at 10k+ reads)
+        from phylign_tpu_torch.align.engine import AlignParams, QuerySketch
+
+        params = AlignParams.from_preset(
+            self.cfg.minimap_preset, self.cfg.minimap_extra_params
+        )
+        with_cands = [
+            (qi, q) for qi, q in enumerate(queries) if q.candidates
+        ]
+        sketches = dict(
+            zip(
+                (qi for qi, _ in with_cands),
+                QuerySketch.make_batch(
+                    [(q.qname, q.seq) for _, q in with_cands], params
+                ),
+            )
+        )
+        val = (queries, sketches)
+        with self._query_cache_lock:
+            # one read set live at a time per cache family
+            for k in [k for k in self._query_cache if k[0] == "filtered"]:
+                del self._query_cache[k]
+            self._query_cache[key] = val
+        return val
+
+    def align_one_batch(
+        self, batch: str, stem: str, accessions: set[str] | None
+    ) -> Path:
+        out = self.map_path(batch, stem)
+        if self.manifest.done("map", f"{batch}____{stem}", [str(out)]):
+            return out
+        with benchmark(self.logs, "batch_align", f"{batch}____{stem}"):
+            queries, sketches = self._filtered_query_set(stem)
+            params = AlignParams.from_preset(
+                self.cfg.minimap_preset, self.cfg.minimap_extra_params
+            )
+            records = list(
+                align_batch(
+                    str(self.asms_path(batch)),
+                    queries,
+                    accessions,
+                    params,
+                    device_lock=self.sched.flush_slot(),
+                    pair_chunk=self.cfg.device_pair_chunk,
+                    sketch_cache=sketches,
+                    asm_cache_dir=self._asm_cache_dir(),
+                    device=self.device,
+                )
+            )
+            tmp, commit = atomic_write_via(out)
+            write_batch_sam(tmp, records)
+            commit()
+        self.manifest.mark("map", f"{batch}____{stem}", [str(out)])
+        if self.cfg.asm_cache:
+            self._enforce_cache_budget()
+        return out
+
+    def batch_accessions(self, batch: str) -> set[str] | None:
+        """The batch's accession allow-list from data/661k_batches.txt.xz-style
+        metadata (ref: Snakefile:543-546); None when no metadata is present
+        (tar membership already restricts to the batch's own genomes)."""
+        for name in ("661k_batches.txt.xz", "661k_batches.txt"):
+            p = self.root / "data" / name
+            if p.exists():
+                with xopen_read(p) as f:
+                    for line in f:
+                        parts = line.rstrip("\n").split("\t")
+                        if parts and parts[0] == batch and len(parts) > 1:
+                            return set(parts[1].replace(";", ",").split(","))
+        return None
+
+    def align(self, stem: str, batches: list[str] | None = None) -> list[Path]:
+        batches = batches if batches is not None else self.batches()
+        outs: dict[str, Path] = {}
+        todo: list[str] = []
+        for b in batches:
+            out = self.map_path(b, stem)
+            if self.manifest.done("map", f"{b}____{stem}", [str(out)]):
+                outs[b] = out
+            else:
+                todo.append(b)
+        if len(todo) == 1:
+            # single batch: the per-batch scheduler path (identical output)
+            outs[todo[0]] = self.align_one_batch(
+                todo[0], stem, self.batch_accessions(todo[0])
+            )
+        elif todo:
+            # multi-batch: ONE shared flush pipeline pools pairs across
+            # batch boundaries (engine.align_batches_pooled) — flush sizes
+            # stay at device_pair_chunk even when most batches contribute a
+            # handful of pairs, instead of one small dispatch per batch
+            # (the reference's unit is one minimap2 process per genome,
+            # batch_align.py:416-486). Producer threads replace the
+            # scheduler's io_heavy jobs for tar/anchor host work.
+            from phylign_tpu_torch.align.engine import align_batches_pooled
+
+            queries, sketches = self._filtered_query_set(stem)
+            params = AlignParams.from_preset(
+                self.cfg.minimap_preset, self.cfg.minimap_extra_params
+            )
+            specs = [
+                (b, str(self.asms_path(b)), self.batch_accessions(b))
+                for b in todo
+            ]
+            producers = max(1, min(self.cfg.max_io_heavy_threads, 4))
+            with benchmark(self.logs, "batch_align_pooled", stem):
+                for bname, records in align_batches_pooled(
+                    specs,
+                    queries,
+                    params,
+                    device_lock=self.sched.flush_slot(),
+                    pair_chunk=self.cfg.device_pair_chunk,
+                    sketch_cache=sketches,
+                    producers=producers,
+                    asm_cache_dir=self._asm_cache_dir(),
+                    device=self.device,
+                ):
+                    # per-batch rows keep the reference's log-file contract
+                    # (logs/benchmarks/batch_align/...); in pooled mode they
+                    # time the output write — stage wall is the
+                    # batch_align_pooled row
+                    with benchmark(
+                        self.logs, "batch_align", f"{bname}____{stem}"
+                    ):
+                        out = self.map_path(bname, stem)
+                        tmp, commit = atomic_write_via(out)
+                        write_batch_sam(tmp, records)
+                        commit()
+                    self.manifest.mark("map", f"{bname}____{stem}", [str(out)])
+                    outs[bname] = out
+                    if self.cfg.asm_cache:
+                        self._enforce_cache_budget()
+        return [outs[b] for b in batches]
+
+    # --- stage 6: aggregate + stats ------------------------------------------
+
+    def aggregate(self, stem: str, batches: list[str] | None = None) -> Path:
+        batches = batches if batches is not None else self.batches()
+        out = self.out / f"{stem}.sam_summary.gz"
+        with benchmark(self.logs, "aggregate_sams", stem):
+            tmp, commit = atomic_write_via(out)
+            # banner text is workdir-relative, byte-identical to the
+            # reference's `==> intermediate/05_map/... <==` lines
+            # (ref: aggregate_sams.sh invoked with relative paths)
+            aggregate_sams(
+                tmp,
+                [self.map_path(b, stem) for b in batches],
+                banners=[
+                    f"{self.cfg.intermediate_dir}/05_map/{b}____{stem}.sam.gz"
+                    for b in batches
+                ],
+            )
+            commit()
+        return out
+
+    def stats(self, stem: str) -> Path:
+        out = self.out / f"{stem}.sam_summary.stats"
+        with benchmark(self.logs, "final_stats", stem):
+            st = compute_stats(
+                self.out / f"{stem}.sam_summary.gz", self.merged_fa(stem)
+            )
+            tmp, commit = atomic_write_via(out)
+            tmp.write_text(st.to_tsv())
+            commit()
+        return out
+
+    # --- full run ------------------------------------------------------------
+
+    def run_all(self, inputs: Sequence[str]) -> Path:
+        """download'd data assumed present; runs match+map end to end
+        (the reference's `make all` minus download: Makefile:35-38)."""
+        batches = self.batches()
+        stem = self.preprocess(inputs)
+        sampler = RamSampler()
+        sampler.__enter__()
+        with benchmark(self.logs, "match_total", stem):
+            self.match(stem, batches)
+            self.filter(stem, batches)
+        with benchmark(self.logs, "map_total", stem):
+            self.align(stem, batches)
+            self.aggregate(stem, batches)
+            self.stats(stem)
+        sampler.__exit__()
+        (self.logs / "benchmarks").mkdir(parents=True, exist_ok=True)
+        (self.logs / "benchmarks" / "ram_usage.txt").write_text(
+            f"max_system_ram_delta_kb\t{sampler.max_delta_kb}\n"
+        )
+        return self.out / f"{stem}.sam_summary.gz"

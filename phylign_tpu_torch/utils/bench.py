@@ -1,5 +1,5 @@
 """Per-stage benchmark logging: the port's copy of
-``phylign_tpu.utils.bench.benchmark``, with the same TSV rows under
+``phylign_tpu.utils.bench`` (``RamSampler`` and ``benchmark``), with the same TSV rows under
 logs/benchmarks/{rule}/{wildcards}.txt (the reference's GNU-time contract,
 scripts/benchmark.py:17-46), except that
 the per-process I/O counters are optional. ``psutil.Process().io_counters()``
@@ -23,6 +23,42 @@ except ImportError:  # pragma: no cover
     psutil = None
 
 HEADER = "real(s)\tsys(s)\tuser(s)\tpercent_CPU\tmax_RAM(kb)\tFS_inputs\tFS_outputs\twall_clock"
+
+
+class RamSampler:
+    """Whole-run system-RAM delta sampler (the reference's psutil poller,
+    scripts/get_RAM_usage.py:10-22 + benchmark.py:49-74): samples used system
+    memory at ``interval`` seconds and reports max delta from the start."""
+
+    def __init__(self, interval: float = 0.1):
+        self.interval = interval
+        self._stop = None
+        self._thread = None
+        self.baseline_kb = 0
+        self.max_delta_kb = 0
+
+    def __enter__(self):
+        if psutil is None:
+            return self
+        import threading
+
+        self.baseline_kb = psutil.virtual_memory().used // 1024
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(self.interval):
+                used = psutil.virtual_memory().used // 1024
+                self.max_delta_kb = max(self.max_delta_kb, used - self.baseline_kb)
+
+        self._thread = threading.Thread(target=poll, daemon=True, name="ram-sampler")
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self._stop is not None:
+            self._stop.set()
+            self._thread.join(timeout=2)
+        return False
 
 
 def _io_counts() -> tuple[int, int] | None:

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels and the port's match stage on an NVIDIA
-GPU. Every test here needs the card: it is marked ``cuda`` and skips
+"""The hand-written CUDA kernels (B1/B2 of the match stage, B3/B4 of the
+align stage) and the port's pipeline on an NVIDIA GPU. Every test here needs the card: it is marked ``cuda`` and skips
 without one. On a machine with the card (which has no jax, so the repo's
 conftest is left out):
 
@@ -18,6 +18,8 @@ from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.io import cobs as iocobs
 from phylign_tpu_torch.io.fastx import read_fastx_file
 from phylign_tpu_torch.models import matcher as tm
+from phylign_tpu_torch.ops import chain as opc
+from phylign_tpu_torch.ops import extend as ope
 from phylign_tpu_torch.ops import match as opm
 from phylign_tpu_torch.pipeline.stages import Pipeline
 
@@ -188,5 +190,146 @@ def test_pipeline_on_cuda_equals_cpu(cuda, tmp_path):
             p.name: gzip.open(p, "rb").read()
             for p in (wd / "intermediate" / "03_match").glob("*.gz")
         } | {p.name: p.read_bytes() for p in (wd / "intermediate" / "04_filter").glob("*.fa")}
+    assert len(outs["cuda"]) == 5
+    assert outs["cuda"] == outs["cpu"]
+
+
+# --- align stage: kernels B3 (chain scan) and B4 (extension scan) -----------
+
+
+def _anchor_sets(rng, p, a, rmax, qmax, q16=False):
+    """[P, A] sorted anchor sets of random fill, the last two rows all
+    padding; qpos < 2**16 when q16."""
+    rp = np.full((p, a), opc.PAD_POS, np.int32)
+    qp = np.full((p, a), opc.PAD_POS, np.int32)
+    for i in range(max(0, p - 2)):
+        n = int(rng.integers(1, a + 1))
+        r = rng.integers(0, rmax, n).astype(np.int32)
+        q = rng.integers(0, qmax, n).astype(np.int32)
+        o = np.lexsort((q, r))
+        rp[i, :n], qp[i, :n] = r[o], q[o]
+    if q16:
+        q = np.zeros((p, a), np.uint16)
+        np.copyto(q, qp, casting="unsafe", where=qp < opc.PAD_POS)
+        return rp, q.view(np.int16)
+    return rp, qp
+
+
+CHAIN_SHAPES = [
+    # (P, A, lookback, q16): the bucket shapes (W = 32 at A = 32), a window
+    # that is not a power of two, A far above the window, A = 4096, and
+    # positions past 2**24 (f32 rounding)
+    (70, 32, 64, False, 400),
+    (66, 64, 64, True, 400),
+    (35, 48, 64, False, 300),
+    (17, 100, 20, False, 500),
+    (40, 256, 64, True, 2000),
+    (9, 1024, 64, False, 6000),
+    (3, 4096, 64, True, 20000),
+    (12, 64, 64, False, 40_000_000),
+]
+
+
+@pytest.mark.parametrize("p,a,lookback,q16,rmax", CHAIN_SHAPES)
+def test_chain_scan_equals_plain_version(cuda, p, a, lookback, q16, rmax):
+    """Kernel B3 against chain_dp_ref on the card, bit for bit, and the
+    whole chain_anchors on the card against the CPU."""
+    rng = np.random.default_rng(p * a)
+    rp, qp = _anchor_sets(rng, p, a, rmax, min(rmax, 60000), q16)
+    r, q = torch.from_numpy(rp).to(cuda), torch.from_numpy(qp).to(cuda)
+    cost = opc.device_cost_table(21, 100, cuda)
+    before = opc.launch_counts()["chain_scan"]
+    f, par = opc.chain_dp_cuda(r, q, cost, 21, 100, 100, lookback)
+    torch.cuda.synchronize()
+    assert opc.launch_counts()["chain_scan"] == before + 1
+    f_ref, par_ref = opc.chain_dp_ref(r, q, cost, 21, 100, 100, lookback)
+    assert torch.equal(f, f_ref)
+    assert torch.equal(par, par_ref)
+    assert (f[-2:] == float(opc.NEG)).all() and (par[-2:] == -1).all()
+    got = opc.chain_anchors(r, q, lookback=lookback)
+    want = opc.chain_anchors(torch.from_numpy(rp), torch.from_numpy(qp), lookback=lookback)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+EXTEND_SHAPES = [
+    # (P, L, band): one fused chunk's width, L not a multiple of 32, every
+    # band the kernel takes, more pairs than a block holds
+    (37, 160, 128),
+    (50, 64, 128),
+    (9, 96, 256),
+    (5, 200, 384),
+    (3, 130, 512),
+    (1030, 32, 128),
+]
+
+
+@pytest.mark.parametrize("p,l,band", EXTEND_SHAPES)
+@pytest.mark.parametrize("collect", [False, True])
+def test_extend_scan_equals_plain_version(cuda, p, l, band, collect):
+    """Kernel B4 against extend_ref on the card, bit for bit: score, end_d
+    and the plane; q_len 0, 1 and L among the pairs; contig edges in the
+    window; planted reads with indels so that the gap families win cells."""
+    rng = np.random.default_rng(p + l + band)
+    q = rng.integers(0, 4, (p, l)).astype(np.uint8)
+    q_len = rng.integers(0, l + 1, p).astype(np.int32)
+    q_len[:3] = [0, 1, l]
+    r = rng.integers(0, 4, (p, l + band)).astype(np.uint8)
+    for i in range(p):
+        s = np.delete(q[i], rng.integers(0, l, 3))
+        off = int(rng.integers(0, band // 2))
+        r[i, off : off + len(s)] = s
+    lo = rng.integers(0, band // 4, p)
+    hi = l + band - rng.integers(0, band // 4, p)
+    cols = np.arange(l + band)[None, :]
+    v = (cols >= lo[:, None]) & (cols < hi[:, None])
+    args = [torch.from_numpy(a).to(cuda) for a in (q, q_len, r, v)]
+    before = ope.launch_counts()["extend_scan"]
+    got = ope.extend_cuda(*args, collect_plane=collect)
+    torch.cuda.synchronize()
+    assert ope.launch_counts()["extend_scan"] == before + 1
+    want = ope.extend_ref(*args, collect_plane=collect)
+    assert torch.equal(got.score, want.score)
+    assert torch.equal(got.end_d, want.end_d)
+    assert torch.equal(got.p_plane, want.p_plane)
+    assert want.score[0] == float(ope.NEG) and want.end_d[0] == 0
+    cpu = ope.extend_ref(*[torch.from_numpy(a) for a in (q, q_len, r, v)], collect_plane=collect)
+    assert torch.equal(got.score.cpu(), cpu.score) and torch.equal(got.end_d.cpu(), cpu.end_d)
+
+
+def test_align_kernels_refuse_bad_arguments(cuda):
+    r = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    cost = opc.device_cost_table(21, 100, cuda)
+    with pytest.raises(ValueError, match="window"):
+        opc.chain_dp_cuda(r, r, cost, 21, 100, 100, lookback=128)
+    q = torch.zeros((4, 32), dtype=torch.uint8, device=cuda)
+    w = torch.zeros((4, 32 + 100), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="band"):
+        ope.extend_cuda(q, torch.zeros(4, dtype=torch.int32, device=cuda), w, w)
+
+
+def test_run_all_on_cuda_equals_cpu(cuda, tmp_path):
+    """make_fixture through the port's run_all on the card and on the CPU:
+    identical 05_map, sam_summary and stats, and B3/B4 launched on the
+    card only."""
+    base = tmp_path / "base"
+    fixture_mod.make_fixture(base, n_batches=3, seed=42)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        wd = tmp_path / dev
+        shutil.copytree(base, wd)
+        opc.reset_launch_counts()
+        ope.reset_launch_counts()
+        pl = Pipeline(Config.from_yaml(wd / "config.yaml"), wd, device=dev)
+        pl.run_all(sorted(str(p) for p in (wd / "input").iterdir()))
+        n = opc.launch_counts()["chain_scan"] + ope.launch_counts()["extend_scan"]
+        if dev == "cuda":
+            assert opc.launch_counts()["chain_scan"] and ope.launch_counts()["extend_scan"]
+        else:
+            assert n == 0
+        outs[dev] = {
+            p.name: (gzip.open(p, "rb").read() if p.suffix == ".gz" else p.read_bytes())
+            for d in ("intermediate/05_map", "output") for p in (wd / d).iterdir()
+        }
     assert len(outs["cuda"]) == 5
     assert outs["cuda"] == outs["cpu"]

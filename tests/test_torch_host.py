@@ -312,3 +312,288 @@ def test_config_manifest_scheduler_diskbudget(tmp_path):
     assert sorted(p.name for p in (tmp_path / "t" / "cache").iterdir()) == sorted(
         p.name for p in (tmp_path / "j" / "cache").iterdir()
     )
+
+
+# --- the align stage's host copies ---------------------------------------------
+
+from phylign_tpu.io import asmtar as jasmtar  # noqa: E402
+from phylign_tpu.io import sam as jsam  # noqa: E402
+from phylign_tpu.io import stats as jstats  # noqa: E402
+from phylign_tpu.ops import extend as jext  # noqa: E402
+from phylign_tpu.ops import minimizer as jmini  # noqa: E402
+from phylign_tpu_torch.io import asmtar, sam, stats  # noqa: E402
+from phylign_tpu_torch.ops import extend as text  # noqa: E402
+from phylign_tpu_torch.ops import minimizer as mini  # noqa: E402
+
+
+def _genomes(seed: int, n: int = 4):
+    """Genomes of 1-3 contigs with a repeated segment (occurrence caps)."""
+    rng = np.random.default_rng(seed)
+    rep = rng.integers(0, 4, 300).astype(np.uint8)
+    out = []
+    for g in range(n):
+        contigs = []
+        for c in range(int(rng.integers(1, 4))):
+            body = rng.integers(0, 4, int(rng.integers(2000, 6000))).astype(np.uint8)
+            contigs.append((f"g{g}.c{c}", np.concatenate([body, rep, rep, body[:500]])))
+        out.append((f"G{g}", contigs))
+    return out
+
+
+def _query_sketches(mod, genomes, seed: int, n: int = 40, hpc=False):
+    rng = np.random.default_rng(seed)
+    qs = []
+    for i in range(n):
+        _, contigs = genomes[i % len(genomes)]
+        seq = contigs[i % len(contigs)][1]
+        s = int(rng.integers(0, len(seq) - 150))
+        q = seq[s : s + 150].copy()
+        if i % 2:
+            q = (3 - q)[::-1].copy()
+        qs.append(q)
+    sk = mod.minimizers_batch(qs, 21, 11, hpc=hpc)
+    return qs, sk
+
+
+def _assert_ref_equal(a, b):
+    assert a.name == b.name and a.contig_names == b.contig_names and (a.k, a.w) == (b.k, b.w)
+    for f in ("contig_starts", "contig_lens", "codes", "sort_hash", "sort_pos", "sort_strand"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    np.testing.assert_array_equal(a.packed4(), b.packed4())
+    for x, y in zip(a.uniq_table(), b.uniq_table()):
+        np.testing.assert_array_equal(x, y)
+    assert a.mid_occ(2e-4, 10, 1_000_000) == b.mid_occ(2e-4, 10, 1_000_000)
+
+
+class TestMinimizerCopy:
+    @pytest.mark.parametrize("hpc", [False, True])
+    def test_minimizers(self, host_path, hpc):
+        rng = np.random.default_rng(3)
+        seqs = [rng.integers(0, 4, int(rng.integers(0, 400))).astype(np.uint8) for _ in range(30)]
+        seqs[0] = np.repeat(seqs[1], 3)  # homopolymer runs
+        for s in seqs:
+            for x, y in zip(mini.minimizers(s, 21, 11, hpc=hpc), jmini.minimizers(s, 21, 11, hpc=hpc)):
+                np.testing.assert_array_equal(x, y)
+        for a, b in zip(mini.minimizers_batch(seqs, 15, 10, hpc=hpc), jmini.minimizers_batch(seqs, 15, 10, hpc=hpc)):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+
+    def test_ref_index_and_anchors(self, host_path):
+        genomes = _genomes(5)
+        refs = mini.build_ref_index_batch(genomes, 21, 11)
+        jrefs = jmini.build_ref_index_batch(genomes, 21, 11)
+        for (name, contigs), r, jr in zip(genomes, refs, jrefs):
+            _assert_ref_equal(r, jr)
+            _assert_ref_equal(mini.build_ref_index(name, contigs, 21, 11), jr)
+        qs, sk = _query_sketches(mini, genomes, 6)
+        for cap in (1000, 1):
+            for r, jr in zip(refs, jrefs):
+                for q, (h, p, s) in zip(qs[:10], sk[:10]):
+                    a = mini.collect_anchors(r, h, p, s, len(q), cap)
+                    b = jmini.collect_anchors(jr, h, p, s, len(q), cap)
+                    assert a[2] == b[2]
+                    for x, y in zip(a[:2], b[:2]):
+                        np.testing.assert_array_equal(x.rpos, y.rpos)
+                        np.testing.assert_array_equal(x.qpos, y.qpos)
+            args = ([x[0] for x in sk], [x[1] for x in sk], [x[2] for x in sk], [len(q) for q in qs])
+            got, rep = mini.collect_anchors_batch(refs[0], *args, max_occ=cap)
+            want, jrep = jmini.collect_anchors_batch(jrefs[0], *args, max_occ=cap)
+            np.testing.assert_array_equal(rep, jrep)
+            for (p1, m1), (p2, m2) in zip(got, want):
+                np.testing.assert_array_equal(p1.rpos, p2.rpos)
+                np.testing.assert_array_equal(m1.qpos, m2.qpos)
+            groups = lambda rs: [(r, *args, cap) for r in rs]
+            got, rep = mini.collect_anchors_multi(groups(refs), 21)
+            want, jrep = jmini.collect_anchors_multi(groups(jrefs), 21)
+            np.testing.assert_array_equal(rep, jrep)
+            for (p1, m1), (p2, m2) in zip(got, want):
+                for x, y in ((p1, p2), (m1, m2)):
+                    np.testing.assert_array_equal(x.rpos, y.rpos)
+                    np.testing.assert_array_equal(x.qpos, y.qpos)
+
+
+def test_native_align_bindings_match_the_jax_package():
+    """minimizers(_batch), the anchor collection fronts and the SAM line
+    assembler of the port's native library against the JAX package's."""
+    rng = np.random.default_rng(8)
+    seqs = [rng.integers(0, 4, int(rng.integers(0, 300))).astype(np.uint8) for _ in range(20)]
+    for s in seqs:
+        for x, y in zip(native.native_minimizers(s, 21, 11), jnative.native_minimizers(s, 21, 11)):
+            np.testing.assert_array_equal(x, y)
+    for a, b in zip(native.native_minimizers_batch(seqs, 21, 11), jnative.native_minimizers_batch(seqs, 21, 11)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+    genomes = _genomes(9, 2)
+    ref = mini.build_ref_index(*genomes[0], 21, 11)
+    qs, sk = _query_sketches(mini, genomes, 10, n=12)
+    uh, us, ucnt = ref.uniq_table()
+    qh = np.concatenate([x[0] for x in sk])
+    qpos = np.concatenate([x[1] for x in sk]).astype(np.int64)
+    qstr = np.concatenate([x[2] for x in sk])
+    qoff = np.zeros(len(sk) + 1, np.int64)
+    np.cumsum([len(x[0]) for x in sk], out=qoff[1:])
+    qlen = np.array([len(q) for q in qs], np.int64)
+    common = (ref.sort_pos, ref.sort_strand, qh, qpos, qstr, qoff, qlen)
+    for cap in (1000, 2):
+        a = native.native_collect_anchors(uh, us, ucnt, *common, cap, 21)
+        b = jnative.native_collect_anchors(uh, us, ucnt, *common, cap, 21)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        seg = (np.zeros(len(qs), np.int64), np.full(len(qs), len(uh), np.int64))
+        a = native.native_collect_anchors_seg(
+            uh, us, ucnt, *seg, ref.sort_pos, ref.sort_strand, np.zeros(len(qs), np.int64),
+            qh, qpos, qstr, qoff, qlen, np.full(len(qs), cap, np.int64), 21,
+        )
+        b = jnative.native_collect_anchors_seg(
+            uh, us, ucnt, *seg, ref.sort_pos, ref.sort_strand, np.zeros(len(qs), np.int64),
+            qh, qpos, qstr, qoff, qlen, np.full(len(qs), cap, np.int64), 21,
+        )
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+    n = 6
+    codes = [rng.integers(0, 4, 150).astype(np.uint8) for _ in range(n)]
+    names = [f"read{i}" for i in range(n)]
+    contigs = ["ctgA", "contig_B"]
+    mis = [np.sort(rng.choice(150, int(rng.integers(0, 4)), replace=False)) for _ in range(n)]
+    mis_off = np.zeros(n + 1, np.int64)
+    np.cumsum([len(m) for m in mis], out=mis_off[1:])
+    de = ["0", "0.0067", "0.0133", "0", "0.02", "0"]
+    args = (
+        "".join(names).encode(), np.cumsum([0] + [len(s) for s in names]),
+        np.array([0, 16, 0, 16, 0, 0], np.int32),
+        "".join(contigs).encode(), np.cumsum([0] + [len(s) for s in contigs]),
+        np.array([0, 1, 1, 0, 0, 1], np.int32), rng.integers(1, 5000, n).astype(np.int32),
+        rng.integers(0, 61, n).astype(np.int32), np.concatenate(mis).astype(np.int32), mis_off,
+        np.full(n, 150, np.int32), np.concatenate(codes), np.arange(n + 1) * 150,
+        rng.integers(200, 300, n).astype(np.int32), rng.integers(5, 30, n).astype(np.int32),
+        rng.integers(100, 140, n).astype(np.int64), rng.integers(0, 100, n).astype(np.int64),
+        np.zeros(n, np.int32), "".join(de).encode(), np.cumsum([0] + [len(s) for s in de]),
+    )
+    a, b = native.native_assemble_sam_lines(*args), jnative.native_assemble_sam_lines(*args)
+    assert a[0] == b[0] and len(a[1]) == n + 1 and a[0].startswith(b"read0\t0\tctgA\t")
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+def _records(mod, n: int = 12):
+    rng = np.random.default_rng(12)
+    recs = []
+    for i in range(n):
+        seq = "".join("ACGT"[c] for c in rng.integers(0, 4, 150))
+        if i % 4 == 3:
+            recs.append(mod.unmapped_record(f"q{i}", seq))
+        else:
+            recs.append(mod.SamRecord(
+                f"q{i}", 16 if i % 2 else 0, f"ctg{i % 3}", int(rng.integers(1, 9000)), 60,
+                "150=", seq, ["NM:i:0", f"ms:i:{300 - i}", "tp:A:P"],
+            ))
+    return recs
+
+
+def test_sam_and_stats_copies(tmp_path):
+    for mod, d in ((sam, tmp_path / "t"), (jsam, tmp_path / "j")):
+        d.mkdir()
+        recs = _records(mod)
+        assert [r.to_line() for r in recs] == [r.to_line() for r in _records(jsam)]
+        mod.write_batch_sam(d / "b1.sam.gz", recs[:7])
+        mod.write_batch_sam(d / "b2.sam.gz", recs[7:])
+        mod.aggregate_sams(d / "out.sam_summary.gz", [d / "b1.sam.gz", d / "b2.sam.gz"],
+                           banners=["intermediate/05_map/b1.sam.gz", "intermediate/05_map/b2.sam.gz"])
+    for name in ("b1.sam.gz", "b2.sam.gz", "out.sam_summary.gz"):
+        # gzip members carry their write time: compare the contents
+        assert gzip.open(tmp_path / "t" / name).read() == gzip.open(tmp_path / "j" / name).read()
+    t_lines = list(sam.read_sam_summary(tmp_path / "t" / "out.sam_summary.gz"))
+    assert t_lines == list(jsam.read_sam_summary(tmp_path / "j" / "out.sam_summary.gz"))
+    assert sam.summary_first3(tmp_path / "t" / "out.sam_summary.gz") == jsam.summary_first3(
+        tmp_path / "j" / "out.sam_summary.gz"
+    )
+    fa = tmp_path / "q.fa"
+    fa.write_text("".join(f">q{i}\nACGT\n" for i in range(15)))
+    a = stats.compute_stats(tmp_path / "t" / "out.sam_summary.gz", fa)
+    b = jstats.compute_stats(tmp_path / "j" / "out.sam_summary.gz", fa)
+    assert a.to_tsv() == b.to_tsv()
+    raw = sam.RawSamRecord(t_lines[1] + "\n", 0, len(t_lines[1]), "q0", 0)
+    jraw = jsam.RawSamRecord(t_lines[1] + "\n", 0, len(t_lines[1]), "q0", 0)
+    assert (raw.to_line(), raw.rname, raw.pos, raw.cigar, raw.tags) == (
+        jraw.to_line(), jraw.rname, jraw.pos, jraw.cigar, jraw.tags
+    )
+
+
+def test_asmtar_readers(tmp_path):
+    genomes = [(f"SAMX{g}", [(f"SAMX{g}.c{c}", bytes(np.random.default_rng(g + c).choice(
+        np.frombuffer(b"ACGTN", np.uint8), 500))) for c in range(2)]) for g in range(4)]
+    tar = tmp_path / "b.tar.xz"
+    asmtar.write_batch_tar(tar, genomes)
+    sel = {"SAMX1", "SAMX3"}
+    for cache in (None, tmp_path / "tc"):
+        jcache = None if cache is None else tmp_path / "jc"
+        for s in (None, sel):
+            got = list(asmtar.iter_assemblies_cached(tar, s, cache))
+            want = list(jasmtar.iter_assemblies_cached(tar, s, jcache))
+            assert [g for g, _ in got] == [g for g, _ in want]
+            for (_, a), (_, b) in zip(got, want):
+                assert [c for c, _ in a] == [c for c, _ in b]
+                for (_, x), (_, y) in zip(a, b):
+                    np.testing.assert_array_equal(x, y)
+    assert [g for g, _ in asmtar.iter_batch_assemblies(tar, sel)] == ["SAMX1", "SAMX3"]
+    assert isinstance(asmtar.open_asm_cache(tar, tmp_path / "tc"), asmtar.AsmCache)
+
+
+def test_traceback_helpers():
+    """reconstruct_planes / traceback_walk / traceback_one / align_oracle
+    (numpy host code) against the JAX package's, on planes of gapped
+    pairs."""
+    import torch
+
+    rng = np.random.default_rng(13)
+    p, l, band = 6, 60, 128
+    q = rng.integers(0, 4, (p, l)).astype(np.uint8)
+    r = rng.integers(0, 4, (p, l + band)).astype(np.uint8)
+    for i in range(p):
+        s = np.delete(q[i], [10 + i, 30]) if i % 2 else np.insert(q[i], 20, [0, 1, 2])
+        r[i, 40 : 40 + len(s)] = s
+    ql = np.full(p, l, np.int32)
+    v = np.ones((p, l + band), bool)
+    res = text.extend_banded(*[torch.from_numpy(a) for a in (q, ql, r, v)])
+    planes = res.p_plane.numpy()
+    for a, b in zip(text.reconstruct_planes(planes), jext.reconstruct_planes(planes)):
+        np.testing.assert_array_equal(a, b)
+    allp = text.reconstruct_planes(planes)
+    for i in range(p):
+        end_d = int(res.end_d[i])
+        got = text.traceback_walk(tuple(x[i] for x in allp), planes[i], q[i], l, r[i], end_d, rvalid=v[i])
+        want = jext.traceback_walk(tuple(x[i] for x in allp), planes[i], q[i], l, r[i], end_d, rvalid=v[i])
+        assert got == want
+        assert any(op in ("I", "D") for _, op in got[0])
+        assert text.traceback_one(planes[i], q[i], l, r[i], end_d) == jext.traceback_one(planes[i], q[i], l, r[i], end_d)
+        assert text.align_oracle(q[i], r[i]) == jext.align_oracle(q[i], r[i]) == float(res.score[i])
+
+
+def test_read_filtered_fasta_and_ram_sampler(tmp_path):
+    from phylign_tpu_torch.io.fastx import read_fastx_file
+
+    fa = tmp_path / "f.fa"
+    fa.write_text(">q1 A,B\nACGT\n>q2\nGG\n>q3 C\nTT\n")
+    a = tfilter.read_filtered_fasta(read_fastx_file(fa))
+    b = jfilter.read_filtered_fasta(jfastx.read_fastx_file(fa))
+    assert [(x.qname, x.seq, x.candidates) for x in a] == [(x.qname, x.seq, x.candidates) for x in b]
+    with bench.RamSampler(interval=0.01) as s:
+        _ = bytearray(1 << 20)
+    assert s.max_delta_kb >= 0 and isinstance(s, bench.RamSampler)
+    assert set(vars(bench.RamSampler())) == set(vars(jbench.RamSampler()))
+
+
+def test_make_perf_fixture_trees_are_identical(tmp_path):
+    kw = dict(n_batches=2, genomes_per_batch=3, n_reads=64, seed=3, genome_len=(2000, 3000))
+    testing.make_perf_fixture(tmp_path / "t", **kw)
+    jtesting.make_perf_fixture(tmp_path / "j", **kw)
+    for sub in ("input/perf_reads.fq", "data/batches_small.txt", "config.yaml"):
+        assert (tmp_path / "t" / sub).read_bytes() == (tmp_path / "j" / sub).read_bytes()
+    for b in ("perf_00__01", "perf_01__01"):
+        got = list(asmtar.iter_batch_assemblies(tmp_path / "t" / "asms" / f"{b}.tar.xz"))
+        want = list(jasmtar.iter_batch_assemblies(tmp_path / "j" / "asms" / f"{b}.tar.xz"))
+        assert [(g, [(c, s.tobytes()) for c, s in cs]) for g, cs in got] == [
+            (g, [(c, s.tobytes()) for c, s in cs]) for g, cs in want
+        ]
+        assert (tmp_path / "t" / "cobs" / f"{b}.cobs_classic.xz").exists()

@@ -1,7 +1,8 @@
 """The port's boundaries: it imports nothing of jax or of the JAX package
 (``phylign_tpu``), eagerly or lazily, it picks the plain PyTorch
 version only for CPU tensors, it never moves to the CPU on its own, kernel
-failures are not retried, and the unported entry points say so."""
+failures are not retried, every kernel source is built and bound, and the
+unported entry points say so."""
 
 import ast
 import subprocess
@@ -162,10 +163,73 @@ def test_mesh_is_not_ported(tmp_path):
 
 @pytest.mark.parametrize("cmd", ["map", "all"])
 def test_unported_commands_exit_nonzero(cmd):
+    """map and all are ported; their multi-host mode (--distributed) is not
+    and says so."""
     with pytest.raises(SystemExit) as e:
-        cli.main([cmd, "--device", "cpu"])
+        cli.main([cmd, "--device", "cpu", "--distributed"])
     assert "not yet ported" in str(e.value.code)
     assert "ROADMAP" in str(e.value.code)
+
+
+KERNEL_ENTRIES = {
+    "match_popcount": ("phylign_match_popcount_b1", "phylign_match_popcount_b2"),
+    "chain_scan": ("phylign_chain_scan",),
+    "extend_scan": ("phylign_extend_scan",),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_ENTRIES))
+def test_every_kernel_source_is_built_and_bound(name):
+    """Each csrc/*.cu builds into build/phylign_tpu_torch under a name
+    keyed by its source, and _bind declares every C entry it exports (a
+    pointer or stream passed without c_void_p would be cut to 32 bits)."""
+    import ctypes
+    import types
+
+    assert sorted(p.stem for p in _kernels.SRC_DIR.glob("*.cu")) == sorted(KERNEL_ENTRIES)
+    p = _kernels._lib_path(name)
+    assert p.parent == REPO / "build" / "phylign_tpu_torch"
+    assert p.name.startswith(f"lib{name}_") and p.suffix == ".so"
+    src = (_kernels.SRC_DIR / f"{name}.cu").read_text()
+    fake = types.SimpleNamespace(**{
+        fn: types.SimpleNamespace() for fn in (*KERNEL_ENTRIES[name], "phylign_cuda_error_string")
+    })
+    _kernels._bind(name, fake)
+    for fn in KERNEL_ENTRIES[name]:
+        assert f"int {fn}(" in src
+        entry = getattr(fake, fn)
+        assert entry.restype is ctypes.c_int
+        assert ctypes.c_void_p in entry.argtypes and entry.argtypes[-1] is ctypes.c_void_p
+    assert "phylign_cuda_error_string" in src and "cudaGetLastError()" in src
+
+
+def test_align_kernels_refuse_cpu_tensors():
+    from phylign_tpu_torch.ops import chain as opc
+    from phylign_tpu_torch.ops import extend as ope
+
+    r = torch.zeros((2, 32), dtype=torch.int32)
+    before = (opc.launch_counts(), ope.launch_counts())
+    with pytest.raises(ValueError, match="CUDA"):
+        opc.chain_dp_cuda(r, r, torch.zeros(101), 21, 100, 100)
+    q = torch.zeros((2, 32), dtype=torch.uint8)
+    w = torch.zeros((2, 160), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ope.extend_cuda(q, torch.zeros(2, dtype=torch.int32), w, w)
+    assert (opc.launch_counts(), ope.launch_counts()) == before
+    assert set(opc.launch_counts()) == {"chain_scan"} and set(ope.launch_counts()) == {"extend_scan"}
+
+
+def test_align_entry_points_default_to_cuda():
+    import inspect
+
+    from phylign_tpu_torch.align import engine
+
+    for fn in (engine.flush_pairs, engine.flush_pairs_fused, engine.flush_pairs_host,
+               engine.flush_pairs_begin, engine.align_batch, engine.align_batches_pooled):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            engine.flush_pairs_fused([], engine.AlignParams())
 
 
 def test_kernel_build_is_lazy_and_keyed_by_source():
