@@ -10,6 +10,12 @@ hand-written kernel against its plain PyTorch version.
     python3 chip_smoke.py --profile    # phase 7 aligns once more under
                                    # cProfile + torch.profiler, tables in
                                    # chiprun_out/align_profile.txt
+    python3 chip_smoke.py --align-kernels-only --baseline-align DIR
+                                   # phase 5 only, with the B3/B4 kernels
+                                   # of DIR/chain_scan.cu and
+                                   # DIR/extend_scan.cu (PR 4's design)
+                                   # timed beside; the full run takes the
+                                   # option too
 
 Phases, each printing one JSON line:
   1 environment: versions, the card's name and power limit, and the
@@ -28,9 +34,12 @@ Phases, each printing one JSON line:
     (~15% duplicates); every planted read must reach its doc in 04_filter
     and a sample of reads must equal the oracle on the full-size index;
   5 kernels B3 (chain DP scan) and B4 (banded extension scan) against their
-    plain versions at the align stage's shapes, bit-exact on every input
-    set, timed with CUDA events over ROTATION input sets in turn, with each
-    case's bytes, operations, bound and share of the bound;
+    plain versions at the align stage's shapes and at every lane count each
+    is built for, bit-exact on every input set (B4 also at bands 256 and
+    384, on pairs of mixed q_len and on windows outside the contig), timed
+    with CUDA events over ROTATION input sets in turn at each lane count,
+    with each case's geometry, bytes, operations, bound and share of the
+    bound;
   6 phase 3's fixture (with an assembly tar for its 3-hash batch) end to end
     through ``python -m phylign_tpu_torch.cli all`` on the card and again
     with ``--device cpu``: 05_map, sam_summary and stats must be identical,
@@ -118,6 +127,32 @@ def cuda_ms(fn, reps: int, n_args: int = 1) -> float:
         fn(r % n_args)
     b.record()
     torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int, n_args: int = 1) -> float:
+    """Mean ms per call of fn(i), i cycling over n_args argument sets, with
+    the reps calls captured in one CUDA graph and replayed: device time
+    without the gaps of the Python wrapper between launches (a call on a
+    few thousand anchor sets is shorter than its wrapper)."""
+    import torch
+
+    for i in range(n_args):
+        fn(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for r in range(reps):
+            fn(r % n_args)
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
     return a.elapsed_time(b) / reps
 
 
@@ -455,20 +490,26 @@ def phase_full_geometry(work: Path, label: str) -> dict:
 
 #: phase 5's B3 cases: (name, P, A, qpos as uint16): the anchor buckets of
 #: the align stage (short reads fill A = 32 and 64; 1024 and 4096 are the
-#: long-read buckets)
+#: long-read buckets), and A = 32 at the size of one of phase 7's calls
 B3_CASES = [
     ("b3_a32", 16384, 32, True),
+    ("b3_a32_p2048", 2048, 32, True),
     ("b3_a64", 8192, 64, True),
     ("b3_a1024", 512, 1024, False),
     ("b3_a4096", 64, 4096, False),
 ]
-#: phase 5's B4 cases: (name, P, L, band, plane, timed): one fused chunk of
-#: 150 bp reads (FUSED_MAX_CELLS // 256 pairs, lmax 160), the plane pass,
-#: and the widest band at small P (checked, not timed)
+#: phase 5's B4 cases: (name, P, L, band, plane, timed, kind): one fused
+#: chunk of 150 bp reads (FUSED_MAX_CELLS // 256 pairs, lmax 160), the plane
+#: pass, the wider bands at small P, pairs of mixed q_len side by side in
+#: a warp, and windows wholly outside the contig (checked, not timed)
 B4_CASES = [
-    ("b4_score", 8192, 160, 128, False, True),
-    ("b4_plane", 4096, 160, 128, True, True),
-    ("b4_band512", 64, 160, 512, True, False),
+    ("b4_score", 8192, 160, 128, False, True, "reads"),
+    ("b4_plane", 4096, 160, 128, True, True, "reads"),
+    ("b4_band256", 256, 160, 256, True, False, "reads"),
+    ("b4_band384", 128, 160, 384, True, False, "reads"),
+    ("b4_band512", 64, 160, 512, True, False, "reads"),
+    ("b4_mixed_qlen", 1024, 160, 128, True, False, "mixed"),
+    ("b4_invalid", 256, 160, 128, True, False, "invalid"),
 ]
 #: the case of each align kernel in the kernel table: its main-path call
 MAIN_ALIGN_CASE = {"chain_scan": "b3_a32", "extend_scan": "b4_score"}
@@ -523,10 +564,12 @@ def b3_bound(rp, qp_bytes: int, p: int, a: int, w: int) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def extend_inputs(rng, p: int, l: int, band: int):
+def extend_inputs(rng, p: int, l: int, band: int, kind: str = "reads"):
     """150 bp reads (q_len 150 in an L-wide row) placed on their window's
     centre diagonal, as the fused flush builds them: 1% substitutions, every
-    17th with a 4-base deletion, contig edges in 1 of 16 windows."""
+    17th with a 4-base deletion, contig edges in 1 of 16 windows. ``mixed``:
+    q_len anywhere in 0..L, neighbours differing; ``invalid``: every third
+    window wholly outside the contig."""
     import numpy as np
 
     q = np.zeros((p, l), np.uint8)
@@ -544,6 +587,12 @@ def extend_inputs(rng, p: int, l: int, band: int):
     v = np.ones((p, l + band), bool)
     edge = np.arange(p) % 16 == 5
     v[edge, : half // 2] = False
+    if kind == "mixed":
+        q[:, 150:] = rng.integers(0, 4, (p, l - 150))
+        q_len = rng.integers(0, l + 1, p).astype(np.int32)
+        q_len[:4] = [0, 1, l, 150]
+    elif kind == "invalid":
+        v[::3] = False
     return q, q_len, r, v
 
 
@@ -568,10 +617,93 @@ def max_abs_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max().item())
 
 
-def phase_align_kernels(label: str) -> dict:
+class Pr4AlignKernels:
+    """Kernels B3/B4 as PR 4 built them (a warp per anchor set, a warp per
+    pair, f32), from copies of its csrc/chain_scan.cu and
+    csrc/extend_scan.cu in the directory given with --baseline-align: built
+    with the same flags, bound with PR 4's interface and 4 warps a block,
+    and timed beside this tree's kernels on the same inputs."""
+
+    def __init__(self, src: Path):
+        import ctypes
+        import subprocess
+
+        from phylign_tpu_torch.ops import _kernels
+
+        out = ROOT / "build" / "chip_smoke_pr4"
+        out.mkdir(parents=True, exist_ok=True)
+        names = ("chain_scan", "extend_scan")
+        procs = [
+            subprocess.Popen([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(out / f"libpr4_{n}.so"),
+                              str(src / f"{n}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for n in names
+        ]
+        for n, pr in zip(names, procs):
+            log = pr.communicate(timeout=900)[0]
+            if pr.returncode:
+                raise RuntimeError(f"PR 4's {n}.cu failed to build:\n{log.decode(errors='replace')}")
+        p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.chain_lib = ctypes.CDLL(str(out / "libpr4_chain_scan.so"))
+        self.chain_lib.phylign_chain_scan.restype = i32
+        self.chain_lib.phylign_chain_scan.argtypes = [p, p, i32, p, *[i32] * 7, p, p, p]
+        self.ext_lib = ctypes.CDLL(str(out / "libpr4_extend_scan.so"))
+        self.ext_lib.phylign_extend_scan.restype = i32
+        self.ext_lib.phylign_extend_scan.argtypes = [p, p, p, p, i32, i32, i32, *[f32] * 8, i32, i32, p, p, p, p]
+
+    def chain(self, r, q, cost, k: int, gap: int, band: int):
+        import torch
+
+        p, a = r.shape
+        f = torch.empty((p, a), dtype=torch.float32, device=r.device)
+        par = torch.empty((p, a), dtype=torch.int32, device=r.device)
+        err = self.chain_lib.phylign_chain_scan(
+            r.data_ptr(), q.data_ptr(), int(q.dtype == torch.int16), cost.data_ptr(), p, a,
+            min(64, a), k, gap, band, 4, f.data_ptr(), par.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"PR 4's chain_scan failed to launch: cudaError {err}")
+        return f, par
+
+    def extend(self, q, q_len, r, v, plane: bool):
+        import torch
+
+        from phylign_tpu_torch.ops.extend import SrScoring
+
+        p, l = q.shape
+        band = r.shape[1] - l
+        s = SrScoring()
+        score = torch.empty(p, dtype=torch.float32, device=q.device)
+        end_d = torch.empty(p, dtype=torch.int32, device=q.device)
+        pl = torch.empty((p, l if plane else 0, band), dtype=torch.float32, device=q.device)
+        err = self.ext_lib.phylign_extend_scan(
+            q.data_ptr(), q_len.data_ptr(), r.data_ptr(), v.data_ptr(), p, l, band,
+            s.match, s.mismatch, s.gap_open1 + s.gap_ext1, s.gap_ext1, s.gap_open2 + s.gap_ext2,
+            s.gap_ext2, s.gap_open1, s.gap_open2, int(plane), 4, score.data_ptr(), end_d.data_ptr(),
+            pl.data_ptr() if plane else None, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"PR 4's extend_scan failed to launch: cudaError {err}")
+        return score, end_d, pl
+
+
+def timed_in_turns(new, old, reps: int, n_args: int) -> dict:
+    """ms of new(i) and, when old is given, of old(i) beside it in turns
+    (old, new, new, old), each from a CUDA graph (graph_ms); the best of
+    each."""
+    order = ("pr4", "new", "new", "pr4") if old is not None else ("new",)
+    times = [(who, graph_ms(new if who == "new" else old, reps, n_args)) for who in order]
+    out = {"ms": min(t for w, t in times if w == "new")}
+    if old is not None:
+        out["pr4_ms"] = min(t for w, t in times if w == "pr4")
+        out["times"] = times
+    return out
+
+
+def phase_align_kernels(label: str, pr4: Pr4AlignKernels | None) -> dict:
     """B3 and B4 against their plain versions at the align stage's shapes:
-    bit-exact on every input set, then timed over ROTATION input sets in
-    turn (the plain version over 2 calls)."""
+    bit-exact on every input set at every lane count the kernels are built
+    for, then timed over ROTATION input sets in turn at each lane count (the
+    dispatch's choice in turns with PR 4's kernels when given), the plain
+    version over 2 calls."""
     import numpy as np
     import torch
 
@@ -587,38 +719,58 @@ def phase_align_kernels(label: str) -> dict:
         sets = [(torch.from_numpy(r).cuda(), torch.from_numpy(q).cuda()) for r, q in host]
         err = 0.0
         for r, q in sets:
-            got = opc.chain_dp_cuda(r, q, cost, 21, 100, 100)
             want = opc.chain_dp_ref(r, q, cost, 21, 100, 100)
+            runs = {g: opc.chain_dp_cuda(r, q, cost, 21, 100, 100, lanes=g) for g in opc.KERNEL_LANES}
+            if pr4 is not None:
+                runs["pr4"] = pr4.chain(r, q, cost, 21, 100, 100)
             torch.cuda.synchronize()
-            err = max([err] + [max_abs_diff(g, w) for g, w in zip(got, want)])
-            if err != 0 or not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                raise AssertionError(f"{name}: kernel chain_scan differs from chain_dp_ref (max |err| {err})")
-        ms = cuda_ms(lambda i: opc.chain_dp_cuda(*sets[i], cost, 21, 100, 100), 4 * ROTATION, ROTATION)
+            for g, got in runs.items():
+                err = max([err] + [max_abs_diff(x, y) for x, y in zip(got, want)])
+                if err != 0 or not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{name}: chain_scan ({g} lanes) differs from chain_dp_ref (max |err| {err})")
+        g0 = opc.chain_lanes(p)
+        lanes_ms = {g: min(graph_ms(lambda i, g=g: opc.chain_dp_cuda(*sets[i], cost, 21, 100, 100, lanes=g),
+                                   4 * ROTATION, ROTATION) for _ in range(2)) for g in opc.KERNEL_LANES}
+        timing = timed_in_turns(lambda i: opc.chain_dp_cuda(*sets[i], cost, 21, 100, 100),
+                                None if pr4 is None else (lambda i: pr4.chain(*sets[i], cost, 21, 100, 100)),
+                                4 * ROTATION, ROTATION)
         plain_ms = cuda_ms(lambda i: opc.chain_dp_ref(*sets[i], cost, 21, 100, 100), 2, 2)
         bounds = [b3_bound(r, 2 if q16 else 4, p, a, w) for r, _ in host]
         bound = {k: (sum(b[k] for b in bounds) / ROTATION if k != "bound_by" else bounds[0][k]) for k in bounds[0]}
         out[name] = dict(kernel="chain_scan", P=p, A=a, W=w, qpos="uint16" if q16 else "int32",
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, bound_share=bound["bound_ms"] / ms,
-                         geometry=[opc.WARPS_PER_BLOCK, (p + opc.WARPS_PER_BLOCK - 1) // opc.WARPS_PER_BLOCK])
+                         max_abs_err=err, **timing, plain_ms=plain_ms, **bound,
+                         bound_share=bound["bound_ms"] / timing["ms"], lanes=g0, lanes_ms=lanes_ms,
+                         sets_per_block=128 // g0, blocks=-(-p // (128 // g0)))
         emit("align_kernels", case=name, rotation=ROTATION, card=label, **out[name])
         del sets
-    for name, p, l, band, plane, timed in B4_CASES:
-        host = [extend_inputs(rng, p, l, band) for _ in range(ROTATION if timed else 1)]
+    for name, p, l, band, plane, timed, kind in B4_CASES:
+        host = [extend_inputs(rng, p, l, band, kind) for _ in range(ROTATION if timed else 1)]
         sets = [[torch.from_numpy(x).cuda() for x in h] for h in host]
         err = 0.0
         for s in sets:
-            got = ope.extend_cuda(*s, collect_plane=plane)
             want = ope.extend_ref(*s, collect_plane=plane)
+            runs = {g: ope.extend_cuda(*s, collect_plane=plane, lanes=g) for g in ope.KERNEL_LANES[band]}
+            if pr4 is not None and band == 128:
+                runs["pr4"] = pr4.extend(*s, plane)
             torch.cuda.synchronize()
-            err = max([err] + [max_abs_diff(g, w) for g, w in zip(got, want)])
-            if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"{name}: kernel extend_scan differs from extend_ref (max |err| {err})")
-            if int((got.score >= 250).sum()) < p // 2:
+            for g, got in runs.items():
+                err = max([err] + [max_abs_diff(x, y) for x, y in zip(got, want)])
+                if err != 0 or not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"{name}: extend_scan ({g} lanes) differs from extend_ref (max |err| {err})")
+            if kind == "reads" and int((want.score >= 250).sum()) < p // 2:
                 raise AssertionError(f"{name}: planted reads did not score as aligned")
-        row = dict(kernel="extend_scan", P=p, L=l, band=band, plane=plane, max_abs_err=err,
-                   geometry=[ope.WARPS_PER_BLOCK, (p + ope.WARPS_PER_BLOCK - 1) // ope.WARPS_PER_BLOCK])
+            if kind == "invalid" and not bool((want.p_plane[::3] == float(ope.NEG)).any()):
+                raise AssertionError(f"{name}: no cell of an invalid window was -1e30")
+        g0 = ope.extend_lanes(band, plane)
+        row = dict(kernel="extend_scan", P=p, L=l, band=band, plane=plane, inputs=kind, max_abs_err=err,
+                   lanes=g0, cells_per_lane=band // g0, pairs_per_block=ope.BLOCK_THREADS // g0,
+                   blocks=-(-p // (ope.BLOCK_THREADS // g0)), checked_lanes=list(ope.KERNEL_LANES[band]))
         if timed:
-            row["ms"] = cuda_ms(lambda i: ope.extend_cuda(*sets[i], collect_plane=plane), 4 * ROTATION, ROTATION)
+            row["lanes_ms"] = {g: min(graph_ms(lambda i, g=g: ope.extend_cuda(*sets[i], collect_plane=plane, lanes=g),
+                                              4 * ROTATION, ROTATION) for _ in range(2)) for g in ope.KERNEL_LANES[band]}
+            row.update(timed_in_turns(
+                lambda i: ope.extend_cuda(*sets[i], collect_plane=plane),
+                None if pr4 is None else (lambda i: pr4.extend(*sets[i], plane)), 4 * ROTATION, ROTATION))
             row["plain_ms"] = cuda_ms(lambda i: ope.extend_ref(*sets[i], collect_plane=plane), 2, 2)
             bounds = [b4_bound(h[1], p, l, band, plane) for h in host]
             row.update({k: (sum(b[k] for b in bounds) / len(bounds) if k != "bound_by" else bounds[0][k]) for k in bounds[0]})
@@ -909,6 +1061,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--baseline-src", type=Path, default=None,
                     help="a copy of the parent commit's csrc/match_popcount.cu: time "
                     "PR 2's kernels beside this tree's in phase 2")
+    ap.add_argument("--baseline-align", type=Path, default=None,
+                    help="a directory holding PR 4's csrc/chain_scan.cu and "
+                    "csrc/extend_scan.cu: time them beside this tree's B3/B4 in phase 5")
+    ap.add_argument("--align-kernels-only", action="store_true",
+                    help="phase 5 only (no kernel table, no ok line)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="phase 2 only (no kernel table, no ok line)")
     ap.add_argument("--profile", action="store_true",
@@ -932,10 +1089,14 @@ def main(argv: list[str] | None = None) -> int:
     emit("environment", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, card=label, build_seconds=build_s)
 
+    pr4 = Pr4AlignKernels(args.baseline_align) if args.baseline_align else None
+    if args.align_kernels_only:
+        phase_align_kernels(label, pr4)
+        return 0
     kern = phase_kernels(label, baseline)
     if args.kernels_only:
         return 0
-    akern = phase_align_kernels(label)
+    akern = phase_align_kernels(label, pr4)
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)

@@ -5,9 +5,9 @@
 // Replaces the lax.scan of phylign_tpu/ops/extend.py:_extend_impl (its row
 // function, extend.py:181-225). Contract (phylign_tpu_torch/ops/extend.py:
 // extend_ref):
-//   q       uint8 [P, L]           query codes (strand-adjusted)
+//   q       uint8 [P, L]           query codes 0..3 (strand-adjusted)
 //   q_len   int32 [P]              query lengths (<= L)
-//   rwin    uint8 [P, L + band]    ref window codes; row i, band cell d
+//   rwin    uint8 [P, L + band]    ref window codes 0..3; row i, band cell d
 //                                  reads column i + d
 //   rvalid  uint8 [P, L + band]    1 where the column lies in the contig
 //   score   f32 [P]                best cell of row q_len - 1 (-1e30 if none)
@@ -16,153 +16,191 @@
 //                                  every cell, the traceback's input
 // Glocal: row -1 is all zeros (free leading ref overhang). Per row,
 // H = max(P, D1, D2) with insertions from row i-1 at d+1 and deletions as
-// an exclusive prefix max of the keyed values P[d'] + d'*e. Every value is
-// an integer-valued f32 or -1e30-based, so the result equals the plain
-// version bit for bit when each f32 operation is the same: explicit _rn
-// intrinsics, no fused multiply-add.
+// an exclusive prefix max of the keyed values P[d'] + d'*e.
 //
-// What bounds it on an H100: the operations. A cell is ~25 f32 operations
-// on registers and reads 2 bytes; with the plane it also writes 4 bytes.
-// Rows depend on each other, so each pair is a chain of L dependent rows.
-// The design:
-//   * One warp per pair, band/32 consecutive cells per lane (4 at band 128,
-//     16 at band 512). H, I1, I2 and the window codes stay in registers
-//     from row to row.
-//   * The d+1 shift of the insertion families and of the window codes is
-//     one __shfl_down_sync at the lane edge; lane 31 loads the one new
-//     window column a row needs.
-//   * Deletions: an in-lane max scan over the lane's cells, then a 5-round
-//     shuffle scan of the lane totals gives the exclusive prefix max, once
-//     per gap family.
+// Integer DP. Every value of the plain version is an integer-valued f32
+// below 2^24 in magnitude, or exactly -1e30 (f32 absorbs any such integer
+// added to -1e30). The kernel runs the same recurrence in int32 with the
+// sentinel kS = -2^28 for -1e30: a value derived from it stays below
+// kT = -2^27 (at most a few bounded terms are added to it before a max
+// drops it), every real value stays above, and values below kT leave the
+// kernel as -1e30f. The wrapper checks the integer scoring and the 2^24
+// bound and raises otherwise.
+//
+// What bounds it on an H100: instruction issue. A cell is ~15 integer
+// instructions on registers and reads 2 bytes; rows depend on each other,
+// so each pair is a chain of L dependent rows. The design:
+//   * G lanes per pair (a template: 8, 16 or 32), band/G consecutive cells
+//     per lane, 32/G pairs per warp; H, I1, I2 and the window's selectors
+//     stay in registers from row to row. The per-row shuffles (the d+1
+//     shift of H, I1, I2 and of the window, the group scans) use width-G
+//     shuffles on the group's own mask and are amortised over band/G cells.
+//   * Hopper's DPX instructions fuse the recurrence: insertions are
+//     __viaddmax_s32(I[d+1], -e, H[d+1] - o), P = __vimax3_s32(diag, I1, I2),
+//     the keyed deletion scan run = __viaddmax_s32(P, d*e, run), and
+//     H = max(P, D1, D2) as two __viaddmax_s32 of the keyed prefixes and
+//     -(open + d*e).
+//   * The substitution score is one byte permute (prmt with sign
+//     replication): each window cell keeps a selector that picks its byte
+//     of a per-row table {match, -mismatch} indexed by the query code, or
+//     the bytes of kS for a column outside the contig.
+//   * Deletions: the lane's total of the keyed values (one DPX a cell), a
+//     log2(G)-round shuffle scan of the totals across the group, then a
+//     second in-lane pass that carries the exclusive prefix into each cell.
+//   * The group's last lane loads the one new window column a row needs,
+//     and every lane the row's query code, both a row ahead; a group loops
+//     to its own pair's last row (pairs of a warp may differ).
 //   * The row argmax (only the row q_len - 1) is an in-lane scan and a
-//     shuffle reduction, ties to the lowest d as jnp.argmax.
-//   * Plane rows are stored as each lane's band/32 consecutive floats with
-//     16-byte stores: a warp writes the row's 4*band contiguous bytes.
-//   * Without the plane a pair stops after its row q_len - 1; with it all
-//     L rows are computed, as the plain version does.
+//     width-G shuffle reduction, ties to the lowest d as jnp.argmax.
+//   * Plane rows are stored as each lane's band/G consecutive floats with
+//     16-byte stores: a group writes the row's 4*band contiguous bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -1e30f;
+constexpr int kS = -(1 << 28);  // the integer -1e30
+constexpr int kT = -(1 << 27);  // below: derived from kS
+// byte 4 of the permute is 0x00, byte 5 is 0xF0: selector 0x5444 gives kS
+constexpr unsigned kSentinelBytes = 0x0000F000u;
+constexpr unsigned kInvalidSel = 0x5444u;
 
-struct Scoring {
-  float match, mismatch;  // +match / -mismatch
-  float o1, e1, o2, e2;   // insertion open (gap_open + gap_ext) and extend
-  float do1, do2;         // deletion opens: the bare gap_open of a family
+struct IScoring {
+  int match, mismatch;  // +match / -mismatch
+  int o1, e1, o2, e2;   // insertion open (gap_open + gap_ext) and extend
+  int do1, do2;         // deletion opens: the bare gap_open of a family
+  unsigned mis4;        // the byte -mismatch in all four bytes
+  unsigned mxor;        // (match ^ -mismatch) & 0xff
 };
 
-// exclusive prefix max over d of keyed (lane-major: d = lane * CPL + c)
-template <int CPL>
-__device__ __forceinline__ void excl_prefix_max(const float (&keyed)[CPL],
-                                                float (&out)[CPL], int lane) {
-  float run = kNeg;
-#pragma unroll
-  for (int c = 0; c < CPL; c++) {
-    out[c] = run;
-    run = fmaxf(run, keyed[c]);
-  }
-  float v = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float t = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v = fmaxf(v, t);
-  }
-  float before = __shfl_up_sync(kFull, v, 1);
-  if (lane == 0) before = kNeg;
-#pragma unroll
-  for (int c = 0; c < CPL; c++) out[c] = fmaxf(before, out[c]);
+// int32 from byte (s & 7) of {b:a}, the sign of that byte replicated when
+// the selector nibble has bit 3 (PTX prmt, generic mode)
+__device__ __forceinline__ int prmt(unsigned a, unsigned b, unsigned s) {
+  int r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(s));
+  return r;
 }
 
-template <int CPL>
-__global__ void extend_scan_kernel(const uint8_t* __restrict__ q,
-                                   const int32_t* __restrict__ q_len,
-                                   const uint8_t* __restrict__ rwin,
-                                   const uint8_t* __restrict__ rvalid, int p,
-                                   int l, Scoring sc, int collect,
-                                   float* __restrict__ score,
-                                   int32_t* __restrict__ end_d,
-                                   float* __restrict__ plane) {
-  constexpr int band = 32 * CPL;
+// the permute selector of a window column: byte (code) of the row's table,
+// sign-extended, or kS outside the contig
+__device__ __forceinline__ unsigned column_sel(uint8_t code, uint8_t valid) {
+  return valid ? (unsigned)(code & 3) * 0x1111u + 0x8880u : kInvalidSel;
+}
+
+__device__ __forceinline__ float to_f32(int v) {
+  return v < kT ? kNeg : __int2float_rn(v);
+}
+
+// at 16 cells a lane the compiler takes ~180 registers, 2 blocks an SM;
+// capped for 3 blocks (no spill; measured faster on the score pass)
+template <int G, int CPL>
+__global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
+    extend_scan_kernel(const uint8_t* __restrict__ q,
+                       const int32_t* __restrict__ q_len,
+                       const uint8_t* __restrict__ rwin,
+                       const uint8_t* __restrict__ rvalid, int p, int l,
+                       IScoring sc, int collect, float* __restrict__ score,
+                       int32_t* __restrict__ end_d,
+                       float* __restrict__ plane) {
+  constexpr int band = G * CPL;
   const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (pair >= p) return;  // warp-uniform
+  const int t = lane & (G - 1);  // lane within the pair's group
+  const unsigned gmask = (unsigned)((1ull << G) - 1ull) << (lane - t);
+  const int pair = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  if (pair >= p) return;  // group-uniform
   const int wlen = l + band;
   const uint8_t* qrow = q + (int64_t)pair * l;
   const uint8_t* rrow = rwin + (int64_t)pair * wlen;
   const uint8_t* vrow = rvalid + (int64_t)pair * wlen;
   const int qlen = q_len[pair];
   const int rows = collect ? l : min(l, max(qlen, 0));
-  const int d0 = lane * CPL;
+  const int d0 = t * CPL;
+  const bool last_lane = t == G - 1;
+  const int de1_0 = d0 * sc.e1, de2_0 = d0 * sc.e2;
+  const int cd1_0 = sc.do1 + de1_0, cd2_0 = sc.do2 + de2_0;
 
-  float h[CPL], i1[CPL], i2[CPL], de1[CPL], de2[CPL];
-  int rc[CPL];  // window column i + d of the current row: code | valid << 8
+  int h[CPL], i1[CPL], i2[CPL];
+  unsigned sel[CPL];  // selector of window column i + d
 #pragma unroll
   for (int c = 0; c < CPL; c++) {
-    h[c] = 0.f;
-    i1[c] = kNeg;
-    i2[c] = kNeg;
-    de1[c] = __fmul_rn((float)(d0 + c), sc.e1);
-    de2[c] = __fmul_rn((float)(d0 + c), sc.e2);
-    rc[c] = (int)rrow[d0 + c] | (vrow[d0 + c] ? 256 : 0);
+    h[c] = 0;
+    i1[c] = kS;
+    i2[c] = kS;
+    sel[c] = column_sel(rrow[d0 + c], vrow[d0 + c]);
   }
   float best = kNeg;
   int best_d = 0;
+  // the next row's query code and new window column, loaded a row ahead
+  uint8_t qc_next = rows > 0 ? qrow[0] : 0;
+  uint8_t code_next = rrow[band], valid_next = vrow[band];
 
   for (int i = 0; i < rows; i++) {
-    if (i > 0) {  // slide the window one column: cell d takes cell d+1's
-      const int nxt = __shfl_down_sync(kFull, rc[0], 1);
-#pragma unroll
-      for (int c = 0; c < CPL - 1; c++) rc[c] = rc[c + 1];
-      rc[CPL - 1] = lane == 31 ? ((int)rrow[i - 1 + band] |
-                                  (vrow[i - 1 + band] ? 256 : 0))
-                               : nxt;
+    const uint8_t qc = qc_next, code = code_next, valid = valid_next;
+    if (i + 1 < rows) {
+      qc_next = qrow[i + 1];
+      code_next = rrow[i + band];
+      valid_next = vrow[i + band];
     }
-    const int qc = qrow[i];
-    // the previous row at d+1 (lane 31's last cell reads past the band)
-    float hs = __shfl_down_sync(kFull, h[0], 1);
-    float i1s = __shfl_down_sync(kFull, i1[0], 1);
-    float i2s = __shfl_down_sync(kFull, i2[0], 1);
-    if (lane == 31) hs = i1s = i2s = kNeg;
-    float pm[CPL], k1[CPL], k2[CPL];
+    if (i > 0) {  // slide the window one column: cell d takes cell d+1's
+      const unsigned nxt = __shfl_down_sync(gmask, sel[0], 1, G);
+#pragma unroll
+      for (int c = 0; c < CPL - 1; c++) sel[c] = sel[c + 1];
+      sel[CPL - 1] = last_lane ? column_sel(code, valid) : nxt;
+    }
+    const unsigned lut = sc.mis4 ^ (sc.mxor << (8 * (qc & 3)));
+    // the previous row at d+1 (the group's last cell reads past the band)
+    int hs = __shfl_down_sync(gmask, h[0], 1, G);
+    int i1s = __shfl_down_sync(gmask, i1[0], 1, G);
+    int i2s = __shfl_down_sync(gmask, i2[0], 1, G);
+    if (last_lane) hs = i1s = i2s = kS;
+    int pm[CPL];
+    int run1 = kS, run2 = kS;
 #pragma unroll
     for (int c = 0; c < CPL; c++) {
-      const float hn = c < CPL - 1 ? h[c + 1] : hs;
-      const float i1n = c < CPL - 1 ? i1[c + 1] : i1s;
-      const float i2n = c < CPL - 1 ? i2[c + 1] : i2s;
-      const float sub = (rc[c] & 256)
-                            ? ((rc[c] & 255) == qc ? sc.match : -sc.mismatch)
-                            : kNeg;
-      const float hd = __fadd_rn(h[c], sub);
-      const float n1 = fmaxf(__fsub_rn(hn, sc.o1), __fsub_rn(i1n, sc.e1));
-      const float n2 = fmaxf(__fsub_rn(hn, sc.o2), __fsub_rn(i2n, sc.e2));
+      const int hn = c < CPL - 1 ? h[c + 1] : hs;
+      const int i1n = c < CPL - 1 ? i1[c + 1] : i1s;
+      const int i2n = c < CPL - 1 ? i2[c + 1] : i2s;
+      const int hd = h[c] + prmt(lut, kSentinelBytes, sel[c]);
+      const int n1 = __viaddmax_s32(i1n, -sc.e1, hn - sc.o1);
+      const int n2 = __viaddmax_s32(i2n, -sc.e2, hn - sc.o2);
       i1[c] = n1;
       i2[c] = n2;
-      pm[c] = fmaxf(hd, fmaxf(n1, n2));
-      k1[c] = __fadd_rn(pm[c], de1[c]);
-      k2[c] = __fadd_rn(pm[c], de2[c]);
+      pm[c] = __vimax3_s32(hd, n1, n2);
+      run1 = __viaddmax_s32(pm[c], de1_0 + c * sc.e1, run1);
+      run2 = __viaddmax_s32(pm[c], de2_0 + c * sc.e2, run2);
     }
-    float x1[CPL], x2[CPL];
-    excl_prefix_max<CPL>(k1, x1, lane);
-    excl_prefix_max<CPL>(k2, x2, lane);
+    // exclusive prefix max of the lane totals across the group
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) {
+      const int a1 = __shfl_up_sync(gmask, run1, off, G);
+      const int a2 = __shfl_up_sync(gmask, run2, off, G);
+      if (t >= off) {
+        run1 = max(run1, a1);
+        run2 = max(run2, a2);
+      }
+    }
+    run1 = __shfl_up_sync(gmask, run1, 1, G);
+    run2 = __shfl_up_sync(gmask, run2, 1, G);
+    if (t == 0) run1 = run2 = kS;
 #pragma unroll
     for (int c = 0; c < CPL; c++) {
-      const float d1 = __fsub_rn(__fsub_rn(x1[c], sc.do1), de1[c]);
-      const float d2 = __fsub_rn(__fsub_rn(x2[c], sc.do2), de2[c]);
-      h[c] = fmaxf(pm[c], fmaxf(d1, d2));
+      // H = max(P, D1, D2), D = (the keyed prefix) - (open + d*e)
+      h[c] = __viaddmax_s32(run2, -(cd2_0 + c * sc.e2),
+                            __viaddmax_s32(run1, -(cd1_0 + c * sc.e1), pm[c]));
+      run1 = __viaddmax_s32(pm[c], de1_0 + c * sc.e1, run1);
+      run2 = __viaddmax_s32(pm[c], de2_0 + c * sc.e2, run2);
     }
     if (collect) {
-      float4* dst = reinterpret_cast<float4*>(
-          plane + ((int64_t)pair * l + i) * band + d0);
+      float4* dst = reinterpret_cast<float4*>(plane + ((int64_t)pair * l + i) * band + d0);
 #pragma unroll
       for (int c = 0; c < CPL; c += 4)
-        dst[c / 4] = make_float4(pm[c], pm[c + 1], pm[c + 2], pm[c + 3]);
+        dst[c / 4] = make_float4(to_f32(pm[c]), to_f32(pm[c + 1]),
+                                 to_f32(pm[c + 2]), to_f32(pm[c + 3]));
     }
-    if (i == qlen - 1) {  // warp-uniform
-      float bv = h[0];
+    if (i == qlen - 1) {  // group-uniform
+      int bv = h[0];
       int bd = d0;
 #pragma unroll
       for (int c = 1; c < CPL; c++) {
@@ -172,31 +210,32 @@ __global__ void extend_scan_kernel(const uint8_t* __restrict__ q,
         }
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(kFull, bv, off);
-        const int od = __shfl_xor_sync(kFull, bd, off);
+      for (int off = G / 2; off > 0; off >>= 1) {
+        const int ov = __shfl_xor_sync(gmask, bv, off, G);
+        const int od = __shfl_xor_sync(gmask, bd, off, G);
         if (ov > bv || (ov == bv && od < bd)) {
           bv = ov;
           bd = od;
         }
       }
-      best = bv;
+      best = to_f32(bv);
       best_d = bd;
     }
   }
-  if (lane == 0) {
+  if (t == 0) {
     score[pair] = best;
     end_d[pair] = best_d;
   }
 }
 
-template <int CPL>
+template <int G, int CPL>
 cudaError_t launch(const void* q, const void* q_len, const void* rwin,
-                   const void* rvalid, int p, int l, const Scoring& sc,
-                   int collect, int wpb, void* score, void* end_d, void* plane,
+                   const void* rvalid, int p, int l, const IScoring& sc,
+                   int collect, void* score, void* end_d, void* plane,
                    void* stream) {
-  const unsigned grid = (unsigned)((p + wpb - 1) / wpb);
-  extend_scan_kernel<CPL><<<grid, 32u * (unsigned)wpb, 0, (cudaStream_t)stream>>>(
+  constexpr int kThreads = 128;
+  const unsigned grid = (unsigned)((p + kThreads / G - 1) / (kThreads / G));
+  extend_scan_kernel<G, CPL><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)q, (const int32_t*)q_len, (const uint8_t*)rwin,
       (const uint8_t*)rvalid, p, l, sc, collect, (float*)score,
       (int32_t*)end_d, (float*)plane);
@@ -207,30 +246,33 @@ cudaError_t launch(const void* q, const void* q_len, const void* rwin,
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success). band must be 128, 256, 384 or 512.
+// Returns a cudaError_t (0 on success). (band, lanes) must be one of the
+// instances below; the scoring values are the integers the wrapper checked.
 int phylign_extend_scan(const void* q, const void* q_len, const void* rwin,
-                        const void* rvalid, int p, int l, int band,
-                        float match, float mismatch, float o1, float e1,
-                        float o2, float e2, float open1, float open2,
-                        int collect, int warps_per_block, void* score,
-                        void* end_d, void* plane, void* stream) {
+                        const void* rvalid, int p, int l, int band, int lanes,
+                        int match, int mismatch, int o1, int e1, int o2,
+                        int e2, int open1, int open2, int collect,
+                        void* score, void* end_d, void* plane, void* stream) {
   if (p <= 0) return 0;
-  if (l < 1 || warps_per_block < 1 || warps_per_block > 32 ||
+  if (l < 1 || match < 0 || match > 127 || mismatch < 0 || mismatch > 128 ||
       (collect && ((uintptr_t)plane & 15u)))
     return (int)cudaErrorInvalidValue;
-  const Scoring sc{match, mismatch, o1, e1, o2, e2, open1, open2};
-  switch (band) {
-    case 128:
-      return (int)launch<4>(q, q_len, rwin, rvalid, p, l, sc, collect, warps_per_block, score, end_d, plane, stream);
-    case 256:
-      return (int)launch<8>(q, q_len, rwin, rvalid, p, l, sc, collect, warps_per_block, score, end_d, plane, stream);
-    case 384:
-      return (int)launch<12>(q, q_len, rwin, rvalid, p, l, sc, collect, warps_per_block, score, end_d, plane, stream);
-    case 512:
-      return (int)launch<16>(q, q_len, rwin, rvalid, p, l, sc, collect, warps_per_block, score, end_d, plane, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const unsigned mis = (unsigned)(-mismatch) & 0xffu;
+  const IScoring sc{match, mismatch, o1, e1, o2, e2, open1, open2,
+                    mis * 0x01010101u, ((unsigned)match ^ mis) & 0xffu};
+#define PHYLIGN_B4(G, B)                                                      \
+  if (lanes == G && band == B)                                                \
+    return (int)launch<G, B / G>(q, q_len, rwin, rvalid, p, l, sc, collect,   \
+                                 score, end_d, plane, stream);
+  PHYLIGN_B4(8, 128)
+  PHYLIGN_B4(16, 128)
+  PHYLIGN_B4(32, 128)
+  PHYLIGN_B4(16, 256)
+  PHYLIGN_B4(32, 256)
+  PHYLIGN_B4(32, 384)
+  PHYLIGN_B4(32, 512)
+#undef PHYLIGN_B4
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* phylign_cuda_error_string(int err) {

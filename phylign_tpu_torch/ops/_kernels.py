@@ -126,19 +126,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32, i32, i32, i32, p, p]
     elif name == "chain_scan":
         lib.phylign_chain_scan.restype = i32
-        # rpos, qpos, q16, cost, p, a, w, k, max_gap, bandwidth,
-        # warps_per_block, f, parent, stream
+        # rpos, qpos, q16, cost, p, a, w, lanes, k, max_gap, bandwidth, f,
+        # parent, stream
         lib.phylign_chain_scan.argtypes = [p, p, i32, p, i32, i32, i32, i32, i32, i32, i32, p, p, p]
     elif name == "extend_scan":
-        f32 = ctypes.c_float
         lib.phylign_extend_scan.restype = i32
-        # q, q_len, rwin, rvalid, p, l, band, match, mismatch, o1, e1, o2,
-        # e2, open1, open2, collect, warps_per_block, score, end_d, plane,
-        # stream
-        lib.phylign_extend_scan.argtypes = [
-            p, p, p, p, i32, i32, i32, f32, f32, f32, f32, f32, f32, f32, f32,
-            i32, i32, p, p, p, p,
-        ]
+        # q, q_len, rwin, rvalid, p, l, band, lanes, match, mismatch, o1,
+        # e1, o2, e2, open1, open2, collect, score, end_d, plane, stream
+        lib.phylign_extend_scan.argtypes = [p, p, p, p, *[i32] * 13, p, p, p, p]
     lib.phylign_cuda_error_string.restype = ctypes.c_char_p
     lib.phylign_cuda_error_string.argtypes = [i32]
 

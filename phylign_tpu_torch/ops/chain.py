@@ -18,8 +18,9 @@ Implementations with identical results:
   * ``chain_dp_ref``   the scan in plain PyTorch, one step per slot over a
                        shifting [P, W] window; the CPU path and the version
                        the kernel is held to.
-  * ``chain_dp_cuda``  CUDA kernel B3 (csrc/chain_scan.cu): one warp per
-                       anchor set, the window a ring in registers.
+  * ``chain_dp_cuda``  CUDA kernel B3 (csrc/chain_scan.cu): G lanes per
+                       anchor set, each holding its share of the window in
+                       registers, slot i-1 folded in off the critical path.
 ``chain_dp`` picks by the tensor's device. Everything after the scan
 (pointer doubling, the s2 competitor, the split-read segments) is torch ops
 on the same device.
@@ -28,9 +29,10 @@ Arithmetic is float32 as in the JAX function: positions become f32 (padded
 slots 2e9), dr / dq / dd are f32 differences, ``cand = (f + gain) - cost``.
 ``cost`` comes from a table over the integer dd in [0, bandwidth]
 (``cost_table``) shared by both versions, so the card's answer does not
-depend on its ``log2f``. The table rounds log2 correctly; XLA's CPU log is
-an approximation that differs from it by one unit in the last place for
-some dd (tests/test_torch_chain.py pins this).
+depend on its ``log2f``. The table is XLA-CPU's own evaluation of the JAX
+expression, emulated in numpy f32 (``xla_log``: Eigen's log polynomial with
+fused multiply-adds; the sum contracted into one fused multiply-add), so
+every ``ChainResult`` field equals the JAX function's bit for bit.
 """
 
 from __future__ import annotations
@@ -82,15 +84,58 @@ class ChainResult(NamedTuple):
     sup_re: torch.Tensor  # int32 [P, n_sup]
 
 
+def _fma(a, b, c) -> np.ndarray:
+    """f32 fused multiply-add: the f32 product is exact in float64, so one
+    float64 add and one rounding to f32 give fma(a, b, c)."""
+    f64 = np.float64
+    return (np.asarray(a, f64) * np.asarray(b, f64) + np.asarray(c, f64)).astype(np.float32)
+
+
+#: Cephes' log polynomial, as Eigen's plog_float evaluates it
+_LOG_P = tuple(np.float32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1,
+))
+
+
+def xla_log(x: np.ndarray) -> np.ndarray:
+    """f32 natural log of positive normal f32 values, equal bit for bit to
+    XLA-CPU's ``jnp.log``: Eigen's plog_float (frexp, the shift of the
+    mantissa to [sqrt(1/2), sqrt(2)), the Cephes polynomial in Estrin form
+    with every multiply-add fused, then the exponent's two-part ln 2)."""
+    f32 = np.float32
+    m, e = np.frexp(np.asarray(x, f32))
+    m, e = m.astype(f32), e.astype(f32)
+    small = m < f32(0.707106781186547524)
+    e = e - np.where(small, f32(1), f32(0))
+    m = (m - f32(1)) + np.where(small, m, f32(0))
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y, y1, y2 = _fma(p[0], m, p[1]), _fma(p[3], m, p[4]), _fma(p[6], m, p[7])
+    y, y1, y2 = _fma(y, m, p[2]), _fma(y1, m, p[5]), _fma(y2, m, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2) * x3
+    y = y + e * f32(-2.12194440e-4)
+    m = (m - x2 * f32(0.5)) + y
+    return (m + e * f32(0.693359375)).astype(f32)
+
+
+def xla_log2(x: np.ndarray) -> np.ndarray:
+    """XLA-CPU's f32 ``jnp.log2``: ``log(x) * f32(1 / ln 2)``."""
+    return (xla_log(x) * np.float32(1.0 / np.log(2.0))).astype(np.float32)
+
+
 def cost_table(k: int, bandwidth: int) -> np.ndarray:
     """f32 [bandwidth + 1]: cost(dd) = 0.01 * k * dd + 0.5 * log2(dd + 1) for
-    the integer dd, in the JAX expression's f32 operation order (``0.01 * k``
-    rounded to f32 first, then ``* dd``; the two terms added in f32). log2
-    is taken in float64 and rounded once to f32."""
-    dd = np.arange(bandwidth + 1, dtype=np.float32)
-    lin = (np.float32(np.float32(0.01) * np.float32(k)) * dd).astype(np.float32)
-    lg = np.log2(dd.astype(np.float64) + 1.0).astype(np.float32)
-    return (lin + (np.float32(0.5) * lg).astype(np.float32)).astype(np.float32)
+    the integer dd, bit for bit as XLA-CPU evaluates the JAX scan's
+    expression: ``0.01 * k`` rounded to f32, log2 as ``xla_log2``, and the
+    sum contracted into one fused multiply-add,
+    ``fma(f32(0.01 * k), dd, f32(0.5 * log2(dd + 1)))``."""
+    f32 = np.float32
+    dd = np.arange(bandwidth + 1, dtype=f32)
+    half_lg = f32(0.5) * xla_log2(dd + f32(1))
+    return _fma(f32(f32(0.01) * f32(k)), dd, half_lg)
 
 
 def qpos_i32(qpos: torch.Tensor) -> torch.Tensor:
@@ -177,8 +222,21 @@ def reset_launch_counts() -> None:
             _launches[name] = 0
 
 
-#: anchor sets (warps) per block of kernel B3
-WARPS_PER_BLOCK = 4
+#: lanes per anchor set kernel B3 is built for
+KERNEL_LANES = (4, 8, 16, 32)
+#: threads that keep an H100 busy on B3 (~16 warps an SM): below it a call
+#: is bound by the latency of its A dependent steps, shortest at 32 lanes;
+#: above it by instruction issue, least at few lanes (PERF.md)
+FILL_THREADS = 65536
+#: entries of the cost table kernel B3 holds in shared memory
+#: (min(bandwidth, max_gap) + 1 of them: the only ones a transition reads)
+MAX_TABLE = 56 * 1024
+
+
+def chain_lanes(p: int) -> int:
+    """The lanes per anchor set chain_dp_cuda uses for P sets: the fewest
+    that still fill the card, else a whole warp."""
+    return next((g for g in KERNEL_LANES[:-1] if p * g >= FILL_THREADS), KERNEL_LANES[-1])
 
 
 def chain_dp_cuda(
@@ -189,11 +247,13 @@ def chain_dp_cuda(
     max_gap: int,
     bandwidth: int,
     lookback: int = LOOKBACK,
+    lanes: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B3 (replaces the ``lax.scan`` of
     ``phylign_tpu/ops/chain.py:chain_anchors``). CUDA tensors only; same
     contract as chain_dp_ref. qpos may be int32, or uint16 bits as uint16
-    or int16."""
+    or int16. ``lanes`` overrides the lanes per set (one of
+    KERNEL_LANES)."""
     from phylign_tpu_torch.ops import _kernels
 
     if rpos.device.type != "cuda" or qpos.device != rpos.device or cost.device != rpos.device:
@@ -206,6 +266,8 @@ def chain_dp_cuda(
         raise TypeError(f"chain_scan takes int32 rpos and int32/uint16 qpos; got {rpos.dtype}, {qpos.dtype}")
     if cost.dtype != torch.float32 or cost.numel() != bandwidth + 1:
         raise ValueError(f"chain_scan: cost must be f32 [{bandwidth + 1}]")
+    if min(bandwidth, max_gap) + 1 > MAX_TABLE or min(bandwidth, max_gap) < 0:
+        raise ValueError(f"chain_scan: cost table of min(bandwidth, max_gap) + 1 entries must be in 1..{MAX_TABLE}")
     if rpos.dim() != 2 or qpos.shape != rpos.shape:
         raise ValueError(f"chain_scan: rpos and qpos must be [P, A]; got {tuple(rpos.shape)}, {tuple(qpos.shape)}")
     if not (rpos.is_contiguous() and qpos.is_contiguous() and cost.is_contiguous()):
@@ -214,6 +276,9 @@ def chain_dp_cuda(
     w = min(lookback, a)
     if not 1 <= w <= 64:
         raise ValueError(f"chain_scan: window {w} outside 1..64")
+    g = chain_lanes(p) if lanes is None else lanes
+    if g not in KERNEL_LANES:
+        raise ValueError(f"chain_scan: {g} lanes per set not built (one of {KERNEL_LANES})")
     f = torch.empty((p, a), dtype=torch.float32, device=rpos.device)
     parent = torch.empty((p, a), dtype=torch.int32, device=rpos.device)
     if p == 0 or a == 0:
@@ -223,8 +288,8 @@ def chain_dp_cuda(
         stream = torch.cuda.current_stream(rpos.device).cuda_stream
         err = lib.phylign_chain_scan(
             rpos.data_ptr(), qpos.data_ptr(), int(q16),
-            cost.data_ptr(), p, a, w, int(k), int(max_gap), int(bandwidth),
-            WARPS_PER_BLOCK, f.data_ptr(), parent.data_ptr(), stream,
+            cost.data_ptr(), p, a, w, g, int(k), int(max_gap), int(bandwidth),
+            f.data_ptr(), parent.data_ptr(), stream,
         )
     _kernels.check(lib, err, "chain_scan")
     with _launch_lock:

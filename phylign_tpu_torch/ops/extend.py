@@ -20,8 +20,9 @@ Implementations with identical results (every value is an integer-valued
 f32 or -1e30-based, so "identical" is bit for bit):
   * ``extend_ref``   the row scan in plain PyTorch; the CPU path and the
                      version the kernel is held to.
-  * ``extend_cuda``  CUDA kernel B4 (csrc/extend_scan.cu): one warp per
-                     pair, band/32 cells per lane, rows in registers.
+  * ``extend_cuda``  CUDA kernel B4 (csrc/extend_scan.cu): the same DP in
+                     int32 on Hopper's DPX instructions, G lanes per pair
+                     and band/G cells per lane, rows in registers.
 ``_extend_impl`` picks by the tensor's device.
 """
 
@@ -37,9 +38,6 @@ import torch
 BAND = 128  # default band width (sr preset); the band of a call is
 # inferred from its window's width, so wider presets pass wider windows
 NEG = np.float32(-1e30)
-
-#: bands kernel B4 takes (band/32 cells per lane)
-KERNEL_BANDS = (128, 256, 384, 512)
 
 
 @dataclass(frozen=True)
@@ -173,8 +171,48 @@ def reset_launch_counts() -> None:
             _launches[name] = 0
 
 
-#: pairs (warps) per block of kernel B4
-WARPS_PER_BLOCK = 4
+#: lanes per pair kernel B4 is built for, by band (band / lanes cells per
+#: lane)
+KERNEL_LANES = {128: (8, 16, 32), 256: (16, 32), 384: (32,), 512: (32,)}
+#: the lanes extend_cuda picks by (band, plane): the score pass is
+#: instruction-bound and gains from fewer lanes; the plane pass is
+#: bytes-bound and keeps more blocks resident with fewer registers a lane
+#: (chosen by measurement on an H100, PERF.md)
+EXTEND_LANES = {(128, False): 8, (128, True): 16}
+
+
+def extend_lanes(band: int, collect: bool) -> int:
+    """The lanes per pair extend_cuda uses."""
+    return EXTEND_LANES.get((band, collect), KERNEL_LANES[band][0])
+
+
+#: threads per block of kernel B4 (128 / lanes pairs a block)
+BLOCK_THREADS = 128
+#: the kernel runs the DP in int32 with -2**28 for -1e30; every real value
+#: must stay below 2**24 in magnitude (exact in f32, far from the sentinel)
+INT_LIMIT = 2**24
+
+
+def kernel_scoring(scoring: SrScoring, l: int, band: int) -> tuple[int, ...]:
+    """The integer scoring kernel B4 takes: (match, mismatch, o1, e1, o2,
+    e2, open1, open2) with o = gap_open + gap_ext. Raises ValueError when a
+    value is not a non-negative integer, when match or mismatch does not
+    fit a signed byte (the substitution table is a byte permute), or when
+    L rows of band cells could reach INT_LIMIT."""
+    s = scoring
+    vals = (s.match, s.mismatch, s.gap_open1, s.gap_ext1, s.gap_open2, s.gap_ext2)
+    if not all(float(v).is_integer() and v >= 0 for v in vals):
+        raise ValueError(f"extend_scan takes non-negative integer scoring; got {vals}")
+    m, x, g1, e1, g2, e2 = (int(v) for v in vals)
+    if m > 127 or x > 128:
+        raise ValueError(f"extend_scan: match {m} / mismatch {x} must fit a signed byte")
+    per_row = m + x + max(g1 + e1, g2 + e2) + max(g1, g2) + max(e1, e2)
+    if (l + 1) * per_row + band * max(e1, e2) >= INT_LIMIT:
+        raise ValueError(
+            f"extend_scan: L={l}, band={band} with this scoring could reach "
+            f"{INT_LIMIT} (int32 DP limit)"
+        )
+    return m, x, g1 + e1, e1, g2 + e2, e2, g1, g2
 
 
 def extend_cuda(
@@ -184,10 +222,13 @@ def extend_cuda(
     rwin_valid: torch.Tensor,
     scoring: SrScoring = SrScoring(),
     collect_plane: bool = False,
+    lanes: int | None = None,
 ) -> ExtendResult:
     """Kernel B4 (replaces the ``lax.scan`` of
     ``phylign_tpu/ops/extend.py:_extend_impl``). CUDA tensors only; same
-    contract as extend_ref; band in KERNEL_BANDS."""
+    contract as extend_ref for codes 0..3 (the 2-bit alphabet every caller
+    passes) and integer scoring (``kernel_scoring``); band in KERNEL_LANES.
+    ``lanes`` overrides the lanes per pair (one of KERNEL_LANES[band])."""
     from phylign_tpu_torch.ops import _kernels
 
     dev = q_codes.device
@@ -199,14 +240,18 @@ def extend_cuda(
         raise TypeError("extend_scan takes a bool/uint8 mask and int32 q_len")
     p, l = q_codes.shape
     band = rwin.shape[1] - l
-    if band not in KERNEL_BANDS or rwin_valid.shape != rwin.shape or q_len.shape != (p,):
+    if band not in KERNEL_LANES or rwin_valid.shape != rwin.shape or q_len.shape != (p,):
         raise ValueError(
-            f"extend_scan: band {band} (must be one of {KERNEL_BANDS}), shapes "
+            f"extend_scan: band {band} (must be one of {tuple(KERNEL_LANES)}), shapes "
             f"q {tuple(q_codes.shape)}, rwin {tuple(rwin.shape)}, "
             f"mask {tuple(rwin_valid.shape)}, q_len {tuple(q_len.shape)}"
         )
+    g = extend_lanes(band, collect_plane) if lanes is None else lanes
+    if g not in KERNEL_LANES[band]:
+        raise ValueError(f"extend_scan: {g} lanes per pair not built for band {band}")
     if not all(t.is_contiguous() for t in (q_codes, q_len, rwin, rwin_valid)):
         raise ValueError("extend_scan takes contiguous tensors")
+    isc = kernel_scoring(scoring, l, band)
     score = torch.empty(p, dtype=torch.float32, device=dev)
     end_d = torch.empty(p, dtype=torch.int32, device=dev)
     plane = torch.empty((p, l if collect_plane else 0, band), dtype=torch.float32, device=dev)
@@ -214,17 +259,12 @@ def extend_cuda(
         return ExtendResult(score, end_d, plane)
     if l == 0:
         return ExtendResult(score.fill_(float(NEG)), end_d.zero_(), plane)
-    s = scoring
     lib = _kernels.library("extend_scan")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.phylign_extend_scan(
             q_codes.data_ptr(), q_len.data_ptr(), rwin.data_ptr(), rwin_valid.data_ptr(),
-            p, l, band, float(s.match), float(s.mismatch),
-            float(s.gap_open1 + s.gap_ext1), float(s.gap_ext1),
-            float(s.gap_open2 + s.gap_ext2), float(s.gap_ext2),
-            float(s.gap_open1), float(s.gap_open2), int(collect_plane),
-            WARPS_PER_BLOCK, score.data_ptr(), end_d.data_ptr(),
+            p, l, band, g, *isc, int(collect_plane), score.data_ptr(), end_d.data_ptr(),
             plane.data_ptr() if collect_plane else None, stream,
         )
     _kernels.check(lib, err, "extend_scan")

@@ -4,8 +4,7 @@ SAM records on the cases of tests/test_mapq.py, tests/test_reseed.py and
 tests/test_seed_occurrence.py, through the fused and the host flush paths,
 the MAPQ formula, the preset table, a batch tar through align_batch and
 align_batches_pooled, and align_step. Tolerance: exact (record lines and
-tensors), except align_step's chain scores (1e-5 relative: the pinned
-one-ulp cost-table difference, see tests/test_torch_chain.py)."""
+tensors, align_step's f32 chain scores included)."""
 
 import dataclasses
 
@@ -240,7 +239,4 @@ def test_align_step():
     np.testing.assert_array_equal(t.align_end_d.numpy(), np.asarray(j.align_end_d))
     for name in j.chain._fields:
         a_, b_ = getattr(t.chain, name).numpy(), np.asarray(getattr(j.chain, name))
-        if a_.dtype == np.float32:
-            np.testing.assert_allclose(a_, b_, rtol=1e-5, err_msg=name)
-        else:
-            np.testing.assert_array_equal(a_, b_, err_msg=name)
+        np.testing.assert_array_equal(a_, b_, err_msg=name)

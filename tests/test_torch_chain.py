@@ -3,12 +3,10 @@ version and the chain extraction around it) held to the JAX package's
 ``phylign_tpu.ops.chain`` on the CPU, and a numpy emulation of kernel B3's
 own per-thread algorithm held to the plain version.
 
-Tolerances: exact everywhere, with one pinned exception. The port's cost
-table rounds log2 correctly; XLA's CPU log2 is an approximation that is one
-unit in the last place (ulp) off for some dd (FIRST_ULP_DD below). Given
-JAX's own table, the port equals JAX on every field bit for bit; with its
-own table the integer fields are equal and the f32 scores agree to 1e-5
-relative (a one-ulp difference in a cost, carried along a chain).
+Tolerance: exact everywhere. The port's cost table emulates XLA-CPU's f32
+evaluation of the JAX scan's cost expression (its log polynomial and fused
+multiply-adds), so every ``ChainResult`` field, the f32 scores included,
+equals JAX's bit for bit.
 """
 
 import jax
@@ -19,14 +17,6 @@ import torch
 
 from phylign_tpu.ops import chain as jc
 from phylign_tpu_torch.ops import chain as tc
-
-#: the first integer dd at which the port's cost table and XLA-CPU's
-#: evaluation of JAX's expression differ (by one ulp), at k = 21
-FIRST_ULP_DD = 5
-
-INT_FIELDS = ("count", "qs", "qe", "rs", "re", "alt_qs", "alt_qe", "alt_rs",
-              "alt_re", "sup_count", "sup_qs", "sup_qe", "sup_rs", "sup_re")
-FLOAT_FIELDS = ("score", "alt_score", "sup_score")
 
 
 def jax_cost_table(k: int, bandwidth: int) -> np.ndarray:
@@ -83,33 +73,33 @@ def _assert_exact(j, t):
 
 
 class TestCostTable:
-    @pytest.mark.parametrize("k,band", [(21, 100), (15, 500), (19, 500)])
+    @pytest.mark.parametrize("k,band", [(21, 100), (15, 500), (19, 500), (21, 20_000)])
     def test_within_one_ulp_of_jax(self, k, band):
+        """The port's table equals XLA-CPU's evaluation bit for bit (zero
+        ulps), up to bandwidth 20,000."""
         mine, xla = tc.cost_table(k, band), jax_cost_table(k, band)
         assert mine.dtype == np.float32 and mine.shape == (band + 1,)
-        ulps = np.abs(mine.view(np.int32).astype(np.int64) - xla.view(np.int32).astype(np.int64))
-        assert ulps.max() <= 1
+        np.testing.assert_array_equal(mine.view(np.int32), xla.view(np.int32))
         assert mine[0] == xla[0] == 0.0
 
     def test_pinned_ulp_miss(self):
-        """Pinned (ROADMAP queue C): the two tables differ by one ulp, first
-        at dd = FIRST_ULP_DD for k = 21; the port's value is the correctly
-        rounded one."""
-        mine, xla = tc.cost_table(21, 100), jax_cost_table(21, 100)
-        diff = np.flatnonzero(mine != xla)
-        assert diff.size and diff[0] == FIRST_ULP_DD
-        exact = np.float32(np.float32(0.21) * np.float32(FIRST_ULP_DD)) + np.float32(
-            np.float32(0.5) * np.float32(np.log2(np.float64(FIRST_ULP_DD + 1)))
-        )
-        assert mine[FIRST_ULP_DD] == exact
+        """xla_log / xla_log2 equal jnp.log / jnp.log2 on XLA-CPU for every
+        integer in [1, 20001], where a correctly rounded log2 differs at
+        thousands of them (first at 12)."""
+        x = np.arange(1, 20_002, dtype=np.float32)
+        np.testing.assert_array_equal(tc.xla_log(x), np.array(jax.jit(jnp.log)(x)))
+        np.testing.assert_array_equal(tc.xla_log2(x), np.array(jax.jit(jnp.log2)(x)))
+        rounded = np.log2(x.astype(np.float64)).astype(np.float32)
+        assert np.flatnonzero(tc.xla_log2(x) != rounded)[0] == 12 - 1
 
     def test_op_order(self):
-        # 0.01 * k is rounded to f32 before the product with dd
-        k, dd = 21, np.float32(37)
-        want = np.float32(np.float32(np.float32(0.01) * np.float32(k)) * dd) + np.float32(
-            0.5 * np.float32(np.log2(38.0))
-        )
-        assert tc.cost_table(k, 40)[37] == want
+        # 0.01 * k is rounded to f32 first; its product with dd and the log
+        # term are summed in one fused multiply-add (a single rounding)
+        k, dd = 21, 37
+        c = np.float32(np.float32(0.01) * np.float32(k))
+        half_lg = np.float32(0.5) * tc.xla_log2(np.float32(dd + 1))
+        want = np.float32(np.float64(c) * dd + np.float64(half_lg))
+        assert tc.cost_table(k, 40)[dd] == want
 
 
 class TestChainAnchorsVsJax:
@@ -147,15 +137,11 @@ class TestChainAnchorsVsJax:
 
     @pytest.mark.parametrize("a", [32, 64, 1024])
     def test_own_table(self, a):
-        """With the port's own table: integer fields exact, scores within
-        1e-5 relative (the pinned one-ulp cost differences)."""
+        """With the port's own table: every field exact, the f32 scores
+        (score, alt_score, sup_score) included."""
         rng = np.random.default_rng(100 + a)
         rp, qp = _sets(rng, 12, a)
-        j, t = _both(rp, qp)
-        for name in INT_FIELDS:
-            np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)), err_msg=name)
-        for name in FLOAT_FIELDS:
-            np.testing.assert_allclose(getattr(t, name).numpy(), np.asarray(getattr(j, name)), rtol=1e-5, err_msg=name)
+        _assert_exact(*_both(rp, qp))
 
     def test_gapless_sets_exact_with_own_table(self):
         """Anchors on one diagonal: every chosen transition has dd = 0, where
@@ -245,61 +231,109 @@ class TestDpEdgeCases:
 # --- numpy emulation of kernel B3's own algorithm ------------------------------
 
 
-def emulate_b3(rpos, qpos, cost, k, max_gap, bandwidth, lookback=tc.LOOKBACK):
-    """chain_scan.cu step by step, vectorized over anchor sets: 32 lanes,
-    ring slot s = lane + 32*c (c = 0, 1) holding the slot j with j % W == s,
-    each lane's best over its ring slots (ties to the larger j), then the
-    5-round xor-shuffle max (ties to the larger j); the owner lane writes
-    the ring slot; padding rows at 2e9 in f32."""
+def emulate_b3(rpos, qpos, cost, k, max_gap, bandwidth, lookback=tc.LOOKBACK, lanes=8):
+    """chain_scan.cu step by step, vectorized over anchor sets: G = lanes
+    lanes per set, lane t owning the window slots j with j % G == t as a
+    shift register of SPL = (32 or 64)/G entries, newest first. At step i
+    each lane scores its entries for slot i+1 over j in [i+1-W, i-1]
+    (strict compare newest first: ties keep the larger j), an xor-shuffle
+    argmax combines the lanes (ties to the larger j), and slot i itself
+    takes the best over j <= i-2 reduced one step before, with j = i-1
+    folded in alone (ties to i-1). Slot i then joins lane i % G."""
     f32 = np.float32
     p, a = rpos.shape
     w = min(lookback, a)
-    lanes = np.arange(32)
+    g = lanes
+    spl = (32 if w <= 32 else 64) // g
+    t = np.arange(g)
     neg, pad, kf = f32(-1e30), f32(2e9), f32(k)
     gapf, bandf = f32(max_gap), f32(bandwidth)
+    tab = cost[: min(bandwidth, max_gap) + 1]  # the shared-memory table
     valid = rpos < tc.PAD_POS
-    rposf = np.where(valid, rpos.astype(f32), pad)
-    qposf = np.where(valid, qpos.astype(f32), pad)
-    rf = np.full((p, 2, 32), neg, f32)
-    rr = np.full((p, 2, 32), pad, f32)
-    rq = np.full((p, 2, 32), pad, f32)
-    rj = np.full((p, 2, 32), -1, np.int64)
-    has = [lanes + 32 * c < w for c in range(2)]
+    rposf = np.concatenate([np.where(valid, rpos.astype(f32), pad), np.full((p, 2), pad, f32)], axis=1)
+    qposf = np.concatenate([np.where(valid, qpos.astype(f32), pad), np.full((p, 2), pad, f32)], axis=1)
+
+    def transition(ri, qi, rj, qj):
+        dr, dq = ri - rj, qi - qj
+        dd = np.abs(dr - dq)
+        ok = (dr > 0) & (dq > 0) & (dr <= gapf) & (dq <= gapf) & (dd <= bandf)
+        gain = np.minimum(np.minimum(dq, dr), kf)
+        c = np.where(ok, tab[np.where(ok, dd, 0).astype(np.int64)], f32(0))
+        return ok, gain, c
+
+    rf = np.full((p, g, spl), neg, f32)
+    rr = np.full((p, g, spl), pad, f32)
+    rq = np.full((p, g, spl), pad, f32)
+    jl = np.broadcast_to(t - g, (p, g)).copy()
+    bv, bj = np.full(p, neg, f32), np.full(p, -1, np.int64)
+    fprev = np.full(p, neg, f32)
+    okp, gp, cp = np.zeros(p, bool), np.zeros(p, f32), np.zeros(p, f32)
     f = np.empty((p, a), f32)
     par = np.empty((p, a), np.int32)
     for i in range(a):
-        ri, qi = rposf[:, i : i + 1], qposf[:, i : i + 1]
-        bv = np.full((p, 32), neg, f32)
-        bj = np.full((p, 32), -1, np.int64)
-        for c in range(2):
-            dr = ri - rr[:, c]
-            dq = qi - rq[:, c]
-            dd = np.abs(dr - dq)
-            ok = (dr > 0) & (dq > 0) & (dr <= gapf) & (dq <= gapf) & (dd <= bandf)
-            gain = np.minimum(np.minimum(dq, dr), kf)
-            c_dd = cost[np.clip(dd, 0, bandwidth).astype(np.int64)]
-            cand = np.where(ok, (rf[:, c] + gain) - c_dd, neg).astype(f32)
-            take = has[c] & ((cand > bv) | ((cand == bv) & (rj[:, c] > bj)))
-            bv, bj = np.where(take, cand, bv), np.where(take, rj[:, c], bj)
-        for off in (16, 8, 4, 2, 1):
-            ov, oj = bv[:, lanes ^ off], bj[:, lanes ^ off]
-            take = (ov > bv) | ((ov == bv) & (oj > bj))
-            bv, bj = np.where(take, ov, bv), np.where(take, oj, bj)
-        assert (bv == bv[:, :1]).all() and (bj == bj[:, :1]).all()
-        fi = np.maximum(bv[:, 0], kf)
-        c, lane = divmod(i % w, 32)
-        rf[:, c, lane], rr[:, c, lane], rq[:, c, lane], rj[:, c, lane] = fi, ri[:, 0], qi[:, 0], i
+        ri, qi = rposf[:, i], qposf[:, i]
+        rn, qn = rposf[:, i + 1, None], qposf[:, i + 1, None]
+        nv, nj = np.full((p, g), neg, f32), np.full((p, g), -1, np.int64)
+        for m in range(spl):
+            j = jl - m * g
+            ok, gain, c = transition(rn, qn, rr[:, :, m], rq[:, :, m])
+            cand = np.where(ok & (j >= i + 1 - w), (rf[:, :, m] + gain) - c, neg).astype(f32)
+            take = cand > nv
+            nv, nj = np.where(take, cand, nv), np.where(take, j, nj)
+        off = g // 2
+        while off:
+            ov, oj = nv[:, t ^ off], nj[:, t ^ off]
+            take = (ov > nv) | ((ov == nv) & (oj > nj))
+            nv, nj = np.where(take, ov, nv), np.where(take, oj, nj)
+            off //= 2
+        assert (nv == nv[:, :1]).all() and (nj == nj[:, :1]).all()
+        cf = np.where(okp, (fprev + gp) - cp, neg).astype(f32)
+        take = cf >= bv
+        bv, bj = np.where(take, cf, bv), np.where(take, i - 1, bj)
+        fi = np.maximum(bv, kf)
         f[:, i] = np.where(valid[:, i], fi, neg)
-        par[:, i] = np.where(bv[:, 0] > kf, bj[:, 0], -1)
+        par[:, i] = np.where(bv > kf, bj, -1)
+        okp, gp, cp = transition(rn[:, 0], qn[:, 0], ri, qi)
+        own = i % g
+        rf[:, own], rr[:, own], rq[:, own] = (
+            np.concatenate([v[:, None], arr[:, own, :-1]], axis=1)
+            for v, arr in ((fi, rf), (ri, rr), (qi, rq))
+        )
+        jl[:, own] = i
+        fprev, bv, bj = fi, nv[:, 0], nj[:, 0]
     return f, par
 
 
-@pytest.mark.parametrize("p,a,lookback", [(9, 32, 64), (9, 64, 64), (5, 48, 64), (4, 300, 64), (3, 100, 20)])
-def test_kernel_emulation_equals_plain_version(p, a, lookback):
+@pytest.mark.parametrize("lanes", tc.KERNEL_LANES)
+@pytest.mark.parametrize("p,a,lookback", [(9, 32, 64), (9, 64, 64), (5, 48, 64), (4, 300, 64), (3, 100, 20), (4, 40, 1)])
+def test_kernel_emulation_equals_plain_version(p, a, lookback, lanes):
     rng = np.random.default_rng(p * a + lookback)
     rp, qp = _sets(rng, p, a, rmax=3 * a, qmax=2 * a)
     cost = tc.cost_table(21, 100)
-    f_e, par_e = emulate_b3(rp, qp, cost, 21, 100, 100, lookback)
+    f_e, par_e = emulate_b3(rp, qp, cost, 21, 100, 100, lookback, lanes)
     f_r, par_r = tc.chain_dp_ref(torch.from_numpy(rp), torch.from_numpy(qp), torch.from_numpy(cost), 21, 100, 100, lookback)
     np.testing.assert_array_equal(f_e, f_r.numpy())
     np.testing.assert_array_equal(par_e, par_r.numpy())
+
+
+@pytest.mark.parametrize("lanes", tc.KERNEL_LANES)
+def test_kernel_emulation_chain_like_ties_and_small_gap(lanes):
+    """Long noisy diagonals (every window slot live, ties between equal
+    anchors), and max_gap below the bandwidth (a table cut to max_gap)."""
+    rng = np.random.default_rng(lanes)
+    rp, qp = _chain_like(rng, 3, 200)
+    rp[:, 50:60] = rp[:, 50:51]
+    qp[:, 50:60] = qp[:, 50:51]
+    for gap, band in ((5_000, 500), (40, 100)):
+        cost = tc.cost_table(21, band)
+        f_e, par_e = emulate_b3(rp, qp, cost, 21, gap, band, 64, lanes)
+        f_r, par_r = tc.chain_dp_ref(torch.from_numpy(rp), torch.from_numpy(qp), torch.from_numpy(cost), 21, gap, band)
+        np.testing.assert_array_equal(f_e, f_r.numpy())
+        np.testing.assert_array_equal(par_e, par_r.numpy())
+        assert (par_r.numpy() >= 0).mean() > 0.3
+
+
+def test_lane_choice_fills_the_card_or_takes_a_warp():
+    """Kernel B3's lanes per set: the fewest that give FILL_THREADS threads,
+    a whole warp for the few sets of the long-read buckets."""
+    assert [tc.chain_lanes(p) for p in (65536, 16384, 8192, 4096, 2048, 512, 8)] == [4, 4, 8, 16, 32, 32, 32]

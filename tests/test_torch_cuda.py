@@ -230,16 +230,17 @@ CHAIN_SHAPES = [
 ]
 
 
+@pytest.mark.parametrize("lanes", opc.KERNEL_LANES)
 @pytest.mark.parametrize("p,a,lookback,q16,rmax", CHAIN_SHAPES)
-def test_chain_scan_equals_plain_version(cuda, p, a, lookback, q16, rmax):
-    """Kernel B3 against chain_dp_ref on the card, bit for bit, and the
-    whole chain_anchors on the card against the CPU."""
+def test_chain_scan_equals_plain_version(cuda, p, a, lookback, q16, rmax, lanes):
+    """Kernel B3 at every lane count against chain_dp_ref on the card, bit
+    for bit, and the whole chain_anchors on the card against the CPU."""
     rng = np.random.default_rng(p * a)
     rp, qp = _anchor_sets(rng, p, a, rmax, min(rmax, 60000), q16)
     r, q = torch.from_numpy(rp).to(cuda), torch.from_numpy(qp).to(cuda)
     cost = opc.device_cost_table(21, 100, cuda)
     before = opc.launch_counts()["chain_scan"]
-    f, par = opc.chain_dp_cuda(r, q, cost, 21, 100, 100, lookback)
+    f, par = opc.chain_dp_cuda(r, q, cost, 21, 100, 100, lookback, lanes=lanes)
     torch.cuda.synchronize()
     assert opc.launch_counts()["chain_scan"] == before + 1
     f_ref, par_ref = opc.chain_dp_ref(r, q, cost, 21, 100, 100, lookback)
@@ -250,6 +251,28 @@ def test_chain_scan_equals_plain_version(cuda, p, a, lookback, q16, rmax):
     want = opc.chain_anchors(torch.from_numpy(rp), torch.from_numpy(qp), lookback=lookback)
     for name in want._fields:
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("lanes", opc.KERNEL_LANES)
+@pytest.mark.parametrize("gap,band,lookback", [(5000, 500, 64), (40, 100, 64), (100, 100, 1), (20_000, 20_000, 64)])
+def test_chain_scan_gaps_tables_and_windows(cuda, gap, band, lookback, lanes):
+    """A long-read max_gap and bandwidth, max_gap below the bandwidth (the
+    shared table cut to it), a window of one slot, and a table past 48 KB
+    of shared memory; long noisy diagonals with runs of equal anchors."""
+    rng = np.random.default_rng(gap + lookback)
+    p, a = 5, 600
+    q = np.sort(rng.integers(0, 20_000, (p, a)), axis=1).astype(np.int32)
+    r = (q + 7_000 + np.cumsum(rng.choice([-2, 0, 0, 0, 3], (p, a)), axis=1)).astype(np.int32)
+    r[:, 100:110] = r[:, 100:101]
+    q[:, 100:110] = q[:, 100:101]
+    o = np.argsort(r.astype(np.int64) * 2**15 + q, axis=1, kind="stable")  # by (rpos, qpos)
+    rp, qp = np.take_along_axis(r, o, 1), np.take_along_axis(q, o, 1)
+    rt, qt = torch.from_numpy(rp).to(cuda), torch.from_numpy(qp).to(cuda)
+    cost = opc.device_cost_table(21, band, cuda)
+    f, par = opc.chain_dp_cuda(rt, qt, cost, 21, gap, band, lookback, lanes=lanes)
+    f_ref, par_ref = opc.chain_dp_ref(rt, qt, cost, 21, gap, band, lookback)
+    assert torch.equal(f, f_ref) and torch.equal(par, par_ref)
+    assert (par_ref >= 0).float().mean() > 0.3 or lookback == 1
 
 
 EXTEND_SHAPES = [
@@ -264,13 +287,7 @@ EXTEND_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("p,l,band", EXTEND_SHAPES)
-@pytest.mark.parametrize("collect", [False, True])
-def test_extend_scan_equals_plain_version(cuda, p, l, band, collect):
-    """Kernel B4 against extend_ref on the card, bit for bit: score, end_d
-    and the plane; q_len 0, 1 and L among the pairs; contig edges in the
-    window; planted reads with indels so that the gap families win cells."""
-    rng = np.random.default_rng(p + l + band)
+def _extend_case(rng, p, l, band):
     q = rng.integers(0, 4, (p, l)).astype(np.uint8)
     q_len = rng.integers(0, l + 1, p).astype(np.int32)
     q_len[:3] = [0, 1, l]
@@ -283,9 +300,24 @@ def test_extend_scan_equals_plain_version(cuda, p, l, band, collect):
     hi = l + band - rng.integers(0, band // 4, p)
     cols = np.arange(l + band)[None, :]
     v = (cols >= lo[:, None]) & (cols < hi[:, None])
+    return q, q_len, r, v
+
+
+EXTEND_CASES = [(p, l, band, g) for p, l, band in EXTEND_SHAPES for g in ope.KERNEL_LANES[band]]
+
+
+@pytest.mark.parametrize("p,l,band,lanes", EXTEND_CASES)
+@pytest.mark.parametrize("collect", [False, True])
+def test_extend_scan_equals_plain_version(cuda, p, l, band, lanes, collect):
+    """Kernel B4 at every lane count of the band against extend_ref on the
+    card, bit for bit: score, end_d and the plane; q_len 0, 1, L and random
+    side by side in a warp; contig edges in the window; planted reads with
+    indels so that the gap families win cells."""
+    rng = np.random.default_rng(p + l + band)
+    q, q_len, r, v = _extend_case(rng, p, l, band)
     args = [torch.from_numpy(a).to(cuda) for a in (q, q_len, r, v)]
     before = ope.launch_counts()["extend_scan"]
-    got = ope.extend_cuda(*args, collect_plane=collect)
+    got = ope.extend_cuda(*args, collect_plane=collect, lanes=lanes)
     torch.cuda.synchronize()
     assert ope.launch_counts()["extend_scan"] == before + 1
     want = ope.extend_ref(*args, collect_plane=collect)
@@ -297,15 +329,40 @@ def test_extend_scan_equals_plain_version(cuda, p, l, band, collect):
     assert torch.equal(got.score.cpu(), cpu.score) and torch.equal(got.end_d.cpu(), cpu.end_d)
 
 
+@pytest.mark.parametrize("lanes", ope.KERNEL_LANES[128])
+def test_extend_scan_invalid_windows_and_other_scoring(cuda, lanes):
+    """Windows wholly outside the contig (every substitution -1e30) beside
+    valid ones, under map-ont style scoring."""
+    sc = ope.SrScoring(match=2, mismatch=4, gap_open1=4, gap_ext1=2, gap_open2=24, gap_ext2=1)
+    rng = np.random.default_rng(lanes)
+    q, q_len, r, v = _extend_case(rng, 40, 96, 128)
+    v[::3] = False
+    args = [torch.from_numpy(a).to(cuda) for a in (q, q_len, r, v)]
+    got = ope.extend_cuda(*args, sc, collect_plane=True, lanes=lanes)
+    want = ope.extend_ref(*args, sc, collect_plane=True)
+    for name in ("score", "end_d", "p_plane"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (want.p_plane[::3] == float(ope.NEG)).any()
+
+
 def test_align_kernels_refuse_bad_arguments(cuda):
     r = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
     cost = opc.device_cost_table(21, 100, cuda)
     with pytest.raises(ValueError, match="window"):
         opc.chain_dp_cuda(r, r, cost, 21, 100, 100, lookback=128)
+    with pytest.raises(ValueError, match="lanes"):
+        opc.chain_dp_cuda(r, r, cost, 21, 100, 100, lanes=2)
     q = torch.zeros((4, 32), dtype=torch.uint8, device=cuda)
     w = torch.zeros((4, 32 + 100), dtype=torch.uint8, device=cuda)
+    ql = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="band"):
-        ope.extend_cuda(q, torch.zeros(4, dtype=torch.int32, device=cuda), w, w)
+        ope.extend_cuda(q, ql, w, w)
+    w = torch.zeros((4, 32 + 128), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="lanes"):
+        ope.extend_cuda(q, ql, w, w, lanes=4)
+    for bad in (ope.SrScoring(match=2.5), ope.SrScoring(gap_ext2=0.5), ope.SrScoring(mismatch=300)):
+        with pytest.raises(ValueError, match="integer|signed byte"):
+            ope.extend_cuda(q, ql, w, w, bad)
 
 
 def test_run_all_on_cuda_equals_cpu(cuda, tmp_path):

@@ -154,104 +154,177 @@ def test_cpu_dispatch_and_kernel_refuses_cpu():
 
 # --- numpy emulation of kernel B4's own algorithm ------------------------------
 
+KS, KT = -(2**28), -(2**27)  # the kernel's integer -1e30 and its threshold
 
-def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False):
-    """extend_scan.cu step by step, vectorized over pairs: 32 lanes of
-    CPL = band/32 consecutive cells (d = lane*CPL + c); window codes slid
-    one column a row through a shuffle at the lane edge (lane 31 loads the
-    new column); the d+1 insertion shift through the same shuffle; the
-    deletions' exclusive prefix max as an in-lane scan plus a Hillis-Steele
-    shuffle scan of the lane totals; the row argmax in-lane and then an
-    xor-shuffle reduction with ties to the lower d. Pairs stop after row
-    q_len - 1 unless the plane is collected (rows past it are skipped per
-    pair by masking)."""
-    f32 = np.float32
+
+def prmt(a, b, sel):
+    """PTX prmt.b32 (generic mode), elementwise: byte n of the result is
+    byte (nibble n of sel) & 7 of {b:a}, or that byte's sign replicated
+    when the nibble has bit 3."""
+    src = (np.asarray(b, np.uint64) << np.uint64(32)) | np.asarray(a, np.uint64)
+    sel = np.asarray(sel, np.uint64)
+    out = np.zeros(np.broadcast(src, sel).shape, np.uint64)
+    for n in range(4):
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(15)
+        byte = (src >> (np.uint64(8) * (nib & np.uint64(7)))) & np.uint64(255)
+        sign = np.where(byte & np.uint64(128), np.uint64(255), np.uint64(0))
+        byte = np.where(nib & np.uint64(8), sign, byte)
+        out |= byte << np.uint64(8 * n)
+    return out.astype(np.uint32).view(np.int32).astype(np.int64)
+
+
+def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8):
+    """extend_scan.cu step by step, vectorized over pairs: G = lanes lanes
+    per pair of CPL = band/G consecutive cells (d = t*CPL + c); the DP in
+    integers with KS for -1e30 and values below KT mapped back to -1e30;
+    the substitution as a byte permute of a per-row table; window selectors
+    slid one column a row through a width-G shuffle (the group's last lane
+    loads the new column); the d+1 insertion shift through the same
+    shuffle; deletions as the lane totals of the keyed values, a width-G
+    Hillis-Steele scan of the totals, and a second in-lane pass; the row
+    argmax in-lane and then an xor-shuffle reduction with ties to the lower
+    d. Each pair runs to its own last row (q_len - 1, or L with the
+    plane): the rows of a pair past it are masked."""
     p, l = q.shape
     band = rwin.shape[1] - l
-    cpl = band // 32
-    lanes = np.arange(32)
-    neg = f32(-1e30)
-    match, mis = f32(sc.match), f32(sc.mismatch)
-    o1, e1 = f32(sc.gap_open1 + sc.gap_ext1), f32(sc.gap_ext1)
-    o2, e2 = f32(sc.gap_open2 + sc.gap_ext2), f32(sc.gap_ext2)
-    do1, do2 = f32(sc.gap_open1), f32(sc.gap_open2)
-    d = (lanes[:, None] * cpl + np.arange(cpl)[None, :]).astype(f32)  # [32, CPL]
-    de1, de2 = d * e1, d * e2
-    col0 = lanes[:, None] * cpl + np.arange(cpl)[None, :]
-    rc = rwin[:, col0].astype(np.int64) | np.where(rvalid[:, col0], 256, 0)
-    h = np.zeros((p, 32, cpl), f32)
-    i1 = np.full((p, 32, cpl), neg, f32)
-    i2 = np.full((p, 32, cpl), neg, f32)
-    best = np.full(p, neg, f32)
+    g = lanes
+    cpl = band // g
+    t = np.arange(g)
+    m, x, o1, e1, o2, e2, do1, do2 = te.kernel_scoring(sc, l, band)
+    mis4 = ((-x) & 0xFF) * 0x01010101
+    mxor = (m ^ ((-x) & 0xFF)) & 0xFF
+    col0 = t[:, None] * cpl + np.arange(cpl)[None, :]  # [G, CPL] = d
+    de1, de2 = col0 * e1, col0 * e2
+
+    def column_sel(cols):
+        code, ok = rwin[np.arange(p)[:, None], cols], rvalid[np.arange(p)[:, None], cols]
+        return np.where(ok, (code & 3).astype(np.int64) * 0x1111 + 0x8880, 0x5444)
+
+    def to_f32(v):
+        return np.where(v < KT, np.float32(-1e30), v.astype(np.float32))
+
+    def shfl_down1(v):  # width G: the last lane reads its own value
+        return v[:, np.minimum(t + 1, g - 1)]
+
+    sel = column_sel(col0.reshape(-1)).reshape(p, g, cpl)
+    h = np.zeros((p, g, cpl), np.int64)
+    i1 = np.full((p, g, cpl), KS, np.int64)
+    i2 = np.full((p, g, cpl), KS, np.int64)
+    best = np.full(p, np.float32(-1e30), np.float32)
     best_d = np.zeros(p, np.int64)
-    plane = np.zeros((p, l if collect else 0, band), f32)
-    rows = l if collect else int(max(q_len.max(initial=0), 0))
-
-    def shfl_down1(x, edge):
-        y = x[:, np.minimum(lanes + 1, 31)]
-        y[:, 31] = edge
-        return y
-
-    def excl_prefix_max(keyed):
-        out = np.empty_like(keyed)
-        run = np.full((p, 32), neg, f32)
-        for c in range(cpl):
-            out[:, :, c] = run
-            run = np.maximum(run, keyed[:, :, c])
-        v = run
-        off = 1
-        while off < 32:
-            t = v[:, np.maximum(lanes - off, 0)]
-            v = np.where(lanes >= off, np.maximum(v, t), v)
-            off *= 2
-        before = v[:, np.maximum(lanes - 1, 0)]
-        before[:, 0] = neg
-        return np.maximum(before[:, :, None], out)
-
-    for i in range(rows):
+    plane = np.zeros((p, l if collect else 0, band), np.float32)
+    rows = np.full(p, l) if collect else np.minimum(l, np.maximum(q_len, 0))
+    for i in range(int(rows.max(initial=0))):
+        live = (i < rows)[:, None, None]
         if i > 0:
-            newcol = rwin[:, i - 1 + band].astype(np.int64) | np.where(rvalid[:, i - 1 + band], 256, 0)
-            nxt = shfl_down1(rc[:, :, 0], newcol)
-            rc = np.concatenate([rc[:, :, 1:], nxt[:, :, None]], axis=2)
-        qc = q[:, i].astype(np.int64)[:, None, None]
-        hn = np.concatenate([h[:, :, 1:], shfl_down1(h[:, :, 0], neg)[:, :, None]], axis=2)
-        i1n = np.concatenate([i1[:, :, 1:], shfl_down1(i1[:, :, 0], neg)[:, :, None]], axis=2)
-        i2n = np.concatenate([i2[:, :, 1:], shfl_down1(i2[:, :, 0], neg)[:, :, None]], axis=2)
-        sub = np.where(rc & 256, np.where((rc & 255) == qc, match, -mis), neg).astype(f32)
-        hd = h + sub
-        i1 = np.maximum(hn - o1, i1n - e1)
-        i2 = np.maximum(hn - o2, i2n - e2)
-        pm = np.maximum(hd, np.maximum(i1, i2))
-        x1 = excl_prefix_max(pm + de1)
-        x2 = excl_prefix_max(pm + de2)
-        h = np.maximum(pm, np.maximum((x1 - do1) - de1, (x2 - do2) - de2))
+            nxt = shfl_down1(sel[:, :, 0])
+            nxt[:, g - 1] = column_sel(np.full(1, i - 1 + band))[:, 0]
+            sel = np.where(live, np.concatenate([sel[:, :, 1:], nxt[:, :, None]], axis=2), sel)
+        lut = mis4 ^ (mxor << (8 * (q[:, i].astype(np.int64) & 3)))
+        edge = [shfl_down1(a[:, :, 0]) for a in (h, i1, i2)]
+        for e_ in edge:
+            e_[:, g - 1] = KS
+        hn, i1n, i2n = (np.concatenate([a[:, :, 1:], e_[:, :, None]], axis=2) for a, e_ in zip((h, i1, i2), edge))
+        hd = h + prmt(lut[:, None, None], 0x0000F000, sel)
+        n1 = np.maximum(i1n - e1, hn - o1)  # __viaddmax_s32
+        n2 = np.maximum(i2n - e2, hn - o2)
+        pm = np.maximum(np.maximum(hd, n1), n2)  # __vimax3_s32
+        tot1 = np.maximum.reduce(pm + de1, axis=2, initial=KS)
+        tot2 = np.maximum.reduce(pm + de2, axis=2, initial=KS)
+        off = 1
+        while off < g:
+            up1, up2 = tot1[:, np.maximum(t - off, 0)], tot2[:, np.maximum(t - off, 0)]
+            tot1 = np.where(t >= off, np.maximum(tot1, up1), tot1)
+            tot2 = np.where(t >= off, np.maximum(tot2, up2), tot2)
+            off *= 2
+        run1, run2 = tot1[:, np.maximum(t - 1, 0)], tot2[:, np.maximum(t - 1, 0)]
+        run1[:, 0] = run2[:, 0] = KS
+        hnew = np.empty_like(h)
+        for c in range(cpl):
+            d1 = run1 - (do1 + de1[:, c])
+            d2 = run2 - (do2 + de2[:, c])
+            run1 = np.maximum(pm[:, :, c] + de1[:, c], run1)
+            run2 = np.maximum(pm[:, :, c] + de2[:, c], run2)
+            hnew[:, :, c] = np.maximum(np.maximum(pm[:, :, c], d1), d2)
+        h = np.where(live, hnew, h)
+        i1, i2 = np.where(live, n1, i1), np.where(live, n2, i2)
         if collect:
-            plane[:, i] = pm.reshape(p, band)
+            plane[:, i] = to_f32(pm.reshape(p, band))
         last = q_len == i + 1
         if last.any():
-            bv = h[:, :, 0].copy()
-            bd = np.broadcast_to(col0[:, 0], (p, 32)).copy()
+            bv, bd = h[:, :, 0].copy(), np.broadcast_to(col0[:, 0], (p, g)).copy()
             for c in range(1, cpl):
                 take = h[:, :, c] > bv
-                bv = np.where(take, h[:, :, c], bv)
-                bd = np.where(take, col0[:, c], bd)
-            for off in (16, 8, 4, 2, 1):
-                ov, od = bv[:, lanes ^ off], bd[:, lanes ^ off]
+                bv, bd = np.where(take, h[:, :, c], bv), np.where(take, col0[:, c], bd)
+            off = g // 2
+            while off:
+                ov, od = bv[:, t ^ off], bd[:, t ^ off]
                 take = (ov > bv) | ((ov == bv) & (od < bd))
                 bv, bd = np.where(take, ov, bv), np.where(take, od, bd)
-            best = np.where(last, bv[:, 0], best)
+                off //= 2
+            best = np.where(last, to_f32(bv[:, 0]), best)
             best_d = np.where(last, bd[:, 0], best_d)
     return best, best_d.astype(np.int32), plane
 
 
-@pytest.mark.parametrize("p,l,band", [(14, 48, 128), (10, 70, 256), (6, 40, 512)])
+EMULATED = [(band, g) for band, gs in te.KERNEL_LANES.items() for g in gs]
+
+
+@pytest.mark.parametrize("band,lanes", EMULATED)
 @pytest.mark.parametrize("collect", [False, True])
-def test_kernel_emulation_equals_plain_version(p, l, band, collect):
-    rng = np.random.default_rng(p * l + band)
+def test_kernel_emulation_equals_plain_version(band, lanes, collect):
+    """Every (band, lanes) instance kernel B4 is built for; pairs of mixed
+    q_len (0, 1, L and random) side by side in a group of pairs."""
+    p, l = 10, 40 if band > 256 else 60
+    rng = np.random.default_rng(p * l + band + lanes)
     q, ql, r, lo, hi = _case(rng, p, l, band)
     v = _mask(lo, hi, l + band)
-    score, end_d, plane = emulate_b4(q, ql, r, v, collect=collect)
+    score, end_d, plane = emulate_b4(q, ql, r, v, collect=collect, lanes=lanes)
     want = te.extend_ref(*_t(q, ql, r, v), collect_plane=collect)
     np.testing.assert_array_equal(score, want.score.numpy())
     np.testing.assert_array_equal(end_d, want.end_d.numpy())
     np.testing.assert_array_equal(plane, want.p_plane.numpy())
+
+
+@pytest.mark.parametrize("lanes", te.KERNEL_LANES[128])
+def test_kernel_emulation_all_invalid_and_other_scoring(lanes):
+    """An all-invalid window (every substitution the sentinel), a window
+    valid in its first half only, and map-ont style scoring."""
+    sc = te.SrScoring(match=2, mismatch=4, gap_open1=4, gap_ext1=2, gap_open2=24, gap_ext2=1)
+    rng = np.random.default_rng(lanes)
+    q, ql, r, lo, hi = _case(rng, 6, 48, 128)
+    lo[:2], hi[:2] = 0, 0
+    hi[2] = 88
+    v = _mask(lo, hi, 48 + 128)
+    score, end_d, plane = emulate_b4(q, ql, r, v, sc, collect=True, lanes=lanes)
+    want = te.extend_ref(*_t(q, ql, r, v), sc, collect_plane=True)
+    np.testing.assert_array_equal(score, want.score.numpy())
+    np.testing.assert_array_equal(end_d, want.end_d.numpy())
+    np.testing.assert_array_equal(plane, want.p_plane.numpy())
+    assert (plane[:2] == np.float32(-1e30)).any()
+
+
+@pytest.mark.parametrize(
+    "scoring,l,match",
+    [
+        (te.SrScoring(match=2.5), 160, "integer"),
+        (te.SrScoring(gap_ext1=-1), 160, "integer"),
+        (te.SrScoring(match=200), 160, "signed byte"),
+        (te.SrScoring(mismatch=129), 160, "signed byte"),
+        (te.SrScoring(), 250_000, "int32 DP limit"),
+    ],
+)
+def test_kernel_scoring_refuses(scoring, l, match):
+    with pytest.raises(ValueError, match=match):
+        te.kernel_scoring(scoring, l, 128)
+
+
+def test_kernel_scoring_of_the_sr_preset():
+    assert te.kernel_scoring(te.SrScoring(), 160, 128) == (2, 8, 14, 2, 33, 1, 12, 32)
+
+
+def test_lane_choice_by_band_and_pass():
+    assert te.extend_lanes(128, False) == 8 and te.extend_lanes(128, True) == 16
+    assert [te.extend_lanes(b, c) for b in (256, 384, 512) for c in (False, True)] == [16, 16, 32, 32, 32, 32]
+    for (band, _), g in te.EXTEND_LANES.items():
+        assert g in te.KERNEL_LANES[band]
