@@ -48,7 +48,18 @@ Phases, each printing one JSON line:
     contigs, 16,384 reads of 150 bp with 5 candidates each (81,920 pairs,
     device_pair_chunk 16,384); >= 95% of the non-chimeric reads must map to
     their planted position, and a 2,048-read subset must give the same
-    records on the CPU.
+    records on the CPU;
+  8 the device mesh (parallel/) on the one card, every cell on cuda:0:
+    (a) B1/B2 on the doc-shard slices of phase 2's geometry (68 words pad
+    to 80 at 2 doc shards, 40 a shard), bit-exact and timed; (b) phase 4's
+    batches through Matcher.score_hits_raw on a 2x2 mesh, hits equal to
+    the 1x1 card run; (c) phase 6's fixture through Pipeline.run_all on a
+    2x2 mesh, every output byte equal to phase 6's card run; (d) phase 7's
+    align stage on a 1x2 mesh, 05_map and outputs equal to phase 7's; (e) a
+    one-rank nccl process group, the mesh's top-k gather through
+    all_gather_into_tensor, hits equal to (b)'s. Phase 5 also runs B4 at
+    -A 200 -B 150 (its int32 substitution) and at its per-query-shard
+    shapes (B3 P = 8,192, B4 P = 4,096: half of a call on a 1x2 mesh).
 Then the kernel table, the card's label, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA device, exits
 non-zero without that line. All data are made from fixed seeds.
@@ -493,6 +504,7 @@ def phase_full_geometry(work: Path, label: str) -> dict:
 #: long-read buckets), and A = 32 at the size of one of phase 7's calls
 B3_CASES = [
     ("b3_a32", 16384, 32, True),
+    ("b3_a32_shard", 8192, 32, True),
     ("b3_a32_p2048", 2048, 32, True),
     ("b3_a64", 8192, 64, True),
     ("b3_a1024", 512, 1024, False),
@@ -504,6 +516,7 @@ B3_CASES = [
 #: a warp, and windows wholly outside the contig (checked, not timed)
 B4_CASES = [
     ("b4_score", 8192, 160, 128, False, True, "reads"),
+    ("b4_score_shard", 4096, 160, 128, False, True, "reads"),
     ("b4_plane", 4096, 160, 128, True, True, "reads"),
     ("b4_band256", 256, 160, 256, True, False, "reads"),
     ("b4_band384", 128, 160, 384, True, False, "reads"),
@@ -513,6 +526,9 @@ B4_CASES = [
 ]
 #: the case of each align kernel in the kernel table: its main-path call
 MAIN_ALIGN_CASE = {"chain_scan": "b3_a32", "extend_scan": "b4_score"}
+#: -A 200 -B 150: match and mismatch outside a signed byte (B4's int32
+#: substitution)
+WIDE_SCORING = (200, 150)
 #: f32 operations per (anchor slot, predecessor) of B3 and per cell of B4
 B3_OPS_PER_PAIR = 13
 B4_OPS_PER_CELL = 20
@@ -778,8 +794,50 @@ def phase_align_kernels(label: str, pr4: Pr4AlignKernels | None) -> dict:
         out[name] = row
         emit("align_kernels", case=name, card=label, **row)
         del sets
+    out["b4_wide"] = wide_scoring(rng, label)
     torch.cuda.empty_cache()
     return out
+
+
+def wide_scoring(rng, label: str) -> dict:
+    """B4 at WIDE_SCORING (its int32 substitution, chosen at launch) against
+    the plain version at every lane count, score pass at P = 8,192 and plane
+    pass at P = 4,096, bit-exact; then the byte instance (the sr scoring)
+    and the wide one (WIDE_SCORING) on the same inputs, timed in turns
+    (byte, wide, wide, byte): the launch picks the instance by scoring, and
+    the DP's work per cell is the same."""
+    import torch
+
+    from phylign_tpu_torch.ops import extend as ope
+
+    wide = ope.SrScoring(match=WIDE_SCORING[0], mismatch=WIDE_SCORING[1])
+    p, l, band = 8192, 160, 128
+    host = [extend_inputs(rng, p, l, band) for _ in range(ROTATION)]
+    sets = [[torch.from_numpy(x).cuda() for x in h] for h in host]
+    err = 0.0
+    for i, s in enumerate(sets[:2]):
+        for plane in (False, True):
+            args = [t[: p // 2] for t in s] if plane else s
+            want = ope.extend_ref(*args, wide, collect_plane=plane)
+            for g in ope.KERNEL_LANES[band]:
+                got = ope.extend_cuda(*args, wide, collect_plane=plane, lanes=g)
+                torch.cuda.synchronize()
+                err = max([err] + [max_abs_diff(x, y) for x, y in zip(got, want)])
+                if err != 0 or not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"b4_wide: extend_scan ({g} lanes, plane {plane}) differs from extend_ref")
+            if int((want.score >= 125 * WIDE_SCORING[0]).sum()) < len(args[0]) // 2:
+                raise AssertionError("b4_wide: planted reads did not score as aligned")
+    reps = 4 * ROTATION
+    times = []
+    scoring = {"byte": ope.SrScoring(), "wide": wide}
+    for who in ("byte", "wide", "wide", "byte"):
+        times.append((who, graph_ms(lambda i: ope.extend_cuda(*sets[i], scoring[who]), reps, ROTATION)))
+    row = dict(kernel="extend_scan", P=p, L=l, band=band, plane=False, match=WIDE_SCORING[0],
+               mismatch=WIDE_SCORING[1], max_abs_err=err, checked_lanes=list(ope.KERNEL_LANES[band]),
+               ms=min(t for w, t in times if w == "wide"),
+               sr_byte_ms=min(t for w, t in times if w == "byte"), times=times)
+    emit("align_kernels", case="b4_wide", card=label, **row)
+    return row
 
 
 # --- phase 6: the fixture through the CLI, card against CPU --------------------
@@ -926,9 +984,10 @@ def _write_filter(pl, stem: str, names, reads, cands, keep) -> None:
             f.write(f">{names[i]} {','.join(cands[i])}\n{reads[i].decode()}\n")
 
 
-def _align_pipeline(wd: Path, run_wd: Path, device: str, names, reads, cands, keep):
+def _align_pipeline(wd: Path, run_wd: Path, device: str, names, reads, cands, keep, mesh_devices=None):
     """A Pipeline in run_wd over wd's inputs, its 04_filter holding the
-    records of the reads ``keep``: (pipeline, stem)."""
+    records of the reads ``keep``: (pipeline, stem). ``mesh_devices``: a
+    1xN mesh over these devices."""
     from phylign_tpu_torch.config import Config
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
@@ -937,7 +996,10 @@ def _align_pipeline(wd: Path, run_wd: Path, device: str, names, reads, cands, ke
         for d in ("asms", "data", "input"):
             (run_wd / d).symlink_to(wd / d)
         shutil.copy(wd / "config.yaml", run_wd / "config.yaml")
-    pl = Pipeline(Config.from_yaml(wd / "config.yaml"), run_wd, device=device)
+    cfg = Config.from_yaml(wd / "config.yaml")
+    if mesh_devices:
+        cfg = cfg.with_overrides(mesh_shape=f"1x{len(mesh_devices)}")
+    pl = Pipeline(cfg, run_wd, device=device, mesh_devices=mesh_devices)
     stem = pl.preprocess([str(wd / "input" / "align_reads.fq")])
     _write_filter(pl, stem, names, reads, cands, keep)
     return pl, stem
@@ -1049,7 +1111,191 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
     if profile:
         pl_p, stem_p = _align_pipeline(wd, work / "align_profiled", "cuda", names, reads, cands, range(P7_READS))
         emit("align_profile", card=label, **profile_align(pl_p, stem_p, ROOT / "chiprun_out" / "align_profile.txt"))
-    return counts
+    return counts, dict(names=names, reads=reads, cands=cands, align_s=align_s)
+
+
+# --- phase 8: the device mesh on the one card ----------------------------------
+
+#: phase 8's doc shards and its 2x2 mesh's devices: every cell on the one card
+P8_ND = 2
+P8_MESH = ["cuda:0"] * 4
+#: phase 8 (a)'s cases, phase 2's main-path calls on one doc shard's slice
+P8_CASES = {
+    "b2_h1_q9216_shard": ("match_popcount_b2", 9216, 128, 1),
+    "b1_h3_q1024_shard": ("match_popcount_b1", 1024, 128, 3),
+}
+#: the per-shard case of each kernel in the kernel table
+SHARD_CASE = {
+    "match_popcount_b2": "b2_h1_q9216_shard", "match_popcount_b1": "b1_h3_q1024_shard",
+    "chain_scan": "b3_a32_shard", "extend_scan": "b4_score_shard",
+}
+
+
+def phase_mesh_kernels(label: str) -> dict:
+    """(a) B1 and B2 on doc-shard slices: phase 2's words padded to a
+    multiple of 8 * P8_ND columns (the mesh layout: 68 -> 80), each shard's
+    contiguous [S+1, 40] slice; bit-exact against the plain version on the
+    slice for every row set, the shards side by side against the full
+    width on the first; timed over ROTATION row sets on shard 0."""
+    import torch
+
+    from phylign_tpu_torch.ops import match as opm
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    lane = 8 * P8_ND
+    wpad = -(-WP // lane) * lane
+    words = torch.zeros((S + 1, wpad), dtype=torch.int32, device="cuda")
+    words[:S, :WP] = random_words(gen, S)
+    w_loc = wpad // P8_ND
+    shards = [words[:, d * w_loc : (d + 1) * w_loc].contiguous() for d in range(P8_ND)]
+    out = {}
+    for case, (name, q, k, h) in P8_CASES.items():
+        sets = [case_rows(gen, q, k, h) for _ in range(ROTATION)]
+        fn = opm.match_scores_b1 if name.endswith("b1") else opm.match_scores_b2
+        for i, rows in enumerate(sets):
+            parts = [fn(sh, rows) for sh in shards]
+            for d, (sh, got) in enumerate(zip(shards, parts)):
+                if not torch.equal(got, opm.match_scores_ref(sh, rows)):
+                    raise AssertionError(f"{case}: {name} on doc shard {d} differs from match_scores_ref")
+            if i == 0 and not torch.equal(torch.cat(parts, dim=1), opm.match_scores_ref(words, rows)):
+                raise AssertionError(f"{case}: the doc shards side by side differ from the full width")
+        torch.cuda.synchronize()
+        ms = min(cuda_ms(lambda i: fn(shards[0], sets[i]), 6 * ROTATION, ROTATION) for _ in range(2))
+        bounds = [gather_bound(r, w_loc) for r in sets]
+        bound_ms = sum(b["bound_ms"] for b in bounds) / ROTATION
+        out[case] = dict(
+            kernel=name, q=q, k=k, h=h, S=S, Wp=WP, Wp_padded=wpad, doc_shards=P8_ND, shard_words=w_loc,
+            max_abs_err=0, ms=ms, plain_ms=cuda_ms(lambda i: opm.match_scores_ref(shards[0], sets[i]), 2, 2),
+            bytes=sum(b["bytes"] for b in bounds) / ROTATION, bound_ms=bound_ms,
+            bound_by=bounds[0]["bound_by"], bound_share=bound_ms / ms,
+            geometry=list(opm.launch_geometry(w_loc, k, h)),
+        )
+        emit("mesh_kernels", case=case, rotation=ROTATION, card=label, **out[case])
+        del sets
+    del words, shards
+    torch.cuda.empty_cache()
+    return out
+
+
+def _outputs(wd: Path, dirs=("intermediate/03_match", "intermediate/04_filter",
+                             "intermediate/05_map", "output")) -> dict:
+    out = {}
+    for d in dirs:
+        for p in sorted((wd / d).iterdir()):
+            out[f"{d}/{p.name}"] = gzip.open(p, "rb").read() if p.suffix == ".gz" else p.read_bytes()
+    return out
+
+
+def _same_hits(got, want) -> bool:
+    """Hit lists equal as sets per query (torch.topk orders ties freely),
+    n_keep exactly."""
+    return list(got[1]) == list(want[1]) and all(sorted(a) == sorted(b) for a, b in zip(got[0], want[0]))
+
+
+def phase_mesh(work: Path, label: str, p7: dict) -> dict:
+    """(b)-(e): the mesh through the port's entry points, each against the
+    1x1 card run; kernel launches counted in each drive."""
+    import socket
+
+    import torch
+    import torch.distributed as tdist
+
+    from phylign_tpu_torch.config import Config
+    from phylign_tpu_torch.io import cobs as iocobs
+    from phylign_tpu_torch.io.fastx import read_fastx_file
+    from phylign_tpu_torch.kmer import cobs_kmer_hashes_batch, encode_seq
+    from phylign_tpu_torch.models.matcher import Matcher
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+    from phylign_tpu_torch.pipeline.stages import Pipeline
+
+    counts = {}
+
+    def drive(key, fn):
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[key] = _align_counts()
+        return res, secs
+
+    # (b) phase 4's batches through score_hits_raw, 2x2 mesh against 1x1
+    full = work / "full"
+    cfg = Config.from_yaml(full / "config.yaml")
+    thr, topn = cfg.cobs_kmer_thres, cfg.nb_best_hits
+    seqs = [r.seq.encode() for r in read_fastx_file(full / "input" / "reads.fq")]
+    raw = cobs_kmer_hashes_batch([encode_seq(s) for s in seqs], 31, 1)
+    mesh = make_mesh(2, 2, devices=P8_MESH)
+    one_s = mesh_s = 0.0
+    n_hits = 0
+    b_counts = {}
+    for b in (full / "data" / "batches.txt").read_text().split():
+        didx = iocobs.load_device_index(full / "cobs_device_cache" / b, mmap=True)
+        t0 = time.perf_counter()
+        one = Matcher.from_device_index(didx, "cuda").score_hits_raw(raw, thr, topn)
+        torch.cuda.synchronize()
+        one_s += time.perf_counter() - t0
+        got, secs = drive("b", lambda: Matcher.from_device_index(didx, "cuda", mesh=mesh).score_hits_raw(raw, thr, topn))
+        mesh_s += secs
+        b_counts = {k: b_counts.get(k, 0) + v for k, v in counts["b"].items()}
+        if not _same_hits(got, one):
+            raise AssertionError(f"mesh score_hits_raw on {b} differs from the 1x1 card run")
+        n_hits += sum(len(h) for h in got[0])
+    last = got  # the last batch's mesh hits: (e)'s reference
+    counts["b"] = b_counts
+    if not counts["b"]["match_popcount_b2"]:
+        raise AssertionError(f"the 2x2 mesh did not launch B2: {counts['b']}")
+    emit("mesh_match", mesh="2x2", devices=P8_MESH, batches=4, reads=len(seqs), hits=n_hits,
+         one_device_s=one_s, mesh_s=mesh_s, launches=counts["b"], one_device="equal", card=label)
+
+    # (c) phase 6's fixture through Pipeline.run_all on the 2x2 mesh
+    wd = work / "fixture_mesh"
+    shutil.copytree(work / "fixture", wd, ignore=shutil.ignore_patterns("intermediate", "output", "logs"))
+    pl = Pipeline(Config.from_yaml(wd / "config.yaml").with_overrides(mesh_shape="2x2"), wd,
+                  device="cuda", mesh_devices=P8_MESH)
+    _, secs = drive("c", lambda: pl.run_all(sorted(str(p) for p in (wd / "input").iterdir())))
+    got, want = _outputs(wd), _outputs(work / "fixture_all_cuda")
+    if got != want:
+        raise AssertionError(f"fixture on the 2x2 mesh differs from phase 6 in {[k for k in want if got.get(k) != want[k]]}")
+    if not all(counts["c"].values()):
+        raise AssertionError(f"the fixture on the 2x2 mesh did not launch every kernel: {counts['c']}")
+    emit("mesh_fixture", mesh="2x2", files=len(got), seconds=secs, launches=counts["c"],
+         one_device="identical", card=label)
+
+    # (d) phase 7's align stage on a 1x2 mesh
+    pl, stem = _align_pipeline(work / "align", work / "align_mesh", "cuda", p7["names"], p7["reads"],
+                               p7["cands"], range(P7_READS), mesh_devices=P8_MESH[:2])
+    _, align_s = drive("d", lambda: pl.align(stem))
+    pl.aggregate(stem)
+    pl.stats(stem)
+    dirs = ("intermediate/05_map", "output")
+    if _outputs(work / "align_mesh", dirs) != _outputs(work / "align", dirs):
+        raise AssertionError("the align stage on the 1x2 mesh differs from phase 7's 1x1 run")
+    if not (counts["d"]["chain_scan"] and counts["d"]["extend_scan"]):
+        raise AssertionError(f"the 1x2 mesh did not launch B3 and B4: {counts['d']}")
+    pairs = P7_READS * P7_CANDS
+    emit("mesh_align", mesh="1x2", devices=P8_MESH[:2], reads=P7_READS, pairs=pairs, align_s=align_s,
+         pairs_per_s=pairs / align_s, one_device_align_s=p7["align_s"],
+         one_device_pairs_per_s=pairs / p7["align_s"], launches=counts["d"], one_device="identical",
+         card=label)
+
+    # (e) a one-rank nccl group: the top-k gather through all_gather_into_tensor
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        pg_mesh = make_mesh(2, 2, devices=P8_MESH, group=tdist.group.WORLD)
+        if pg_mesh.comm_device.type != "cuda":
+            raise AssertionError(f"the nccl mesh gathers on {pg_mesh.comm_device}")
+        pg, secs = drive("e", lambda: Matcher.from_device_index(didx, "cuda", mesh=pg_mesh).score_hits_raw(raw, thr, topn))
+    finally:
+        tdist.destroy_process_group()
+    if not _same_hits(pg, last):
+        raise AssertionError("the one-rank nccl mesh differs from the in-process mesh")
+    emit("mesh_nccl", mesh="2x2", backend="nccl", world_size=1, batch=b, seconds=secs,
+         hits=sum(len(h) for h in last[0]), launches=counts["e"], in_process_mesh="equal", card=label)
+    return {k: sum(c.get(k, 0) for c in counts.values()) for k in counts["c"]}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1104,31 +1350,40 @@ def main(argv: list[str] | None = None) -> int:
         c3 = phase_fixture(work)
         c4 = phase_full_geometry(work, label)
         c6 = phase_fixture_all(work)
-        c7 = phase_align_geometry(work, label, args.profile)
+        c7, p7 = phase_align_geometry(work, label, args.profile)
+        mkern = phase_mesh_kernels(label)
+        c8 = phase_mesh(work, label, p7)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    def shard(name: str) -> dict:
+        k = {**akern, **mkern}[SHARD_CASE[name]]
+        return dict(shard_case=SHARD_CASE[name], shard_ms=k["ms"], shard_bound_ms=k["bound_ms"],
+                    shard_bound_share=k["bound_share"])
 
     table = []
     for name, case in MAIN_CASE.items():
         k = kern[case]
         table.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
-            launches=c3[name] + c4[name] + c6[name], launches_phase3=c3[name],
-            launches_phase4=c4[name], launches_phase6=c6[name],
-            case=case, max_abs_err=max(v["max_abs_err"] for v in kern.values() if v["kernel"] == name),
+            launches=c3[name] + c4[name] + c6[name] + c8[name], launches_phase3=c3[name],
+            launches_phase4=c4[name], launches_phase6=c6[name], launches_phase8=c8[name],
+            case=case, max_abs_err=max(v["max_abs_err"] for v in [*kern.values(), *mkern.values()]
+                                       if v["kernel"] == name),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             bound_share=k["bound_share"], distinct_rows=k["distinct_rows"], bytes=k["bytes"],
-            library_ms=None,
+            library_ms=None, **shard(name),
         ))
     for name, case in MAIN_ALIGN_CASE.items():
         k = akern[case]
         table.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
-            launches=c6[name] + c7[name], launches_phase6=c6[name], launches_phase7=c7[name],
+            launches=c6[name] + c7[name] + c8[name], launches_phase6=c6[name], launches_phase7=c7[name],
+            launches_phase8=c8[name],
             case=case, max_abs_err=max(v["max_abs_err"] for v in akern.values() if v["kernel"] == name),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             bound_share=k["bound_share"], bytes=k["bytes"], operations=k["operations"],
-            library_ms=None,
+            library_ms=None, **shard(name),
         ))
     print(json.dumps({"kernels": table}), flush=True)
     print(label, flush=True)

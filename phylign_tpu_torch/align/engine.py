@@ -14,8 +14,10 @@ chained and extended as fixed-shape device batches:
 Device work runs on ``device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels). Each group of host arrays goes up in one
 non-blocking copy from pinned memory (_upload) and each result comes back in
-one copy into pinned memory (_HostCopy). A device device (``device``) is not
-ported yet: passing one raises NotImplementedError.
+one copy into pinned memory (_HostCopy). With a device mesh
+(``parallel.mesh``), chaining, extension and the fused flush run
+data-parallel over the mesh's query axis (``parallel.dist``, B3/B4 on each
+query shard's pairs), with identical records.
 
 Output order matches the reference: genomes in tar order, and for each
 genome its queries in filtered-file order (batch_align.py:448-478 +
@@ -41,6 +43,7 @@ from phylign_tpu_torch.match.filter import FilteredQuery
 from phylign_tpu_torch.ops import chain as opc
 from phylign_tpu_torch.ops import extend as ope
 from phylign_tpu_torch.ops import minimizer as opm
+from phylign_tpu_torch.parallel import dist
 from phylign_tpu_torch.utils.platform import resolve_device
 
 
@@ -252,6 +255,13 @@ class AlignParams:
             ),
         )
 
+    def check_kernel(self, longest: int) -> None:
+        """Raise ValueError when kernel B4's int32 DP cannot hold this
+        scoring for a read of ``longest`` bases: ops.extend.kernel_scoring
+        at the most rows a launch gives such a read (its length bucket) and
+        the band. A CUDA run checks its longest read before matching."""
+        ope.kernel_scoring(self.scoring, _query_rows(longest), self.band)
+
 
 @dataclass
 class QuerySketch:
@@ -302,18 +312,28 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _bucket_pairs(n: int) -> int:
-    """Pad pair count to a power of two: few distinct shapes per run."""
-    return max(8, 1 << (n - 1).bit_length())
+def _query_rows(n: int) -> int:
+    """The extension rows of a read of n bases: its length bucket (the
+    fused flush pads a chunk's reads to a multiple of 32, at most this)."""
+    return _round_up(max(32, n), 256)
+
+
+def _bucket_pairs(n: int, q_mult: int = 1) -> int:
+    """Pad pair count to a power of two (few distinct shapes per run) and,
+    with a mesh, to a multiple of the query axis so the pairs split evenly."""
+    p = max(8, 1 << (n - 1).bit_length())
+    return _round_up(p, q_mult)
+
+
+def _mesh_q(mesh) -> int:
+    return 1 if mesh is None else mesh.shape["q"]
 
 
 def _resolve(mesh, device) -> torch.device:
-    """The device of a public entry point; a mesh is not ported yet."""
+    """The device of a public entry point: the mesh's home device (where
+    results gathered over the mesh land) when a mesh is given."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not yet ported to phylign_tpu_torch (ROADMAP "
-            "queue A item 11, parallel/); pass mesh=None"
-        )
+        return mesh.home
     return resolve_device(device)
 
 
@@ -420,9 +440,11 @@ def _chain_bucket(
     a: int,
     params: AlignParams,
     device: torch.device,
+    mesh=None,
 ) -> opc.ChainResult:
-    """One padded device chain call over the given anchor-set indices."""
-    p = _bucket_pairs(len(idxs))
+    """One padded device chain call over the given anchor-set indices (data
+    parallel over the query axis with a mesh)."""
+    p = _bucket_pairs(len(idxs), _mesh_q(mesh))
     rpos = np.full((p, a), opc.PAD_POS, np.int32)
     qpos = np.full((p, a), opc.PAD_POS, np.int32)
     # vectorized padded fill: one concatenate + one 2-D scatter instead of a
@@ -450,8 +472,12 @@ def _chain_bucket(
         # uint16 qpos on the wire (slot validity comes from rpos alone)
         q16 = np.zeros((p, a), np.uint16)
         np.copyto(q16, qpos, casting="unsafe", where=qpos < opc.PAD_POS)
+        if mesh is not None:
+            return dist.dist_chain(mesh, rpos, q16.view(np.int16), **kw)
         rj, qj = _upload((rpos, q16), device)
         return opc.chain_anchors_packed(rj, qj, **kw)
+    if mesh is not None:
+        return dist.dist_chain(mesh, rpos, qpos, **kw)
     rj, qj = _upload((rpos, qpos), device)
     return opc.chain_anchors(rj, qj, **kw)
 
@@ -511,11 +537,12 @@ def _unpack_chain_result(ints: np.ndarray, flts: np.ndarray, sup_score: np.ndarr
 
 
 def _chain_pairs(
-    anchor_sets: list[opm.Anchors], params: AlignParams, device: torch.device
+    anchor_sets: list[opm.Anchors], params: AlignParams, device: torch.device,
+    mesh=None,
 ) -> ChainHost:
     """Chain all anchor sets, bucketed by anchor count (one padded device
-    call per occupied size bucket). Returns host arrays in anchor-set
-    order."""
+    call per occupied size bucket; sharded over the query axis when a mesh
+    is given). Returns host arrays in anchor-set order."""
     n = len(anchor_sets)
     counts = [len(a.rpos) for a in anchor_sets]
     over = [c for c in counts if c > opc.MAX_ANCHORS]
@@ -557,7 +584,7 @@ def _chain_pairs(
         (
             idxs,
             _pack_chain_result(
-                _chain_bucket(anchor_sets, idxs, a_pad, params, device)
+                _chain_bucket(anchor_sets, idxs, a_pad, params, device, mesh)
             ),
         )
         for a_pad, idxs in sorted(by_bucket.items())
@@ -923,6 +950,7 @@ class _ExtCtx:
     lmax: int
     params: AlignParams
     device: torch.device
+    mesh: object
     n: int
     wlen: int
     q_codes: np.ndarray
@@ -943,6 +971,7 @@ def _extend_dispatch(
     lmax: int,
     params: AlignParams,
     device: torch.device,
+    mesh=None,
 ) -> _ExtCtx:
     """Banded extension for one length-bucketed chunk of chained pairs:
     build the host windows and DISPATCH the score-only device pass (async).
@@ -955,7 +984,7 @@ def _extend_dispatch(
     diagonal. Short-read alignments are overwhelmingly gapless, so the
     expensive [P, L, BAND] plane transfer runs for a small remainder.
     """
-    p = _bucket_pairs(len(items))
+    p = _bucket_pairs(len(items), _mesh_q(mesh))
     n = len(items)
     wlen = lmax + params.band
     q_codes = np.zeros((p, lmax), np.uint8)
@@ -1014,17 +1043,20 @@ def _extend_dispatch(
     lo_p = np.zeros(p, np.int32)
     hi_p = np.zeros(p, np.int32)
     lo_p[:n], hi_p[:n] = lo_b, hi_b
-    qp_j, lj, rp_j, lo_j, hi_j = _upload(
-        (ope.pack2bit(q_codes), q_len, ope.pack2bit(rwin), lo_p, hi_p), device
-    )
-    sc_dev, end_dev = ope.extend_banded_scores_packed(
-        qp_j, lj, rp_j, lo_j, hi_j, lmax, wlen, scoring=params.scoring
-    )
+    host_in = (ope.pack2bit(q_codes), q_len, ope.pack2bit(rwin), lo_p, hi_p)
+    if mesh is not None:
+        sc_dev, end_dev = dist.dist_extend_scores_packed(
+            mesh, *host_in, lmax, wlen, scoring=params.scoring
+        )
+    else:
+        sc_dev, end_dev = ope.extend_banded_scores_packed(
+            *_upload(host_in, device), lmax, wlen, scoring=params.scoring
+        )
     # (score f32, end_d i32) as ONE [P, 2] f32 array on its way to the host
     sc_end = _HostCopy([_pack_score_end(sc_dev, end_dev)])
     return _ExtCtx(
         tasks=tasks, items=items, lmax=lmax, params=params, device=device,
-        n=n, wlen=wlen, q_codes=q_codes, q_len=q_len, rwin=rwin,
+        mesh=mesh, n=n, wlen=wlen, q_codes=q_codes, q_len=q_len, rwin=rwin,
         rvalid=rvalid, lo_p=lo_p, hi_p=hi_p, w0_arr=w0_arr,
         c_start_arr=c_start_arr, contig_ids=contig_ids,
         sc_end=sc_end,
@@ -1040,6 +1072,7 @@ def _extend_finish(
     record, only their alignment's Kadane-best DP score (mm2's dp_max2,
     gated at min_dp_score the way mm_filter_regs drops weak regions)."""
     tasks, items, params, device = ctx.tasks, ctx.items, ctx.params, ctx.device
+    mesh = ctx.mesh
     lmax, n, wlen = ctx.lmax, ctx.n, ctx.wlen
     q_codes, q_len = ctx.q_codes, ctx.q_len
     rwin, rvalid = ctx.rwin, ctx.rvalid
@@ -1071,28 +1104,29 @@ def _extend_finish(
     ext = None
     if gapped:
         gi = np.asarray(gapped)
-        gp = _bucket_pairs(len(gapped))
+        gp = _bucket_pairs(len(gapped), _mesh_q(mesh))
 
         def pad(a):
             out = np.zeros((gp,) + a.shape[1:], a.dtype)
             out[: len(gi)] = a[gi]
             return out
 
-        gq, gl, gr, glo, ghi = _upload(
-            (
-                ope.pack2bit(pad(q_codes)),
-                pad(q_len),
-                ope.pack2bit(pad(rwin)),
-                pad(lo_p),
-                pad(hi_p),
-            ),
-            device,
+        g_in = (
+            ope.pack2bit(pad(q_codes)),
+            pad(q_len),
+            ope.pack2bit(pad(rwin)),
+            pad(lo_p),
+            pad(hi_p),
         )
-        ext = _HostCopy(
-            [ope.extend_banded_packed(
-                gq, gl, gr, glo, ghi, lmax, wlen, scoring=params.scoring
-            ).p_plane]
-        )
+        if mesh is not None:
+            g_ext = dist.dist_extend_packed(
+                mesh, *g_in, lmax, wlen, scoring=params.scoring
+            )
+        else:
+            g_ext = ope.extend_banded_packed(
+                *_upload(g_in, device), lmax, wlen, scoring=params.scoring
+            )
+        ext = _HostCopy([g_ext.p_plane])
     # ALL per-record scalars converted host-side in bulk (a python-int list
     # indexes ~100x faster than per-element numpy scalar conversion)
     q_len_l = q_len[:n].tolist()
@@ -1320,7 +1354,7 @@ def flush_pairs_host_grouped(
     # per (pair, strand); alt = best same-strand overlapping competitor)
     cands: dict[int, list[tuple]] = {}
     if anchor_sets:
-        ch = _chain_pairs(anchor_sets, params, device)
+        ch = _chain_pairs(anchor_sets, params, device, mesh)
         n_sup = ch.sup_score.shape[1]
         min_cnt, min_sc = params.min_chain_cnt, params.min_chain_score
         ti_a = np.fromiter((m[0] for m in meta), np.int64, count=len(meta))
@@ -1426,9 +1460,9 @@ def flush_pairs_host_grouped(
                 chained.append(((ti, len(picked)), c[:6] + (0.0, c[6])))
                 picked.append(c)
 
-    records, probes = _extend_items(tasks, chained, params, device)
+    records, probes = _extend_items(tasks, chained, params, device, mesh)
     groups = _group_task_records(tasks, records, params, probes)
-    _reseed_retry(tasks, groups, set(cands), params, device)
+    _reseed_retry(tasks, groups, set(cands), params, device, mesh)
     return groups
 
 
@@ -1476,6 +1510,7 @@ def _extend_items(
     chained: list[tuple[tuple[int, int], tuple]],
     params: AlignParams,
     device: torch.device,
+    mesh=None,
 ) -> tuple[dict[tuple[int, int], SamRecord], dict[int, int]]:
     """Extend a list of selected chain segments -> ({(ti, seg): record},
     {ti: probe dp_max2}).
@@ -1490,7 +1525,7 @@ def _extend_items(
     by_bucket: dict[int, list] = {}
     for item in chained:
         ti = item[0][0]
-        lb = _round_up(max(32, len(tasks[ti].sketch.codes)), 256)
+        lb = _query_rows(len(tasks[ti].sketch.codes))
         by_bucket.setdefault(lb, []).append(item)
     chunks = []
     for lb, items in sorted(by_bucket.items()):
@@ -1507,7 +1542,7 @@ def _extend_items(
             probes[pti] = max(probes.get(pti, 0), v)
 
     for ck, lb in chunks:
-        inflight.append(_extend_dispatch(tasks, ck, lb, params, device))
+        inflight.append(_extend_dispatch(tasks, ck, lb, params, device, mesh))
         if len(inflight) >= DEPTH:
             drain(inflight.pop(0))
     for ctx in inflight:
@@ -1533,21 +1568,27 @@ class _FusedCtx:
     params: AlignParams
     device: torch.device
     contig_names: list[str]  # global contig id -> rname
-    packed: "_HostCopy"  # the packed u8 buffer on its way to the host
+    # the packed u8 buffer on its way to the host; with a mesh, (hot, flts,
+    # neq_pack) unpacked (the cold rows are not compacted on a mesh)
+    packed: "_HostCopy"
     cold: tuple  # (cold_i, cold_f) full device tensors (compaction overflow)
     p_pad: int = 0  # padded pair rows (packed fetch unpack)
+    mesh: object = None
 
 
 def _fused_dispatch(
-    tasks: list[PairTask], tis: list[int], params: AlignParams, device: torch.device
+    tasks: list[PairTask], tis: list[int], params: AlignParams,
+    device: torch.device, mesh=None,
 ) -> _FusedCtx:
     """Build + upload one fused chunk's inputs and dispatch the whole
     chain -> select -> extend program (async; its result's copy to the host
-    starts here and is waited for in _fused_finish)."""
+    starts here and is waited for in _fused_finish). With a mesh every
+    stage runs data-parallel over the query axis (fused.dist_select_extend)."""
     from phylign_tpu_torch.align import fused as fz
 
     n = len(tis)
-    p = _bucket_pairs(n)
+    qmul = _mesh_q(mesh)
+    p = _bucket_pairs(n, qmul)
 
     # --- anchor sets -> size buckets -> per-bucket chain dispatch -----------
     anchor_sets: list[opm.Anchors] = []
@@ -1574,16 +1615,16 @@ def _fused_dispatch(
     flat_of = np.full(len(anchor_sets), -1, np.int64)
     offset = 0
     for a_pad, idxs in sorted(by_bucket.items()):
-        chains.append(_chain_bucket(anchor_sets, idxs, a_pad, params, device))
-        pb = _bucket_pairs(len(idxs))
+        chains.append(_chain_bucket(anchor_sets, idxs, a_pad, params, device, mesh))
+        pb = _bucket_pairs(len(idxs), qmul)
         flat_of[np.asarray(idxs)] = offset + np.arange(len(idxs))
         offset += pb
     s_tot = offset  # dummy slot index (scores -inf)
     if not chains:  # no anchors anywhere: one empty bucket keeps shapes legal
         chains.append(
-            _chain_bucket([], [], ANCHOR_BUCKETS[0], params, device)
+            _chain_bucket([], [], ANCHOR_BUCKETS[0], params, device, mesh)
         )
-        s_tot = _bucket_pairs(0)
+        s_tot = _bucket_pairs(0, qmul)
 
     cand_map = np.full((p, 2), s_tot, np.int32)
     if set_meta:
@@ -1663,15 +1704,21 @@ def _fused_dispatch(
     )
     host_in = (cand_map, pair_base, pair_reflen, q_pack, q_len,
                pool_pack, cst, clen)
-    dev_in = _upload(host_in, device)  # one copy
-    # pack=True: hot/flts/neq/compact-cold ride ONE u8 buffer, whose copy to
-    # pinned memory starts now (it follows the compute on the stream): by
-    # the time _fused_finish reads it, the bytes are host-side
-    packed, cold = fz.select_extend(tuple(chains), *dev_in, pack=True, **kw)
+    if mesh is not None:
+        hot, flts, neq_pack, cold = fz.dist_select_extend(mesh, tuple(chains), *host_in, **kw)
+        packed = [hot, flts, neq_pack]
+    else:
+        dev_in = _upload(host_in, device)  # one copy
+        # pack=True: hot/flts/neq/compact-cold ride ONE u8 buffer, whose
+        # copy to pinned memory starts now (it follows the compute on the
+        # stream): by the time _fused_finish reads it, the bytes are
+        # host-side
+        packed, cold = fz.select_extend(tuple(chains), *dev_in, pack=True, **kw)
+        packed = [packed]
     return _FusedCtx(
         tasks=tasks, tis=tis, lmax=lmax, params=params, device=device,
-        contig_names=contig_names, packed=_HostCopy([packed]), cold=cold,
-        p_pad=p,
+        contig_names=contig_names, packed=_HostCopy(packed), cold=cold,
+        p_pad=p, mesh=mesh,
     )
 
 
@@ -1779,28 +1826,32 @@ def _fused_finish(
     tasks = ctx.tasks
     n = len(tis)
     n_sup = max(0, params.max_segments - 1)
-    # ONE packed u8 fetch, unpacked by fixed offsets
-    (packed,) = ctx.packed.get()
-    p_pad, nb = ctx.p_pad, lmax // 8
-    ci_cols = 4 + 6 * n_sup + 5
-    o = 0
-    hot = packed[o : o + 16 * p_pad].view(np.int32).reshape(p_pad, 4)
-    o += 16 * p_pad
-    flts = packed[o : o + 8 * p_pad].view(np.float32).reshape(p_pad, 2)
-    o += 8 * p_pad
-    neqp = packed[o : o + nb * p_pad].reshape(p_pad, nb)
-    o += nb * p_pad
-    cc_i = (
-        packed[o : o + 4 * fz.COLD_CAP * ci_cols]
-        .view(np.int32)
-        .reshape(fz.COLD_CAP, ci_cols)
-    )
-    o += 4 * fz.COLD_CAP * ci_cols
-    cc_f = (
-        packed[o:].view(np.float32).reshape(fz.COLD_CAP, n_sup)
-        if n_sup
-        else np.zeros((fz.COLD_CAP, 0), np.float32)
-    )
+    compacted = ctx.mesh is None
+    if compacted:
+        # ONE packed u8 fetch, unpacked by fixed offsets
+        (packed,) = ctx.packed.get()
+        p_pad, nb = ctx.p_pad, lmax // 8
+        ci_cols = 4 + 6 * n_sup + 5
+        o = 0
+        hot = packed[o : o + 16 * p_pad].view(np.int32).reshape(p_pad, 4)
+        o += 16 * p_pad
+        flts = packed[o : o + 8 * p_pad].view(np.float32).reshape(p_pad, 2)
+        o += 8 * p_pad
+        neqp = packed[o : o + nb * p_pad].reshape(p_pad, nb)
+        o += nb * p_pad
+        cc_i = (
+            packed[o : o + 4 * fz.COLD_CAP * ci_cols]
+            .view(np.int32)
+            .reshape(fz.COLD_CAP, ci_cols)
+        )
+        o += 4 * fz.COLD_CAP * ci_cols
+        cc_f = (
+            packed[o:].view(np.float32).reshape(fz.COLD_CAP, n_sup)
+            if n_sup
+            else np.zeros((fz.COLD_CAP, 0), np.float32)
+        )
+    else:
+        hot, flts, neqp = ctx.packed.get()
 
     meta = hot[:n, 2]
     flags = meta & 0xFF
@@ -1825,8 +1876,8 @@ def _fused_finish(
 
     # delegated work: gapped primaries + supplementary segments. Their
     # coordinates ride in the compacted cold slots of the main fetch
-    # or a full cold fetch on compaction overflow: the common all-gapless
-    # flush pays no extra bytes or copies.
+    # (single device), or a full cold fetch (mesh / compaction overflow):
+    # the common all-gapless flush pays no extra bytes or copies.
     sup_mask = np.int32(0)
     for s in range(n_sup):
         sup_mask |= np.int32(fz.F_SUP0 << s)
@@ -1844,7 +1895,7 @@ def _fused_finish(
     trim_rows = np.flatnonzero(has & ~full & diag).tolist()
     cold_i = None
     if len(need_rows):
-        if len(need_rows) <= fz.COLD_CAP:
+        if compacted and len(need_rows) <= fz.COLD_CAP:
             # compact slot j holds cold data of the j-th needed row
             cold_i = np.zeros((n, cc_i.shape[1]), np.int32)
             cold_f = np.zeros((n, cc_f.shape[1]), np.float32)
@@ -2099,6 +2150,7 @@ class FusedFlush:
     tasks: list
     params: AlignParams
     device: torch.device
+    mesh: object
     inflight: list[_FusedCtx]
     queued: list[list[int]]  # chunk tis not yet dispatched
     # host-path fallback result: one record group per task (pool order)
@@ -2129,12 +2181,13 @@ def flush_pairs_begin(
         fused = False
     if not fused:
         return FusedFlush(
-            tasks=tasks, params=params, device=device, inflight=[], queued=[],
-            host_records=flush_pairs_host_grouped(tasks, params, device=device),
+            tasks=tasks, params=params, device=device, mesh=mesh, inflight=[],
+            queued=[],
+            host_records=flush_pairs_host_grouped(tasks, params, mesh, device=device),
         )
     by_lb: dict[int, list[int]] = {}
     for ti, t in enumerate(tasks):
-        lb = _round_up(max(32, len(t.sketch.codes)), 256)
+        lb = _query_rows(len(t.sketch.codes))
         by_lb.setdefault(lb, []).append(ti)
     chunks: list[list[int]] = []
     for lb, tis in sorted(by_lb.items()):
@@ -2142,11 +2195,12 @@ def flush_pairs_begin(
         for off in range(0, len(tis), max_p):
             chunks.append(tis[off : off + max_p])
     ff = FusedFlush(
-        tasks=tasks, params=params, device=device, inflight=[], queued=chunks
+        tasks=tasks, params=params, device=device, mesh=mesh, inflight=[],
+        queued=chunks,
     )
     while ff.queued and len(ff.inflight) < _FUSED_DEPTH:
         ff.inflight.append(
-            _fused_dispatch(tasks, ff.queued.pop(0), params, device)
+            _fused_dispatch(tasks, ff.queued.pop(0), params, device, mesh)
         )
     return ff
 
@@ -2166,7 +2220,7 @@ def flush_pairs_end_grouped(ff: FusedFlush) -> list[list[SamRecord]]:
     to its source batch."""
     if ff.host_records is not None:
         return ff.host_records
-    tasks, params, device = ff.tasks, ff.params, ff.device
+    tasks, params, device, mesh = ff.tasks, ff.params, ff.device, ff.mesh
     records: dict[tuple[int, int], SamRecord] = {}
     delegated: list = []
     had_chain: set[int] = set()
@@ -2177,14 +2231,14 @@ def flush_pairs_end_grouped(ff: FusedFlush) -> list[list[SamRecord]]:
         had_chain.update(had)
         if ff.queued:
             ff.inflight.append(
-                _fused_dispatch(tasks, ff.queued.pop(0), params, device)
+                _fused_dispatch(tasks, ff.queued.pop(0), params, device, mesh)
             )
     probes: dict[int, int] = {}
     if delegated:
-        rec2, probes = _extend_items(tasks, delegated, params, device)
+        rec2, probes = _extend_items(tasks, delegated, params, device, mesh)
         records.update(rec2)
     groups = _group_task_records(tasks, records, params, probes)
-    _reseed_retry(tasks, groups, had_chain, params, device)
+    _reseed_retry(tasks, groups, had_chain, params, device, mesh)
     return groups
 
 
@@ -2199,7 +2253,7 @@ def flush_pairs_fused(
     device = _resolve(mesh, device)
     if not tasks:
         return []
-    return flush_pairs_end(flush_pairs_begin(tasks, params, fused=True, device=device))
+    return flush_pairs_end(flush_pairs_begin(tasks, params, mesh, fused=True, device=device))
 
 
 def _hard_clip(rec: SamRecord) -> SamRecord:
@@ -2237,7 +2291,7 @@ def align_genome(
     if not sketches:
         return []
     ref = opm.build_ref_index(rname, contigs, params.k, params.w, hpc=params.hpc)
-    return flush_pairs(make_pairs_batch(ref, list(sketches), params), params, device=device)
+    return flush_pairs(make_pairs_batch(ref, list(sketches), params), params, mesh, device=device)
 
 
 MAPQ_Q_COEF = 40.0  # mm2 hit.c q_coef
@@ -2319,6 +2373,7 @@ def _reseed_retry(
     had_chain: set[int],
     params: AlignParams,
     device: torch.device,
+    mesh=None,
 ) -> None:
     """minimap2's second-chance re-seed (map.c mm_map_frag rechain branch):
     a read whose mid_occ seeding dropped repeat seeds (rep_len > 0) AND
@@ -2351,7 +2406,9 @@ def _reseed_retry(
         retry_tasks.append(PairTask(t.sketch, t.ref, plus, minus, int(rep)))
     log.info("re-seeding %d repeat-dominated pair(s) at max_occ=%d",
              len(retry), params.max_occ)
-    for ti, g in zip(retry, flush_pairs_host_grouped(retry_tasks, retry_params, device=device)):
+    for ti, g in zip(
+        retry, flush_pairs_host_grouped(retry_tasks, retry_params, mesh, device=device)
+    ):
         if g[0].flag != 4:
             groups[ti] = g
 
@@ -2442,7 +2499,7 @@ def align_batch(
 
     def _begin(p):
         with _lk:
-            return flush_pairs_begin(p, params, device=device)
+            return flush_pairs_begin(p, params, mesh, device=device)
 
     def _end(ff):
         with _lk:
@@ -2656,7 +2713,7 @@ def align_batches_pooled(
     def _flush_now():
         nonlocal inflight, pool, owners
         with _lk:
-            nxt = flush_pairs_begin(pool, params, device=device)
+            nxt = flush_pairs_begin(pool, params, mesh, device=device)
         prev, inflight = inflight, (nxt, owners)
         pool, owners = [], []
         if prev is not None:

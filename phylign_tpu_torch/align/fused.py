@@ -409,3 +409,59 @@ def select_extend(
         return hot, flts, neq_pack, (cc_i, cc_f), cold
     packed = torch.cat([_bitcast_u8(a) for a in (hot, flts, neq_pack, cc_i, cc_f)])
     return packed, cold
+
+
+def dist_select_extend(
+    mesh,
+    chains,
+    cand_map,
+    pair_base,
+    pair_reflen,
+    q_pack,
+    q_len,
+    pool_pack,
+    cst,
+    clen,
+    *,
+    lmax: int,
+    wlen: int,
+    half: int,
+    scoring: SrScoring,
+    min_cnt: int,
+    min_score: float,
+    max_segments: int,
+    zdrop: int = 100,
+):
+    """Mesh twin of select_extend: the pair-axis arrays are split over the
+    query axis; the (small) per-set chain outputs, concatenated over the
+    query axis by parallel.dist.dist_chain, go whole to every query shard
+    so each can gather any pair's candidates; the genome pool and the
+    contig table are replicated. Returns (hot, flts, neq_pack, (cold_i,
+    cold_f)) concatenated over the query axis on the mesh's home device.
+    _compact_cold stays single-device: the caller fetches the full cold
+    arrays."""
+    from phylign_tpu_torch.parallel.dist import over_q
+    from phylign_tpu_torch.parallel.mesh import AXIS_QUERY
+
+    flat = _flatten_chains(chains)
+    on_dev: dict = {}
+
+    def step(cm, pb, prl, qp, ql, pool, cst_, clen_):
+        dev = cm.device
+        if dev not in on_dev:  # the gather of every set's chains
+            on_dev[dev] = {k: v.to(dev) for k, v in flat.items()}
+        hot, flts, neq_pack, (cold_i, cold_f) = _select_extend_core(
+            on_dev[dev], cm, pb, prl, qp, ql, pool, cst_, clen_,
+            lmax=lmax, wlen=wlen, half=half, scoring=scoring,
+            min_cnt=min_cnt, min_score=min_score, max_segments=max_segments,
+            zdrop=zdrop,
+        )
+        return hot, flts, neq_pack, cold_i, cold_f
+
+    pair = (AXIS_QUERY,)
+    hot, flts, neq_pack, cold_i, cold_f = over_q(
+        mesh, step,
+        (cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen),
+        (pair, pair, pair, pair, pair, (None,), (None,), (None,)),
+    )
+    return hot, flts, neq_pack, (cold_i, cold_f)

@@ -8,6 +8,12 @@
 output/*.sam_summary.gz and .stats), ``all`` both. The arguments are those
 of ``phylign-tpu`` plus ``--device`` (default ``cuda``; ``cpu`` runs the
 plain PyTorch versions of the kernels). Queries default to ``input/*``.
+``--distributed [COORD]`` forms a ``torch.distributed`` process group
+(SLURM / LSF detected, or explicit ranks) and shards batches by rank. A
+config's ``mesh_shape`` then spans the processes: every rank takes part in
+every batch's scoring (the doc axis may cross processes, and rank 0 writes
+03_match), while the align stage shards batches by rank and splits each
+rank's pairs over the query columns of its own cells.
 """
 
 from __future__ import annotations
@@ -20,11 +26,6 @@ from pathlib import Path
 
 from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.version import __version__
-
-NO_DISTRIBUTED = (
-    "--distributed is not yet ported to phylign_tpu_torch "
-    "(ROADMAP queue A item 11, parallel/)"
-)
 
 
 def _load_config(args) -> Config:
@@ -55,17 +56,42 @@ def _inputs(args) -> list[str]:
     return sorted(found)
 
 
+def _maybe_distributed(args) -> None:
+    """--distributed [COORD]: form the process group before any device
+    work (``gloo`` for ``--device cpu``, ``nccl`` for cuda) and shard
+    batches by rank. With no COORD the scheduler env (SLURM/LSF) is read,
+    else the ranks given with --num-processes / --process-id. A group that
+    does not form exits non-zero."""
+    spec = getattr(args, "distributed", None)
+    if spec is None:
+        return
+    from phylign_tpu_torch.parallel.launch import init_distributed
+
+    try:
+        num, pid = init_distributed(
+            coordinator=None if spec == "auto" else spec,
+            num_processes=args.num_processes, process_id=args.process_id,
+            device=args.device,
+        )
+    except Exception as e:  # noqa: BLE001 - any failure to form the group
+        sys.exit(f"--distributed: the process group did not form: {e}")
+    if num > 1:
+        args.num_processes, args.process_id = num, pid
+
+
 def _wait_for_peers(
     paths,
     what: str,
     timeout_s: float,
     poll_s: float = 2.0,
     stall_s: float = 900.0,
+    rank: int = 0,
 ):
-    """Rank-0 completion barrier for multi-process runs over a shared
-    filesystem: block until every peer output exists (peers write atomically
-    via tmp-then-rename, so existence == complete), with progress logs and a
-    timeout. Replaces the global barrier Snakemake's DAG gives the reference
+    """Completion barrier for multi-process runs over a shared filesystem
+    (rank 0 waits for its peers' outputs; in ``all`` the other ranks wait
+    for rank 0's filter): block until every output exists (writers commit
+    atomically via tmp-then-rename, so existence == complete), with
+    progress logs and a timeout. Replaces the global barrier Snakemake's DAG gives the reference
     for free (its Snakefile:490-520,566-579).
 
     Peer-failure detection: beyond the absolute timeout, the barrier tracks
@@ -106,7 +132,7 @@ def _wait_for_peers(
             return
         if len(missing) != last:
             print(
-                f"rank 0: waiting on {len(missing)} {what} file(s) from "
+                f"rank {rank}: waiting on {len(missing)} {what} file(s) from "
                 f"peer processes (next: {missing[0].name})",
                 flush=True,
             )
@@ -119,14 +145,14 @@ def _wait_for_peers(
         stalled = time.monotonic() - last_progress
         if stall_s > 0 and stalled > stall_s:
             sys.exit(
-                f"rank 0: no peer progress for {stalled:.0f}s while waiting "
+                f"rank {rank}: no peer progress for {stalled:.0f}s while waiting "
                 f"on {len(missing)} {what} file(s) (e.g. {missing[0]}) — a "
                 "peer rank likely crashed; check its logs, re-run that rank "
                 "(resume skips finished batches), then re-run this rank"
             )
         if time.monotonic() - t0 > timeout_s:
             sys.exit(
-                f"rank 0: timed out after {timeout_s:.0f}s waiting on "
+                f"rank {rank}: timed out after {timeout_s:.0f}s waiting on "
                 f"{len(missing)} {what} file(s) (e.g. {missing[0]}); "
                 "re-run this rank to resume once peers finish"
             )
@@ -134,17 +160,15 @@ def _wait_for_peers(
 
 
 def cmd_match(args) -> None:
-    from phylign_tpu_torch.parallel.launch import shard_batches
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
-    if args.distributed is not None:
-        sys.exit(NO_DISTRIBUTED)
+    _maybe_distributed(args)
     cfg = _load_config(args)
     pl = Pipeline(cfg, args.workdir, device=args.device)
     stem = pl.preprocess(_inputs(args))
     num = args.num_processes or 1
     pid = args.process_id or 0
-    mine = shard_batches(pl.batches(), num, pid)
+    mine = pl.match_share(num, pid)
     pl.match(stem, mine)
     if num > 1:
         if pid != 0:
@@ -165,8 +189,7 @@ def cmd_map(args) -> None:
     from phylign_tpu_torch.parallel.launch import shard_batches
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
-    if args.distributed is not None:
-        sys.exit(NO_DISTRIBUTED)
+    _maybe_distributed(args)
     cfg = _load_config(args)
     pl = Pipeline(cfg, args.workdir, device=args.device)
     stem = pl.preprocess(_inputs(args))
@@ -191,13 +214,22 @@ def cmd_map(args) -> None:
 
 
 def cmd_all(args) -> None:
+    import functools
+
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
-    if args.distributed is not None:
-        sys.exit(NO_DISTRIBUTED)
+    _maybe_distributed(args)
     cfg = _load_config(args)
     pl = Pipeline(cfg, args.workdir, device=args.device)
-    out = pl.run_all(_inputs(args))
+    pid = args.process_id or 0
+    wait = functools.partial(
+        _wait_for_peers, timeout_s=args.peer_wait_timeout,
+        stall_s=args.peer_stall_timeout, rank=pid,
+    )
+    out = pl.run_all(_inputs(args), args.num_processes or 1, pid, wait)
+    if out is None:
+        print(f"process {pid}: its batches are aligned; rank 0 aggregates once all ranks finish")
+        return
     print(f"pipeline done: {out}")
 
 
@@ -242,7 +274,10 @@ def main(argv: list[str] | None = None) -> None:
         )
         p.add_argument(
             "--distributed", nargs="?", const="auto", default=None,
-            metavar="COORD", help="multi-host runs (not yet ported)",
+            metavar="COORD",
+            help="form a torch.distributed process group (multi-process / "
+            "multi-host): coordinator host[:port], or bare flag to read "
+            "SLURM/LSF (or --num-processes / --process-id)",
         )
         p.add_argument("queries", nargs="*", help="query fast[aq] files")
 

@@ -43,7 +43,12 @@
 //   * The substitution score is one byte permute (prmt with sign
 //     replication): each window cell keeps a selector that picks its byte
 //     of a per-row table {match, -mismatch} indexed by the query code, or
-//     the bytes of kS for a column outside the contig.
+//     the bytes of kS for a column outside the contig. Scoring whose match
+//     or -mismatch does not fit a signed byte takes the kernel's WIDE
+//     instance instead, chosen at launch: the same selector, compared with
+//     the row's query code, picks from the int32 pair {match, -mismatch}
+//     (a compare and two selects instead of the permute; the byte
+//     instance is unchanged).
 //   * Deletions: the lane's total of the keyed values (one DPX a cell), a
 //     log2(G)-round shuffle scan of the totals across the group, then a
 //     second in-lane pass that carries the exclusive prefix into each cell.
@@ -89,13 +94,21 @@ __device__ __forceinline__ unsigned column_sel(uint8_t code, uint8_t valid) {
   return valid ? (unsigned)(code & 3) * 0x1111u + 0x8880u : kInvalidSel;
 }
 
+// the substitution score of the wide instance: match where the column's
+// code equals the query's, -mismatch where it differs, kS outside the contig
+__device__ __forceinline__ int wide_sub(unsigned sel, uint8_t qc,
+                                        const IScoring& sc) {
+  if (sel == kInvalidSel) return kS;
+  return (sel & 3u) == (unsigned)(qc & 3) ? sc.match : -sc.mismatch;
+}
+
 __device__ __forceinline__ float to_f32(int v) {
   return v < kT ? kNeg : __int2float_rn(v);
 }
 
 // at 16 cells a lane the compiler takes ~180 registers, 2 blocks an SM;
 // capped for 3 blocks (no spill; measured faster on the score pass)
-template <int G, int CPL>
+template <int G, int CPL, bool kWide>
 __global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
     extend_scan_kernel(const uint8_t* __restrict__ q,
                        const int32_t* __restrict__ q_len,
@@ -162,7 +175,8 @@ __global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
       const int hn = c < CPL - 1 ? h[c + 1] : hs;
       const int i1n = c < CPL - 1 ? i1[c + 1] : i1s;
       const int i2n = c < CPL - 1 ? i2[c + 1] : i2s;
-      const int hd = h[c] + prmt(lut, kSentinelBytes, sel[c]);
+      const int hd = h[c] + (kWide ? wide_sub(sel[c], qc, sc)
+                                   : prmt(lut, kSentinelBytes, sel[c]));
       const int n1 = __viaddmax_s32(i1n, -sc.e1, hn - sc.o1);
       const int n2 = __viaddmax_s32(i2n, -sc.e2, hn - sc.o2);
       i1[c] = n1;
@@ -231,14 +245,20 @@ __global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
 template <int G, int CPL>
 cudaError_t launch(const void* q, const void* q_len, const void* rwin,
                    const void* rvalid, int p, int l, const IScoring& sc,
-                   int collect, void* score, void* end_d, void* plane,
-                   void* stream) {
+                   int wide, int collect, void* score, void* end_d,
+                   void* plane, void* stream) {
   constexpr int kThreads = 128;
   const unsigned grid = (unsigned)((p + kThreads / G - 1) / (kThreads / G));
-  extend_scan_kernel<G, CPL><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)q, (const int32_t*)q_len, (const uint8_t*)rwin,
-      (const uint8_t*)rvalid, p, l, sc, collect, (float*)score,
-      (int32_t*)end_d, (float*)plane);
+  if (wide)
+    extend_scan_kernel<G, CPL, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)q, (const int32_t*)q_len, (const uint8_t*)rwin,
+        (const uint8_t*)rvalid, p, l, sc, collect, (float*)score,
+        (int32_t*)end_d, (float*)plane);
+  else
+    extend_scan_kernel<G, CPL, false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)q, (const int32_t*)q_len, (const uint8_t*)rwin,
+        (const uint8_t*)rvalid, p, l, sc, collect, (float*)score,
+        (int32_t*)end_d, (float*)plane);
   return cudaGetLastError();
 }
 
@@ -248,13 +268,16 @@ extern "C" {
 
 // Returns a cudaError_t (0 on success). (band, lanes) must be one of the
 // instances below; the scoring values are the integers the wrapper checked.
+// wide = 0 takes the byte-permute substitution (match <= 127, mismatch <=
+// 128), wide = 1 the int32 one (any scoring).
 int phylign_extend_scan(const void* q, const void* q_len, const void* rwin,
                         const void* rvalid, int p, int l, int band, int lanes,
                         int match, int mismatch, int o1, int e1, int o2,
-                        int e2, int open1, int open2, int collect,
+                        int e2, int open1, int open2, int wide, int collect,
                         void* score, void* end_d, void* plane, void* stream) {
   if (p <= 0) return 0;
-  if (l < 1 || match < 0 || match > 127 || mismatch < 0 || mismatch > 128 ||
+  if (l < 1 || match < 0 || mismatch < 0 ||
+      (!wide && (match > 127 || mismatch > 128)) ||
       (collect && ((uintptr_t)plane & 15u)))
     return (int)cudaErrorInvalidValue;
   const unsigned mis = (unsigned)(-mismatch) & 0xffu;
@@ -262,8 +285,8 @@ int phylign_extend_scan(const void* q, const void* q_len, const void* rwin,
                     mis * 0x01010101u, ((unsigned)match ^ mis) & 0xffu};
 #define PHYLIGN_B4(G, B)                                                      \
   if (lanes == G && band == B)                                                \
-    return (int)launch<G, B / G>(q, q_len, rwin, rvalid, p, l, sc, collect,   \
-                                 score, end_d, plane, stream);
+    return (int)launch<G, B / G>(q, q_len, rwin, rvalid, p, l, sc, wide,     \
+                                 collect, score, end_d, plane, stream);
   PHYLIGN_B4(8, 128)
   PHYLIGN_B4(16, 128)
   PHYLIGN_B4(32, 128)

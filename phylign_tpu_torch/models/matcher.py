@@ -28,6 +28,7 @@ from phylign_tpu_torch.ops.match import (
     pack_row_indices,
     round_up,
 )
+from phylign_tpu_torch.parallel.mesh import AXIS_DOC
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -263,27 +264,43 @@ def _int_cut(threshold: float, n_kmers: np.ndarray) -> np.ndarray:
     return cut.astype(np.int32)
 
 
-def device_index_bytes(didx: DeviceIndex) -> int:
+def _mesh_lane(mesh) -> int:
+    """Word-column multiple of a mesh's padded matrix: every doc shard
+    takes an equal, 8-word aligned contiguous slice (the JAX layout)."""
+    return 8 * mesh.shape[AXIS_DOC]
+
+
+def device_index_bytes(didx: DeviceIndex, mesh=None) -> int:
     """Exact device footprint of the word matrix an index occupies once
-    uploaded: from_device_index keeps the exact word width and adds one
-    zero row. The pipeline's HBM accountant admits uploads by it."""
-    return (didx.signature_size + 1) * max(didx.num_words, 1) * 4
+    uploaded, summed over a mesh's doc shards: from_device_index keeps the
+    exact word width (padded to _mesh_lane on a mesh) and adds one zero
+    row. The pipeline's HBM accountant admits uploads by it."""
+    wp = max(didx.num_words, 1)
+    if mesh is not None:
+        wp = round_up(wp, _mesh_lane(mesh))
+    return (didx.signature_size + 1) * wp * 4
 
 
-def upload_words(words: np.ndarray, device: str | torch.device) -> torch.Tensor:
+def upload_words(
+    words: np.ndarray, device: str | torch.device, cols: tuple[int, int] | None = None
+) -> torch.Tensor:
     """uint32 [S, W] host words (array or read-only memmap) -> int32
-    [S+1, max(W, 1)] on ``device`` with a zero padding row. For CUDA the
-    words are copied once into a pinned host tensor and sent with a
-    non-blocking copy; a memmap is only read."""
+    [S+1, max(W, 1)] on ``device`` with a zero padding row; with ``cols``
+    = (c0, c1) only word columns [c0, c1), those past W zero (a doc
+    shard's slice of a mesh's padded matrix). For CUDA the words are
+    copied once into a pinned host tensor and sent with a non-blocking
+    copy; a memmap is only read."""
     dev = torch.device(device)
     s, w = words.shape
+    c0, c1 = (0, max(w, 1)) if cols is None else cols
+    n = max(0, min(w, c1) - c0)
     host = torch.empty(
-        (s + 1, max(w, 1)), dtype=torch.int32, pin_memory=dev.type == "cuda"
+        (s + 1, c1 - c0), dtype=torch.int32, pin_memory=dev.type == "cuda"
     )
     h = host.numpy()
-    h[:s, :w] = np.asarray(words).view(np.int32)
+    h[:s, :n] = np.asarray(words)[:, c0 : c0 + n].view(np.int32)
     h[s] = 0
-    h[:s, w:] = 0
+    h[:s, n:] = 0
     return host.to(dev, non_blocking=True) if dev.type == "cuda" else host
 
 
@@ -311,20 +328,26 @@ class _HashDispatch:
 
 @dataclass
 class Matcher:
-    """Device-resident match model for one batch index."""
+    """Device-resident match model for one batch index.
+
+    With a mesh the word columns are split over the mesh's doc axis
+    (``words`` is then a ``parallel.dist.Sharded``) and scoring runs
+    through parallel.dist with zero communication; row indices are split
+    over the query axis."""
 
     term_size: int
     num_hashes: int
     signature_size: int
     doc_names: list[str]
-    words: torch.Tensor  # int32 [S+1, Wp] on the device
+    words: torch.Tensor  # int32 [S+1, Wp] on the device; on a mesh a parallel.dist.Sharded
     #: cross-query k-mer dedup (two-stage gather, ops.match.dedup_rows).
     #: Opt-in (config match_dedup); scores are identical either way.
     dedup: bool = False
+    mesh: object | None = None  # parallel.mesh.Mesh or None
 
     @property
     def device(self) -> torch.device:
-        return self.words.device
+        return self.mesh.home if self.mesh is not None else self.words.device
 
     def _device_scores(self, packed: np.ndarray) -> torch.Tensor:
         """Score one packed chunk, via the dedup path when enabled+profitable."""
@@ -340,14 +363,28 @@ class Matcher:
 
     @classmethod
     def from_device_index(
-        cls, didx: DeviceIndex, device: str | torch.device = "cuda"
+        cls, didx: DeviceIndex, device: str | torch.device = "cuda", mesh=None
     ) -> "Matcher":
+        """Upload ``didx``'s words to ``device``, or with a mesh each doc
+        shard's contiguous column slice to its cells (a process of a mesh
+        that spans processes uploads only its own shards)."""
+        if mesh is None:
+            words = upload_words(didx.words, device)
+        else:
+            from phylign_tpu_torch.parallel.dist import shard_blocks
+
+            wp = round_up(max(didx.num_words, 1), _mesh_lane(mesh))
+            words = shard_blocks(
+                mesh, (didx.signature_size + 1, wp), (None, AXIS_DOC),
+                lambda sl, dev: upload_words(didx.words, dev, (sl[1].start, sl[1].stop)),
+            )
         return cls(
             term_size=didx.term_size,
             num_hashes=didx.num_hashes,
             signature_size=didx.signature_size,
             doc_names=didx.doc_names,
-            words=upload_words(didx.words, device),
+            words=words,
+            mesh=mesh,
         )
 
     @property
@@ -388,22 +425,31 @@ class Matcher:
         scores = np.zeros((len(per_query), d), np.int32)
         if seg_rows:
             n_real = len(seg_rows)
+            if self.mesh is not None:
+                # the segment count must split over the query axis: pad
+                # with empty (all-padding-row) segments
+                nq = self.mesh.shape["q"]
+                seg_rows += [np.empty((0, self.num_hashes), np.int64)] * ((-n_real) % nq)
             # bucket the packed k-mer axis to multiples of 64
             k_pack = min(k_max, round_up(max(r.shape[0] for r in seg_rows), 64))
             packed, _ = pack_row_indices(
                 seg_rows, k_pack, self.pad_row, self.num_hashes
             )
-            dev_scores = self._device_scores(packed)
-            max_score = k_pack  # per-segment count <= valid k-mer slots
-            dtype = (
-                torch.uint8
-                if max_score <= 255
-                else torch.int16 if max_score <= 32767 else torch.int32
-            )
-            d_pad = min(dev_scores.shape[1], round_up(d, 256))
-            dev_scores = _compact_scores(dev_scores, d_pad, dtype)
-            seg_scores = dev_scores.cpu().numpy()[:n_real, :d].astype(np.int32)
-            np.add.at(scores, np.asarray(owner), seg_scores)
+            if self.mesh is not None:
+                from phylign_tpu_torch.parallel.dist import dist_match_scores, fetch
+
+                seg_scores = fetch(dist_match_scores(self.mesh, self.words, packed))
+            else:
+                dev_scores = self._device_scores(packed)
+                max_score = k_pack  # per-segment count <= valid k-mer slots
+                dtype = (
+                    torch.uint8
+                    if max_score <= 255
+                    else torch.int16 if max_score <= 32767 else torch.int32
+                )
+                d_pad = min(dev_scores.shape[1], round_up(d, 256))
+                seg_scores = _compact_scores(dev_scores, d_pad, dtype).cpu().numpy()
+            np.add.at(scores, np.asarray(owner), seg_scores[:n_real, :d].astype(np.int32))
         keep = (scores >= threshold * np.maximum(n_kmers, 1)[:, None]) & (
             n_kmers[:, None] > 0
         )
@@ -475,16 +521,60 @@ class Matcher:
 
         kk = min(d, round_up(min(topn + 33, d), 32))
         k_pack = round_up(max((r.shape[0] for r in per_query), default=1), 64)
-        packed, _ = pack_row_indices(
-            per_query, max(k_pack, 1), self.pad_row, self.num_hashes
-        )
-        dev_scores = self._device_scores(packed)
-        cut = _to_device(_int_cut(threshold, n_kmers), self.device)
-        vals, idx, n_keep = (
-            t.cpu().numpy() for t in _topk_scores(dev_scores, cut, kk, d)
-        )
+        if self.mesh is not None:
+            vals, idx, n_keep = self._mesh_topk(
+                per_query, n_kmers, threshold, kk, d, k_pack
+            )
+        else:
+            packed, _ = pack_row_indices(
+                per_query, max(k_pack, 1), self.pad_row, self.num_hashes
+            )
+            dev_scores = self._device_scores(packed)
+            cut = _to_device(_int_cut(threshold, n_kmers), self.device)
+            vals, idx, n_keep = (
+                t.cpu().numpy() for t in _topk_scores(dev_scores, cut, kk, d)
+            )
         return self._window_hits(
             vals, idx, n_keep, lambda q: per_query[q], threshold, k_max, kk
+        )
+
+    def _mesh_topk(
+        self,
+        per_query: list[np.ndarray],
+        n_kmers: np.ndarray,
+        threshold: float,
+        kk: int,
+        d: int,
+        k_pack: int,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Mesh path: sharded scoring + threshold + distributed top-k (a
+        local top-k per doc shard, a gather over "d", the re-top-k), so
+        only the [Q, kk] window leaves the devices; also on meshes that
+        span processes. Queries pad to a multiple of the query axis with
+        an unreachable cut. The window comes back as _topk_scores gives it
+        (fillers 0) for _window_hits."""
+        from phylign_tpu_torch.parallel.dist import dist_threshold_topk, fetch
+
+        nq = self.mesh.shape["q"]
+        rows = list(per_query)
+        pad_q = (-len(rows)) % nq
+        rows += [np.empty((0, self.num_hashes), np.int64)] * pad_q
+        packed, _ = pack_row_indices(
+            rows, max(k_pack, 1), self.pad_row, self.num_hashes
+        )
+        cut = np.concatenate(
+            [_int_cut(threshold, n_kmers), np.full(pad_q, 1 << 30, np.int32)]
+        )
+        kk_eff = min(kk, 32 * self.words.shape[1])
+        vals, ids, n_keep = fetch(
+            dist_threshold_topk(self.mesh, self.words, packed, cut, d, kk_eff)
+        )
+        q = len(n_kmers)
+        keep = vals[:q, :kk] >= 0
+        return (
+            np.where(keep, vals[:q, :kk], 0),
+            np.where(keep, ids[:q, :kk], 0),
+            n_keep[:q],
         )
 
     def _window_hits(
@@ -578,7 +668,8 @@ class Matcher:
         time, never correctness."""
         d = len(self.doc_names)
         if (
-            self.dedup
+            self.mesh is not None
+            or self.dedup
             or d == 0
             or d > 65535
             or dq.hi.shape[1] > k_max

@@ -132,8 +132,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "extend_scan":
         lib.phylign_extend_scan.restype = i32
         # q, q_len, rwin, rvalid, p, l, band, lanes, match, mismatch, o1,
-        # e1, o2, e2, open1, open2, collect, score, end_d, plane, stream
-        lib.phylign_extend_scan.argtypes = [p, p, p, p, *[i32] * 13, p, p, p, p]
+        # e1, o2, e2, open1, open2, wide, collect, score, end_d, plane, stream
+        lib.phylign_extend_scan.argtypes = [p, p, p, p, *[i32] * 14, p, p, p, p]
     lib.phylign_cuda_error_string.restype = ctypes.c_char_p
     lib.phylign_cuda_error_string.argtypes = [i32]
 

@@ -196,16 +196,13 @@ INT_LIMIT = 2**24
 def kernel_scoring(scoring: SrScoring, l: int, band: int) -> tuple[int, ...]:
     """The integer scoring kernel B4 takes: (match, mismatch, o1, e1, o2,
     e2, open1, open2) with o = gap_open + gap_ext. Raises ValueError when a
-    value is not a non-negative integer, when match or mismatch does not
-    fit a signed byte (the substitution table is a byte permute), or when
-    L rows of band cells could reach INT_LIMIT."""
+    value is not a non-negative integer, or when L rows of band cells could
+    reach INT_LIMIT."""
     s = scoring
     vals = (s.match, s.mismatch, s.gap_open1, s.gap_ext1, s.gap_open2, s.gap_ext2)
     if not all(float(v).is_integer() and v >= 0 for v in vals):
         raise ValueError(f"extend_scan takes non-negative integer scoring; got {vals}")
     m, x, g1, e1, g2, e2 = (int(v) for v in vals)
-    if m > 127 or x > 128:
-        raise ValueError(f"extend_scan: match {m} / mismatch {x} must fit a signed byte")
     per_row = m + x + max(g1 + e1, g2 + e2) + max(g1, g2) + max(e1, e2)
     if (l + 1) * per_row + band * max(e1, e2) >= INT_LIMIT:
         raise ValueError(
@@ -213,6 +210,12 @@ def kernel_scoring(scoring: SrScoring, l: int, band: int) -> tuple[int, ...]:
             f"{INT_LIMIT} (int32 DP limit)"
         )
     return m, x, g1 + e1, e1, g2 + e2, e2, g1, g2
+
+
+def wide_substitution(match: int, mismatch: int) -> bool:
+    """Whether kernel B4 scores substitutions in int32 (its wide instance):
+    the byte-permute table holds match and -mismatch as signed bytes only."""
+    return match > 127 or mismatch > 128
 
 
 def extend_cuda(
@@ -228,7 +231,8 @@ def extend_cuda(
     ``phylign_tpu/ops/extend.py:_extend_impl``). CUDA tensors only; same
     contract as extend_ref for codes 0..3 (the 2-bit alphabet every caller
     passes) and integer scoring (``kernel_scoring``); band in KERNEL_LANES.
-    ``lanes`` overrides the lanes per pair (one of KERNEL_LANES[band])."""
+    ``lanes`` overrides the lanes per pair (one of KERNEL_LANES[band]). The
+    scoring picks the substitution instance (wide_substitution)."""
     from phylign_tpu_torch.ops import _kernels
 
     dev = q_codes.device
@@ -252,6 +256,7 @@ def extend_cuda(
     if not all(t.is_contiguous() for t in (q_codes, q_len, rwin, rwin_valid)):
         raise ValueError("extend_scan takes contiguous tensors")
     isc = kernel_scoring(scoring, l, band)
+    wide = wide_substitution(isc[0], isc[1])
     score = torch.empty(p, dtype=torch.float32, device=dev)
     end_d = torch.empty(p, dtype=torch.int32, device=dev)
     plane = torch.empty((p, l if collect_plane else 0, band), dtype=torch.float32, device=dev)
@@ -264,7 +269,7 @@ def extend_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.phylign_extend_scan(
             q_codes.data_ptr(), q_len.data_ptr(), rwin.data_ptr(), rwin_valid.data_ptr(),
-            p, l, band, g, *isc, int(collect_plane), score.data_ptr(), end_d.data_ptr(),
+            p, l, band, g, *isc, int(wide), int(collect_plane), score.data_ptr(), end_d.data_ptr(),
             plane.data_ptr() if collect_plane else None, stream,
         )
     _kernels.check(lib, err, "extend_scan")

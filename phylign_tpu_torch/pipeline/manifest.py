@@ -45,7 +45,9 @@ class Manifest:
 
     def mark(self, stage: str, key: str, outputs: list[str], **extra: Any) -> None:
         p = self._path(stage, key)
-        tmp = p.with_suffix(".tmp")
+        # one tmp name per process: ranks of a multi-process run sharing
+        # the workdir may mark the same key at once
+        tmp = p.with_name(f"{p.stem}.{os.getpid()}.tmp")
         tmp.write_text(
             json.dumps(
                 {"stage": stage, "key": key, "outputs": list(map(str, outputs)),
@@ -65,8 +67,9 @@ def atomic_write_via(path: str | os.PathLike):
     the reference's tmp-then-rename idiom (Snakefile:380-386)."""
     path = Path(path)
     # prefix (not suffix) the tmp marker so compression-by-suffix writers
-    # still see the real extension (.gz/.xz)
-    tmp = path.with_name(".tmp." + path.name)
+    # still see the real extension (.gz/.xz); the pid keeps ranks of a
+    # multi-process run that write the same output (preprocess) apart
+    tmp = path.with_name(f".tmp.{os.getpid()}.{path.name}")
 
     def commit():
         tmp.rename(path)

@@ -55,6 +55,7 @@ from phylign_tpu_torch.models.matcher import (
     device_index_bytes,
 )
 from phylign_tpu_torch.ops._kernels import KernelError
+from phylign_tpu_torch.parallel.launch import shard_batches
 from phylign_tpu_torch.utils.bench import RamSampler, benchmark
 from phylign_tpu_torch.utils.platform import resolve_device
 
@@ -186,14 +187,16 @@ class Pipeline:
         config: Config,
         workdir: str | Path = ".",
         device: str | torch.device = "cuda",
+        mesh_devices=None,
     ):
+        """``mesh_devices``: the devices of cfg.mesh_shape's cells (a list,
+        which may repeat a device); default every visible card on cuda, the
+        CPU for every cell on cpu."""
         self.device = resolve_device(device)
-        if config.mesh_shape not in ("1x1", "", None):
-            raise NotImplementedError(
-                f"mesh_shape {config.mesh_shape!r}: multi-GPU matching is not "
-                "yet ported (ROADMAP queue A item 11, parallel/); use 1x1"
-            )
         self.cfg = config
+        self._mesh = None  # built lazily from cfg.mesh_shape
+        self._mesh_devices = mesh_devices
+        self._longest_read: dict[str, int] = {}  # by stem, from preprocess
         self.root = Path(workdir)
         self.inter = self.root / config.intermediate_dir
         self.out = self.root / config.output_dir
@@ -256,6 +259,7 @@ class Pipeline:
 
     def preprocess(self, inputs: Sequence[str]) -> str:
         stem, records = normalize_and_merge(inputs)
+        self._longest_read[stem] = max((len(r.seq) for r in records), default=0)
         merged = self.merged_fa(stem)
         if self.manifest.done("merge", stem, [str(merged)]):
             return stem
@@ -333,9 +337,10 @@ class Pipeline:
             didx = self._load_index(batch)
             qs = self._query_set(stem, didx.term_size, didx.num_hashes)
             hits_u, nk_u = self._score_batch(didx, qs)
-            self._commit_match_output(
-                batch, stem, qs, hits_u, nk_u, didx.doc_names
-            )
+            if self.mesh() is None or self.mesh().rank == 0:
+                self._commit_match_output(
+                    batch, stem, qs, hits_u, nk_u, didx.doc_names
+                )
         if (
             self.cfg.index_load_mode != "mem-stream"
             and not self.cfg.keep_cobs_indexes
@@ -439,6 +444,64 @@ class Pipeline:
     #: align stage's flush buffers (two 640 MB slots + margin)
     ALIGN_RESERVE_MB = 1536
 
+    def mesh(self):
+        """The device mesh of cfg.mesh_shape, or None for one device
+        ('1x1'). Built lazily. In a torch.distributed group of several
+        processes (``--distributed``) the mesh spans them, as JAX's global
+        mesh does: its cells are dealt to the ranks in row-major blocks
+        (parallel.mesh), each rank's cells on its own devices: the card
+        ``init_distributed`` pinned when a rank holds one cell, else every
+        visible card (or the CPU for every cell)."""
+        if self.cfg.mesh_shape in ("1x1", "", None):
+            return None
+        if self._mesh is None:
+            import torch.distributed as dist
+
+            from phylign_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
+
+            nd, nq = parse_mesh_shape(self.cfg.mesh_shape)
+            spans = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+            world = dist.get_world_size() if spans else 1
+            devices = self._mesh_devices
+            if devices is None:
+                if self.device.type != "cuda":
+                    devices = self.device
+                elif spans and nd * nq == world:
+                    devices = [torch.device("cuda", torch.cuda.current_device())]
+                else:
+                    have = torch.cuda.device_count()
+                    if nd * nq > have * world:
+                        raise ValueError(
+                            f"mesh_shape {self.cfg.mesh_shape} needs {nd * nq} "
+                            f"devices, have {have} x {world} process(es)"
+                        )
+            self._mesh = make_mesh(nd, nq, devices, group=dist.group.WORLD if spans else None)
+            if spans:
+                log.info(
+                    "mesh %s over %d processes: rank %d holds cells %s",
+                    self.cfg.mesh_shape, world, self._mesh.rank, self._mesh.local_cells(),
+                )
+        return self._mesh
+
+    def _spanning_mesh(self) -> bool:
+        mesh = self.mesh()
+        return mesh is not None and mesh.world > 1
+
+    def _align_mesh(self):
+        """The align stage's mesh. Its work splits over "q" alone, so on a
+        mesh that spans processes each rank aligns its own share of the
+        batches over the query columns of its own cells (Mesh.local), with
+        no collective whose order would depend on its threads."""
+        return self.mesh().local() if self._spanning_mesh() else self.mesh()
+
+    def match_share(self, num: int, rank: int) -> list[str]:
+        """The batches process ``rank`` of ``num`` matches: its round-robin
+        share, or every batch on a mesh that spans the processes (each
+        batch's scoring then runs on every rank, and rank 0 writes it)."""
+        if self._spanning_mesh():
+            return self.batches()
+        return shard_batches(self.batches(), num, rank)
+
     def _chunk_budget_mb(self) -> int:
         """Per-call device budget for row-chunked (oversized-index) scoring
         — THE shared definition; the pipelined guard must estimate with the
@@ -454,31 +517,36 @@ class Pipeline:
         -> compaction sequence plus the hit buffer's copy.
 
         Paths that must fetch internally (empty batch, oversized/chunked
-        index, dedup/raw fallback) return a {"sync": results} state; the
-        async path returns the dispatched slots so the caller can fetch
+        index, mesh, dedup/raw fallback) return a {"sync": results} state;
+        the async path returns the dispatched slots so the caller can fetch
         many batches together (_match_pipelined). The device memory
         accountant bounds how many transient indexes are resident at once."""
         records = qs.records
         use_device = didx.num_docs > 0 and len(records) > 0
         if not use_device:
             return {"sync": ([[] for _ in qs.uraw], [0] * len(qs.uraw))}
-        hbm_mb = max(1, device_index_bytes(didx) // 1_000_000)
+        mesh = self.mesh()
+        hbm_mb = max(1, device_index_bytes(didx, mesh=mesh) // 1_000_000)
         # an index too big to sit resident next to the align stage's device
         # buffers streams row-chunked through the device instead (exact for
         # the 661k database's 1-hash indexes)
         chunk_budget = self._chunk_budget_mb()
-        if didx.num_hashes == 1 and hbm_mb > chunk_budget:
+        if mesh is None and didx.num_hashes == 1 and hbm_mb > chunk_budget:
             return {"sync": self._score_batch_chunked(didx, qs, chunk_budget)}
         key = matcher = None
         if self._index_cache is not None and hbm_mb <= self._index_cache.budget:
-            key = (self._index_hash(didx), str(self.device))
+            key = (
+                self._index_hash(didx),
+                str(self.device),
+                None if mesh is None else (mesh.nd, mesh.nq, mesh.world, mesh.rank, mesh.devices),
+            )
             matcher = self._index_cache.get(key)
         transient = matcher is None
         if transient:
             self.sched.hbm.acquire(hbm_mb)
         try:
             if matcher is None:
-                matcher = Matcher.from_device_index(didx, self.device)
+                matcher = Matcher.from_device_index(didx, self.device, mesh=mesh)
             matcher.dedup = self.cfg.match_dedup
             chunk = self.cfg.device_query_chunk
             if not isinstance(chunk, int):  # "auto": bound the transient
@@ -489,7 +557,9 @@ class Pipeline:
                 wp = max(1, int(didx.words.shape[1]))
                 chunk = max(1024, min(32768, (256 << 20) // (wp * 128)))
                 chunk = 1 << (chunk.bit_length() - 1)
-            use_hashes = not matcher.dedup and didx.num_docs <= 65535
+            use_hashes = (
+                mesh is None and not matcher.dedup and didx.num_docs <= 65535
+            )
             thr, topn = self.cfg.cobs_kmer_thres, self.cfg.nb_best_hits
             # adaptive fetch cap from this read set's history: 4x the
             # largest per-batch hit total seen, power-of-two quantized. A
@@ -674,18 +744,23 @@ class Pipeline:
 
     def match(self, stem: str, batches: list[str] | None = None) -> list[Path]:
         batches = batches if batches is not None else self.batches()
-        try:
-            return self._match_pipelined(stem, batches)
-        except KernelError:
-            raise  # the job path runs the same kernels: never retry them
-        except Exception:
-            # the manifest makes the job path resume where the pipelined
-            # path stopped; the job path adds per-batch OOM-escalation
-            # retries (scheduler.run_one)
-            log.warning(
-                "pipelined match failed; falling back to the job "
-                "scheduler", exc_info=True,
-            )
+        if self.mesh() is None:
+            try:
+                return self._match_pipelined(stem, batches)
+            except KernelError:
+                raise  # the job path runs the same kernels: never retry them
+            except Exception:
+                # the manifest makes the job path resume where the
+                # pipelined path stopped; the job path adds per-batch
+                # OOM-escalation retries (scheduler.run_one)
+                log.warning(
+                    "pipelined match failed; falling back to the job "
+                    "scheduler", exc_info=True,
+                )
+        elif self._spanning_mesh():
+            # every rank scores every batch, one at a time in batch order,
+            # so each rank's gathers pair with its peers'
+            return [self.match_one_batch(b, stem) for b in batches]
         jobs = [
             Job(
                 name=f"match:{b}",
@@ -1071,15 +1146,14 @@ class Pipeline:
             return out
         with benchmark(self.logs, "batch_align", f"{batch}____{stem}"):
             queries, sketches = self._filtered_query_set(stem)
-            params = AlignParams.from_preset(
-                self.cfg.minimap_preset, self.cfg.minimap_extra_params
-            )
+            params = self.align_params()
             records = list(
                 align_batch(
                     str(self.asms_path(batch)),
                     queries,
                     accessions,
                     params,
+                    mesh=self._align_mesh(),
                     device_lock=self.sched.flush_slot(),
                     pair_chunk=self.cfg.device_pair_chunk,
                     sketch_cache=sketches,
@@ -1109,6 +1183,17 @@ class Pipeline:
                             return set(parts[1].replace(";", ",").split(","))
         return None
 
+    def align_params(self, longest: int | None = None) -> AlignParams:
+        """The run's align parameters. On a CUDA device, with ``longest``
+        (the longest read to align, in bases) they are checked against
+        kernel B4's int32 DP (AlignParams.check_kernel)."""
+        params = AlignParams.from_preset(
+            self.cfg.minimap_preset, self.cfg.minimap_extra_params
+        )
+        if longest is not None and self.device.type == "cuda":
+            params.check_kernel(longest)
+        return params
+
     def align(self, stem: str, batches: list[str] | None = None) -> list[Path]:
         batches = batches if batches is not None else self.batches()
         outs: dict[str, Path] = {}
@@ -1119,6 +1204,9 @@ class Pipeline:
                 outs[b] = out
             else:
                 todo.append(b)
+        if todo:  # refuse what kernel B4 cannot run before aligning a batch
+            queries, sketches = self._filtered_query_set(stem)
+            params = self.align_params(max((len(q.seq) for q in queries), default=0))
         if len(todo) == 1:
             # single batch: the per-batch scheduler path (identical output)
             outs[todo[0]] = self.align_one_batch(
@@ -1134,10 +1222,6 @@ class Pipeline:
             # scheduler's io_heavy jobs for tar/anchor host work.
             from phylign_tpu_torch.align.engine import align_batches_pooled
 
-            queries, sketches = self._filtered_query_set(stem)
-            params = AlignParams.from_preset(
-                self.cfg.minimap_preset, self.cfg.minimap_extra_params
-            )
             specs = [
                 (b, str(self.asms_path(b)), self.batch_accessions(b))
                 for b in todo
@@ -1148,6 +1232,7 @@ class Pipeline:
                     specs,
                     queries,
                     params,
+                    mesh=self._align_mesh(),
                     device_lock=self.sched.flush_slot(),
                     pair_chunk=self.cfg.device_pair_chunk,
                     sketch_cache=sketches,
@@ -1206,21 +1291,43 @@ class Pipeline:
 
     # --- full run ------------------------------------------------------------
 
-    def run_all(self, inputs: Sequence[str]) -> Path:
+    def run_all(
+        self, inputs: Sequence[str], num: int = 1, rank: int = 0, wait=None
+    ) -> Path | None:
         """download'd data assumed present; runs match+map end to end
-        (the reference's `make all` minus download: Makefile:35-38)."""
+        (the reference's `make all` minus download: Makefile:35-38).
+
+        ``num`` processes (this one ``rank``) may share a run over a shared
+        filesystem: each matches its match_share and aligns its round-robin
+        share of the batches; rank 0 filters once every 03_match exists and
+        aggregates once every 05_map does, the others wait for its
+        04_filter and return None once their batches are aligned.
+        ``wait(paths, what)`` blocks until the files exist."""
         batches = self.batches()
         stem = self.preprocess(inputs)
+        # refuse what the align stage cannot run before matching
+        self.align_params(self._longest_read[stem])
         sampler = RamSampler()
         sampler.__enter__()
-        with benchmark(self.logs, "match_total", stem):
-            self.match(stem, batches)
-            self.filter(stem, batches)
-        with benchmark(self.logs, "map_total", stem):
-            self.align(stem, batches)
-            self.aggregate(stem, batches)
-            self.stats(stem)
-        sampler.__exit__()
+        try:
+            with benchmark(self.logs, "match_total", stem):
+                self.match(stem, self.match_share(num, rank))
+                if rank == 0:
+                    if num > 1:
+                        wait([self.match_path(b, stem) for b in batches], "match")
+                    self.filter(stem, batches)
+                else:
+                    wait([self.filter_path(stem)], "filter")
+            with benchmark(self.logs, "map_total", stem):
+                self.align(stem, shard_batches(batches, num, rank))
+                if rank != 0:
+                    return None
+                if num > 1:
+                    wait([self.map_path(b, stem) for b in batches], "map")
+                self.aggregate(stem, batches)
+                self.stats(stem)
+        finally:
+            sampler.__exit__()
         (self.logs / "benchmarks").mkdir(parents=True, exist_ok=True)
         (self.logs / "benchmarks" / "ram_usage.txt").write_text(
             f"max_system_ram_delta_kb\t{sampler.max_delta_kb}\n"

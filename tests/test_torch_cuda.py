@@ -360,9 +360,30 @@ def test_align_kernels_refuse_bad_arguments(cuda):
     w = torch.zeros((4, 32 + 128), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="lanes"):
         ope.extend_cuda(q, ql, w, w, lanes=4)
-    for bad in (ope.SrScoring(match=2.5), ope.SrScoring(gap_ext2=0.5), ope.SrScoring(mismatch=300)):
-        with pytest.raises(ValueError, match="integer|signed byte"):
+    for bad in (ope.SrScoring(match=2.5), ope.SrScoring(gap_ext2=0.5), ope.SrScoring(mismatch=3_000_000)):
+        with pytest.raises(ValueError, match="integer|int32 DP limit"):
             ope.extend_cuda(q, ql, w, w, bad)
+
+
+WIDE = ope.SrScoring(match=200, mismatch=150)  # -A 200 -B 150
+
+
+@pytest.mark.parametrize("p,l,band,lanes", [c for c in EXTEND_CASES if c[2] <= 256])
+@pytest.mark.parametrize("collect", [False, True])
+def test_extend_scan_wide_scoring_equals_plain_version(cuda, p, l, band, lanes, collect):
+    """Match and mismatch outside a signed byte (-A 200 -B 150) take B4's
+    int32 substitution: bit for bit the plain version on the card and on
+    the CPU."""
+    rng = np.random.default_rng(7 * p + l + band)
+    q, q_len, r, v = _extend_case(rng, p, l, band)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, q_len, r, v)]
+    got = ope.extend_cuda(*args, WIDE, collect_plane=collect, lanes=lanes)
+    want = ope.extend_ref(*args, WIDE, collect_plane=collect)
+    cpu = ope.extend_ref(*[torch.from_numpy(a) for a in (q, q_len, r, v)], WIDE, collect_plane=collect)
+    for name in ("score", "end_d", "p_plane"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(got, name).cpu(), getattr(cpu, name)), name
+    assert (want.score >= 200 * 16).any()
 
 
 def test_run_all_on_cuda_equals_cpu(cuda, tmp_path):
@@ -390,3 +411,187 @@ def test_run_all_on_cuda_equals_cpu(cuda, tmp_path):
         }
     assert len(outs["cuda"]) == 5
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_run_all_at_large_gap_open_on_cuda_equals_cpu(cuda, tmp_path):
+    """sr with -O 12,300 (613 a row: far inside B4's int32 DP for 150 bp
+    reads) runs the whole pipeline on the card, equal to the CPU run; a
+    longest read past the limit is refused before matching."""
+    base = tmp_path / "base"
+    fixture_mod.make_fixture(base, n_batches=2, seed=42)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        wd = tmp_path / dev
+        shutil.copytree(base, wd)
+        cfg = Config.from_yaml(wd / "config.yaml").with_overrides(minimap_extra_params="--eqx -O 12,300")
+        pl = Pipeline(cfg, wd, device=dev)
+        pl.run_all(sorted(str(p) for p in (wd / "input").iterdir()))
+        outs[dev] = {
+            p.name: (gzip.open(p, "rb").read() if p.suffix == ".gz" else p.read_bytes())
+            for d in ("intermediate/05_map", "output") for p in (wd / d).iterdir()
+        }
+        if dev == "cuda":
+            with pytest.raises(ValueError, match="int32 DP limit"):
+                pl.align_params(40_000)
+    assert outs["cuda"] == outs["cpu"]
+    assert any(b"\t150=" in v for v in outs["cuda"].values())
+
+
+# --- the device mesh on the card (parallel/) -----------------------------------
+
+#: a 2x2 mesh on the one card: every cell on cuda:0
+MESH_DEVICES = ["cuda:0"] * 4
+
+
+@pytest.mark.parametrize("nd", [2, 3])
+@pytest.mark.parametrize("h,k", [(1, 128), (3, 96)])
+def test_match_kernels_on_doc_shard_slices(cuda, nd, h, k):
+    """B1 and B2 on each doc shard's contiguous column slice of a padded
+    word matrix (68 words pad to 80 at nd = 2, 72 at nd = 3): each shard
+    equals the plain version on its slice, and the shards side by side
+    equal the full-width plain scores. The mesh path gives the same."""
+    from phylign_tpu_torch.parallel import dist
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+
+    s, wp, q = 3000, 68, 300
+    rng = np.random.default_rng(nd + h)
+    words = opm.pad_device_words(rng.integers(0, 2**32, (s, wp), dtype=np.uint32), lane_words=8 * nd)
+    assert words.shape[1] == {2: 80, 3: 72}[nd]
+    rows = rng.integers(0, s + 1, (q, k, h)).astype(np.int32)
+    full = torch.from_numpy(words.view(np.int32)).to(cuda)
+    rows_d = torch.from_numpy(rows).to(cuda)
+    w_loc = words.shape[1] // nd
+    before = opm.launch_counts()
+    parts = []
+    for d in range(nd):
+        sl = full[:, d * w_loc : (d + 1) * w_loc].contiguous()
+        got = opm.match_scores(sl, rows_d)
+        assert torch.equal(got, opm.match_scores_ref(sl, rows_d))
+        parts.append(got)
+    torch.cuda.synchronize()
+    assert opm.launch_counts()[opm.select_kernel(k, h)] == before[opm.select_kernel(k, h)] + nd
+    want = opm.match_scores_ref(full, rows_d)
+    assert torch.equal(torch.cat(parts, dim=1), want)
+    mesh = make_mesh(nd, 2, devices=["cuda:0"] * (2 * nd))
+    got = dist.fetch(dist.dist_match_scores(mesh, words.view(np.int32), rows))
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+def _planted_index(n_docs=70):
+    rng = np.random.default_rng(21)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    read = rng.choice(alpha, 150).tobytes()
+    docs = []
+    for i in range(n_docs):
+        seq = rng.choice(alpha, 300).tobytes()
+        docs.append((f"d{i:02d}", [read + seq if i % 3 == 0 else seq]))
+    didx = iocobs.to_device_index(iocobs.build_classic_index(docs, term_size=31, fpr=0.01))
+    seqs = [read, rng.choice(alpha, 150).tobytes(), b"ACG", read[:120] + rng.choice(alpha, 30).tobytes()]
+    return didx, seqs
+
+
+def test_mesh_score_hits_on_card_equals_one_device(cuda):
+    """Matcher.score_hits with a 2x2 mesh over the one card (and a 4x1 one)
+    equals the one-device card run and the CPU run; B2 ran per doc shard."""
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+
+    didx, seqs = _planted_index()
+    want = tm.Matcher.from_device_index(didx, "cpu").score_hits(seqs, 0.7, topn=5)
+    one = tm.Matcher.from_device_index(didx, cuda).score_hits(seqs, 0.7, topn=5)
+    for nd, nq in ((2, 2), (4, 1)):
+        mesh = make_mesh(nd, nq, devices=MESH_DEVICES)
+        opm.reset_launch_counts()
+        got = tm.Matcher.from_device_index(didx, cuda, mesh=mesh).score_hits(seqs, 0.7, topn=5)
+        torch.cuda.synchronize()
+        assert opm.launch_counts()["match_popcount_b2"] == nd * nq
+        for a, b, c in zip(got[0], one[0], want[0]):
+            assert sorted(a) == sorted(b) == sorted(c)
+        assert list(got[1]) == list(one[1]) == list(want[1])
+    assert want[1][0] == 24
+
+
+def test_mesh_flush_on_card_equals_one_device(cuda):
+    """The fused flush on a 1x2 and a 2x4 mesh over the one card: B3/B4 per
+    query shard, the same records as the one-device card run and the CPU's
+    host path."""
+    from phylign_tpu_torch.align import engine as tae
+    from phylign_tpu_torch.kmer import decode_seq
+    from phylign_tpu_torch.ops import minimizer as tmini
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(3)
+    params = tae.AlignParams.from_preset("sr")
+    base = rng.integers(0, 4, 120_000).astype(np.uint8)
+    ref = tmini.build_ref_index("gA", [("c1", base[:70_000]), ("c2", base[60_000:])], params.k, params.w)
+    sks = []
+    for i in range(90):
+        s = int(rng.integers(0, len(base) - 160))
+        r = base[s : s + 150].copy()
+        flip = rng.random(150) < 0.02
+        r[flip] = (r[flip] + 1) % 4
+        if i % 11 == 0:
+            r = np.concatenate([r[:70], r[74:]])
+        if i % 2:
+            r = (3 - r)[::-1].copy()
+        sks.append(tae.QuerySketch.make(f"r{i}", decode_seq(r).decode(), params))
+    tasks = tae.make_pairs_batch(ref, sks, params)
+    want = [r.to_line() for r in tae.flush_pairs(tasks, params, fused=False, device="cpu")]
+    one = [r.to_line() for r in tae.flush_pairs(tasks, params, fused=True, device=cuda)]
+    assert one == want
+    for nd, nq in ((1, 2), (2, 4)):
+        mesh = make_mesh(nd, nq, devices=["cuda:0"] * (nd * nq))
+        opc.reset_launch_counts()
+        ope.reset_launch_counts()
+        got = [r.to_line() for r in tae.flush_pairs(tasks, params, mesh=mesh, fused=True, device=cuda)]
+        torch.cuda.synchronize()
+        assert got == want
+        assert opc.launch_counts()["chain_scan"] >= nq and ope.launch_counts()["extend_scan"] >= nq
+
+
+def test_pipeline_mesh_on_cuda_equals_one_device(cuda, tmp_path):
+    """make_fixture through run_all with mesh_shape 2x2 over the one card:
+    03_match, 04_filter, 05_map, sam_summary and stats equal the 1x1 card
+    run byte for byte."""
+    base = tmp_path / "base"
+    fixture_mod.make_fixture(base, n_batches=3, seed=42)
+    outs = {}
+    for shape in ("1x1", "2x2"):
+        wd = tmp_path / shape
+        shutil.copytree(base, wd)
+        cfg = Config.from_yaml(wd / "config.yaml").with_overrides(mesh_shape=shape)
+        pl = Pipeline(cfg, wd, device=cuda, mesh_devices=MESH_DEVICES)
+        pl.run_all(sorted(str(p) for p in (wd / "input").iterdir()))
+        outs[shape] = {
+            f"{d}/{p.name}": (gzip.open(p, "rb").read() if p.suffix == ".gz" else p.read_bytes())
+            for d in ("intermediate/03_match", "intermediate/04_filter", "intermediate/05_map", "output")
+            for p in sorted((wd / d).iterdir())
+        }
+    assert len(outs["1x1"]) == 3 + 1 + 3 + 2
+    assert outs["2x2"] == outs["1x1"]
+
+
+def test_nccl_one_rank_gather_equals_in_process_mesh(cuda):
+    """A one-rank nccl process group: the mesh's top-k gather runs through
+    all_gather_into_tensor on the card, and score_hits equals the
+    in-process mesh's."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    didx, seqs = _planted_index()
+    want = tm.Matcher.from_device_index(didx, cuda, mesh=make_mesh(2, 2, devices=MESH_DEVICES)).score_hits(
+        seqs, 0.7, topn=5)
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(2, 2, devices=MESH_DEVICES, group=tdist.group.WORLD)
+        assert mesh.comm_device.type == "cuda"
+        got = tm.Matcher.from_device_index(didx, cuda, mesh=mesh).score_hits(seqs, 0.7, topn=5)
+    finally:
+        tdist.destroy_process_group()
+    assert [sorted(h) for h in got[0]] == [sorted(h) for h in want[0]]
+    assert list(got[1]) == list(want[1])

@@ -173,11 +173,14 @@ def prmt(a, b, sel):
     return out.astype(np.uint32).view(np.int32).astype(np.int64)
 
 
-def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8):
+def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8, wide=None):
     """extend_scan.cu step by step, vectorized over pairs: G = lanes lanes
     per pair of CPL = band/G consecutive cells (d = t*CPL + c); the DP in
     integers with KS for -1e30 and values below KT mapped back to -1e30;
-    the substitution as a byte permute of a per-row table; window selectors
+    the substitution as a byte permute of a per-row table (or, in the wide
+    instance the launch picks for scoring outside a signed byte, the
+    selector's code compared with the query's: match, -mismatch, or KS
+    for the invalid selector); window selectors
     slid one column a row through a width-G shuffle (the group's last lane
     loads the new column); the d+1 insertion shift through the same
     shuffle; deletions as the lane totals of the keyed values, a width-G
@@ -191,6 +194,8 @@ def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8
     cpl = band // g
     t = np.arange(g)
     m, x, o1, e1, o2, e2, do1, do2 = te.kernel_scoring(sc, l, band)
+    if wide is None:
+        wide = te.wide_substitution(m, x)
     mis4 = ((-x) & 0xFF) * 0x01010101
     mxor = (m ^ ((-x) & 0xFF)) & 0xFF
     col0 = t[:, None] * cpl + np.arange(cpl)[None, :]  # [G, CPL] = d
@@ -225,7 +230,12 @@ def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8
         for e_ in edge:
             e_[:, g - 1] = KS
         hn, i1n, i2n = (np.concatenate([a[:, :, 1:], e_[:, :, None]], axis=2) for a, e_ in zip((h, i1, i2), edge))
-        hd = h + prmt(lut[:, None, None], 0x0000F000, sel)
+        if wide:
+            qc = (q[:, i].astype(np.int64) & 3)[:, None, None]
+            sub = np.where(sel == 0x5444, KS, np.where((sel & 3) == qc, m, -x))
+        else:
+            sub = prmt(lut[:, None, None], 0x0000F000, sel)
+        hd = h + sub
         n1 = np.maximum(i1n - e1, hn - o1)  # __viaddmax_s32
         n2 = np.maximum(i2n - e2, hn - o2)
         pm = np.maximum(np.maximum(hd, n1), n2)  # __vimax3_s32
@@ -309,8 +319,8 @@ def test_kernel_emulation_all_invalid_and_other_scoring(lanes):
     [
         (te.SrScoring(match=2.5), 160, "integer"),
         (te.SrScoring(gap_ext1=-1), 160, "integer"),
-        (te.SrScoring(match=200), 160, "signed byte"),
-        (te.SrScoring(mismatch=129), 160, "signed byte"),
+        (te.SrScoring(match=200, mismatch=150), 45_000, "int32 DP limit"),
+        (te.SrScoring(mismatch=200_000), 160, "int32 DP limit"),
         (te.SrScoring(), 250_000, "int32 DP limit"),
     ],
 )
@@ -328,3 +338,68 @@ def test_lane_choice_by_band_and_pass():
     assert [te.extend_lanes(b, c) for b in (256, 384, 512) for c in (False, True)] == [16, 16, 32, 32, 32, 32]
     for (band, _), g in te.EXTEND_LANES.items():
         assert g in te.KERNEL_LANES[band]
+
+
+WIDE = te.SrScoring(match=200, mismatch=150)  # -A 200 -B 150
+JWIDE = je.SrScoring(match=200, mismatch=150)
+
+
+def test_wide_scoring_is_taken():
+    """Match or mismatch outside a signed byte takes B4's int32
+    substitution; -A 200 -B 150 fits the int32 DP at L = 160 and at
+    40,192 rows, not at 40,448 (417 a row at band 128)."""
+    assert te.wide_substitution(200, 150) and te.wide_substitution(2, 129)
+    assert not te.wide_substitution(127, 128)
+    assert te.kernel_scoring(WIDE, 160, 128)[:2] == (200, 150)
+    te.kernel_scoring(WIDE, 40_192, 128)
+    with pytest.raises(ValueError, match="int32 DP limit"):
+        te.kernel_scoring(WIDE, 40_448, 128)
+
+
+@pytest.mark.parametrize("lanes", te.KERNEL_LANES[128])
+@pytest.mark.parametrize("collect", [False, True])
+def test_kernel_emulation_at_wide_scoring_equals_plain_and_jax(lanes, collect):
+    """-A 200 -B 150: B4's wide instance, emulated, equals the plain
+    version and JAX's f32 scan (score, end_d, plane); the byte instance's
+    emulation at the sr preset forced through the wide path agrees too."""
+    rng = np.random.default_rng(40 + lanes)
+    q, ql, r, lo, hi = _case(rng, 8, 48, 128)
+    v = _mask(lo, hi, 48 + 128)
+    score, end_d, plane = emulate_b4(q, ql, r, v, WIDE, collect=collect, lanes=lanes)
+    want = te.extend_ref(*_t(q, ql, r, v), WIDE, collect_plane=collect)
+    np.testing.assert_array_equal(score, want.score.numpy())
+    np.testing.assert_array_equal(end_d, want.end_d.numpy())
+    np.testing.assert_array_equal(plane, want.p_plane.numpy())
+    j = je.extend_banded(jnp.asarray(q), jnp.asarray(ql), jnp.asarray(r), jnp.asarray(v), scoring=JWIDE)
+    np.testing.assert_array_equal(score, np.asarray(j.score))
+    np.testing.assert_array_equal(end_d, np.asarray(j.end_d))
+    if collect:
+        np.testing.assert_array_equal(plane, np.asarray(j.p_plane))
+    assert (score >= 200 * 20).any()  # aligned reads, wide scores
+    forced = emulate_b4(q, ql, r, v, collect=collect, lanes=lanes, wide=True)
+    sr = te.extend_ref(*_t(q, ql, r, v), collect_plane=collect)
+    np.testing.assert_array_equal(forced[0], sr.score.numpy())
+    np.testing.assert_array_equal(forced[2], sr.p_plane.numpy())
+
+
+def test_align_params_refuse_int32_limit_when_built_for_cuda(tmp_path):
+    """A CUDA run checks its scoring against B4's int32 DP at its longest
+    read (AlignParams.check_kernel, at the read's length bucket), before
+    its match stage: large scoring aligns short reads (sr with -O 12,300
+    scores 613 a row, 157,541 at 256 rows), and a read too long for it is
+    refused (map-ont at -A 200 -B 150: 41 kb fits, 42 kb does not). A CPU
+    run never checks: its plain version takes any scoring."""
+    from phylign_tpu_torch.align.engine import AlignParams
+    from phylign_tpu_torch.config import Config
+    from phylign_tpu_torch.pipeline.stages import Pipeline
+
+    for extra in ("-O 12,300", "-A 400 -B 200", "-A 200 -B 150"):
+        AlignParams.from_preset("sr", extra).check_kernel(150)
+    with pytest.raises(ValueError, match="int32 DP limit"):
+        AlignParams.from_preset("sr", "-O 12,300").check_kernel(32_769)
+    ont = AlignParams.from_preset("map-ont", "-A 200 -B 150")
+    ont.check_kernel(41_000)
+    with pytest.raises(ValueError, match="int32 DP limit"):
+        ont.check_kernel(42_000)
+    cfg = Config(minimap_preset="map-ont", minimap_extra_params="-A 200 -B 150")
+    assert Pipeline(cfg, tmp_path, device="cpu").align_params(42_000).scoring.match == 200

@@ -198,8 +198,17 @@ def test_empty_and_anchorless_pools():
 
 
 def test_mesh_is_not_ported():
+    """The entry points take a mesh (ported): work lands on its home
+    device, an empty pool flushes to no records, and pair counts pad to
+    a multiple of the query axis (tests/test_torch_parallel.py holds the
+    records to the one-device run)."""
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+
     params = tae.AlignParams.from_preset("sr")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tae.flush_pairs_fused([], params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        list(tae.align_batches_pooled([("b", "x.tar.xz", None)], [], params, mesh=object(), device="cpu"))
+    mesh = make_mesh(2, 3, devices="cpu")
+    assert tae._resolve(mesh, "cuda") == torch.device("cpu")
+    assert tae.flush_pairs_fused([], params, mesh=mesh, device="cpu") == []
+    for q in (1, 3):
+        got = [tae._bucket_pairs(n, q) for n in (0, 5, 9, 16)]
+        assert got == [jae._bucket_pairs(n, q) for n in (0, 5, 9, 16)]
+    assert [tae._bucket_pairs(n, 3) for n in (0, 5, 9, 16)] == [9, 9, 18, 18]

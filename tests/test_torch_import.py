@@ -1,8 +1,8 @@
 """The port's boundaries: it imports nothing of jax or of the JAX package
 (``phylign_tpu``), eagerly or lazily, it picks the plain PyTorch
 version only for CPU tensors, it never moves to the CPU on its own, kernel
-failures are not retried, every kernel source is built and bound, and the
-unported entry points say so."""
+failures are not retried, every kernel source is built and bound, and a
+multi-process run whose process group does not form exits non-zero."""
 
 import ast
 import subprocess
@@ -75,7 +75,9 @@ def test_scan_sees_lazy_imports():
 def test_no_module_imports_jax():
     """Every module of the package, imported in a fresh interpreter,
     leaves jax and the JAX package (phylign_tpu, phylign_tpu.*) out of
-    sys.modules."""
+    sys.modules. The walk reaches every subpackage (a directory without an
+    __init__.py would be skipped): align.fused and parallel's modules
+    among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import phylign_tpu_torch as p\n"
@@ -83,6 +85,10 @@ def test_no_module_imports_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 10, mods\n"
+        "need = {'phylign_tpu_torch.align.fused', 'phylign_tpu_torch.align.engine',\n"
+        "        'phylign_tpu_torch.parallel.mesh', 'phylign_tpu_torch.parallel.dist',\n"
+        "        'phylign_tpu_torch.parallel.launch'}\n"
+        "assert need <= set(mods), sorted(need - set(mods))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'phylign_tpu'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -157,18 +163,25 @@ def test_other_errors_fall_back_to_the_job_path(tmp_path, monkeypatch):
 
 
 def test_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stages.Pipeline(Config(mesh_shape="2x1"), tmp_path, device="cpu")
+    """A mesh is ported: a CPU pipeline builds its mesh_shape lazily, every
+    shard on the CPU; a mesh that its devices cannot fill is refused."""
+    pl = stages.Pipeline(Config(mesh_shape="2x1"), tmp_path, device="cpu")
+    assert pl.mesh().shape == {"d": 2, "q": 1}
+    assert pl.mesh() is pl.mesh()
+    assert stages.Pipeline(Config(), tmp_path, device="cpu").mesh() is None
+    bad = stages.Pipeline(Config(mesh_shape="2x2"), tmp_path, device="cpu", mesh_devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="devices"):
+        bad.mesh()
 
 
 @pytest.mark.parametrize("cmd", ["map", "all"])
 def test_unported_commands_exit_nonzero(cmd):
-    """map and all are ported; their multi-host mode (--distributed) is not
-    and says so."""
+    """--distributed whose process group cannot form (a rank outside the
+    world) exits non-zero, naming the group, before any work."""
     with pytest.raises(SystemExit) as e:
-        cli.main([cmd, "--device", "cpu", "--distributed"])
-    assert "not yet ported" in str(e.value.code)
-    assert "ROADMAP" in str(e.value.code)
+        cli.main([cmd, "--device", "cpu", "--distributed", "--num-processes", "2", "--process-id", "5"])
+    assert "process group did not form" in str(e.value.code)
+    assert "rank of 2" in str(e.value.code)
 
 
 KERNEL_ENTRIES = {
