@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path (``match``, then ``map``: the
-align stage, aggregation and stats) on one NVIDIA GPU and hold every
-hand-written kernel against its plain PyTorch version.
+align stage, aggregation and stats) and the rest of its CLI on one NVIDIA
+GPU, and hold every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py          # from the repository root, one GPU
     python3 chip_smoke.py --kernels-only --baseline-src OLD.cu
@@ -59,18 +59,35 @@ Phases, each printing one JSON line:
     one-rank nccl process group, the mesh's top-k gather through
     all_gather_into_tensor, hits equal to (b)'s. Phase 5 also runs B4 at
     -A 200 -B 150 (its int32 substitution) and at its per-query-shard
-    shapes (B3 P = 8,192, B4 P = 4,096: half of a call on a 1x2 mesh).
-Then the kernel table, the card's label, and as the last line
+    shapes (B3 P = 8,192, B4 P = 4,096: half of a call on a 1x2 mesh);
+  9 the rest of the CLI on the card, over indexes the port builds itself:
+    (a) ``build-index`` (k 31, one hash, fpr 0.3) from phase 7's two tars,
+    ``inspect-index`` on each; (b) ``download`` of both indexes and tars
+    from a loopback http.server into a fresh workdir, then ``preflight``;
+    (c) ``all`` there over phase 7's 16,384 reads at the config defaults
+    (threshold 0.7, nb_best_hits 100): 03_match equal to the numpy oracle
+    on a sample, >= 95% of the planted reads whose oracle score for their
+    genome clears the threshold mapped to their position; (d) ``all`` on
+    a 2,048-read subset through the console entry point in a subprocess,
+    on the card and with ``--device cpu``: every output identical; (e)
+    ``test`` on the card, then ``stats``, ``report``, ``index-sizes``,
+    ``config``, ``check-cluster`` and ``clean --all``; (f) ``match_step``
+    on phase 2's matrix at Q = 2,048, K = 128, H = 1 and 3: scores equal
+    to match_scores_ref, keep equal to the float32 formula, with empty
+    queries and scores on the cut.
+Then the script's runtime, the kernel table, the card's label, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA device, exits
 non-zero without that line. All data are made from fixed seeds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import io
 import json
 import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -1111,7 +1128,7 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
     if profile:
         pl_p, stem_p = _align_pipeline(wd, work / "align_profiled", "cuda", names, reads, cands, range(P7_READS))
         emit("align_profile", card=label, **profile_align(pl_p, stem_p, ROOT / "chiprun_out" / "align_profile.txt"))
-    return counts, dict(names=names, reads=reads, cands=cands, align_s=align_s)
+    return counts, dict(names=names, reads=reads, cands=cands, truth=truth, align_s=align_s)
 
 
 # --- phase 8: the device mesh on the one card ----------------------------------
@@ -1298,6 +1315,309 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
     return {k: sum(c.get(k, 0) for c in counts.values()) for k in counts["c"]}
 
 
+
+# --- phase 9: the rest of the CLI on the card -----------------------------------
+
+#: phase 9 (f): match_step's calls on phase 2's matrix: (H, threshold). The
+#: thresholds put the float32 cut inside each H's score range (about 25% of
+#: the slots hit at H = 1, 1.6% at H = 3)
+P9_STEP = {1: 0.3, 3: 0.02}
+P9_Q, P9_K = 2048, 128
+
+
+def run_cli(argv: list[str]) -> str:
+    """``cli.main(argv)`` in this process, its stdout captured; a
+    SystemExit other than 0 fails the phase."""
+    from phylign_tpu_torch import cli
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"cli {argv[0]} exited {e.code!r}:\n{buf.getvalue()[-3000:]}") from e
+    return buf.getvalue()
+
+
+def run_console(argv: list[str], timeout: int = 900) -> str:
+    """``python -m phylign_tpu_torch.cli`` (the console entry point,
+    ``cli_entry``) in a subprocess: its exit code must be 0, so teardown
+    after the card's work is held too."""
+    res = subprocess.run([sys.executable, "-m", "phylign_tpu_torch.cli", *argv], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"console `{argv[0]}` exited {res.returncode}:\n{res.stderr[-3000:]}")
+    return res.stdout
+
+
+@contextlib.contextmanager
+def loopback_server(root: Path):
+    """A static file server for ``root`` on 127.0.0.1; yields (base url,
+    request paths)."""
+    import functools
+    import http.server
+    import threading
+
+    hits = []
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def do_GET(self):
+            hits.append(self.path)
+            super().do_GET()
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Handler, directory=str(root)))
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}", hits
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+
+
+def source_scores(didx, seqs: list[bytes], docs: list[int]):
+    """The numpy oracle's score of each read against one doc of a 1-hash
+    index (match/oracle.score_query_codes, vectorized over reads): int64
+    scores and k-mer counts."""
+    import numpy as np
+
+    from phylign_tpu_torch.kmer import cobs_kmer_hashes_batch, encode_seq
+
+    raw = cobs_kmer_hashes_batch([encode_seq(s) for s in seqs], didx.term_size, 1)
+    nk = np.array([r.shape[0] for r in raw], np.int64)
+    rows = (np.concatenate(raw)[:, 0] % np.uint64(didx.signature_size)).astype(np.int64)
+    doc = np.repeat(np.asarray(docs, np.int64), nk)
+    bits = (np.asarray(didx.words)[rows, doc // 32] >> (doc % 32).astype(np.uint32)) & 1
+    scores = np.add.reduceat(bits.astype(np.int64), np.concatenate([[0], np.cumsum(nk)[:-1]]))
+    return np.where(nk > 0, scores, 0), nk
+
+
+def phase_cli(work: Path, label: str, p7: dict) -> dict:
+    """(a) build-index + inspect-index on phase 7's tars; (b) download over
+    loopback + preflight; (c) ``cli all`` on the card over the self-built
+    indexes with phase 7's reads; (d) its 2,048-read subset through the
+    console entry point on the card and with --device cpu; (e) ``cli test``
+    and the host subcommands; (f) match_step on phase 2's matrix."""
+    import numpy as np
+    import torch
+
+    from phylign_tpu_torch.io import cobs as iocobs
+    from phylign_tpu_torch.io.fastx import read_fastx_file
+    from phylign_tpu_torch.pipeline import download
+
+    counts, res = {}, {}
+
+    def drive(key, fn):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[key] = _align_counts()
+        return out
+
+    src = work / "align"
+    batches = (src / "data" / "batches.txt").read_text().split()
+    serve = work / "p9_serve"
+    (serve / "cobs").mkdir(parents=True)
+    shutil.copytree(src / "asms", serve / "asms")
+
+    # (a) build-index at the reference's settings (k 31, one hash, fpr 0.3),
+    # both tars at once through the console entry point
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "phylign_tpu_torch.cli", "build-index",
+                               str(src / "asms" / f"{b}.tar.xz"), str(serve / "cobs" / f"{b}.cobs_classic.xz")],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for b in batches]
+    built = []
+    for pr in procs:
+        out, err = pr.communicate(timeout=900)
+        if pr.returncode != 0:
+            raise AssertionError(f"build-index exited {pr.returncode}:\n{err[-3000:]}")
+        built.append(out.strip())
+    build_s = time.perf_counter() - t0
+    for b in batches:
+        rep = json.loads(run_cli(["inspect-index", str(serve / "cobs" / f"{b}.cobs_classic.xz")]))
+        if not (rep["ok"] and rep["num_docs"] == P7_GENOMES and rep["term_size"] == 31 and rep["num_hashes"] == 1):
+            raise AssertionError(f"inspect-index of {b}: {rep}")
+    res["a"] = dict(build_s=build_s, built=built, index_mb={
+        b: (serve / "cobs" / f"{b}.cobs_classic.xz").stat().st_size / 1e6 for b in batches})
+
+    # (b) download into a fresh workdir over loopback, then preflight
+    wd = work / "p9"
+    (wd / "data").mkdir(parents=True)
+    (wd / "input").mkdir()
+    shutil.copy(src / "data" / "batches.txt", wd / "data" / "batches.txt")
+    shutil.copy(src / "input" / "align_reads.fq", wd / "input" / "align_reads.fq")
+    # fixed thread counts: check-cluster (e) accepts only such a config
+    (wd / "config.yaml").write_text("batches: data/batches.txt\nthreads: 8\ncobs_threads: 4\n")
+    saved = download.cobs_url, download.asms_url
+    with loopback_server(serve) as (base, hits):
+        download.cobs_url = lambda b: f"{base}/cobs/{b}.cobs_classic.xz"
+        download.asms_url = lambda b: f"{base}/asms/{b}.tar.xz"
+        try:
+            t0 = time.perf_counter()
+            got = run_cli(["download", "--workdir", str(wd)])
+            download_s = time.perf_counter() - t0
+        finally:
+            download.cobs_url, download.asms_url = saved
+    if got.count("downloaded (cobs+asms)") != len(batches) or len(hits) != 2 * len(batches):
+        raise AssertionError(f"download: {got!r}, {len(hits)} requests")
+    for b in batches:
+        for d, suf in (("cobs", ".cobs_classic.xz"), ("asms", ".tar.xz")):
+            if (wd / d / f"{b}{suf}").read_bytes() != (serve / d / f"{b}{suf}").read_bytes():
+                raise AssertionError(f"downloaded {d}/{b}{suf} differs from the served file")
+    pf = run_cli(["preflight", "--workdir", str(wd)])
+    if "preflight PASSED" not in pf or "[FAIL]" in pf:
+        raise AssertionError(f"preflight:\n{pf}")
+    res["b"] = dict(download_s=download_s, requests=len(hits), preflight="PASSED")
+
+    # (c) cli all on the card at the config defaults
+    reads_fq = str(wd / "input" / "align_reads.fq")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = drive("c", lambda: run_cli(["all", "--workdir", str(wd), "--config", str(wd / "config.yaml"), reads_fq]))
+    all_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    if not (counts["c"]["match_popcount_b2"] and counts["c"]["chain_scan"] and counts["c"]["extend_scan"]):
+        raise AssertionError(f"`cli all` on the self-built indexes did not launch B2, B3 and B4: {counts['c']}")
+    summary = Path(out.strip().split(": ", 1)[1])
+    stem = summary.name.split(".sam_summary")[0]
+    thr, keep = 0.7, 100  # Config defaults, which this workdir keeps
+    didx = {b: iocobs.to_device_index(iocobs.read_classic_index(wd / "cobs" / f"{b}.cobs_classic.xz"))
+            for b in batches}
+    records = list(read_fastx_file(wd / "intermediate" / "01_queries_merged" / f"{stem}.fa"))
+    for b in batches:
+        want = oracle_text(didx[b], records[:64], thr, keep)
+        got = gzip.open(wd / "intermediate" / "03_match" / f"{b}____{stem}.gz", "rt").read()
+        if got[: len(want)] != want:
+            raise AssertionError(f"03_match of {b} differs from the numpy oracle on the first 64 reads")
+    names, reads, truth = p7["names"], p7["reads"], p7["truth"]
+    genome_of = {}  # accession -> (batch, doc)
+    for b in batches:
+        for d, n in enumerate(didx[b].doc_names):
+            genome_of[n.split("_", 1)[1]] = (b, d)
+    planted = [i for i in range(P7_READS) if truth[i] is not None]
+    src_acc = {i: truth[i][1].split(".")[0] for i in planted}
+    clears = np.zeros(P7_READS, bool)
+    for b in batches:
+        mine = [i for i in planted if genome_of[src_acc[i]][0] == b]
+        sc, nk = source_scores(didx[b], [reads[i] for i in mine], [genome_of[src_acc[i]][1] for i in mine])
+        clears[mine] = (nk > 0) & (sc >= thr * nk)
+    qualifying = [i for i in planted if clears[i]]
+    placed = {}
+    for line in gzip.open(summary, "rt"):
+        f = line.split("\t")
+        if len(f) > 5 and f[1] in ("0", "16"):
+            placed.setdefault(f[0], set()).add((f[2], int(f[3]), int(f[1]) // 16))
+    hit = sum(1 for i in qualifying if truth[i][1:] in placed.get(names[i], ()))
+    frac = hit / len(qualifying)
+    if frac < 0.95:
+        raise AssertionError(f"only {hit} of {len(qualifying)} qualifying reads mapped to their position")
+    filtered = list(read_fastx_file(wd / "intermediate" / "04_filter" / f"{stem}.fa"))
+    stages = {}
+    for rule in ("fix_query", "match_pipelined", "translate_matches", "match_total", "batch_align_pooled",
+                 "aggregate_sams", "final_stats", "map_total"):
+        for f in (wd / "logs" / "benchmarks" / rule).glob("*.txt"):
+            stages[rule] = float(f.read_text().splitlines()[-1].split("\t")[0])
+    res["c"] = dict(
+        reads=P7_READS, threshold=thr, nb_best_hits=keep, planted=len(planted),
+        clear_threshold=len(qualifying), clear_share=len(qualifying) / len(planted),
+        placed=hit, placed_frac=frac, filtered_reads=len(filtered),
+        pairs=sum(len(r.comment.split(",")) for r in filtered if r.comment),
+        all_s=all_s, match_s=stages.get("match_total"), align_s=stages.get("map_total"),
+        stages_s=stages, peak_device_mb=peak_mb, launches=counts["c"],
+        oracle_sample=64,
+    )
+
+    # (d) a 2,048-read subset through the console entry point: card and CPU
+    sub = sorted(np.random.default_rng(3).choice(P7_READS, P7_SUBSET, replace=False).tolist())
+    outs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        dwd = work / f"p9_subset_{dev}"
+        (dwd / "input").mkdir(parents=True)
+        for d in ("cobs", "asms", "data"):
+            (dwd / d).symlink_to(wd / d)
+        shutil.copy(wd / "config.yaml", dwd / "config.yaml")
+        with open(dwd / "input" / "subset.fq", "w") as f:
+            for i in sub:
+                f.write(f"@{names[i]}\n{reads[i].decode()}\n+\n{'I' * len(reads[i])}\n")
+        t0 = time.perf_counter()
+        run_console(["all", "--workdir", str(dwd), "--config", str(dwd / "config.yaml"),
+                     "--device", dev, str(dwd / "input" / "subset.fq")])
+        secs[dev] = time.perf_counter() - t0
+        outs[dev] = _outputs(dwd)
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError(f"subset `all` differs between cuda and cpu in "
+                             f"{[k for k in outs['cpu'] if outs['cuda'].get(k) != outs['cpu'][k]]}")
+    res["d"] = dict(reads=P7_SUBSET, files=len(outs["cuda"]), seconds=secs, cpu="identical")
+
+    # (e) the fixture's golden test on the card, then the host subcommands
+    t_out = drive("e", lambda: run_cli(["test", "--workdir", str(work / "p9_test")]))
+    if "test PASSED" not in t_out:
+        raise AssertionError(f"cli test: {t_out!r}")
+    if not (counts["e"]["match_popcount_b2"] and counts["e"]["chain_scan"] and counts["e"]["extend_scan"]):
+        raise AssertionError(f"`cli test` did not launch B2, B3 and B4: {counts['e']}")
+    rest = {
+        "stats": ["stats", str(summary), "--queries", str(wd / "intermediate" / "01_queries_merged" / f"{stem}.fa")],
+        "report": ["report", "--workdir", str(wd)],
+        "index-sizes": ["index-sizes", "--cobs-dir", str(wd / "cobs"), "--out", str(wd / "data" / "sizes.txt")],
+        "config": ["config", "--workdir", str(wd)],
+        "check-cluster": ["check-cluster", "--workdir", str(wd)],
+        "clean": ["clean", "--workdir", str(wd), "--all"],
+    }
+    for name, argv in rest.items():
+        run_cli(argv)
+    left = sorted(p.name for p in wd.iterdir())
+    if {"cobs", "asms", "intermediate", "output", "logs"} & set(left) or "report.html" not in left:
+        raise AssertionError(f"report + clean --all left {left}")
+    res["e"] = dict(test="PASSED", launches=counts["e"], host_subcommands=sorted(rest))
+
+    # (f) match_step on phase 2's matrix (regenerated from its seed)
+    from phylign_tpu_torch.models.matcher import match_step
+    from phylign_tpu_torch.ops import match as opm
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    words = torch.cat([random_words(gen, S), torch.zeros((1, WP), dtype=torch.int32, device="cuda")])
+    step = {}
+    counts["f"] = {}
+    for h, thr_h in P9_STEP.items():
+        rows = case_rows(gen, P9_Q, P9_K, h)
+        nk = torch.randint(1, P9_K + 1, (P9_Q,), generator=gen, device="cuda", dtype=torch.int32)
+        nk[::16] = 0
+        nk[P9_Q - 8 :] = 0
+        slot = torch.arange(P9_K, device="cuda")
+        rows[(slot[None, :] >= nk[:, None])] = S
+        scores, keep = drive(f"f{h}", lambda: match_step(words, rows, nk, thr_h))
+        counts["f"] = {k: counts["f"].get(k, 0) + v for k, v in counts[f"f{h}"].items()}
+        ref = opm.match_scores_ref(words, rows)
+        if not torch.equal(scores, ref):
+            raise AssertionError(f"match_step at H={h} differs from match_scores_ref")
+        sc, nkn = scores.cpu().numpy(), nk.cpu().numpy()
+        cut = np.float32(thr_h) * nkn.astype(np.float32)
+        want = (sc.astype(np.float32) >= cut[:, None]) & (nkn[:, None] > 0)
+        if not np.array_equal(keep.cpu().numpy(), want):
+            raise AssertionError(f"match_step's keep at H={h} differs from the float32 formula")
+        on_cut = int(((sc == np.ceil(cut)[:, None]) & (nkn[:, None] > 0)).sum())
+        if on_cut == 0 or not (nkn == 0).any():
+            raise AssertionError(f"match_step at H={h}: no score on the cut ({on_cut}) or no empty query")
+        ms = cuda_ms(lambda i: match_step(words, rows, nk, thr_h), 20)
+        step[f"h{h}"] = dict(q=P9_Q, k=P9_K, threshold=thr_h, kernel=opm.select_kernel(P9_K, h),
+                             empty_queries=int((nkn == 0).sum()), scores_on_cut=on_cut,
+                             kept=int(want.sum()), ms=ms, max_abs_err=0)
+    del words
+    torch.cuda.empty_cache()
+    if not (counts["f"]["match_popcount_b1"] and counts["f"]["match_popcount_b2"]):
+        raise AssertionError(f"match_step did not launch B1 and B2: {counts['f']}")
+    res["f"] = dict(S=S, Wp=WP, **step, launches=counts["f"])
+    total = {k: sum(counts[c].get(k, 0) for c in ("c", "e", "f")) for k in counts["c"]}
+    emit("cli", card=label, **res, launches=total)
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -1318,6 +1638,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="phase 7 aligns once more under cProfile and torch.profiler "
                     "(tables in chiprun_out/align_profile.txt)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -1353,6 +1674,7 @@ def main(argv: list[str] | None = None) -> int:
         c7, p7 = phase_align_geometry(work, label, args.profile)
         mkern = phase_mesh_kernels(label)
         c8 = phase_mesh(work, label, p7)
+        c9 = phase_cli(work, label, p7)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1366,8 +1688,9 @@ def main(argv: list[str] | None = None) -> int:
         k = kern[case]
         table.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
-            launches=c3[name] + c4[name] + c6[name] + c8[name], launches_phase3=c3[name],
+            launches=c3[name] + c4[name] + c6[name] + c8[name] + c9[name], launches_phase3=c3[name],
             launches_phase4=c4[name], launches_phase6=c6[name], launches_phase8=c8[name],
+            launches_phase9=c9[name],
             case=case, max_abs_err=max(v["max_abs_err"] for v in [*kern.values(), *mkern.values()]
                                        if v["kernel"] == name),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
@@ -1378,13 +1701,14 @@ def main(argv: list[str] | None = None) -> int:
         k = akern[case]
         table.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
-            launches=c6[name] + c7[name] + c8[name], launches_phase6=c6[name], launches_phase7=c7[name],
-            launches_phase8=c8[name],
+            launches=c6[name] + c7[name] + c8[name] + c9[name], launches_phase6=c6[name],
+            launches_phase7=c7[name], launches_phase8=c8[name], launches_phase9=c9[name],
             case=case, max_abs_err=max(v["max_abs_err"] for v in akern.values() if v["kernel"] == name),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             bound_share=k["bound_share"], bytes=k["bytes"], operations=k["operations"],
             library_ms=None, **shard(name),
         ))
+    emit("runtime", script_s=time.perf_counter() - t_start, card=label)
     print(json.dumps({"kernels": table}), flush=True)
     print(label, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
-"""COBS *classic* index binary format: read, write, and device repacking
-(the port's own copy of ``phylign_tpu/io/cobs.py``, as far as the match
-path and the fixtures use it).
+"""COBS *classic* index binary format: read, write, inspect, build, and
+device repacking (the port's own copy of ``phylign_tpu/io/cobs.py``).
 
 The reference pipeline downloads one xz-compressed ``.cobs_classic`` index per
 batch (the reference's Snakefile:196-201) and queries it with
@@ -212,6 +211,56 @@ def read_classic_index(path: str | os.PathLike) -> ClassicIndex:
         fp.close()
 
 
+def inspect_classic_index(path: str | os.PathLike) -> dict:
+    """Parse ONLY the header and report every field plus sanity/payload
+    diagnostics — the offline compatibility probe for real Zenodo artifacts
+    (run `phylign-tpu-torch inspect-index <file>` on a real download; if all checks
+    pass, the format guess documented in docs/cobs_format.md is confirmed)."""
+    p = str(path)
+    if p.endswith(".xz"):
+        with lzma.open(p, "rb") as f:
+            data = f.read()
+        total = len(data)
+        fp: BinaryIO = io.BytesIO(data)
+    else:
+        total = os.stat(p).st_size
+        fp = open(p, "rb")
+    report: dict = {"path": p, "total_bytes": total, "ok": False}
+    try:
+        idx = _read_header(fp)
+        header_end = fp.tell()
+        want = idx.signature_size * idx.row_bytes
+        report.update(
+            term_size=idx.term_size,
+            canonicalize=idx.canonicalize,
+            num_docs=idx.num_docs,
+            num_hashes=idx.num_hashes,
+            signature_size=idx.signature_size,
+            row_bytes=idx.row_bytes,
+            header_bytes=header_end,
+            payload_bytes_expected=want,
+            payload_bytes_actual=total - header_end,
+            doc_names_head=idx.doc_names[:3],
+            doc_names_rid_prefixed=all(
+                "_" in n and n.partition("_")[0].isdigit()
+                for n in idx.doc_names[:16]
+            ),
+        )
+        if total - header_end != want:
+            report["error"] = (
+                "payload size mismatch: header layout likely differs "
+                "from this artifact's cobs version"
+            )
+        else:
+            report["ok"] = True
+        return report
+    except CobsFormatError as e:
+        report["error"] = str(e)
+        return report
+    finally:
+        fp.close()
+
+
 # --- construction (used for synthetic fixtures & index building) -------------
 
 
@@ -281,6 +330,32 @@ def build_classic_index(
         signature_size=signature_size,
         rows=rows,
     )
+
+
+def build_index_from_tar(
+    tar_path: str | os.PathLike,
+    term_size: int = DEFAULT_TERM_SIZE,
+    num_hashes: int = 1,
+    fpr: float = DEFAULT_FPR,
+    add_rid_prefix: bool = True,
+    seed: int = 0,
+) -> ClassicIndex:
+    """Index construction from a batch assembly tarball: builds the paired
+    .cobs_classic artifact for a .tar.xz of genome FASTAs (the artifact pair
+    the reference downloads together: its Snakefile:196-207).
+    Doc names get the 661k-style random sort prefix 'NNNN_' unless disabled
+    (the reference's postprocess_cobs.py:16-18 strips it)."""
+    from phylign_tpu_torch.io.asmtar import iter_batch_assemblies
+    from phylign_tpu_torch.kmer import decode_seq
+
+    rng = np.random.default_rng(seed)
+    docs: list[tuple[str, list[bytes]]] = []
+    for rname, contigs in iter_batch_assemblies(tar_path):
+        name = (
+            f"{int(rng.integers(0, 10000)):04d}_{rname}" if add_rid_prefix else rname
+        )
+        docs.append((name, [decode_seq(codes) for _, codes in contigs]))
+    return build_classic_index(docs, term_size, num_hashes, fpr=fpr)
 
 
 # --- device repacking --------------------------------------------------------

@@ -173,6 +173,11 @@ def xxh64_batch(rows: np.ndarray, seed: int = 0) -> np.ndarray:
 # --- Canonical k-mers and COBS row indices -----------------------------------
 
 
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """Scalar XXH64 of arbitrary-length bytes (spec-complete, any length)."""
+    return int(xxh64_batch(np.frombuffer(data, np.uint8)[None, :], seed)[0])
+
+
 def kmer_windows(codes: np.ndarray, k: int) -> np.ndarray:
     """All overlapping k-windows of a code sequence: [L-k+1, k] view."""
     if codes.shape[0] < k:

@@ -54,6 +54,32 @@ def filter_candidates(
     return out
 
 
+def filter_queries(
+    query_records: Sequence[FastxRecord],
+    per_batch_matches: Mapping[str, Iterable[tuple[str, list[tuple[str, int]]]]],
+    keep: int,
+) -> list[FilteredQuery]:
+    """Merge per-batch match streams into per-query global candidate lists.
+
+    per_batch_matches: batch name -> iterable of (qname, [(accession, score)])
+    Batches are processed in the given order; ordering does not affect the
+    result (sort key is total).
+    """
+    by_name: dict[str, FilteredQuery] = {
+        r.name: FilteredQuery(r.name, r.seq) for r in query_records
+    }
+    acc: dict[str, list[tuple[str, str, int]]] = {q: [] for q in by_name}
+    for batch, stream in per_batch_matches.items():
+        for qname, hits in stream:
+            if qname not in acc:  # unknown query name: tolerate, like reference
+                by_name[qname] = FilteredQuery(qname, "")
+                acc[qname] = []
+            acc[qname].extend((batch, a, s) for a, s in hits)
+    for qname, triples in acc.items():
+        by_name[qname].candidates = filter_candidates(triples, keep)
+    return list(by_name.values())
+
+
 def filter_queries_streaming(
     query_records: Iterable[FastxRecord],
     per_batch_matches: Mapping[str, Iterable[tuple[str, list[tuple[str, int]]]]],
@@ -114,7 +140,7 @@ def filter_queries_arrays(
 ) -> list[FilteredQuery]:
     """Vectorized filter over natively parsed match files.
 
-    Same result as filter_queries_streaming, but the
+    Same result as filter_queries / filter_queries_streaming, but the
     per-hit work is numpy over interned-accession arrays: one global
     lexsort by (query, -score, batch, accession) + a vectorized tie cut,
     instead of tens of millions of per-line python steps at full scale
@@ -138,8 +164,8 @@ def filter_queries_arrays(
         nq = len(pm.qnames)
         if nq == 0:
             continue
-        # unknown query names get a synthetic empty-sequence record (the
-        # reference tolerates them)
+        # unknown query names get a synthetic empty-sequence record, like
+        # filter_queries does (and the reference tolerates)
         for n in pm.qnames:
             if n not in name_to_qi:
                 name_to_qi[n] = len(records)

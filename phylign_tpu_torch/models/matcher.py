@@ -250,6 +250,12 @@ class DeviceQueryHashes:
             raw=raw, q_real=q_real,
         )
 
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the two hash halves (int64 here; the JAX
+        package's uint32 halves take half as many)."""
+        return int(self.hi.numel() + self.lo.numel()) * self.hi.element_size()
+
 
 def _int_cut(threshold: float, n_kmers: np.ndarray) -> np.ndarray:
     """Smallest integer score satisfying ``score >= threshold * n`` in
@@ -262,6 +268,30 @@ def _int_cut(threshold: float, n_kmers: np.ndarray) -> np.ndarray:
     cut = np.where(cut.astype(np.float64) < t, cut + 1, cut)
     cut = np.where(n_kmers > 0, np.maximum(cut, 0), np.int64(1 << 30))
     return cut.astype(np.int32)
+
+
+def match_step(
+    words: torch.Tensor,
+    row_idx: torch.Tensor,
+    n_kmers: torch.Tensor,
+    threshold: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One scoring step: scores [Q, 32*Wp] int32 and keep mask [Q, 32*Wp].
+
+    keep[q, d] = score >= threshold * n_kmers[q]  (cobs -t semantics, the
+    reference's config.yaml:20), and never for a query without k-mers.
+    Callers slice [:, :num_docs]. The scores come from kernel B1 or B2 on a
+    CUDA tensor and from match_scores_ref on a CPU one. The test is the JAX
+    package's float32 one (``f32(score) >= f32(threshold) * f32(n)``), not
+    the pipeline's float64 _int_cut: the two can differ at a score on the
+    cut."""
+    scores = match_scores(words, row_idx)
+    # a 0-dim host tensor: the float32 threshold goes to the kernel as an
+    # argument, with no copy to the device
+    cut = n_kmers.to(torch.float32) * torch.tensor(threshold, dtype=torch.float32)
+    keep = scores.to(torch.float32) >= cut[:, None]
+    keep = torch.logical_and(keep, n_kmers[:, None] > 0)
+    return scores, keep
 
 
 def _mesh_lane(mesh) -> int:
@@ -390,6 +420,20 @@ class Matcher:
     @property
     def pad_row(self) -> int:
         return self.words.shape[0] - 1
+
+    def rows_for_queries(
+        self, seqs: list[bytes], k_max: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Host-side k-mer extraction + hashing for a query batch: int32
+        [Q, k_max, H] Bloom rows (the padding row past each query's k-mers)
+        and int32 [Q] k-mer counts."""
+        per_query = [
+            cobs_row_indices(
+                encode_seq(s), self.term_size, self.signature_size, self.num_hashes
+            )
+            for s in seqs
+        ]
+        return pack_row_indices(per_query, k_max, self.pad_row, self.num_hashes)
 
     def score(
         self, seqs: list[bytes], threshold: float, k_max: int = 512

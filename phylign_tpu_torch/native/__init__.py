@@ -1,6 +1,6 @@
 """ctypes bindings for the port's native host library (``hostio.cpp``).
 
-The port's own copy of ``phylign_tpu.native``: XXH64 row hashing, the
+The port's own copy of ``phylign_tpu.native``: scalar XXH64, XXH64 row hashing, the
 03_match text parser, the dedup's unique+inverse and the filter's top-k core
 (match stage); minimizer sketching, seed-anchor collection and gapless SAM
 line assembly (align stage). At first use ``hostio.cpp`` is
@@ -113,6 +113,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     u8p, u32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint32)
     u64p = ctypes.POINTER(u64)
 
+    lib.xxh64.restype = u64
+    lib.xxh64.argtypes = [ctypes.c_char_p, u64, u64]
     lib.cobs_row_indices.restype = i64
     lib.cobs_row_indices.argtypes = [u8p, i64, i32, u64, i32, i64p]
     lib.cobs_row_indices_batch.restype = None
@@ -168,6 +170,13 @@ def _ptr(a: np.ndarray, t):
 
 def _u8ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def native_xxh64(data: bytes, seed: int = 0) -> int | None:
+    lib = get_lib()
+    if lib is None:
+        return None
+    return int(lib.xxh64(data, len(data), seed))
 
 
 def native_cobs_row_indices(

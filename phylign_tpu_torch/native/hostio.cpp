@@ -1,8 +1,9 @@
 // Native host-side kernels of the PyTorch/CUDA port: the port's own copy of
-// phylign_tpu/native/hostio.cpp (all of it but the scalar xxh64 and
-// encode_seq entry points, which the port does not call).
-//   * canonical 31-mer XXH64 Bloom-row hashing (cobs-compatible: XXH64 of
-//     the ASCII canonical k-mer, seed = hash index, mod signature size),
+// phylign_tpu/native/hostio.cpp (all of it but the encode_seq entry point,
+// which the port does not call).
+//   * scalar XXH64 of any bytes, and canonical 31-mer XXH64 Bloom-row
+//     hashing (cobs-compatible: XXH64 of the ASCII canonical k-mer, seed =
+//     hash index, mod signature size),
 //   * the 03_match text parser, the dedup's unique+inverse and the filter's
 //     top-k core (match stage),
 //   * minimizer sketching (minimap2-sr style: packed canonical k-mer,
@@ -91,7 +92,7 @@ static inline uint32_t read_u32(const uint8_t* p) {
   return v;
 }
 
-static uint64_t xxh64(const uint8_t* data, uint64_t len, uint64_t seed) {
+uint64_t xxh64(const uint8_t* data, uint64_t len, uint64_t seed) {
   const uint8_t* p = data;
   const uint8_t* end = data + len;
   uint64_t h;

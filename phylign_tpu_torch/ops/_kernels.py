@@ -8,7 +8,10 @@ source and the flags, so an edited source is rebuilt) and loaded with
 
 Every failure to build, load or launch raises :class:`KernelError`. Callers
 on the pipeline's paths re-raise it instead of retrying, and nothing falls
-back to the plain PyTorch version on a CUDA tensor.
+back to the plain PyTorch version on a CUDA tensor. A source is compiled at
+most once in a process: a caller that finds its build in flight (the
+pipeline's warm-up thread, ``build_all``) waits for it and gets its library
+or its error.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import Future
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -34,6 +38,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: each source's build in this process, in flight or done (its path or error)
+_build_lock = threading.Lock()
+_builds: dict[str, Future] = {}
 
 
 class KernelError(RuntimeError):
@@ -61,8 +68,29 @@ def _lib_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/{name}.cu`` unless an up-to-date library exists;
-    returns the library's path. Safe against concurrent builders: each
-    compiles to a private file and renames it into place."""
+    returns the library's path. The first call in a process builds; every
+    later or concurrent call returns the same path or raises the same
+    error, so no source is compiled twice and a failed build is not
+    retried."""
+    with _build_lock:
+        fut = _builds.get(name)
+        owner = fut is None
+        if owner:
+            fut = _builds[name] = Future()
+    if not owner:
+        return fut.result()
+    try:
+        out = _compile(name)
+    except BaseException as e:
+        fut.set_exception(e)
+        raise
+    fut.set_result(out)
+    return out
+
+
+def _compile(name: str) -> Path:
+    """Run nvcc unless the library exists. Safe against concurrent
+    processes: each compiles to a private file and renames it into place."""
     out = _lib_path(name)
     if out.exists():
         return out
@@ -86,7 +114,8 @@ def build(name: str) -> Path:
 
 def build_all() -> dict[str, float]:
     """Build every ``csrc/*.cu`` in parallel (one nvcc each); returns the
-    seconds each took (0 when it was already built)."""
+    seconds each took (0 when it was already built). Every source is
+    tried; the first failure (in name order) is raised after all end."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = sorted(p.stem for p in SRC_DIR.glob("*.cu"))
@@ -97,7 +126,8 @@ def build_all() -> dict[str, float]:
         return time.perf_counter() - t0
 
     with ThreadPoolExecutor(max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(one, names)))
+        futs = {n: pool.submit(one, n) for n in names}
+    return {n: f.result() for n, f in futs.items()}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -54,7 +54,7 @@ from phylign_tpu_torch.models.matcher import (
     _dedup_row_sets,
     device_index_bytes,
 )
-from phylign_tpu_torch.ops._kernels import KernelError
+from phylign_tpu_torch.ops._kernels import KernelError, build_all
 from phylign_tpu_torch.parallel.launch import shard_batches
 from phylign_tpu_torch.utils.bench import RamSampler, benchmark
 from phylign_tpu_torch.utils.platform import resolve_device
@@ -92,6 +92,9 @@ class QuerySet:
         # batches size their compacted device->host hit buffer from it
         # instead of the worst-case topn+ties window.
         self.hit_hint: int | None = None
+
+    def raw_per_record(self) -> list[np.ndarray]:
+        return [self.uraw[j] for j in self.rep_of]
 
     def device_chunk(self, off: int, size: int) -> DeviceQueryHashes:
         key = (off, size)
@@ -181,6 +184,39 @@ def _shared_index_cache(cache_mb: int) -> "_IndexCache | None":
         return _global_index_cache
 
 
+_warmed = False
+_warm_lock = threading.Lock()
+
+
+def _warm_device_async(device: torch.device) -> threading.Thread | None:
+    """On a CUDA device, create the CUDA context and build the kernel
+    libraries (``ops/_kernels.build_all``) on a daemon thread at pipeline
+    start, so the first match call does not wait for nvcc: the build
+    overlaps host preprocessing and index decode. Once per process; on the
+    CPU nothing starts. A failed build is logged at WARNING, and the first
+    launch then raises its KernelError (``library`` waits for the build in
+    flight and never starts a second one). Returns the thread, if any."""
+    global _warmed
+    with _warm_lock:
+        if device.type != "cuda" or _warmed:
+            return None
+        _warmed = True
+
+    def _touch():
+        try:
+            torch.zeros(8, device=device).sum().item()
+        except Exception as e:  # noqa: BLE001 - the first real use raises it again
+            log.warning("device warm-up: no CUDA context: %s", e)
+        try:
+            build_all()
+        except Exception as e:  # noqa: BLE001 - the first launch raises it again
+            log.warning("device warm-up: kernel build failed: %s", e)
+
+    t = threading.Thread(target=_touch, daemon=True, name="device-warmup")
+    t.start()
+    return t
+
+
 class Pipeline:
     def __init__(
         self,
@@ -193,6 +229,7 @@ class Pipeline:
         which may repeat a device); default every visible card on cuda, the
         CPU for every cell on cpu."""
         self.device = resolve_device(device)
+        _warm_device_async(self.device)
         self.cfg = config
         self._mesh = None  # built lazily from cfg.mesh_shape
         self._mesh_devices = mesh_devices

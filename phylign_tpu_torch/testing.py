@@ -1,8 +1,11 @@
-"""Synthetic fixtures: the port's own copy of ``make_fixture``,
-``make_perf_fixture`` and ``write_perf_reads`` from ``phylign_tpu/testing.py``,
-which give the same trees from the same seeds.
+"""Synthetic golden-test fixture: the network-free `make test` equivalent
+(the port's own copy of ``phylign_tpu/testing.py``; the same trees from the
+same seeds).
 
-make_fixture:
+The reference's only test is an end-to-end golden run against 3 real Zenodo
+batches, diffing SAM columns 1-3 (its Makefile:40-55). Those artifacts need
+the network, so ``make_fixture`` generates a fully synthetic workload with a
+*constructively known* answer:
 
   * 4 query files x 10 reads of 150 bp (reference naming style);
   * N batches x 4 genomes x 2 contigs; selected reads are planted into
@@ -12,6 +15,11 @@ make_fixture:
     threshold (a spurious candidate would need >=84/120 Bloom
     false-positive k-mers), and each planted read aligns to its contig with
     the strand it was planted in.
+
+`run_golden_test` builds the fixture, runs the full pipeline through the
+public Pipeline API on a torch device, and compares the aggregated
+summary's columns 1-3 against the oracle, mirroring the reference's DIFF
+contract.
 """
 
 from __future__ import annotations
@@ -195,6 +203,78 @@ def make_fixture(
     )
     created += [workdir / "config.yaml", workdir / "data" / "fixture_oracle.json"]
     return created
+
+
+def run_reference_golden_test(
+    workdir: Path,
+    golden_xz: str | Path,
+    batches_file: str | Path,
+    inputs: list[str],
+    device: str = "cuda",
+) -> bool:
+    """The reference's `make test` oracle against REAL data: run the pipeline
+    on ``device`` over the given batches (cobs/ + asms/ must be
+    pre-downloaded under workdir) with nb_best_hits=1 and diff columns 1-3
+    of the output against a golden sam_summary (the reference's
+    Makefile:40-55; golden file:
+    data/reads_1___reads_2___reads_3___reads_4.sam_summary.xz). Requires the
+    Zenodo artifacts, so it cannot run in a network-less environment — the
+    synthetic run_golden_test covers CI there."""
+    import sys
+
+    from phylign_tpu_torch.config import Config
+    from phylign_tpu_torch.io.sam import summary_first3
+    from phylign_tpu_torch.pipeline.stages import Pipeline
+
+    cfg = Config(batches=str(batches_file), nb_best_hits=1)
+    pl = Pipeline(cfg, workdir, device=device)
+    out = pl.run_all(inputs)
+    # banner lines are compared too (summary_first3 normalizes them to the
+    # batch stem; the emitted banner bytes themselves are workdir-relative
+    # and byte-identical to the reference's `make test` output)
+    got = summary_first3(out)
+    want = summary_first3(golden_xz)
+    if got != want:
+        gs, ws = set(got), set(want)
+        sys.stderr.write(
+            f"golden mismatch: {len(ws - gs)} missing, {len(gs - ws)} extra, "
+            f"{len(got)} vs {len(want)} records\n"
+        )
+        return False
+    return True
+
+
+def run_golden_test(workdir: Path, device: str = "cuda") -> bool:
+    """Build fixture (if absent), run the pipeline on ``device``, diff
+    columns 1-3."""
+    import difflib
+    import sys
+
+    from phylign_tpu_torch.config import Config
+    from phylign_tpu_torch.io.sam import summary_first3
+    from phylign_tpu_torch.pipeline.stages import Pipeline
+
+    workdir = Path(workdir)
+    if not (workdir / "data" / "fixture_oracle.json").exists():
+        make_fixture(workdir)
+    cfg = Config.from_yaml(workdir / "config.yaml")
+    pl = Pipeline(cfg, workdir, device=device)
+    inputs = sorted(str(p) for p in (workdir / "input").iterdir())
+    out = pl.run_all(inputs)
+
+    got = summary_first3(out)
+    want_raw = json.loads((workdir / "data" / "fixture_oracle.json").read_text())
+    want = [
+        (w[0],) if len(w) == 1 else (str(w[0]), str(w[1]), str(w[2]))
+        for w in want_raw
+    ]
+    if got != want:
+        a = ["\t".join(t) for t in want]
+        b = ["\t".join(t) for t in got]
+        sys.stderr.write("\n".join(difflib.unified_diff(a, b, "expected", "got", lineterm="")))
+        sys.stderr.write("\n")
+        return False
+    return True
 
 
 def write_perf_reads(

@@ -595,3 +595,28 @@ def test_nccl_one_rank_gather_equals_in_process_mesh(cuda):
         tdist.destroy_process_group()
     assert [sorted(h) for h in got[0]] == [sorted(h) for h in want[0]]
     assert list(got[1]) == list(want[1])
+
+
+@pytest.mark.parametrize("h,k,thr", [(1, 128, 0.3), (3, 96, 0.02), (1, 120, 0.55)])
+def test_match_step_on_the_card(cuda, h, k, thr):
+    """match_step on CUDA tensors: the kernel's scores (B2 at H = 1 with K
+    a multiple of 32, else B1) equal match_scores_ref, and keep is the
+    float32 test, never true for a query without k-mers."""
+    gen = torch.Generator(device=cuda).manual_seed(h * 1000 + k)
+    s, wp, q = 3000, 68, 300
+    words = torch.randint(-(2**31), 2**31, (s + 1, wp), dtype=torch.int32, device=cuda, generator=gen)
+    words &= torch.randint(-(2**31), 2**31, (s + 1, wp), dtype=torch.int32, device=cuda, generator=gen)
+    words[s] = 0
+    rows = torch.randint(0, s, (q, k, h), dtype=torch.int32, device=cuda, generator=gen)
+    nk = torch.randint(0, k + 1, (q,), dtype=torch.int32, device=cuda, generator=gen)
+    nk[::7] = 0
+    rows[torch.arange(k, device=cuda)[None, :] >= nk[:, None]] = s
+    before = opm.launch_counts()[opm.select_kernel(k, h)]
+    scores, keep = tm.match_step(words, rows, nk, thr)
+    assert opm.launch_counts()[opm.select_kernel(k, h)] == before + 1
+    assert torch.equal(scores, opm.match_scores_ref(words, rows))
+    sc, n = scores.cpu().numpy(), nk.cpu().numpy()
+    cut = np.float32(thr) * n.astype(np.float32)
+    want = (sc.astype(np.float32) >= cut[:, None]) & (n[:, None] > 0)
+    np.testing.assert_array_equal(keep.cpu().numpy(), want)
+    assert (sc == np.ceil(cut)[:, None]).any() and not want[n == 0].any()

@@ -53,6 +53,27 @@ def host_path(request, monkeypatch):
 
 
 class TestKmer:
+    def test_xxh64_scalar(self, host_path):
+        """kmer.xxh64 and native.native_xxh64 against the JAX package's on
+        the vectors of tests/test_kmer.py (known values, lengths across
+        every tail case, seeds past 2**32)."""
+        assert kmer.xxh64(b"") == 0xEF46DB3751D8E999
+        assert kmer.xxh64(b"Nobody inspects the spammish repetition") == 0xFBCEA83C8A378BF1
+        rng = np.random.default_rng(0)
+        cases = [(b"ACGTACGTACGTACGTACGTACGTACGTACG", s) for s in (0, 1)]
+        for length in [0, 1, 3, 4, 7, 8, 12, 15, 31, 32, 33, 40, 63, 64, 77, 100]:
+            for seed in [0, 1, 7, 2**32, 2**63]:
+                cases.append((bytes(rng.integers(0, 256, length, dtype=np.uint8)), seed))
+        for data, seed in cases:
+            want = jkmer.xxh64(data, seed)
+            assert kmer.xxh64(data, seed) == want, (len(data), seed)
+            got = native.native_xxh64(data, seed)
+            if host_path == "native":
+                assert got == jnative.native_xxh64(data, seed) == want, (len(data), seed)
+            else:
+                assert got is None
+        assert kmer.xxh64(cases[0][0], 0) != kmer.xxh64(cases[0][0], 1)
+
     def test_encode_normalize_revcomp(self):
         for r in _reads(1):
             np.testing.assert_array_equal(kmer.encode_seq(r), jkmer.encode_seq(r))
@@ -122,6 +143,45 @@ class TestCobs:
             cobs.read_classic_index(tmp_path / "bad")
         for n in ("0001_SAMEA1", "SAMEA1", "_x", "a_b_c"):
             assert cobs.strip_rid(n) == jcobs.strip_rid(n)
+
+    def test_inspect_classic_index(self, tmp_path):
+        """The same report dict as the JAX package's for an index with and
+        without xz, one with a short payload, and one with a bad magic."""
+        idx = cobs.build_classic_index(_docs(3, 9), term_size=31, fpr=0.2)
+        cobs.write_classic_index(tmp_path / "i.cobs_classic", idx)
+        cobs.write_classic_index(tmp_path / "i.cobs_classic.xz", idx)
+        raw = (tmp_path / "i.cobs_classic").read_bytes()
+        (tmp_path / "short.cobs_classic").write_bytes(raw[:-5])
+        (tmp_path / "bad.cobs_classic").write_bytes(b"NOT A COBS INDEX" + bytes(40))
+        oks = []
+        for name in ("i.cobs_classic", "i.cobs_classic.xz", "short.cobs_classic", "bad.cobs_classic"):
+            got = cobs.inspect_classic_index(tmp_path / name)
+            assert got == jcobs.inspect_classic_index(tmp_path / name), name
+            oks.append(got["ok"])
+        assert oks == [True, True, False, False]
+
+    @pytest.mark.parametrize("num_hashes,rid,seed", [(1, True, 0), (2, True, 5), (1, False, 0)])
+    def test_build_index_from_tar(self, tmp_path, num_hashes, rid, seed):
+        """Byte-identical to the JAX build from the same tar: the NNNN_ rid
+        prefixes are drawn in tar order from default_rng(seed)."""
+        from phylign_tpu_torch.io import asmtar
+
+        rng = np.random.default_rng(7)
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        genomes = [
+            (f"SAMT{g:05d}", [(f"SAMT{g:05d}.c{c}", bytes(rng.choice(acgt, int(rng.integers(200, 900)))))
+                              for c in range(1 + g % 3)])
+            for g in (4, 0, 7, 2, 9, 1)  # not sorted: order is the tar's
+        ]
+        asmtar.write_batch_tar(tmp_path / "b.tar.xz", genomes)
+        kw = dict(term_size=31, num_hashes=num_hashes, fpr=0.2, add_rid_prefix=rid, seed=seed)
+        t = cobs.build_index_from_tar(tmp_path / "b.tar.xz", **kw)
+        j = jcobs.build_index_from_tar(tmp_path / "b.tar.xz", **kw)
+        assert t.doc_names == j.doc_names
+        assert [n.rpartition("_")[2] if rid else n for n in t.doc_names] == [g for g, _ in genomes]
+        cobs.write_classic_index(tmp_path / "t.xz", t)
+        jcobs.write_classic_index(tmp_path / "j.xz", j)
+        assert (tmp_path / "t.xz").read_bytes() == (tmp_path / "j.xz").read_bytes()
 
 
 def _write_inputs(d: Path, seed: int) -> list[str]:
@@ -209,8 +269,30 @@ def test_filter_outputs(host_path, keep):
         assert got_arrays == want
     else:
         assert all(p is None for p in parsed.values())
+    merged = {
+        mod: render(mod, mod.filter_queries(recs, {b: post.read_match_file(io.StringIO(t)) for b, t in texts.items()}, keep))
+        for mod, recs, post in ((jfilter, jrecords, jpost), (tfilter, records, postprocess))
+    }
     assert got_stream == want
+    assert merged[tfilter] == merged[jfilter] == want
     assert want.count(",") > 0
+
+
+def test_filter_queries_tolerates_unknown_names():
+    """The in-memory merge keeps a query name no record has, with an empty
+    sequence, as the JAX package's filter_queries does."""
+    texts, records = _match_texts(5, n_batches=2, n_queries=6)
+    extra = "_SAM007\t100\n"
+    streams = {
+        mod: {b: post.read_match_file(io.StringIO(t + f"*zz_unknown\t1\n{extra}")) for b, t in texts.items()}
+        for mod, post in ((jfilter, jpost), (tfilter, postprocess))
+    }
+    jrecords = [jfastx.FastxRecord(r.name, r.comment, r.seq) for r in records]
+    got = tfilter.filter_queries(records, streams[tfilter], 2)
+    want = jfilter.filter_queries(jrecords, streams[jfilter], 2)
+    assert [(q.qname, q.seq, q.candidates) for q in got] == [(q.qname, q.seq, q.candidates) for q in want]
+    assert got[-1].qname == "zz_unknown" and got[-1].seq == ""
+    assert got[-1].candidates == [("batch_c", "SAM007", 100), ("batch_d", "SAM007", 100)]
 
 
 def test_native_helpers_match_the_jax_package():

@@ -322,3 +322,82 @@ class TestMatcherAgainstJax:
         jh, jn = jm.Matcher.from_device_index(didx).score_hits_raw(raw, 0.5, 4)
         np.testing.assert_array_equal(tn, jn)
         assert canon(th) == canon(jh)
+
+
+class TestMatchStep:
+    """match_step (the JAX package's flagship forward step) against JAX's
+    on the CPU, XLA path and Pallas interpret mode. A staircase matrix
+    (doc d's bit set in row r iff r < d) and slots holding rows 0..K-1 give
+    each query every score from 0 to K, so each cut below lands on a score; n_kmers and thresholds sit
+    on cuts where the float32 test and the pipeline's float64 _int_cut
+    disagree by one (0.3 x 50: 15 vs 16; 0.55 x 100: 55 vs 56), plus
+    n_kmers = 0."""
+
+    S, WP, K = 128, 3, 64
+    NK = np.array([50, 0, 100, 25, 45, 90, 120, 64], np.int32)
+
+    def _inputs(self, h: int, lanes: int = 1, k: int = K):
+        from phylign_tpu.ops.match import pad_device_words
+
+        r = np.arange(self.S)[:, None]
+        d = np.arange(32 * self.WP)[None, :]
+        bits = (r < d).astype(np.uint64).reshape(self.S, self.WP, 32)
+        words = (bits << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+        words = pad_device_words(words, lanes)
+        rng = np.random.default_rng(h)
+        rows = np.stack([rng.permutation(k) for _ in self.NK]).astype(np.int32)
+        rows = np.stack([rows + j for j in range(h)], axis=-1).clip(0, self.S - 1)
+        rows[1] = self.S  # the query without k-mers: every slot padding
+        return words, rows
+
+    @staticmethod
+    def _f32_keep(scores, nk, thr):
+        cut = np.float32(thr) * nk.astype(np.float32)
+        return (scores.astype(np.float32) >= cut[:, None]) & (nk[:, None] > 0)
+
+    @pytest.mark.parametrize("h", [1, 3])
+    @pytest.mark.parametrize("thr", [0.3, 0.55, 0.6, 0.7])
+    def test_equals_jax_on_cut_boundaries(self, h, thr):
+        words, rows = self._inputs(h)
+        js, jk = jm.match_step(jnp.asarray(words), jnp.asarray(rows), jnp.asarray(self.NK), thr,
+                               use_pallas=False)
+        ts, tk = tm.match_step(torch.from_numpy(words.view(np.int32)), torch.from_numpy(rows),
+                               torch.from_numpy(self.NK), thr)
+        assert ts.dtype == torch.int32 and tk.dtype == torch.bool
+        assert ts.shape == tk.shape == (len(self.NK), 32 * words.shape[1])
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tk.numpy(), self._f32_keep(ts.numpy(), self.NK, thr))
+        assert not tk[1].any() and ts[1].sum() == 0
+        if thr in (0.3, 0.55):  # the f64 integer cut gives another mask here
+            f64 = ts.numpy() >= tm._int_cut(thr, self.NK)[:, None]
+            assert (f64 != tk.numpy()).any()
+
+    @pytest.mark.parametrize("h", [1, 3])
+    def test_scores_equal_pallas_interpret(self, h):
+        from phylign_tpu.ops import match as jopm
+
+        words, rows = self._inputs(h, lanes=jopm.LANE_WORDS, k=32)  # interpret mode is slow
+        fn = jopm.match_scores_pallas_v2 if h == 1 else jopm.match_scores_pallas
+        want = np.asarray(fn(jnp.asarray(words), jnp.asarray(rows if h > 1 else rows[..., 0]),
+                             interpret=True))
+        ts, _ = tm.match_step(torch.from_numpy(words.view(np.int32)), torch.from_numpy(rows),
+                              torch.from_numpy(self.NK), 0.55)
+        np.testing.assert_array_equal(ts.numpy(), want)
+
+
+def test_rows_for_queries_and_nbytes_equal_jax(fixture):
+    didx, tdidx, _docs, reads, raw = fixture
+    jmatch = jm.Matcher.from_device_index(didx, use_pallas=False)
+    tmatch = tm.Matcher.from_device_index(tdidx, CPU)
+    assert tmatch.pad_row == jmatch.pad_row
+    for k_max in (120, 128):
+        want = jmatch.rows_for_queries(reads, k_max)
+        got = tmatch.rows_for_queries(reads, k_max)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="k_max"):
+        tmatch.rows_for_queries(reads, 100)
+    dq = tm.DeviceQueryHashes.build(raw, CPU)
+    assert dq.nbytes == 2 * 8 * dq.hi.numel() == jm.DeviceQueryHashes.build(raw).nbytes * 2

@@ -101,3 +101,107 @@ def test_failed_dispatch_releases_reservations(tmp_path, monkeypatch):
     _run_with_timeout(lambda: pl.match(stem, pl.batches()), 300)
     assert len(seen) == 4
     assert pl.sched.hbm.available() == pl.sched.hbm.total
+
+
+def _warm_state(monkeypatch, tmp_path):
+    """A fresh warm-up flag and build registry, and an nvcc that fails and
+    records the thread of each call."""
+    from phylign_tpu_torch.ops import _kernels
+    from phylign_tpu_torch.pipeline import stages
+
+    monkeypatch.setattr(stages, "_warmed", False)
+    monkeypatch.setattr(_kernels, "_builds", {})
+    monkeypatch.setattr(_kernels, "_libs", {})
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "kbuild")
+    calls = []
+
+    def no_nvcc():
+        calls.append(threading.current_thread().name)
+        raise _kernels.KernelError("nvcc not found (test)")
+
+    monkeypatch.setattr(_kernels, "nvcc_path", no_nvcc)
+    return stages, _kernels, calls
+
+
+def test_warm_up_starts_no_thread_and_no_build_on_the_cpu(tmp_path, monkeypatch):
+    stages, kernels, calls = _warm_state(monkeypatch, tmp_path)
+    fixture_mod.make_fixture(tmp_path, n_batches=1, seed=3)
+    Pipeline(Config.from_yaml(tmp_path / "config.yaml"), tmp_path, device="cpu")
+    assert not any(t.name == "device-warmup" for t in threading.enumerate())
+    assert stages._warmed is False and kernels._builds == {} and calls == []
+
+
+def test_failed_warm_build_raises_at_first_launch_without_a_second_build(tmp_path, monkeypatch, caplog):
+    """A pretend CUDA pipeline whose nvcc fails: the warm-up thread tries
+    each source once and logs a WARNING; library() then raises that
+    KernelError instead of compiling again, and nothing is loaded."""
+    import logging
+
+    import pytest
+    import torch
+
+    stages, kernels, calls = _warm_state(monkeypatch, tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    started = []
+    warm = stages._warm_device_async
+    monkeypatch.setattr(stages, "_warm_device_async", lambda dev: started.append(warm(dev)))
+    fixture_mod.make_fixture(tmp_path, n_batches=1, seed=3)
+    n_src = len(list(kernels.SRC_DIR.glob("*.cu")))
+    with caplog.at_level(logging.WARNING, logger="phylign_tpu_torch.pipeline"):
+        Pipeline(Config.from_yaml(tmp_path / "config.yaml"), tmp_path, device="cuda")
+        assert len(started) == 1 and started[0] is not None
+        started[0].join(timeout=120)
+        assert not started[0].is_alive()
+    state = {k: f.done() for k, f in kernels._builds.items()}
+    assert sorted(state) == sorted(p.stem for p in kernels.SRC_DIR.glob("*.cu")), (state, calls)
+    assert all(state.values()), state
+    assert "kernel build failed" in caplog.text
+    assert len(calls) == n_src and "device-warmup" not in calls  # on the pool's threads
+    for name in ("match_popcount", "chain_scan"):
+        with pytest.raises(kernels.KernelError, match="nvcc not found"):
+            kernels.library(name)
+    assert len(calls) == n_src and kernels._libs == {}
+
+
+def test_query_set_raw_per_record_equals_jax(tmp_path):
+    import numpy as np
+
+    from phylign_tpu import testing as jfixture
+    from phylign_tpu.config import Config as JaxConfig
+    from phylign_tpu.pipeline.stages import Pipeline as JaxPipeline
+
+    per = {}
+    for side, mod, cfg_cls, pl_cls, kw in (
+        ("jax", jfixture, JaxConfig, JaxPipeline, {}),
+        ("torch", fixture_mod, Config, Pipeline, {"device": "cpu"}),
+    ):
+        wd = tmp_path / side
+        mod.make_fixture(wd, n_batches=1, seed=9)
+        # duplicates and reverse complements share a unique query
+        reads = (wd / "input" / "reads_1.fastq").read_text().splitlines()
+        comp = str.maketrans("ACGT", "TGCA")
+        (wd / "input" / "dups.fa").write_text(
+            f">d1\n{reads[1]}\n>d2\n{reads[1][::-1].translate(comp)}\n>d3\n{reads[5]}\n"
+        )
+        pl = pl_cls(cfg_cls.from_yaml(wd / "config.yaml"), wd, **kw)
+        stem = pl.preprocess(sorted(str(p) for p in (wd / "input").iterdir()))
+        qs = pl._query_set(stem, 31, 1)
+        per[side] = (qs.rep_of, qs.raw_per_record())
+    (jrep, jraw), (trep, traw) = per["jax"], per["torch"]
+    np.testing.assert_array_equal(trep, jrep)
+    assert len(traw) == len(jraw) == len(trep) > len(set(trep.tolist()))
+    for a, b in zip(traw, jraw):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_build_all_tries_every_source_when_one_fails(tmp_path, monkeypatch):
+    """One source failing does not cancel the others' builds (a pool's map
+    would): build_all raises the first error after every source ran."""
+    import pytest
+
+    _, kernels, calls = _warm_state(monkeypatch, tmp_path)
+    with pytest.raises(kernels.KernelError, match="nvcc not found"):
+        kernels.build_all()
+    names = sorted(p.stem for p in kernels.SRC_DIR.glob("*.cu"))
+    assert sorted(kernels._builds) == names and len(calls) == len(names)
+    assert all(f.done() and f.exception() is not None for f in kernels._builds.values())
