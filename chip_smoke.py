@@ -8,10 +8,11 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
                                    # phase 2 only, with the kernels of an
                                    # older match_popcount.cu timed beside
     python3 chip_smoke.py --profile    # phase 7 aligns once more under
-                                   # cProfile + torch.profiler, tables in
+                                   # cProfile + torch.profiler (device time
+                                   # and kernels per flush), tables in
                                    # chiprun_out/align_profile.txt
     python3 chip_smoke.py --align-kernels-only --baseline-align DIR
-                                   # phase 5 only, with the B3/B4 kernels
+                                   # phase 5 only (B3, B4, B6), with the B3/B4 kernels
                                    # of DIR/chain_scan.cu and
                                    # DIR/extend_scan.cu (PR 4's design)
                                    # timed beside; the full run takes the
@@ -33,13 +34,21 @@ Phases, each printing one JSON line:
     2,169 docs in the mem-disk device-cache layout, 10,240 reads of 150 bp
     (~15% duplicates); every planted read must reach its doc in 04_filter
     and a sample of reads must equal the oracle on the full-size index;
+    then the match epilogue B5 (still torch ops) timed at its first call,
+    with its kernel count, torch.topk's time and its bound;
   5 kernels B3 (chain DP scan) and B4 (banded extension scan) against their
     plain versions at the align stage's shapes and at every lane count each
     is built for, bit-exact on every input set (B4 also at bands 256 and
     384, on pairs of mixed q_len and on windows outside the contig), timed
     with CUDA events over ROTATION input sets in turn at each lane count,
     with each case's geometry, bytes, operations, bound and share of the
-    bound;
+    bound; then kernel B6, the flush epilogue: B6a (chain tail) at every
+    anchor bucket on B3's output, and B6b -> B4 -> B6c (+ compaction) on
+    flushes of P = 8,192 pairs (lmax 160, band 128: no candidate, both
+    strands, contig edges, 0-2 split segments, COLD_CAP overflow; also -A
+    200 -B 150, one and no segment, long queries), every output bit-exact
+    against the plain versions, timed, with the plain versions' times and
+    kernel counts, and the whole epilogue plain against B6 in turns;
   6 phase 3's fixture (with an assembly tar for its 3-hash batch) end to end
     through ``python -m phylign_tpu_torch.cli all`` on the card and again
     with ``--device cpu``: 05_map, sam_summary and stats must be identical,
@@ -100,6 +109,10 @@ SOURCE = {
     "match_popcount_b2": "phylign_tpu_torch/csrc/match_popcount.cu",
     "chain_scan": "phylign_tpu_torch/csrc/chain_scan.cu",
     "extend_scan": "phylign_tpu_torch/csrc/extend_scan.cu",
+    "chain_select": "phylign_tpu_torch/csrc/flush_epilogue.cu",
+    "select_window": "phylign_tpu_torch/csrc/flush_epilogue.cu",
+    "finish_pack": "phylign_tpu_torch/csrc/flush_epilogue.cu",
+    "compact_cold": "phylign_tpu_torch/csrc/flush_epilogue.cu",
 }
 REPLACES = {
     "match_popcount_b1": "phylign_tpu/ops/match.py:276",
@@ -107,6 +120,13 @@ REPLACES = {
     # XLA scans, not Pallas kernels: the lax.scan of each function
     "chain_scan": "phylign_tpu/ops/chain.py:181",
     "extend_scan": "phylign_tpu/ops/extend.py:237",
+    # B6, the jitted flush epilogue (phylign_tpu/align/fused.py:377): the
+    # chain tail compiled after the scan, the selection, the checks and
+    # packing, the compaction
+    "chain_select": "phylign_tpu/ops/chain.py:184",
+    "select_window": "phylign_tpu/align/fused.py:104",
+    "finish_pack": "phylign_tpu/align/fused.py:277",
+    "compact_cold": "phylign_tpu/align/fused.py:347",
 }
 
 
@@ -460,6 +480,7 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     from phylign_tpu_torch.config import Config
     from phylign_tpu_torch.io import cobs as iocobs
     from phylign_tpu_torch.io.fastx import read_fastx_file
+    from phylign_tpu_torch.models import matcher as tmatcher
     from phylign_tpu_torch.ops import match as opm
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
@@ -475,8 +496,20 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     t0 = time.perf_counter()
     stem = pl.preprocess([str(wd / "input" / "reads.fq")])
     t1 = time.perf_counter()
-    pl.match(stem)
-    torch.cuda.synchronize()
+    first_call = []  # the first batch's B5 call, timed after the phase's checks
+    orig_flat = tmatcher._hash_topk_flat
+
+    def capture(*a, **kw):
+        if not first_call:
+            first_call.append((a, kw))
+        return orig_flat(*a, **kw)
+
+    tmatcher._hash_topk_flat = capture
+    try:
+        pl.match(stem)
+        torch.cuda.synchronize()
+    finally:
+        tmatcher._hash_topk_flat = orig_flat
     t2 = time.perf_counter()
     pl.filter(stem)
     t3 = time.perf_counter()
@@ -511,7 +544,41 @@ def phase_full_geometry(work: Path, label: str) -> dict:
         launches=counts, oracle_sample=len(sample), card=label,
     )
     emit("full_geometry", **res)
+    if not first_call:
+        raise AssertionError("phase 4 did not reach models/matcher._hash_topk_flat")
+    emit("match_epilogue", card=label, **match_epilogue(*first_call[0]))
     return counts
+
+
+def match_epilogue(args, kw) -> dict:
+    """B5, the match epilogue still run as torch ops (models/matcher.
+    _hash_topk_flat: Bloom rows from the hashes, kernel B2, threshold +
+    top-k, flat hit compaction), at phase 4's first call: the whole call
+    and B2 alone from CUDA graphs, the epilogue's time as their difference
+    and its kernel count; torch.topk alone on the masked scores (the
+    library's time for the top-k part); the bound of the epilogue: the
+    [Q, 32 Wp] int32 scores read once and the flat hits written once."""
+    import torch
+
+    from phylign_tpu_torch.models import matcher as tmatcher
+    from phylign_tpu_torch.ops import match as opm
+
+    words, hi, lo, nk, cut = args
+    rows = tmatcher._hash_rows(hi, lo, nk, kw["s"], kw["pad_row"])
+    scores = opm.match_scores(words, rows)
+    masked = torch.where(scores[:, : kw["d"]] >= cut[:, None], scores[:, : kw["d"]], -1)
+    reps = 12
+    whole_ms = min(graph_ms(lambda i: tmatcher._hash_topk_flat(*args, **kw), reps) for _ in range(2))
+    b2_ms = min(graph_ms(lambda i: opm.match_scores(words, rows), reps) for _ in range(2))
+    topk_ms = min(graph_ms(lambda i: torch.topk(masked, kw["kk"], dim=1), reps) for _ in range(2))
+    launches = device_launches(lambda: tmatcher._hash_topk_flat(*args, **kw))
+    q, w = scores.shape
+    res = dict(Q=q, score_columns=w, K=rows.shape[1], H=rows.shape[2], kk=kw["kk"], cap=kw["cap"],
+               whole_ms=whole_ms, b2_ms=b2_ms, epilogue_ms=whole_ms - b2_ms,
+               epilogue_launches=launches - 1, torch_topk_ms=topk_ms,
+               **bound(q * w * 4 + (kw["cap"] + q + 1) * 4, 0))
+    del scores, masked, rows
+    return res
 
 
 # --- phase 5: the align stage's kernels B3 and B4 ------------------------------
@@ -857,6 +924,247 @@ def wide_scoring(rng, label: str) -> dict:
     return row
 
 
+# --- phase 5 (B6): the flush epilogue's kernels ---------------------------------
+
+#: B6a's cases: (name, P, A, qpos as uint16): every anchor bucket of the
+#: align stage (engine.ANCHOR_BUCKETS) on chain_sets' read-like sets, at
+#: phase 5's B3 sizes, and sets past shared memory (B6a's device
+#: workspace; chain_anchors' callers outside the engine's buckets)
+B6A_CASES = [
+    ("b6a_a32", 16384, 32, True),
+    ("b6a_a64", 8192, 64, True),
+    ("b6a_a256", 2048, 256, True),
+    ("b6a_a1024", 512, 1024, False),
+    ("b6a_a4096", 64, 4096, False),
+    ("b6a_a16384", 16, 16384, False),
+]
+#: the flush's cases (testing.flush_case: no candidate, both strands,
+#: contig edges, 0-2 split segments, padding): (name, P, lmax, band,
+#: n_sup, wide scoring, timed); the main path's flush is the first
+B6_FLUSH_CASES = [
+    ("b6_flush", 8192, 160, 128, 2, False, True),
+    ("b6_flush_wide", 8192, 160, 128, 2, True, False),
+    ("b6_flush_nsup1", 8192, 160, 128, 1, False, False),
+    ("b6_flush_nsup0", 2048, 160, 128, 0, False, False),
+    ("b6_flush_long", 512, 2208, 128, 2, False, False),
+]
+MAIN_B6_CASE = {"chain_select": "b6a_a32", "select_window": "b6_flush", "finish_pack": "b6_flush",
+                "compact_cold": "b6_flush"}
+#: 32-bit operations of B6a per slot and doubling round, and per slot and
+#: argmax pass; of B6b per pair and per gathered column; of B6c per column
+B6A_OPS_ROUND, B6A_OPS_PASS = 4, 20
+B6B_OPS_PAIR, B6B_OPS_COLUMN = 300, 6
+B6C_OPS_COLUMN = 30
+
+
+def device_table(prof) -> dict:
+    """{kernel or copy: (device ms, count)} from a torch.profiler run."""
+    dev = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if t > 0:
+            dev[e.key] = (t / 1e3, e.count)
+    return dev
+
+
+def kernel_count(dev: dict) -> int:
+    """CUDA kernels in a device_table (copies and memsets not counted)."""
+    return sum(n for k, (_, n) in dev.items() if not k.startswith(("Memcpy", "Memset")))
+
+
+def device_launches(fn) -> int:
+    """CUDA kernels one call of fn launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_count(device_table(prof))
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, operations=ops, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def b6_bounds(cand_map, lmax: int, wlen: int, n_sup: int, n_out: int, need: int) -> dict:
+    """Each B6 kernel's least time from these inputs: bytes at
+    HBM_BYTES_PER_S (B6b: the chain rows of the sets the pairs name, the
+    query, a quarter byte per window column, the contig search; out the
+    codes, window, mask, hot, scores, cold; B6c: query and lmax window
+    columns in, the hot word and the mismatch bits; the compaction: the
+    flag words and the first COLD_CAP needed rows in, COLD_CAP rows out),
+    operations at
+    INT32_OPS_PER_S."""
+    from phylign_tpu_torch.align.fused import COLD_CAP
+
+    p = len(cand_map)
+    sets = int((cand_map != cand_map.max()).sum())
+    ci = 4 + 6 * n_out + 5
+    b_in = 20 * p + sets * (11 + 6 * n_sup) * 4 + p * (-(-lmax // 4) + wlen // 4 + 64)
+    b_out = p * (lmax + 2 * wlen + 8 + 16 + 8 + 4 * ci + 4 * n_out)
+    return dict(
+        select_window=bound(b_in + b_out, p * (B6B_OPS_PAIR + B6B_OPS_COLUMN * (lmax + wlen))),
+        finish_pack=bound(p * (2 * lmax + 28) + p * (4 + lmax // 8), p * lmax * B6C_OPS_COLUMN),
+        compact_cold=bound(4 * p + (min(need, COLD_CAP) + COLD_CAP) * 4 * (ci + n_out), 10 * p),
+    )
+
+
+def phase_flush_kernels(label: str) -> dict:
+    """Kernel B6 against its plain versions at the align stage's shapes:
+    B6a at every anchor bucket on B3's output; B6b -> B4 -> B6c and its
+    compaction on testing.flush_case's flushes, every Selection field,
+    the whole packed buffer and the full cold rows bit-exact; each kernel
+    timed from CUDA graphs over ROTATION input sets, its plain version
+    over 2 calls, with the plain version's kernel count per call; at the
+    main path's flush also the whole epilogue, the plain path (torch ops
+    around B4, as the parent tree runs it) against B6b + B4 + B6c, in
+    turns from the host (the plain path's pageable constants cannot be
+    captured in a graph), with their kernel counts."""
+    import numpy as np
+    import torch
+
+    from phylign_tpu_torch import testing
+    from phylign_tpu_torch.align import fused as fz
+    from phylign_tpu_torch.ops import chain as opc
+    from phylign_tpu_torch.ops import extend as ope
+
+    rng = np.random.default_rng(13)
+    out = {}
+    cuda = torch.device("cuda")
+    cost = opc.device_cost_table(21, 100, cuda)
+    for name, p, a, q16 in B6A_CASES:
+        sets = []
+        for _ in range(ROTATION):
+            r, q = (torch.from_numpy(x).to(cuda) for x in chain_sets(rng, p, a, q16))
+            sets.append((*opc.chain_dp_cuda(r, q, cost, 21, 100, 100), r, q))
+        err = 0.0
+        for s in sets:
+            got, want = opc.chain_select_cuda(*s, 21, 2), opc._chain_tail_ref(*s, 21, 2)
+            torch.cuda.synchronize()
+            for n in want._fields:
+                err = max(err, max_abs_diff(getattr(got, n), getattr(want, n)))
+                if err != 0 or not torch.equal(getattr(got, n), getattr(want, n)):
+                    raise AssertionError(f"{name}: chain_select differs from _chain_tail_ref in {n}")
+        ms = min(graph_ms(lambda i: opc.chain_select_cuda(*sets[i], 21, 2), 4 * ROTATION, ROTATION)
+                 for _ in range(2))
+        nbytes = p * a * (12 + (2 if q16 else 4)) + p * (11 + 6 * 2) * 4
+        ops = p * a * (opc.doubling_rounds(a) * B6A_OPS_ROUND + 4 * B6A_OPS_PASS)
+        row = dict(kernel="chain_select", P=p, A=a, n_sup=2, qpos="uint16" if q16 else "int32",
+                   max_abs_err=err, ms=ms, plain_ms=cuda_ms(lambda i: opc._chain_tail_ref(*sets[i], 21, 2), 2, 2),
+                   plain_launches=device_launches(lambda: opc._chain_tail_ref(*sets[0], 21, 2)),
+                   threads=256 if a >= 256 else -(-a // 32) * 32, **bound(nbytes, ops))
+        row["bound_share"] = row["bound_ms"] / ms
+        out[name] = row
+        emit("flush_kernels", case=name, rotation=ROTATION, card=label, **row)
+        del sets
+    for name, p, lmax, band, n_sup, wide, timed in B6_FLUSH_CASES:
+        scoring = ope.SrScoring(match=WIDE_SCORING[0], mismatch=WIDE_SCORING[1]) if wide else ope.SrScoring()
+        cases = []
+        for _ in range(ROTATION if timed else 1):
+            ch, ins, kw = testing.flush_case(rng, p, lmax, band, n_sup)
+            chains = tuple(opc.ChainResult(*[torch.from_numpy(c[n]).to(cuda) for n in testing.CHAIN_FIELDS])
+                           for c in ch)
+            cases.append((chains, [torch.from_numpy(x).to(cuda) for x in ins], ins[0]))
+        err, cover, sels, exts = 0.0, {}, [], []
+        for chains, dev_in, cmap in cases:
+            q_len = dev_in[4]
+            sel = fz.select_window_cuda(chains, *dev_in, **kw)
+            ref = fz._select_ref(fz._flatten_chains(chains), *dev_in, **kw)
+            torch.cuda.synchronize()
+            # before B6c, which completes the hot rows (sel.head) in place
+            for n in ref._fields[:-1]:
+                x, y = getattr(sel, n).to(getattr(ref, n).dtype), getattr(ref, n)
+                err = max(err, max_abs_diff(x, y))
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name}: select_window differs from _select_ref in {n}")
+            ext = ope.extend_cuda(sel.q_codes, q_len, sel.rwin, sel.rvalid, scoring)
+            got = (*fz.finish_pack_cuda(sel, q_len, ext.score, ext.end_d, scoring, 100),
+                   *fz.compact_cold_cuda(sel))
+            hot, neq = fz._finish_ref(ref, q_len, ext.score, ext.end_d, scoring, 100)
+            cc = fz._compact_cold(hot, ref.cold_i, ref.cold_f)
+            want = torch.cat([fz._bitcast_u8(x) for x in (hot, ref.flts, neq, *cc)])
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, (hot, neq, *cc))) or not torch.equal(
+                    sel.packed, want):
+                raise AssertionError(f"{name}: the packed buffer differs from the plain version's")
+            err = max(err, max_abs_diff(sel.packed.int(), want.int()))
+            fl = (hot[:, 2] & 0xFF).cpu().numpy()
+            none = int((cmap == cmap.max()).all(axis=1).sum())
+            c = dict(pairs=p, no_candidate=none, has=int((fl & fz.F_HAS != 0).sum()),
+                     full=int((fl & fz.F_FULL != 0).sum()), reverse=int((fl & fz.F_STRAND != 0).sum()),
+                     sup1=int((fl & fz.F_SUP0 != 0).sum()), sup2=int((fl & (fz.F_SUP0 << 1) != 0).sum()),
+                     probe=int((fl & fz.F_PROBE != 0).sum()),
+                     contig_edge=int(((ref.lohi[:, 0] > 0) | (ref.lohi[:, 1] < lmax + band)).sum()),
+                     cold_needed=int((((fl & fz.F_HAS != 0) & (fl & fz.F_FULL == 0)) | (fl & 0xE0 != 0)).sum()))
+            for k, v in c.items():
+                cover[k] = cover.get(k, 0) + v
+            if not (none and c["has"] and c["full"] and c["reverse"] and c["contig_edge"]
+                    and (n_sup < 1 or c["sup1"]) and (n_sup < 2 or c["sup2"])):
+                raise AssertionError(f"{name}: the flush lacks a kind of pair: {c}")
+            sels.append(sel)
+            exts.append(ext)
+        row = dict(kernel="flush_epilogue", P=p, lmax=lmax, band=band, n_sup=n_sup,
+                   scoring=list(WIDE_SCORING) if wide else "sr", max_abs_err=err, inputs=cover,
+                   cold_cap=fz.COLD_CAP)
+        if timed:
+            reps = 4 * ROTATION
+            ci = [c[1] for c in cases]
+
+            def b6b(i):
+                return fz.select_window_cuda(cases[i][0], *ci[i], **kw)
+
+            def b6c(i):
+                fz.finish_pack_cuda(sels[i], ci[i][4], exts[i].score, exts[i].end_d, scoring, 100)
+
+            def plain_sel(i):
+                return fz._select_ref(fz._flatten_chains(cases[i][0]), *ci[i], **kw)
+
+            refs = [plain_sel(i) for i in range(ROTATION)]
+
+            def plain_fin(i):
+                return fz._finish_ref(refs[i], ci[i][4], exts[i].score, exts[i].end_d, scoring, 100)
+
+            fins = [plain_fin(i) for i in range(ROTATION)]
+
+            def plain_cc(i):
+                return fz._compact_cold(fins[i][0], refs[i].cold_i, refs[i].cold_f)
+
+            def flush(i, new):
+                if new:
+                    return fz.select_extend(cases[i][0], *ci[i], scoring=scoring, pack=True, **kw)
+                hot, flts, neq, cold = fz._select_extend_core(fz._flatten_chains(cases[i][0]), *ci[i],
+                                                              scoring=scoring, zdrop=100, **kw)
+                cc = fz._compact_cold(hot, *cold)
+                return torch.cat([fz._bitcast_u8(x) for x in (hot, flts, neq, *cc)])
+
+            need = cover["cold_needed"] // ROTATION
+            bnd = b6_bounds(cases[0][2], lmax, lmax + band, n_sup, n_sup, need)
+            for kname, fn, pfn in (("select_window", b6b, plain_sel), ("finish_pack", b6c, plain_fin),
+                                   ("compact_cold", lambda i: fz.compact_cold_cuda(sels[i]), plain_cc)):
+                ms = min(graph_ms(fn, reps, ROTATION) for _ in range(2))
+                row[kname] = dict(ms=ms, plain_ms=cuda_ms(pfn, 2, 2),
+                                  plain_launches=device_launches(lambda: pfn(0)), **bnd[kname],
+                                  bound_share=bnd[kname]["bound_ms"] / ms)
+            times = [(who, cuda_ms(lambda i: flush(i, who == "b6"), 2 * ROTATION, ROTATION))
+                     for who in ("plain", "b6", "b6", "plain")]
+            row["epilogue"] = dict(
+                times=times, b6_ms=min(t for w, t in times if w == "b6"),
+                plain_ms=min(t for w, t in times if w == "plain"),
+                b6_launches=device_launches(lambda: flush(0, True)),
+                plain_launches=device_launches(lambda: flush(0, False)))
+        out[name] = row
+        emit("flush_kernels", case=name, card=label, **row)
+        del cases, sels, exts
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- phase 6: the fixture through the CLI, card against CPU --------------------
 
 
@@ -870,15 +1178,21 @@ def _align_outputs(wd: Path) -> dict:
     return out
 
 
+#: the align stage's kernels every card run of it must launch
+ALIGN_KERNELS = ("chain_scan", "extend_scan", "chain_select", "select_window", "finish_pack", "compact_cold")
+
+
 def _align_counts() -> dict:
+    from phylign_tpu_torch.align import fused as fz
     from phylign_tpu_torch.ops import chain as opc
     from phylign_tpu_torch.ops import extend as ope
     from phylign_tpu_torch.ops import match as opm
 
-    return {**opm.launch_counts(), **opc.launch_counts(), **ope.launch_counts()}
+    return {**opm.launch_counts(), **opc.launch_counts(), **ope.launch_counts(), **fz.launch_counts()}
 
 
 def _reset_counts() -> None:
+    from phylign_tpu_torch.align import fused as fz
     from phylign_tpu_torch.ops import chain as opc
     from phylign_tpu_torch.ops import extend as ope
     from phylign_tpu_torch.ops import match as opm
@@ -886,6 +1200,7 @@ def _reset_counts() -> None:
     opm.reset_launch_counts()
     opc.reset_launch_counts()
     ope.reset_launch_counts()
+    fz.reset_launch_counts()
 
 
 def phase_fixture_all(work: Path) -> dict:
@@ -905,8 +1220,8 @@ def phase_fixture_all(work: Path) -> dict:
         counts[dev] = _align_counts()
         outs[dev] = _align_outputs(wd)
     c = counts["cuda"]
-    if not (c["chain_scan"] and c["extend_scan"]):
-        raise AssertionError(f"fixture `all` did not launch B3 and B4: {c}")
+    if not all(c[k] for k in ALIGN_KERNELS):
+        raise AssertionError(f"fixture `all` did not launch B3, B4 and B6: {c}")
     if any(counts["cpu"].values()):
         raise AssertionError(f"the CPU run launched kernels: {counts['cpu']}")
     if outs["cuda"] != outs["cpu"]:
@@ -1025,36 +1340,48 @@ def _align_pipeline(wd: Path, run_wd: Path, device: str, names, reads, cands, ke
 def profile_align(pl, stem: str, out: Path) -> dict:
     """One more align run under cProfile (every thread: Python 3.12's
     profiler sees them all) and torch.profiler (device activity): device
-    time by kernel, the device's busy share of the run's wall time, and
-    the host functions by own time. The full tables go to ``out``."""
+    time by kernel, the device's busy share of the run's wall time, the
+    host functions by own time, and per fused flush (engine._fused_dispatch
+    calls) the device time and the CUDA kernels launched (copies and
+    memsets not counted). The full tables go to ``out``."""
     import cProfile
     import pstats
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from phylign_tpu_torch.align import engine
+
+    flushes = []
+    dispatch = engine._fused_dispatch
+
+    def counted(*a, **kw):
+        flushes.append(1)
+        return dispatch(*a, **kw)
+
+    engine._fused_dispatch = counted
     prof = cProfile.Profile()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as tp:
-        prof.enable()
-        pl.align(stem)
-        torch.cuda.synchronize()
-        prof.disable()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as tp:
+            prof.enable()
+            pl.align(stem)
+            torch.cuda.synchronize()
+            prof.disable()
+    finally:
+        engine._fused_dispatch = dispatch
     wall = time.perf_counter() - t0
-    dev = {}
-    for e in tp.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        t = e.self_cuda_time_total if t is None else t
-        if t > 0:
-            dev[e.key] = (t / 1e3, e.count)
+    dev = device_table(tp)
     dev_ms = sum(t for t, _ in dev.values())
+    kernels = kernel_count(dev)
     host = sorted(
         ((f"{Path(fn).name}:{line}({name})", st[2], st[1]) for (fn, line, name), st in pstats.Stats(prof).stats.items()),
         key=lambda r: -r[1],
     )
     out.parent.mkdir(parents=True, exist_ok=True)
     with open(out, "w") as f:
-        f.write(f"align stage under both profilers: {wall:.3f} s wall, {dev_ms:.3f} ms device\n\n")
+        f.write(f"align stage under both profilers: {wall:.3f} s wall, {dev_ms:.3f} ms device, "
+                f"{len(flushes)} fused flushes, {kernels} kernels\n\n")
         f.write("device ms, launches, kernel or copy\n")
         for k, (t, n) in sorted(dev.items(), key=lambda kv: -kv[1][0]):
             f.write(f"{t:10.3f} {n:8d}  {k}\n")
@@ -1062,7 +1389,10 @@ def profile_align(pl, stem: str, out: Path) -> dict:
         for name, tt, nc in host[:60]:
             f.write(f"{tt:10.3f} {nc:8d}  {name}\n")
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:10]
+    n_fl = max(1, len(flushes))
     return dict(profiled_wall_s=wall, device_ms=dev_ms, device_busy_share=dev_ms / 1e3 / wall,
+                flushes=len(flushes), kernels=kernels, kernels_per_flush=kernels / n_fl,
+                device_ms_per_flush=dev_ms / n_fl,
                 device_top=[[k[:80], t, n] for k, (t, n) in top],
                 host_top=[[n, tt, nc] for n, tt, nc in host[:15]], tables=str(out.relative_to(ROOT)))
 
@@ -1088,8 +1418,8 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
     summary = pl.aggregate(stem)
     pl.stats(stem)
     report_s = time.perf_counter() - t1
-    if not (counts["chain_scan"] and counts["extend_scan"]):
-        raise AssertionError(f"the align stage did not launch B3 and B4: {counts}")
+    if not all(counts[k] for k in ALIGN_KERNELS):
+        raise AssertionError(f"the align stage did not launch B3, B4 and B6: {counts}")
     # every planted (non-chimeric) read at its position, on its strand
     placed = {}
     for line in gzip.open(summary, "rt"):
@@ -1274,7 +1604,8 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
     got, want = _outputs(wd), _outputs(work / "fixture_all_cuda")
     if got != want:
         raise AssertionError(f"fixture on the 2x2 mesh differs from phase 6 in {[k for k in want if got.get(k) != want[k]]}")
-    if not all(counts["c"].values()):
+    # a mesh ships the full cold rows (no compaction), as the JAX mesh path does
+    if not all(v for k, v in counts["c"].items() if k != "compact_cold"):
         raise AssertionError(f"the fixture on the 2x2 mesh did not launch every kernel: {counts['c']}")
     emit("mesh_fixture", mesh="2x2", files=len(got), seconds=secs, launches=counts["c"],
          one_device="identical", card=label)
@@ -1288,8 +1619,8 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
     dirs = ("intermediate/05_map", "output")
     if _outputs(work / "align_mesh", dirs) != _outputs(work / "align", dirs):
         raise AssertionError("the align stage on the 1x2 mesh differs from phase 7's 1x1 run")
-    if not (counts["d"]["chain_scan"] and counts["d"]["extend_scan"]):
-        raise AssertionError(f"the 1x2 mesh did not launch B3 and B4: {counts['d']}")
+    if not all(counts["d"][k] for k in ALIGN_KERNELS if k != "compact_cold"):
+        raise AssertionError(f"the 1x2 mesh did not launch B3, B4 and B6: {counts['d']}")
     pairs = P7_READS * P7_CANDS
     emit("mesh_align", mesh="1x2", devices=P8_MESH[:2], reads=P7_READS, pairs=pairs, align_s=align_s,
          pairs_per_s=pairs / align_s, one_device_align_s=p7["align_s"],
@@ -1482,8 +1813,8 @@ def phase_cli(work: Path, label: str, p7: dict) -> dict:
     out = drive("c", lambda: run_cli(["all", "--workdir", str(wd), "--config", str(wd / "config.yaml"), reads_fq]))
     all_s = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    if not (counts["c"]["match_popcount_b2"] and counts["c"]["chain_scan"] and counts["c"]["extend_scan"]):
-        raise AssertionError(f"`cli all` on the self-built indexes did not launch B2, B3 and B4: {counts['c']}")
+    if not (counts["c"]["match_popcount_b2"] and all(counts["c"][k] for k in ALIGN_KERNELS)):
+        raise AssertionError(f"`cli all` on the self-built indexes did not launch B2, B3, B4 and B6: {counts['c']}")
     summary = Path(out.strip().split(": ", 1)[1])
     stem = summary.name.split(".sam_summary")[0]
     thr, keep = 0.7, 100  # Config defaults, which this workdir keeps
@@ -1559,8 +1890,8 @@ def phase_cli(work: Path, label: str, p7: dict) -> dict:
     t_out = drive("e", lambda: run_cli(["test", "--workdir", str(work / "p9_test")]))
     if "test PASSED" not in t_out:
         raise AssertionError(f"cli test: {t_out!r}")
-    if not (counts["e"]["match_popcount_b2"] and counts["e"]["chain_scan"] and counts["e"]["extend_scan"]):
-        raise AssertionError(f"`cli test` did not launch B2, B3 and B4: {counts['e']}")
+    if not (counts["e"]["match_popcount_b2"] and all(counts["e"][k] for k in ALIGN_KERNELS)):
+        raise AssertionError(f"`cli test` did not launch B2, B3, B4 and B6: {counts['e']}")
     rest = {
         "stats": ["stats", str(summary), "--queries", str(wd / "intermediate" / "01_queries_merged" / f"{stem}.fa")],
         "report": ["report", "--workdir", str(wd)],
@@ -1659,11 +1990,13 @@ def main(argv: list[str] | None = None) -> int:
     pr4 = Pr4AlignKernels(args.baseline_align) if args.baseline_align else None
     if args.align_kernels_only:
         phase_align_kernels(label, pr4)
+        phase_flush_kernels(label)
         return 0
     kern = phase_kernels(label, baseline)
     if args.kernels_only:
         return 0
     akern = phase_align_kernels(label, pr4)
+    fkern = phase_flush_kernels(label)
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1707,6 +2040,19 @@ def main(argv: list[str] | None = None) -> int:
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             bound_share=k["bound_share"], bytes=k["bytes"], operations=k["operations"],
             library_ms=None, **shard(name),
+        ))
+    for name, case in MAIN_B6_CASE.items():
+        k = fkern[case] if name == "chain_select" else fkern[case][name]
+        checked = [v for v in fkern.values() if v["kernel"] == ("chain_select" if name == "chain_select"
+                                                                 else "flush_epilogue")]
+        table.append(dict(
+            name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+            launches=c6[name] + c7[name] + c8[name] + c9[name], launches_phase6=c6[name],
+            launches_phase7=c7[name], launches_phase8=c8[name], launches_phase9=c9[name],
+            case=case, max_abs_err=max(v["max_abs_err"] for v in checked),
+            ms=k["ms"], plain_ms=k["plain_ms"], plain_launches=k["plain_launches"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], bound_share=k["bound_share"], bytes=k["bytes"],
+            operations=k["operations"], library_ms=None,
         ))
     emit("runtime", script_s=time.perf_counter() - t_start, card=label)
     print(json.dumps({"kernels": table}), flush=True)

@@ -1830,25 +1830,9 @@ def _fused_finish(
     if compacted:
         # ONE packed u8 fetch, unpacked by fixed offsets
         (packed,) = ctx.packed.get()
-        p_pad, nb = ctx.p_pad, lmax // 8
-        ci_cols = 4 + 6 * n_sup + 5
-        o = 0
-        hot = packed[o : o + 16 * p_pad].view(np.int32).reshape(p_pad, 4)
-        o += 16 * p_pad
-        flts = packed[o : o + 8 * p_pad].view(np.float32).reshape(p_pad, 2)
-        o += 8 * p_pad
-        neqp = packed[o : o + nb * p_pad].reshape(p_pad, nb)
-        o += nb * p_pad
-        cc_i = (
-            packed[o : o + 4 * fz.COLD_CAP * ci_cols]
-            .view(np.int32)
-            .reshape(fz.COLD_CAP, ci_cols)
-        )
-        o += 4 * fz.COLD_CAP * ci_cols
-        cc_f = (
-            packed[o:].view(np.float32).reshape(fz.COLD_CAP, n_sup)
-            if n_sup
-            else np.zeros((fz.COLD_CAP, 0), np.float32)
+        hot, flts, neqp, cc_i, cc_f = (
+            t.numpy()
+            for t in fz._packed_views(torch.from_numpy(packed), ctx.p_pad, lmax, n_sup)
         )
     else:
         hot, flts, neqp = ctx.packed.get()

@@ -11,17 +11,33 @@ counterpart of ``phylign_tpu/align/fused.py``).
           gapped / supplementary / trimmed cases go through the engine's
           traceback path (identical records)
 
-Everything here but the two scans is torch ops on the device. The packed
-byte buffer has the JAX module's layout byte for byte: engine._fused_finish
-unpacks it by fixed offsets. Selection semantics equal the host path's
-(engine.flush_pairs_host).
+Implementations with identical results (every byte of the packed buffer
+and of the full cold rows):
+  * ``_select_ref`` -> ``_extend_impl`` -> ``_finish_ref`` -> ``_compact_cold``
+    in plain PyTorch over the concatenated chain results
+    (``_flatten_chains``): the CPU path and the versions the kernels are
+    held to.
+  * CUDA kernel B6 (csrc/flush_epilogue.cu): ``select_window_cuda`` (B6b,
+    one warp per pair, reading each bucket's ChainResult through cand_map)
+    -> kernel B4 -> ``finish_pack_cuda`` (B6c) -> ``compact_cold_cuda``
+    (B6c's second launch), each writing straight into its regions of the
+    packed buffer; each returns what its plain version returns.
+``select_extend`` and ``dist_select_extend`` pick by the tensor's device.
+The packed byte buffer has the JAX module's layout byte for byte; only
+``_packed_sizes`` and ``_packed_views`` know it (the kernels get region
+pointers, engine._fused_finish unpacks through ``_packed_views``).
+Selection semantics equal the host path's (engine.flush_pairs_host).
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from phylign_tpu_torch.ops import _kernels
 from phylign_tpu_torch.ops import extend as ope
 from phylign_tpu_torch.ops.extend import SrScoring, _extend_impl, _window_mask
 
@@ -102,7 +118,24 @@ def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _select_extend_core(
+class Selection(NamedTuple):
+    """What the selection hands the extension and the packing, per pair."""
+
+    q_codes: torch.Tensor  # uint8 [P, lmax] strand-adjusted query codes
+    rwin: torch.Tensor  # uint8 [P, wlen] ref window codes
+    rvalid: torch.Tensor  # bool (plain) or uint8 (B6b) [P, wlen] in-contig mask
+    lohi: torch.Tensor  # int32 [P, 2] the in-contig window columns [lo, hi)
+    head: torch.Tensor  # int32 [P, 4] the hot row before the extension's
+    # flag bits (F_DIAG, F_FULL) and end_d; from B6b a view of the packed
+    # buffer's hot rows, which finish_pack_cuda completes in place (its
+    # returned hot is this view)
+    flts: torch.Tensor  # f32 [P, 2] (primary chain score, s2)
+    cold_i: torch.Tensor  # int32 [P, 4 + 6*n_out + 5] cold rows
+    cold_f: torch.Tensor  # f32 [P, n_out] split-segment scores
+    packed: torch.Tensor | None = None  # B6b: the packed buffer head/flts live in
+
+
+def _select_ref(
     flat: dict[str, torch.Tensor],
     cand_map: torch.Tensor,  # int32 [P, 2] flat set idx (plus, minus); S_tot=none
     pair_base: torch.Tensor,  # int32 [P] pool base offset of the pair's ref
@@ -116,12 +149,12 @@ def _select_extend_core(
     lmax: int,
     wlen: int,
     half: int,
-    scoring: SrScoring,
     min_cnt: int,
     min_score: float,
     max_segments: int,
-    zdrop: int,
-):
+) -> Selection:
+    """Candidate selection, window gather and strand-adjusted query in plain
+    PyTorch: the CPU path and the version kernel B6b is held to."""
     dev = cand_map.device
     i32 = torch.int32
     p = cand_map.shape[0]
@@ -270,10 +303,53 @@ def _select_extend_core(
         torch.zeros((), dtype=torch.uint8, device=dev),
     )
     q_codes = torch.where((prim_strand == 1)[:, None], rcv, fwd_q).contiguous()
-    ext_res = _extend_impl(
-        q_codes, q_len, rwin.contiguous(), _window_mask(lo, hi, wlen), scoring, False
+
+    # --- the selection's share of the packed rows: the hot row without the
+    # extension's bits (diag, full, end_d), the scores, the cold payload
+    flags = (
+        has_prim.to(i32) * F_HAS
+        | prim_strand.to(i32) * F_STRAND
+        | prim_is_primary.to(i32) * F_PRIMTYPE
     )
-    ext_score, end_d = ext_res.score, ext_res.end_d
+    for s, so in enumerate(sup_out):
+        flags = flags | so["found"].to(i32) * (F_SUP0 << s)
+    flags = flags | has_probe.to(i32) * F_PROBE
+    head = torch.stack([(w0 - c_start), ci, flags, prim_count], dim=1).to(i32)
+    flts = torch.stack([prim_score, s2], dim=1)
+    cold_ints = [prim_qs, prim_qe, prim_rs, prim_re]
+    for so in sup_out:
+        cold_ints += [so["strand"], so["qs"], so["qe"], so["rs"], so["re"], so["count"]]
+    # probe coords last (base column 4 + 6*n_sup, read by _fused_finish)
+    cold_ints += [probe_strand, probe_qs, probe_qe, probe_rs, probe_re]
+    cold_i = torch.stack(cold_ints, dim=1).to(i32)
+    cold_f = (
+        torch.stack([so["score"] for so in sup_out], dim=1)
+        if sup_out
+        else torch.zeros((p, 0), dtype=torch.float32, device=dev)
+    )
+    return Selection(
+        q_codes=q_codes, rwin=rwin.contiguous(), rvalid=_window_mask(lo, hi, wlen),
+        lohi=torch.stack([lo, hi], dim=1).to(i32), head=head, flts=flts,
+        cold_i=cold_i, cold_f=cold_f,
+    )
+
+
+def _finish_ref(
+    sel: Selection,
+    q_len: torch.Tensor,  # int32 [P]
+    ext_score: torch.Tensor,  # f32 [P] (kernel B4's score pass)
+    end_d: torch.Tensor,  # int32 [P]
+    scoring: SrScoring,
+    zdrop: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gapless, Kadane and z-drop checks after the extension, in plain
+    PyTorch: (hot int32 [P, 4], big-endian mismatch bits uint8 [P, lmax /
+    8]). The CPU path and the version kernel B6c is held to."""
+    q_codes, rwin = sel.q_codes, sel.rwin
+    lo, hi = sel.lohi[:, 0], sel.lohi[:, 1]
+    p, lmax = q_codes.shape
+    dev = q_codes.device
+    i32 = torch.int32
 
     # --- gapless + full-span checks (device twins of engine._extend_finish) -
     cols = end_d[:, None] + torch.arange(lmax, dtype=i32, device=dev)[None, :]
@@ -306,37 +382,46 @@ def _select_extend_core(
     dropmax = torch.where(neq_mask, runpeak - prefv, -big).amax(dim=1)
     full = full & (dropmax <= zdrop)
 
-    # --- pack outputs: a small HOT payload fetched every flush + a COLD
-    # payload (delegation coordinates: gapped primaries, supplementary
-    # segments) of which the needed rows ride along compacted
-    flags = (
-        has_prim.to(i32) * F_HAS
-        | diag_ok.to(i32) * F_DIAG
-        | full.to(i32) * F_FULL
-        | prim_strand.to(i32) * F_STRAND
-        | prim_is_primary.to(i32) * F_PRIMTYPE
-    )
-    for s, so in enumerate(sup_out):
-        flags = flags | so["found"].to(i32) * (F_SUP0 << s)
-    flags = flags | has_probe.to(i32) * F_PROBE
-    hot = torch.stack([(w0 - c_start), ci, flags | (end_d << 8), prim_count], dim=1).to(i32)
-    flts = torch.stack([prim_score, s2], dim=1)
+    flags = sel.head[:, 2] | diag_ok.to(i32) * F_DIAG | full.to(i32) * F_FULL
+    hot = torch.cat([sel.head[:, :2], (flags | (end_d << 8))[:, None], sel.head[:, 3:]], dim=1).to(i32)
     # mismatch bitmask packed big-endian to match np.unpackbits on the host
     bits = neq_mask.reshape(p, lmax // 8, 8).to(torch.uint8)
     weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=dev)
     neq_pack = (bits * weights[None, None, :]).sum(dim=2).to(torch.uint8)
-    cold_ints = [prim_qs, prim_qe, prim_rs, prim_re]
-    for so in sup_out:
-        cold_ints += [so["strand"], so["qs"], so["qe"], so["rs"], so["re"], so["count"]]
-    # probe coords last (base column 4 + 6*n_sup, read by _fused_finish)
-    cold_ints += [probe_strand, probe_qs, probe_qe, probe_rs, probe_re]
-    cold_i = torch.stack(cold_ints, dim=1).to(i32)
-    cold_f = (
-        torch.stack([so["score"] for so in sup_out], dim=1)
-        if sup_out
-        else torch.zeros((p, 0), dtype=torch.float32, device=dev)
+    return hot, neq_pack
+
+
+def _select_extend_core(
+    flat: dict[str, torch.Tensor],
+    cand_map: torch.Tensor,
+    pair_base: torch.Tensor,
+    pair_reflen: torch.Tensor,
+    q_pack: torch.Tensor,
+    q_len: torch.Tensor,
+    pool_pack: torch.Tensor,
+    cst: torch.Tensor,
+    clen: torch.Tensor,
+    *,
+    lmax: int,
+    wlen: int,
+    half: int,
+    scoring: SrScoring,
+    min_cnt: int,
+    min_score: float,
+    max_segments: int,
+    zdrop: int,
+):
+    """The plain flush epilogue around the extension: _select_ref, the score
+    pass (_extend_impl) and _finish_ref. Returns (hot, flts, neq_pack,
+    (cold_i, cold_f))."""
+    sel = _select_ref(
+        flat, cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen,
+        lmax=lmax, wlen=wlen, half=half, min_cnt=min_cnt, min_score=min_score,
+        max_segments=max_segments,
     )
-    return hot, flts, neq_pack, (cold_i, cold_f)
+    ext = _extend_impl(sel.q_codes, q_len, sel.rwin, sel.rvalid, scoring, False)
+    hot, neq_pack = _finish_ref(sel, q_len, ext.score, ext.end_d, scoring, zdrop)
+    return hot, sel.flts, neq_pack, (sel.cold_i, sel.cold_f)
 
 
 def _compact_cold(hot, cold_i, cold_f):
@@ -364,6 +449,196 @@ def _bitcast_u8(a: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.uint8:
         return a.reshape(-1)
     return a.view(torch.uint8).reshape(-1)
+
+
+def _packed_sizes(p: int, lmax: int, n_out: int) -> tuple[int, ...]:
+    """The packed buffer's regions in bytes, in order: hot int32 [P, 4],
+    flts f32 [P, 2], mismatch bits u8 [P, lmax / 8], compacted cold int32
+    [COLD_CAP, 4 + 6*n_out + 5] and f32 [COLD_CAP, n_out]."""
+    ci_cols = 4 + 6 * n_out + 5
+    return 16 * p, 8 * p, p * (lmax // 8), 4 * COLD_CAP * ci_cols, 4 * COLD_CAP * n_out
+
+
+def _packed_views(packed: torch.Tensor, p: int, lmax: int, n_out: int):
+    """(hot, flts, neq_pack, cc_i, cc_f) as views of the packed buffer (the
+    regions of ``_packed_sizes``): what the kernels write into and
+    engine._fused_finish reads."""
+    ci_cols = 4 + 6 * n_out + 5
+    hot, flts, neq, cc_i, cc_f = torch.split(packed, _packed_sizes(p, lmax, n_out))
+    return (
+        hot.view(torch.int32).view(p, 4),
+        flts.view(torch.float32).view(p, 2),
+        neq.view(p, lmax // 8),
+        cc_i.view(torch.int32).view(COLD_CAP, ci_cols),
+        cc_f.view(torch.float32).view(COLD_CAP, n_out),
+    )
+
+
+# --- hand-written CUDA kernel B6 (csrc/flush_epilogue.cu) ----------------------
+
+_launches = _kernels.LaunchCounts("select_window", "finish_pack", "compact_cold")
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    return _launches.snapshot()
+
+
+def reset_launch_counts() -> None:
+    _launches.reset()
+
+
+#: anchor buckets (ChainResults) one B6b launch reads through its table
+MAX_BUCKETS = 8
+#: split segments B6b takes, per anchor set and per pair: the flag byte has
+#: two segment bits (flush_pairs_begin sends larger max_segments to the host)
+MAX_SUP = 2
+
+
+def _need(cond: bool, msg: str, exc=ValueError) -> None:
+    if not cond:
+        raise exc(msg)
+
+
+def select_window_cuda(
+    chains,
+    cand_map,
+    pair_base,
+    pair_reflen,
+    q_pack,
+    q_len,
+    pool_pack,
+    cst,
+    clen,
+    *,
+    lmax: int,
+    wlen: int,
+    half: int,
+    min_cnt: int,
+    min_score: float,
+    max_segments: int,
+) -> Selection:
+    """Kernel B6b (replaces the selection and window gather of
+    ``phylign_tpu/align/fused.py:_select_extend_core``). CUDA tensors only;
+    the same Selection as _select_ref over ``_flatten_chains(chains)``
+    (rvalid as uint8), with head and flts written into a new packed buffer
+    (``Selection.packed``). Raises for more than MAX_SUP split segments."""
+    chains = tuple(chains)
+    dev = cand_map.device
+    ins = (cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen)
+    _need(dev.type == "cuda" and all(t.device == dev for t in ins),
+          f"select_window runs on CUDA tensors on one device; got cand_map on {dev}")
+    _need(1 <= len(chains) <= MAX_BUCKETS, f"select_window: {len(chains)} chain buckets (1..{MAX_BUCKETS})")
+    p = cand_map.shape[0]
+    n_sup = chains[0].sup_score.shape[1]
+    n_out = max(0, max_segments - 1)
+    _need(n_sup <= MAX_SUP and n_out <= MAX_SUP,
+          f"select_window takes at most {MAX_SUP} split segments; got n_sup {n_sup}, "
+          f"max_segments {max_segments}")
+    _need(cand_map.shape == (p, 2) and pair_base.shape == (p,) and pair_reflen.shape == (p,)
+          and q_len.shape == (p,) and q_pack.shape == (p, -(-lmax // 4)) and cst.shape == clen.shape
+          and cst.dim() == 1 and cst.numel() >= 1 and pool_pack.dim() == 1 and pool_pack.numel() >= 1,
+          "select_window: shapes of cand_map, pair_base, pair_reflen, q_len, q_pack, cst, clen, pool_pack")
+    _need(all(t.dtype == torch.int32 for t in (cand_map, pair_base, pair_reflen, q_len, cst, clen))
+          and q_pack.dtype == torch.uint8 and pool_pack.dtype == torch.uint8,
+          "select_window takes int32 indices and uint8 codes", TypeError)
+    _need(all(t.is_contiguous() for t in ins), "select_window takes contiguous tensors")
+    fields, rows = [], []
+    for c in chains:
+        for name, t in zip(c._fields, c):
+            _need(t.device == dev and t.is_contiguous() and t.shape[0] == c.score.shape[0]
+                  and (t.dim() == 1 if not name.startswith("sup_") else t.shape[1:] == (n_sup,))
+                  and t.dtype == (torch.float32 if name.endswith("score") else torch.int32),
+                  f"select_window: chain field {name} must be a contiguous "
+                  f"{'f32' if name.endswith('score') else 'int32'} tensor on {dev}")
+            fields.append(t.data_ptr())
+        rows.append(c.score.shape[0])
+    u8, i32 = torch.uint8, torch.int32
+    ci_cols = 4 + 6 * n_out + 5
+    q_codes = torch.empty((p, lmax), dtype=u8, device=dev)
+    rwin = torch.empty((p, wlen), dtype=u8, device=dev)
+    rvalid = torch.empty((p, wlen), dtype=u8, device=dev)
+    lohi = torch.empty((p, 2), dtype=i32, device=dev)
+    cold_i = torch.empty((p, ci_cols), dtype=i32, device=dev)
+    cold_f = torch.empty((p, n_out), dtype=torch.float32, device=dev)
+    packed = torch.empty(sum(_packed_sizes(p, lmax, n_out)), dtype=u8, device=dev)
+    hot, flts = _packed_views(packed, p, lmax, n_out)[:2]
+    if p:
+        _kernels.launch(
+            _launches, "select_window", "flush_epilogue", "phylign_select_window",
+            (ctypes.c_void_p * len(fields))(*fields), (ctypes.c_int * len(rows))(*rows),
+            len(chains), n_sup, cand_map, pair_base, pair_reflen, q_pack, q_pack.shape[1], q_len,
+            pool_pack, pool_pack.numel(), cst, clen, cst.numel(), p, lmax, wlen, int(half),
+            int(min_cnt), float(np.float32(min_score)), n_out, q_codes, rwin, rvalid, lohi,
+            hot, flts, cold_i, cold_f,
+        )
+    return Selection(q_codes, rwin, rvalid, lohi, hot, flts, cold_i, cold_f, packed)
+
+
+def finish_pack_cuda(
+    sel: Selection, q_len, ext_score, end_d, scoring: SrScoring, zdrop: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B6c (replaces the checks and packing of
+    ``phylign_tpu/align/fused.py:_select_extend_core`` after its extension):
+    (hot, neq_pack) equal to _finish_ref's, as views of ``sel.packed``. It
+    ORs F_DIAG, F_FULL and end_d into the hot rows in place (``sel.head``
+    is the returned hot) and writes the mismatch bits. CUDA tensors from
+    select_window_cuda; lmax a multiple of 32; integer scoring."""
+    p, lmax = sel.q_codes.shape
+    wlen = sel.rwin.shape[1]
+    dev = sel.q_codes.device
+    _need(sel.packed is not None and dev.type == "cuda"
+          and all(t.device == dev for t in (q_len, ext_score, end_d)),
+          "finish_pack runs on a CUDA Selection from select_window_cuda")
+    _need(lmax % 32 == 0 and wlen >= lmax, f"finish_pack: lmax {lmax} must be a multiple of 32, wlen >= lmax")
+    _need(ext_score.dtype == torch.float32 and end_d.dtype == torch.int32 and q_len.dtype == torch.int32
+          and ext_score.shape == end_d.shape == q_len.shape == (p,)
+          and all(t.is_contiguous() for t in (q_len, ext_score, end_d)),
+          "finish_pack takes contiguous f32 ext_score, int32 end_d and q_len [P]")
+    vals = (scoring.match, scoring.mismatch, scoring.min_dp_score, zdrop)
+    _need(all(float(v).is_integer() and abs(v) < 2**31 for v in vals),
+          f"finish_pack takes integer scoring, min_dp_score and zdrop; got {vals}")
+    hot, _, neq_pack = _packed_views(sel.packed, p, lmax, sel.cold_f.shape[1])[:3]
+    if p:
+        _kernels.launch(
+            _launches, "finish_pack", "flush_epilogue", "phylign_finish_pack",
+            sel.q_codes, q_len, sel.rwin, sel.lohi, ext_score, end_d, p, lmax, wlen,
+            *[int(v) for v in vals], hot, neq_pack,
+        )
+    return hot, neq_pack
+
+
+def compact_cold_cuda(sel: Selection) -> tuple[torch.Tensor, torch.Tensor]:
+    """B6c's second launch (replaces ``phylign_tpu/align/fused.py:
+    _compact_cold``): (cc_i, cc_f) equal to _compact_cold of the hot rows,
+    written into and returned as views of ``sel.packed``. Runs after
+    finish_pack_cuda."""
+    p, lmax = sel.q_codes.shape
+    n_out = sel.cold_f.shape[1]
+    _need(sel.packed is not None and sel.packed.device.type == "cuda",
+          "compact_cold runs on a CUDA Selection from select_window_cuda")
+    hot, _, _, cc_i, cc_f = _packed_views(sel.packed, p, lmax, n_out)
+    if p:
+        _kernels.launch(
+            _launches, "compact_cold", "flush_epilogue", "phylign_compact_cold",
+            hot, sel.cold_i, sel.cold_f, p, n_out, COLD_CAP, cc_i, cc_f,
+        )
+    return cc_i, cc_f
+
+
+def _select_extend_cuda(
+    chains, cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen,
+    *, scoring: SrScoring, zdrop: int, **kw,
+):
+    """B6b -> B4 -> B6c, the card's twin of _select_extend_core: returns its
+    (hot, flts, neq_pack, (cold_i, cold_f)) and the Selection, whose packed
+    buffer holds the first three (compact_cold_cuda adds the rest)."""
+    sel = select_window_cuda(
+        chains, cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen, **kw,
+    )
+    ext = _extend_impl(sel.q_codes, q_len, sel.rwin, sel.rvalid, scoring, False)
+    hot, neq_pack = finish_pack_cuda(sel, q_len, ext.score, ext.end_d, scoring, zdrop)
+    return (hot, sel.flts, neq_pack, (sel.cold_i, sel.cold_f)), sel
 
 
 def select_extend(
@@ -395,14 +670,20 @@ def select_extend(
     ``pack=True`` instead returns (packed_u8, cold_full) with hot / flts /
     neq / compacted-cold as ONE 1-D byte buffer (the JAX module's layout):
     one copy to the host per chunk, which engine._fused_finish unpacks by
-    fixed offsets."""
+    fixed offsets. A CPU cand_map runs the plain versions, a CUDA one
+    kernel B6 around B4; any other device raises."""
+    ins = (cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen)
+    kw = dict(lmax=lmax, wlen=wlen, half=half, min_cnt=min_cnt, min_score=min_score,
+              max_segments=max_segments)
+    if cand_map.device.type == "cuda":
+        (hot, flts, neq_pack, cold), sel = _select_extend_cuda(chains, *ins, scoring=scoring,
+                                                               zdrop=zdrop, **kw)
+        cc = compact_cold_cuda(sel)
+        return (sel.packed, cold) if pack else (hot, flts, neq_pack, cc, cold)
+    if cand_map.device.type != "cpu":
+        raise ValueError(f"no flush kernel for device {cand_map.device}")
     hot, flts, neq_pack, cold = _select_extend_core(
-        _flatten_chains(chains),
-        cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack,
-        cst, clen,
-        lmax=lmax, wlen=wlen, half=half, scoring=scoring,
-        min_cnt=min_cnt, min_score=min_score, max_segments=max_segments,
-        zdrop=zdrop,
+        _flatten_chains(chains), *ins, scoring=scoring, zdrop=zdrop, **kw,
     )
     cc_i, cc_f = _compact_cold(hot, *cold)
     if not pack:
@@ -438,24 +719,27 @@ def dist_select_extend(
     so each can gather any pair's candidates; the genome pool and the
     contig table are replicated. Returns (hot, flts, neq_pack, (cold_i,
     cold_f)) concatenated over the query axis on the mesh's home device.
-    _compact_cold stays single-device: the caller fetches the full cold
-    arrays."""
+    The cold rows are not compacted: the caller fetches the full cold
+    arrays. A shard on a card runs kernel B6 around B4, on the CPU the
+    plain versions."""
     from phylign_tpu_torch.parallel.dist import over_q
     from phylign_tpu_torch.parallel.mesh import AXIS_QUERY
 
-    flat = _flatten_chains(chains)
     on_dev: dict = {}
+    kw = dict(lmax=lmax, wlen=wlen, half=half, min_cnt=min_cnt, min_score=min_score,
+              max_segments=max_segments)
 
-    def step(cm, pb, prl, qp, ql, pool, cst_, clen_):
-        dev = cm.device
-        if dev not in on_dev:  # the gather of every set's chains
-            on_dev[dev] = {k: v.to(dev) for k, v in flat.items()}
-        hot, flts, neq_pack, (cold_i, cold_f) = _select_extend_core(
-            on_dev[dev], cm, pb, prl, qp, ql, pool, cst_, clen_,
-            lmax=lmax, wlen=wlen, half=half, scoring=scoring,
-            min_cnt=min_cnt, min_score=min_score, max_segments=max_segments,
-            zdrop=zdrop,
-        )
+    def step(*ins):
+        dev = ins[0].device
+        if dev.type == "cuda":
+            if dev not in on_dev:  # every set's chains on this shard's card
+                on_dev[dev] = tuple(type(c)(*[t.to(dev) for t in c]) for c in chains)
+            out, _ = _select_extend_cuda(on_dev[dev], *ins, scoring=scoring, zdrop=zdrop, **kw)
+        else:
+            if dev not in on_dev:  # the gather of every set's chains
+                on_dev[dev] = {k: v.to(dev) for k, v in _flatten_chains(chains).items()}
+            out = _select_extend_core(on_dev[dev], *ins, scoring=scoring, zdrop=zdrop, **kw)
+        hot, flts, neq_pack, (cold_i, cold_f) = out
         return hot, flts, neq_pack, cold_i, cold_f
 
     pair = (AXIS_QUERY,)

@@ -164,6 +164,28 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         # q, q_len, rwin, rvalid, p, l, band, lanes, match, mismatch, o1,
         # e1, o2, e2, open1, open2, wide, collect, score, end_d, plane, stream
         lib.phylign_extend_scan.argtypes = [p, p, p, p, *[i32] * 14, p, p, p, p]
+    elif name == "flush_epilogue":
+        f32 = ctypes.c_float
+        for fn in (lib.phylign_chain_select, lib.phylign_select_window,
+                   lib.phylign_finish_pack, lib.phylign_compact_cold):
+            fn.restype = i32
+        lib.phylign_chain_select_workspace.restype = i64
+        lib.phylign_chain_select_workspace.argtypes = [i32, i32]
+        # f, parent, rpos, qpos, q16, p, a, k, n_sup, rounds, ws, out, stream
+        lib.phylign_chain_select.argtypes = [p, p, p, p, *[i32] * 6, p, p, p]
+        # fields, rows, n_buckets, n_sup, cand_map, pair_base, pair_reflen,
+        # q_pack, nqb, q_len, pool, pool_bytes, cst, clen, n_contigs, p,
+        # lmax, wlen, half, min_cnt, min_score, n_out, q_codes, rwin, rvalid,
+        # lohi, hot, flts, cold_i, cold_f, stream
+        lib.phylign_select_window.argtypes = [
+            p, p, i32, i32, p, p, p, p, i32, p, p, i64, p, p, *[i32] * 6, f32, i32,
+            p, p, p, p, p, p, p, p, p,
+        ]
+        # q_codes, q_len, rwin, lohi, ext_score, end_d, p, lmax, wlen, match,
+        # mismatch, min_dp, zdrop, hot, neq, stream
+        lib.phylign_finish_pack.argtypes = [p, p, p, p, p, p, *[i32] * 7, p, p, p]
+        # hot, cold_i, cold_f, p, n_out, cap, cc_i, cc_f, stream
+        lib.phylign_compact_cold.argtypes = [p, p, p, *[i32] * 3, p, p, p]
     lib.phylign_cuda_error_string.restype = ctypes.c_char_p
     lib.phylign_cuda_error_string.argtypes = [i32]
 
@@ -173,3 +195,41 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.phylign_cuda_error_string(err).decode(errors="replace")
         raise KernelError(f"{what} launch failed: cudaError {err} ({msg})")
+
+
+class LaunchCounts:
+    """Kernel launches by name since the last reset; each module that
+    launches kernels keeps one, and ``launch`` adds to it."""
+
+    def __init__(self, *names: str):
+        self._lock = threading.Lock()
+        self._counts = dict.fromkeys(names, 0)
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._counts[name] += 1
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self._counts:
+                self._counts[name] = 0
+
+
+def launch(counts: LaunchCounts, name: str, source: str, fn: str, *args) -> None:
+    """Call ``fn`` of ``csrc/{source}.cu``'s library with ``args`` and the
+    current stream of the first tensor's device appended (a tensor passes
+    its data pointer, None a null pointer, anything else itself); raise
+    KernelError if the launch failed, else count one launch of ``name``."""
+    import torch
+
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    lib = library(source)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn)(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
+    check(lib, err, name)
+    counts.add(name)

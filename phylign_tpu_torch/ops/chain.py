@@ -22,8 +22,9 @@ Implementations with identical results:
                        anchor set, each holding its share of the window in
                        registers, slot i-1 folded in off the critical path.
 ``chain_dp`` picks by the tensor's device. Everything after the scan
-(pointer doubling, the s2 competitor, the split-read segments) is torch ops
-on the same device.
+(pointer doubling, the s2 competitor, the split-read segments) is
+``chain_tail``: ``_chain_tail_ref`` in plain PyTorch, or CUDA kernel B6a
+(csrc/flush_epilogue.cu, ``chain_select_cuda``), one block per anchor set.
 
 Arithmetic is float32 as in the JAX function: positions become f32 (padded
 slots 2e9), dr / dq / dd are f32 differences, ``cand = (f + gain) - cost``.
@@ -42,6 +43,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from phylign_tpu_torch.ops import _kernels
 
 PAD_POS = np.int32(2**30)
 
@@ -206,20 +209,16 @@ def chain_dp_ref(
 
 # --- hand-written CUDA kernel B3 -----------------------------------------------
 
-_launch_lock = threading.Lock()
-_launches = {"chain_scan": 0}
+_launches = _kernels.LaunchCounts("chain_scan", "chain_select")
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    with _launch_lock:
-        return dict(_launches)
+    return _launches.snapshot()
 
 
 def reset_launch_counts() -> None:
-    with _launch_lock:
-        for name in _launches:
-            _launches[name] = 0
+    _launches.reset()
 
 
 #: lanes per anchor set kernel B3 is built for
@@ -254,8 +253,6 @@ def chain_dp_cuda(
     contract as chain_dp_ref. qpos may be int32, or uint16 bits as uint16
     or int16. ``lanes`` overrides the lanes per set (one of
     KERNEL_LANES)."""
-    from phylign_tpu_torch.ops import _kernels
-
     if rpos.device.type != "cuda" or qpos.device != rpos.device or cost.device != rpos.device:
         raise ValueError(
             f"chain_scan runs on CUDA tensors on one device; got rpos on "
@@ -283,17 +280,10 @@ def chain_dp_cuda(
     parent = torch.empty((p, a), dtype=torch.int32, device=rpos.device)
     if p == 0 or a == 0:
         return f, parent
-    lib = _kernels.library("chain_scan")
-    with torch.cuda.device(rpos.device):
-        stream = torch.cuda.current_stream(rpos.device).cuda_stream
-        err = lib.phylign_chain_scan(
-            rpos.data_ptr(), qpos.data_ptr(), int(q16),
-            cost.data_ptr(), p, a, w, g, int(k), int(max_gap), int(bandwidth),
-            f.data_ptr(), parent.data_ptr(), stream,
-        )
-    _kernels.check(lib, err, "chain_scan")
-    with _launch_lock:
-        _launches["chain_scan"] += 1
+    _kernels.launch(
+        _launches, "chain_scan", "chain_scan", "phylign_chain_scan",
+        rpos, qpos, int(q16), cost, p, a, w, g, int(k), int(max_gap), int(bandwidth), f, parent,
+    )
     return f, parent
 
 
@@ -307,7 +297,7 @@ def chain_dp(rpos, qpos, cost, k, max_gap, bandwidth, lookback=LOOKBACK):
     return chain_dp_cuda(rpos, qpos, cost, k, max_gap, bandwidth, lookback)
 
 
-# --- chain extraction (torch ops on the device) --------------------------------
+# --- chain extraction: plain version and kernel B6a ----------------------------
 
 _cost_cache: dict = {}
 _cost_lock = threading.Lock()
@@ -328,21 +318,19 @@ def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return arr.gather(1, idx[:, None].to(torch.int64))[:, 0]
 
 
-def chain_anchors(
-    rpos: torch.Tensor,  # int32 [P, A], PAD_POS for padding; sorted (rpos, qpos)
-    qpos: torch.Tensor,  # int32 [P, A]
-    k: int = 21,
-    max_gap: int = 100,
-    bandwidth: int = 100,
-    n_sup: int = 2,
-    lookback: int = LOOKBACK,
+def _chain_tail_ref(
+    f: torch.Tensor,  # f32 [P, A] (chain_dp)
+    parent: torch.Tensor,  # int32 [P, A] (chain_dp)
+    rpos: torch.Tensor,  # int32 [P, A], PAD_POS for padding
+    qpos: torch.Tensor,  # int32, or uint16 bits as uint16/int16 [P, A]
+    k: int,
+    n_sup: int,
 ) -> ChainResult:
-    """Chain every anchor set: the DP (chain_dp), then per set the primary
-    chain, its s2 competitor and up to ``n_sup`` split-read segments."""
+    """The tail of chain_anchors in plain PyTorch: per set the primary chain,
+    its s2 competitor and up to ``n_sup`` split-read segments; the CPU path
+    and the version kernel B6a is held to."""
     p, a = rpos.shape
     dev = rpos.device
-    cost = device_cost_table(k, bandwidth, dev)
-    f, parent = chain_dp(rpos, qpos, cost, k, max_gap, bandwidth, lookback)
     qpos = qpos_i32(qpos)
     valid = rpos < int(PAD_POS)
     neg = torch.tensor(NEG, device=dev)
@@ -352,8 +340,7 @@ def chain_anchors(
     iota = torch.arange(a, dtype=torch.int64, device=dev)[None, :].expand(p, a)
     par = torch.where(parent >= 0, parent.to(torch.int64), iota)  # roots self-loop
     cnt = (parent >= 0).to(torch.int32)
-    rounds = max(1, int(np.ceil(np.log2(max(a, 2)))))
-    for _ in range(rounds):
+    for _ in range(doubling_rounds(a)):
         cnt = cnt + cnt.gather(1, par)
         par = par.gather(1, par)
     start_all, cnt_all = par, cnt + 1
@@ -431,6 +418,90 @@ def chain_anchors(
         sup_rs=stack("rs", i32),
         sup_re=stack("re", i32),
     )
+
+
+def doubling_rounds(a: int) -> int:
+    """Pointer-doubling rounds of the chain tail for A slots: ceil(log2 A),
+    at least 1 (a chain of A slots has fewer than 2**rounds edges)."""
+    return max(1, int(np.ceil(np.log2(max(a, 2)))))
+
+
+def chain_select_cuda(
+    f: torch.Tensor,
+    parent: torch.Tensor,
+    rpos: torch.Tensor,
+    qpos: torch.Tensor,
+    k: int,
+    n_sup: int,
+) -> ChainResult:
+    """Kernel B6a (replaces the tail of ``phylign_tpu/ops/chain.py:
+    chain_anchors`` after its scan). CUDA tensors only; same contract as
+    _chain_tail_ref for a parent from chain_dp (-1 or an earlier slot), at
+    any A: a set of up to 8,192 slots is held in shared memory, a longer
+    one in a device workspace. Every field is a view of one int32 buffer
+    the kernel fills."""
+    dev = rpos.device
+    if dev.type != "cuda" or any(t.device != dev for t in (f, parent, qpos)):
+        raise ValueError(
+            f"chain_select runs on CUDA tensors on one device; got f on {f.device}, "
+            f"parent on {parent.device}, rpos on {dev}, qpos on {qpos.device}"
+        )
+    q16 = qpos.dtype in (torch.uint16, torch.int16)
+    if (f.dtype, parent.dtype, rpos.dtype) != (torch.float32, torch.int32, torch.int32) or not (
+        q16 or qpos.dtype == torch.int32
+    ):
+        raise TypeError(
+            f"chain_select takes f32 f, int32 parent and rpos, int32/uint16 qpos; got "
+            f"{f.dtype}, {parent.dtype}, {rpos.dtype}, {qpos.dtype}"
+        )
+    if rpos.dim() != 2 or any(t.shape != rpos.shape for t in (f, parent, qpos)):
+        raise ValueError("chain_select: f, parent, rpos and qpos must be one [P, A] shape")
+    if not all(t.is_contiguous() for t in (f, parent, rpos, qpos)):
+        raise ValueError("chain_select takes contiguous tensors")
+    p, a = rpos.shape
+    if a < 1 or n_sup < 0:
+        raise ValueError(f"chain_select: A = {a} < 1 or n_sup = {n_sup} < 0")
+    buf = torch.empty(p * (11 + 6 * n_sup), dtype=torch.int32, device=dev)
+    if p:
+        ws_bytes = _kernels.library("flush_epilogue").phylign_chain_select_workspace(p, a)
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
+        _kernels.launch(
+            _launches, "chain_select", "flush_epilogue", "phylign_chain_select",
+            f, parent, rpos, qpos, int(q16), p, a, int(k), int(n_sup), doubling_rounds(a), ws, buf,
+        )
+    rows = buf[: 11 * p].view(11, p)
+    sups = buf[11 * p :].view(6, p, n_sup)
+    fl = torch.float32
+    return ChainResult(
+        rows[0].view(fl), *rows[1:6], rows[6].view(fl), *rows[7:11], sups[0].view(fl), *sups[1:],
+    )
+
+
+def chain_tail(f, parent, rpos, qpos, k: int, n_sup: int) -> ChainResult:
+    """Dispatch by device: the plain version for a CPU tensor, kernel B6a
+    for a CUDA tensor. Any other device raises."""
+    if rpos.device.type == "cpu":
+        return _chain_tail_ref(f, parent, rpos, qpos, k, n_sup)
+    if rpos.device.type != "cuda":
+        raise ValueError(f"no chain kernel for device {rpos.device}")
+    return chain_select_cuda(f, parent, rpos, qpos, k, n_sup)
+
+
+def chain_anchors(
+    rpos: torch.Tensor,  # int32 [P, A], PAD_POS for padding; sorted (rpos, qpos)
+    qpos: torch.Tensor,  # int32 [P, A]
+    k: int = 21,
+    max_gap: int = 100,
+    bandwidth: int = 100,
+    n_sup: int = 2,
+    lookback: int = LOOKBACK,
+) -> ChainResult:
+    """Chain every anchor set: the DP (chain_dp), then per set the primary
+    chain, its s2 competitor and up to ``n_sup`` split-read segments
+    (chain_tail)."""
+    cost = device_cost_table(k, bandwidth, rpos.device)
+    f, parent = chain_dp(rpos, qpos, cost, k, max_gap, bandwidth, lookback)
+    return chain_tail(f, parent, rpos, qpos, k, n_sup)
 
 
 def chain_anchors_packed(

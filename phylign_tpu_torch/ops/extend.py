@@ -28,12 +28,13 @@ f32 or -1e30-based, so "identical" is bit for bit):
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from phylign_tpu_torch.ops import _kernels
 
 BAND = 128  # default band width (sr preset); the band of a call is
 # inferred from its window's width, so wider presets pass wider windows
@@ -155,20 +156,16 @@ def extend_ref(
 
 # --- hand-written CUDA kernel B4 -----------------------------------------------
 
-_launch_lock = threading.Lock()
-_launches = {"extend_scan": 0}
+_launches = _kernels.LaunchCounts("extend_scan")
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    with _launch_lock:
-        return dict(_launches)
+    return _launches.snapshot()
 
 
 def reset_launch_counts() -> None:
-    with _launch_lock:
-        for name in _launches:
-            _launches[name] = 0
+    _launches.reset()
 
 
 #: lanes per pair kernel B4 is built for, by band (band / lanes cells per
@@ -233,8 +230,6 @@ def extend_cuda(
     passes) and integer scoring (``kernel_scoring``); band in KERNEL_LANES.
     ``lanes`` overrides the lanes per pair (one of KERNEL_LANES[band]). The
     scoring picks the substitution instance (wide_substitution)."""
-    from phylign_tpu_torch.ops import _kernels
-
     dev = q_codes.device
     if dev.type != "cuda" or any(t.device != dev for t in (q_len, rwin, rwin_valid)):
         raise ValueError("extend_scan runs on CUDA tensors on one device")
@@ -264,17 +259,11 @@ def extend_cuda(
         return ExtendResult(score, end_d, plane)
     if l == 0:
         return ExtendResult(score.fill_(float(NEG)), end_d.zero_(), plane)
-    lib = _kernels.library("extend_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.phylign_extend_scan(
-            q_codes.data_ptr(), q_len.data_ptr(), rwin.data_ptr(), rwin_valid.data_ptr(),
-            p, l, band, g, *isc, int(wide), int(collect_plane), score.data_ptr(), end_d.data_ptr(),
-            plane.data_ptr() if collect_plane else None, stream,
-        )
-    _kernels.check(lib, err, "extend_scan")
-    with _launch_lock:
-        _launches["extend_scan"] += 1
+    _kernels.launch(
+        _launches, "extend_scan", "extend_scan", "phylign_extend_scan",
+        q_codes, q_len, rwin, rwin_valid, p, l, band, g, *isc, int(wide), int(collect_plane),
+        score, end_d, plane if collect_plane else None,
+    )
     return ExtendResult(score, end_d, plane)
 
 

@@ -28,10 +28,10 @@ tensor, a kernel for a CUDA tensor, never one for the other.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
+
+from phylign_tpu_torch.ops import _kernels
 
 #: threads per block, at most: one per (query, word), so at Wp = 68 a
 #: block holds one query (the fastest tile measured, PERF.md)
@@ -114,25 +114,16 @@ def match_scores_ref(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor
 
 # --- hand-written CUDA kernels -------------------------------------------------
 
-_launch_lock = threading.Lock()
-_launches = {"match_popcount_b1": 0, "match_popcount_b2": 0}
+_launches = _kernels.LaunchCounts("match_popcount_b1", "match_popcount_b2")
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    with _launch_lock:
-        return dict(_launches)
+    return _launches.snapshot()
 
 
 def reset_launch_counts() -> None:
-    with _launch_lock:
-        for name in _launches:
-            _launches[name] = 0
-
-
-def _count_launch(name: str) -> None:
-    with _launch_lock:
-        _launches[name] += 1
+    _launches.reset()
 
 
 def launch_geometry(wp: int, k: int, h: int) -> tuple[int, int, int, int]:
@@ -184,8 +175,6 @@ def _check_kernel_args(
 
 
 def _launch(name: str, words, row_idx3) -> torch.Tensor:
-    from phylign_tpu_torch.ops import _kernels
-
     q, k, h = row_idx3.shape
     wp = words.shape[1]
     out = torch.empty((q, 32 * wp), dtype=torch.int32, device=words.device)
@@ -194,15 +183,10 @@ def _launch(name: str, words, row_idx3) -> torch.Tensor:
     if k * h == 0:
         return out.zero_()
     qt, wt, staged, via_smem = launch_geometry(wp, k, h)
-    lib = _kernels.library("match_popcount")
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = getattr(lib, f"phylign_{name}")(
-            words.data_ptr(), words.shape[0], wp, row_idx3.data_ptr(),
-            q, k, h, b2_planes(k), qt, wt, staged, via_smem, out.data_ptr(), stream,
-        )
-    _kernels.check(lib, err, name)
-    _count_launch(name)
+    _kernels.launch(
+        _launches, name, "match_popcount", f"phylign_{name}",
+        words, words.shape[0], wp, row_idx3, q, k, h, b2_planes(k), qt, wt, staged, via_smem, out,
+    )
     return out
 
 

@@ -31,6 +31,7 @@ import numpy as np
 
 from phylign_tpu_torch.io import asmtar
 from phylign_tpu_torch.io import cobs as cobs_io
+from phylign_tpu_torch.ops.chain import ChainResult
 
 READ_LEN = 150
 GENOMES_PER_BATCH = 4
@@ -394,3 +395,194 @@ def make_perf_fixture(
         "decompression_dir: cobs_device_cache\n"  # survives intermediate/ resets
     )
     return flat
+
+
+#: ChainResult's fields, in order: the keys of flush_case's chain buckets
+CHAIN_FIELDS = ChainResult._fields
+
+
+def flush_case(rng, p: int, lmax: int = 160, band: int = 128, n_sup: int = 2, n_genomes: int = 4):
+    """Synthetic inputs of one fused align flush (``align/fused.select_extend``)
+    as numpy arrays made from ``rng``, for holding its kernels to their
+    plain versions: ``(chains, inputs, kw)`` with chains a list of three
+    anchor buckets' ChainResult fields (dicts, CHAIN_FIELDS, each bucket
+    padded to a power of two like the engine's), inputs (cand_map,
+    pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen) and the
+    keyword arguments of the sr preset.
+
+    Genomes of 1-3 contigs in a 2-bit pool (each 4-aligned); 150 bp reads
+    (1 in 11 shorter) planted on either strand with 1% substitutions, 1 in
+    13 with a run of 15 in the middle (a z-drop), 1 in 9 with a 4-base
+    deletion, and the primary chain on their diagonal. Pair
+    kinds in turn: planted reads; no candidate at all; every candidate
+    under the thresholds; a read at a contig edge (window over it); a
+    chimera with one or two split segments; both strands tied on score;
+    a primary off its read's diagonal. Other candidates overlap the
+    primary or not, scores come from few values so ties occur, alt scores
+    are positive or -1e30; the last 8 pairs are padding."""
+    neg = np.float32(-1e30)
+    genomes, contigs = [], []
+    for _ in range(n_genomes):
+        total = int(rng.integers(20_000, 60_000))
+        cuts = np.sort(rng.integers(1_000, total - 1_000, int(rng.integers(0, 3))))
+        bounds = [0, *cuts.tolist(), total]
+        genomes.append(rng.integers(0, 4, total).astype(np.uint8))
+        contigs.append([(bounds[c], bounds[c + 1] - bounds[c]) for c in range(len(bounds) - 1)])
+    bases, cst_l, clen_l, parts, cur = [], [], [], [], 0
+    for g, codes in enumerate(genomes):
+        bases.append(cur)
+        cst_l += [cur + s for s, _ in contigs[g]]
+        clen_l += [n for _, n in contigs[g]]
+        pad = (-len(codes)) % 4
+        parts.append(np.concatenate([codes, np.zeros(pad, np.uint8)]))
+        cur += len(codes) + pad
+    pool = np.concatenate(parts)
+    a4 = pool.reshape(-1, 4)
+    pool_pack = a4[:, 0] | (a4[:, 1] << 2) | (a4[:, 2] << 4) | (a4[:, 3] << 6)
+    pool_pack = np.pad(pool_pack, (0, max(1 << 14, 1 << int(np.ceil(np.log2(len(pool_pack))))) - len(pool_pack)))
+    nc = max(8, 1 << int(np.ceil(np.log2(len(cst_l)))))
+    cst = np.full(nc, np.iinfo(np.int32).max, np.int32)
+    cst[: len(cst_l)] = cst_l
+    clen = np.zeros(nc, np.int32)
+    clen[: len(clen_l)] = clen_l
+
+    sets = []  # (pair, strand, fields of one ChainResult row)
+    scores = np.float32([20, 35, 40, 40, 60, 80, 80, 120, 150])
+    q_len = np.zeros(p, np.int32)
+    qc = np.zeros((p, lmax), np.uint8)
+    pair_base = np.zeros(p, np.int32)
+    pair_reflen = np.ones(p, np.int32)
+
+    def chain_row(score, count, qs, qe, rs):
+        alt = rng.choice(scores) if rng.random() < 0.4 else neg
+        aq = int(rng.integers(0, 60))
+        row = dict(score=score, count=count, qs=qs, qe=qe, rs=rs, re=rs + (qe - qs),
+                   alt_score=alt, alt_qs=aq, alt_qe=aq + int(rng.integers(21, 90)),
+                   alt_rs=int(rng.integers(0, 50_000)), alt_re=int(rng.integers(0, 50_000)))
+        sup = [[neg, 0, 0, 0, 0, 0] for _ in range(n_sup)]
+        return row, sup
+
+    for i in range(p - 8):
+        kind = i % 7
+        g = int(rng.integers(n_genomes))
+        codes = genomes[g]
+        pair_base[i], pair_reflen[i] = bases[g], len(codes)
+        c0, cn = contigs[g][int(rng.integers(len(contigs[g])))]
+        length = 150 if i % 11 else int(rng.integers(60, 150))
+        if kind == 3:  # at a contig edge: the window runs over it
+            pos = c0 + int(rng.integers(0, 20)) if rng.random() < 0.5 else c0 + cn - length - int(rng.integers(0, 20))
+        else:
+            pos = c0 + int(rng.integers(0, cn - length - 8))
+        seg = codes[pos : pos + length + 4].copy()
+        seg = np.concatenate([seg[: length // 2], seg[length // 2 + 4 :]]) if i % 9 == 0 else seg[:length]
+        flip = rng.random(len(seg)) < 0.01
+        if i % 13 == 7:  # a run of substitutions: a z-drop past 100 on the diagonal
+            flip[len(seg) // 2 - 7 : len(seg) // 2 + 8] = True
+        seg[flip] = (seg[flip] + 1) % 4
+        strand = int(rng.integers(2))
+        read = (3 - seg)[::-1] if strand else seg
+        q_len[i] = len(read)
+        qc[i, : len(read)] = read
+        if kind == 1:
+            continue  # no candidate on either strand
+        qs = int(rng.integers(0, 12))
+        qe = len(read) - int(rng.integers(0, 12))
+        sc = np.float32(rng.choice(scores[2:]))
+        cnt = int(rng.integers(2, 30))
+        if kind == 2:  # under the score or the anchor-count threshold
+            if rng.random() < 0.5:
+                sc, cnt = np.float32(15), 5
+            else:
+                sc, cnt = np.float32(rng.choice([10, 19.5, 60])), int(rng.integers(0, 2))
+        rs = pos + qs + (int(rng.integers(-3, 4)) if kind == 6 else 0)
+        own, own_sup = chain_row(sc, cnt, qs, qe, rs)
+        other_q = int(rng.integers(0, 80))
+        other_sc = sc if kind == 5 else np.float32(rng.choice(scores))
+        other, other_sup = chain_row(other_sc, int(rng.integers(1, 20)), other_q,
+                                     other_q + int(rng.integers(21, 80)), int(rng.integers(0, len(codes))))
+        if kind == 4:  # a chimera: one or two segments beside the primary
+            own["qe"] = own["qs"] + 70
+            own["re"] = own["rs"] + 70
+            for j in range(int(rng.integers(1, n_sup + 1)) if n_sup else 0):
+                q0 = 75 + 30 * j
+                sup_rs = int(rng.integers(0, len(codes)))
+                (own_sup if rng.random() < 0.5 else other_sup)[j] = [
+                    np.float32(rng.choice(scores[2:])), int(rng.integers(2, 20)), q0, q0 + 30, sup_rs, sup_rs + 30]
+        rows = {strand: (own, own_sup), 1 - strand: (other, other_sup)}
+        for s in (0, 1):
+            if s == 1 - strand and rng.random() < 0.35:
+                continue  # no anchors on the other strand
+            sets.append((i, s, rows[s]))
+
+    buckets = [[] for _ in range(3)]
+    for item in sets:
+        buckets[int(rng.integers(3))].append(item)
+    cand_map = np.zeros((p, 2), np.int32)
+    chains, offset = [], 0
+    pad_cm = []
+    for items in buckets:
+        pb = max(8, 1 << (len(items) - 1).bit_length())
+        f = {name: np.zeros(pb, np.float32 if name.endswith("score") else np.int32) for name in CHAIN_FIELDS[:11]}
+        for name in CHAIN_FIELDS[11:]:
+            f[name] = np.zeros((pb, n_sup), np.float32 if name == "sup_score" else np.int32)
+        # padding rows: what chain_anchors gives an all-padding set
+        f["score"][:] = neg
+        f["alt_score"][:] = neg
+        f["count"][:] = 1
+        f["sup_score"][:] = neg
+        f["sup_count"][:] = 1
+        for r, (i, s, (row, sup)) in enumerate(items):
+            for name, v in row.items():
+                f[name][r] = v
+            for j, vals in enumerate(sup):
+                for name, v in zip(CHAIN_FIELDS[11:], vals):
+                    f[name][r, j] = v
+            cand_map[i, s] = offset + r
+            pad_cm.append((i, s))
+        chains.append(f)
+        offset += pb
+    have = np.zeros((p, 2), bool)
+    for i, s in pad_cm:
+        have[i, s] = True
+    cand_map[~have] = offset  # the dummy set: no chain
+    q4 = np.concatenate([qc, np.zeros((p, (-lmax) % 4), np.uint8)], axis=1).reshape(p, -1, 4)
+    q_pack = q4[:, :, 0] | (q4[:, :, 1] << 2) | (q4[:, :, 2] << 4) | (q4[:, :, 3] << 6)
+    kw = dict(lmax=lmax, wlen=lmax + band, half=band // 2, min_cnt=2, min_score=20.0,
+              max_segments=n_sup + 1)
+    return chains, (cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen), kw
+
+
+def finish_case(rng, p: int, lmax: int, band: int, match: int, mismatch: int):
+    """Synthetic inputs of the checks after the extension (align/fused.
+    _finish_ref, kernel B6c) as numpy arrays: (q_codes, rwin, lohi, head,
+    q_len, ext_score, end_d). Each row's window holds its query on the
+    diagonal end_d with mismatches where a 32-column warp scan could go
+    wrong: consecutive pairs and runs starting at or crossing a tile
+    boundary, a mismatch on lanes 0 and 31 of every tile, a run of 15,
+    random ones; some reads short, some windows cut by the contig, some
+    scores off the gapless one or -1e30, head rows of random flag bits."""
+    wlen = lmax + band
+    patterns = [[], [32, 33], [64, 65, 66], [30, 31, 32, 33], [31, 32], [63, 64], [95, 96, 97],
+                list(range(60, 75)), list(range(90, 106)),
+                [j for t in range(0, 150, 32) for j in (t, t + 31) if j < 150], [0, 1], [148, 149], [96]]
+    q = rng.integers(0, 4, (p, lmax)).astype(np.uint8)
+    q_len = np.full(p, min(150, lmax), np.int32)
+    q_len[::7] = rng.integers(1, q_len[0], len(q_len[::7]))
+    end_d = rng.integers(0, band, p).astype(np.int32)
+    rwin = rng.integers(0, 4, (p, wlen)).astype(np.uint8)
+    lohi = np.tile(np.int32([0, wlen]), (p, 1))
+    lohi[5::11] = (40, wlen - 30)
+    ext = np.zeros(p, np.float32)
+    for i in range(p):
+        cols = np.array([j for j in patterns[i % len(patterns)] if j < q_len[i]]
+                        + (rng.choice(int(q_len[i]), min(4, int(q_len[i])), replace=False).tolist()
+                           if i % 17 == 3 else []), np.int64)
+        r = q[i].copy()
+        r[cols] = (r[cols] + 1) % 4
+        rwin[i, end_d[i] : end_d[i] + lmax] = r
+        n = len(set(cols.tolist()))
+        ext[i] = match * (q_len[i] - n) - mismatch * n - (8 if i % 9 == 4 else 0)
+    ext[::23] = np.float32(-1e30)
+    head = np.zeros((p, 4), np.int32)
+    head[:, 2] = rng.integers(0, 256, p) & ~6  # F_DIAG and F_FULL are B6c's
+    return q, rwin, lohi, head, q_len, ext, end_d

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (B1/B2 of the match stage, B3/B4 of the
-align stage) and the port's pipeline on an NVIDIA GPU. Every test here needs the card: it is marked ``cuda`` and skips
+"""The hand-written CUDA kernels (B1/B2 of the match stage, B3/B4/B6 of
+the align stage) and the port's pipeline on an NVIDIA GPU. Every test here needs the card: it is marked ``cuda`` and skips
 without one. On a machine with the card (which has no jax, so the repo's
 conftest is left out):
 
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from phylign_tpu_torch import testing as fixture_mod
+from phylign_tpu_torch.align import fused as fz
 from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.io import cobs as iocobs
 from phylign_tpu_torch.io.fastx import read_fastx_file
@@ -620,3 +621,167 @@ def test_match_step_on_the_card(cuda, h, k, thr):
     want = (sc.astype(np.float32) >= cut[:, None]) & (n[:, None] > 0)
     np.testing.assert_array_equal(keep.cpu().numpy(), want)
     assert (sc == np.ceil(cut)[:, None]).any() and not want[n == 0].any()
+
+
+# --- align stage: kernel B6 (the flush epilogue) -------------------------------
+
+B6A_SHAPES = [
+    # (P, A, q16, rmax): the anchor buckets, the main path's A = 32 bucket
+    # at P = 16,384, A past 48 KB of shared memory (4096, 8192), A past
+    # shared memory (the device workspace: 8,193, 16,384), one slot
+    (70, 32, False, 400),
+    (16384, 32, True, 400),
+    (66, 64, True, 400),
+    (40, 256, True, 2000),
+    (9, 1024, False, 6000),
+    (5, 4096, True, 20000),
+    (3, 8192, False, 40000),
+    (3, 8193, True, 40000),
+    (3, 16384, False, 80000),
+    (4, 1, False, 10),
+]
+
+
+@pytest.mark.parametrize("n_sup", [0, 1, 2, 3])
+@pytest.mark.parametrize("p,a,q16,rmax", B6A_SHAPES)
+def test_chain_select_equals_plain_version(cuda, p, a, q16, rmax, n_sup):
+    """Kernel B6a against _chain_tail_ref on B3's output on the card, every
+    ChainResult field bit for bit (all-padding rows included)."""
+    rng = np.random.default_rng(p + a)
+    rp, qp = _anchor_sets(rng, p, a, rmax, min(rmax, 60000), q16)
+    r, q = torch.from_numpy(rp).to(cuda), torch.from_numpy(qp).to(cuda)
+    f, par = opc.chain_dp_cuda(r, q, opc.device_cost_table(21, 100, cuda), 21, 100, 100)
+    before = opc.launch_counts()["chain_select"]
+    got = opc.chain_select_cuda(f, par, r, q, 21, n_sup)
+    torch.cuda.synchronize()
+    assert opc.launch_counts()["chain_select"] == before + 1
+    want = opc._chain_tail_ref(f, par, r, q, 21, n_sup)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    if p > 2:
+        assert (want.score[-2:] == float(opc.NEG)).all()
+
+
+def test_chain_anchors_past_shared_memory_equals_cpu(cuda):
+    """chain_anchors on the card at A = 16,384 (B3, then B6a on its device
+    workspace) equals the CPU run of the plain versions, every field."""
+    rp, qp = _anchor_sets(np.random.default_rng(7), 4, 16384, 80000, 60000)
+    want = opc.chain_anchors(torch.from_numpy(rp), torch.from_numpy(qp))
+    before = opc.launch_counts()["chain_select"]
+    got = opc.chain_anchors(torch.from_numpy(rp).to(cuda), torch.from_numpy(qp).to(cuda))
+    assert opc.launch_counts()["chain_select"] == before + 1
+    for name in want._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+FLUSH_CASES = [
+    # (P, lmax, band, n_sup): small, the main path's flush (COLD_CAP
+    # overflows), one and no split segment, long queries, a wider band
+    (64, 160, 128, 2),
+    (8192, 160, 128, 2),
+    (256, 160, 128, 1),
+    (256, 160, 128, 0),
+    (200, 2208, 128, 2),
+    (128, 160, 256, 2),
+]
+
+
+def _flush_inputs(cuda, p, lmax, band, n_sup, seed):
+    ch, ins, kw = fixture_mod.flush_case(np.random.default_rng(seed), p, lmax, band, n_sup)
+    chains = tuple(opc.ChainResult(*[torch.from_numpy(c[n]) for n in fixture_mod.CHAIN_FIELDS]) for c in ch)
+    host = [torch.from_numpy(x) for x in ins]
+    return chains, host, tuple(type(c)(*[t.to(cuda) for t in c]) for c in chains), [t.to(cuda) for t in host], kw
+
+
+@pytest.mark.parametrize("scoring", [ope.SrScoring(), WIDE], ids=["sr", "wide"])
+@pytest.mark.parametrize("p,lmax,band,n_sup", FLUSH_CASES)
+def test_flush_epilogue_equals_plain_version(cuda, p, lmax, band, n_sup, scoring):
+    """B6b against _select_ref (every Selection field), then B4, then B6c and
+    its compaction against _finish_ref / _compact_cold: the whole packed
+    buffer and the full cold rows bit for bit; then select_extend on the
+    card against the CPU run."""
+    chains, host, dchains, dev_in, kw = _flush_inputs(cuda, p, lmax, band, n_sup, p + lmax + n_sup)
+    fz.reset_launch_counts()
+    sel = fz.select_window_cuda(dchains, *dev_in, **kw)
+    ref = fz._select_ref(fz._flatten_chains(dchains), *dev_in, **kw)
+    torch.cuda.synchronize()
+    for name in ref._fields[:-1]:
+        a, b = getattr(sel, name), getattr(ref, name)
+        assert torch.equal(a.to(b.dtype), b), name
+    q_len = dev_in[4]
+    ext = ope.extend_cuda(sel.q_codes, q_len, sel.rwin, sel.rvalid, scoring)
+    got_fin = fz.finish_pack_cuda(sel, q_len, ext.score, ext.end_d, scoring, 100)
+    got_cc = fz.compact_cold_cuda(sel)
+    hot, neq = fz._finish_ref(ref, q_len, ext.score, ext.end_d, scoring, 100)
+    cc = fz._compact_cold(hot, ref.cold_i, ref.cold_f)
+    want = torch.cat([fz._bitcast_u8(x) for x in (hot, ref.flts, neq, *cc)])
+    torch.cuda.synchronize()
+    for a, b in zip((*got_fin, *got_cc), (hot, neq, *cc)):
+        assert torch.equal(a, b)
+    assert torch.equal(sel.packed, want)
+    assert fz.launch_counts() == {"select_window": 1, "finish_pack": 1, "compact_cold": 1}
+    flags = hot[:, 2] & 0xFF
+    assert bool((flags & fz.F_FULL).any()) and bool(((flags & fz.F_HAS) & ~(flags & fz.F_FULL) != 0).any())
+    assert bool((ref.lohi[:, 0] > 0).any() or (ref.lohi[:, 1] < lmax + band).any())
+    got = fz.select_extend(dchains, *dev_in, scoring=scoring, pack=True, **kw)
+    cpu = fz.select_extend(chains, *host, scoring=scoring, pack=True, **kw)
+    assert torch.equal(got[0].cpu(), cpu[0])
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got[1], cpu[1]))
+
+
+@pytest.mark.parametrize("zdrop", [12, 100])
+@pytest.mark.parametrize("scoring", [ope.SrScoring(), WIDE], ids=["sr", "wide"])
+def test_finish_pack_on_crafted_rows(cuda, scoring, zdrop):
+    """B6c against _finish_ref on testing.finish_case's rows (mismatch runs
+    at and across 32-column tiles, z-drops, cut windows): hot rows and
+    mismatch bits bit for bit."""
+    q, rwin, lohi, head, q_len, ext, end_d = fixture_mod.finish_case(
+        np.random.default_rng(zdrop), 200, 160, 128, scoring.match, scoring.mismatch)
+    p, lmax = q.shape
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in dict(q=q, rwin=rwin, lohi=lohi, q_len=q_len, ext=ext,
+                                                            end_d=end_d).items()}
+    packed = torch.zeros(sum(fz._packed_sizes(p, lmax, 0)), dtype=torch.uint8, device=cuda)
+    hot, flts, bits = fz._packed_views(packed, p, lmax, 0)[:3]
+    hot.copy_(torch.from_numpy(head))
+    empty = torch.zeros((p, 0), dtype=torch.float32, device=cuda)
+    sel = fz.Selection(t["q"], t["rwin"], t["rwin"], t["lohi"], hot, flts, empty, empty, packed)
+    ref = sel._replace(head=torch.from_numpy(head).to(cuda), packed=None)
+    got = fz.finish_pack_cuda(sel, t["q_len"], t["ext"], t["end_d"], scoring, zdrop)
+    want = fz._finish_ref(ref, t["q_len"], t["ext"], t["end_d"], scoring, zdrop)
+    torch.cuda.synchronize()
+    assert torch.equal(hot, want[0]) and torch.equal(bits, want[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(((hot[:, 2] & fz.F_DIAG) != 0).any()) and bool(((hot[:, 2] & fz.F_FULL) != 0).any())
+
+
+def test_flush_epilogue_on_a_mesh_equals_one_device(cuda):
+    """dist_select_extend over a 1x2 and a 1x4 mesh on the one card: B6 per
+    query shard, hot / flts / mismatch bits / full cold rows equal the
+    unpacked one-device run."""
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+
+    _, _, dchains, dev_in, kw = _flush_inputs(cuda, 512, 160, 128, 2, 5)
+    one = fz.select_extend(dchains, *dev_in, scoring=ope.SrScoring(), **kw)
+    for nq in (2, 4):
+        fz.reset_launch_counts()
+        got = fz.dist_select_extend(make_mesh(1, nq, devices=["cuda:0"] * nq), dchains, *dev_in,
+                                    scoring=ope.SrScoring(), **kw)
+        torch.cuda.synchronize()
+        assert fz.launch_counts() == {"select_window": nq, "finish_pack": nq, "compact_cold": 0}
+        for a, b in zip((*got[:3], *got[3]), (*one[:3], *one[4])):
+            assert torch.equal(a.to(b.device), b)
+
+
+def test_flush_epilogue_refuses_more_than_two_segments(cuda):
+    """The flag byte holds two split-segment bits: max_segments 4, or chain
+    results with 3 segments, raise on the card instead of running."""
+    _, _, dchains, dev_in, kw = _flush_inputs(cuda, 16, 160, 128, 2, 1)
+    fz.reset_launch_counts()
+    with pytest.raises(ValueError, match="split segments"):
+        fz.select_window_cuda(dchains, *dev_in, **dict(kw, max_segments=4))
+    with pytest.raises(ValueError, match="split segments"):
+        fz.select_extend(dchains, *dev_in, scoring=ope.SrScoring(), **dict(kw, max_segments=4))
+    _, _, dchains3, dev_in3, kw3 = _flush_inputs(cuda, 16, 160, 128, 3, 1)
+    with pytest.raises(ValueError, match="split segments"):
+        fz.select_window_cuda(dchains3, *dev_in3, **dict(kw3, max_segments=3))
+    assert not any(fz.launch_counts().values())

@@ -1,0 +1,551 @@
+"""Kernel B6, the fused flush epilogue (``csrc/flush_epilogue.cu``), on the
+CPU: a numpy emulation of each of its four kernels' own algorithm (B6a's
+block with its shared-memory pointer doubling and strided argmax passes,
+B6b's per-pair selection read through the chain table and its gathers,
+B6c's warp over 32 columns at a time with ballots, popcounts, a shuffle
+max-scan and reversed-bit bytes, and the one-block ordered compaction),
+held to the plain PyTorch versions (``ops/chain._chain_tail_ref``,
+``align/fused._select_ref`` / ``_finish_ref`` / ``_compact_cold``) on the
+inputs of the fused flush of tests/test_torch_fused.py's pool, and to the
+JAX package's ``chain_anchors`` / ``select_extend`` on inputs made from a
+numpy seed. Tolerance: exact (0 difference; whole byte buffers, padding
+rows included)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_fused import PORT, mixed_pool
+
+from phylign_tpu.align import fused as jfz
+from phylign_tpu.ops import chain as jchain
+from phylign_tpu_torch import testing as T
+from phylign_tpu_torch.align import engine as tae
+from phylign_tpu_torch.align import fused as tfz
+from phylign_tpu_torch.ops import chain as tchain
+from phylign_tpu_torch.ops import extend as ope
+
+NEG = np.float32(-1e30)
+BIG = 1 << 30
+
+
+def w(x):
+    """int32 with torch's wrap-around."""
+    return np.asarray(x, np.int64).astype(np.int32)
+
+
+def u16(q):
+    return q.view(np.uint16) if q.dtype == np.int16 else q
+
+
+# --- B6a: one block per anchor set ---------------------------------------------
+
+
+def emu_chain_select(f, parent, rpos, qpos, k, n_sup):
+    """B6a block by block: pointer doubling (root and count both read from
+    the previous round; uint16 in shared memory up to 8,192 slots, int32 in
+    the device workspace above), then each pass's threads scanning slots
+    t, t+T, ... for their first strict maximum, combined by (larger value,
+    smaller index)."""
+    p, a = rpos.shape
+    nt = 256 if a >= 256 else -(-a // 32) * 32
+    it = np.uint16 if a <= 8192 else np.int32
+    q_all = u16(qpos).astype(np.int64)
+    out = {n: np.zeros(p, np.float32 if n.endswith("score") else np.int32) for n in T.CHAIN_FIELDS[:11]}
+    for n in T.CHAIN_FIELDS[11:]:
+        out[n] = np.zeros((p, n_sup), np.float32 if n == "sup_score" else np.int32)
+    for s in range(p):
+        sf, rp, qp, pa = f[s], rpos[s].astype(np.int64), q_all[s], parent[s].astype(np.int64)
+        par = np.where(pa >= 0, np.minimum(pa, a - 1), np.arange(a)).astype(it)
+        cnt = (pa >= 0).astype(it)
+        for _ in range(tchain.doubling_rounds(a)):
+            par, cnt = par[par], (cnt + cnt[par]).astype(it)
+        root = par.astype(np.int64)
+        qs_all, qe_all = qp[root], w(qp + k).astype(np.int64)
+
+        def ov_ok(sqs, sqe):
+            ov = np.maximum(w(np.minimum(qe_all, sqe) - np.maximum(qs_all, sqs)), 0)
+            span = np.minimum(w(qe_all - qs_all), w(sqe - sqs))
+            return ov.astype(np.float32) >= np.float32(0.5) * span.astype(np.float32)
+
+        def block_argmax(vals):
+            best = None
+            for t in range(min(nt, a)):
+                mine = vals[t::nt]
+                j = int(np.argmax(mine))  # the thread's first strict maximum
+                c = (mine[j], t + j * nt)
+                if best is None or c[0] > best[0] or (c[0] == best[0] and c[1] < best[1]):
+                    best = c
+            return best
+
+        def put(prefix, e, v, col=None):
+            vals = dict(score=v, count=int(cnt[e]) + 1, qs=qs_all[e], qe=qe_all[e], rs=rp[root[e]],
+                        re=w(rp[e] + k))
+            if prefix == "alt_":
+                vals.pop("count")
+                vals = {"alt_score" if n == "score" else f"alt_{n}": x for n, x in vals.items()}
+            for n, x in vals.items():
+                n = f"sup_{n}" if prefix == "sup_" else n
+                if col is None:
+                    out[n][s] = x
+                else:
+                    out[n][s, col] = x
+
+        score1, end = block_argmax(sf)
+        put("", end, score1)
+        live1 = score1 > 0
+        ov1 = ov_ok(qs_all[end], qe_all[end]) & live1
+        valid = rp < int(tchain.PAD_POS)
+        v, e = block_argmax(np.where(ov1 & valid & (root != root[end]), sf, NEG))
+        put("alt_", e, v)
+        blocked = ov1 | ~valid
+        for n in range(n_sup):
+            v, e = block_argmax(np.where(blocked, NEG, sf))
+            put("sup_", e, v, n)
+            if v > 0:
+                blocked = blocked | ov_ok(qs_all[e], qe_all[e]) | (np.arange(a) == e)
+    return out
+
+
+# --- B6b: one warp per pair ------------------------------------------------------
+
+
+def emu_select_window(chains, cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen,
+                      *, lmax, wlen, half, min_cnt, min_score, max_segments):
+    """B6b pair by pair: the two sets' rows found through the bucket table
+    (the dummy past the last bucket), the candidates in insertion order,
+    the lexicographic selections, the window by binary search, the
+    gathers. Returns the Selection fields as numpy arrays."""
+    p = len(cand_map)
+    n_sup = chains[0]["sup_score"].shape[1]
+    n_out = max(0, max_segments - 1)
+    starts = np.concatenate([[0], np.cumsum([len(c["score"]) for c in chains])])
+    n_c = len(cst)
+    out = dict(q_codes=np.zeros((p, lmax), np.uint8), rwin=np.zeros((p, wlen), np.uint8),
+               rvalid=np.zeros((p, wlen), bool), lohi=np.zeros((p, 2), np.int32),
+               head=np.zeros((p, 4), np.int32), flts=np.zeros((p, 2), np.float32),
+               cold_i=np.zeros((p, 4 + 6 * n_out + 5), np.int32), cold_f=np.zeros((p, n_out), np.float32))
+    min_score = np.float32(min_score)
+
+    def load(s):
+        if s < 0:
+            s += starts[-1] + 1
+        b = int(np.searchsorted(starts[1:], s, side="right"))
+        if b == len(chains):  # the dummy row: -1e30 scores, zero coordinates
+            row = {n: NEG if n.endswith("score") else 0 for n in T.CHAIN_FIELDS[:11]}
+            row.update({n: [NEG if n == "sup_score" else 0] * n_sup for n in T.CHAIN_FIELDS[11:]})
+            return row
+        i = s - starts[b]
+        return {n: chains[b][n][i] for n in T.CHAIN_FIELDS}
+
+    def lex(c, mask):
+        has, bc, bsc, bst, bqs = False, 0, NEG, 0, 0
+        for x in range(len(c)):
+            sc, st, qs = c[x][0], c[x][6], c[x][2]
+            if mask[x] and (not has or sc > bsc or (sc == bsc and st < bst)
+                            or (sc == bsc and st == bst and qs < bqs)):
+                has, bc, bsc, bst, bqs = True, x, sc, st, qs
+        return has, bc
+
+    def qov(aqs, aqe, bqs, bqe):
+        ov = max(int(w(min(aqe, bqe) - max(aqs, bqs))), 0)
+        span = max(min(int(w(aqe - aqs)), int(w(bqe - bqs))), 1)
+        return int(w(2 * ov)) >= span
+
+    for pair in range(p):
+        sr = [load(int(s)) for s in cand_map[pair]]
+        # (score, count, qs, qe, rs, re, strand)
+        c = [(sr[x]["score"], sr[x]["count"], sr[x]["qs"], sr[x]["qe"], sr[x]["rs"], sr[x]["re"], x)
+             for x in (0, 1)]
+        for side in (0, 1):
+            for j in range(n_sup):
+                c.append(tuple(sr[side][n][j] for n in T.CHAIN_FIELDS[11:]) + (side,))
+        valid = [x[1] >= min_cnt and x[0] >= min_score for x in c]
+        has, pc = lex(c, valid)
+        psc, pcnt, pqs, pqe, prs, pre, pst = c[pc]
+        primary = pc < 2
+        prim_alt = np.float32(max(sr[pc]["alt_score"], 0)) if primary else np.float32(0)
+        s2c, c2 = NEG, 0
+        for x in range(len(c)):
+            sc = c[x][0] if valid[x] and x != pc and qov(c[x][2], c[x][3], pqs, pqe) else NEG
+            if x == 0 or sc > s2c:
+                s2c, c2 = sc, x
+        alt_term = prim_alt if primary and has else np.float32(0)
+        s2 = np.float32(max(s2c, alt_term, 0)) if has else np.float32(0)
+        use_alt = alt_term > max(s2c, 0)
+        ps = sr[min(max(pc, 0), 1)]
+        taken, picked = {pc}, [(pqs, pqe, has)]
+        flags = has * tfz.F_HAS | pst * tfz.F_STRAND | primary * tfz.F_PRIMTYPE | (s2 > 0) * tfz.F_PROBE
+        for s in range(n_out):
+            ok = [valid[x] and x not in taken and has
+                  and not any(qov(c[x][2], c[x][3], a, b) and live for a, b, live in picked)
+                  for x in range(len(c))]
+            found, ch = lex(c, ok)
+            if found:
+                taken.add(ch)
+                flags |= tfz.F_SUP0 << s
+            picked.append((c[ch][2], c[ch][3], found))
+            sc, cnt, qs, qe, rs, re, st = c[ch]
+            out["cold_i"][pair, 4 + 6 * s : 10 + 6 * s] = (st, qs, qe, rs, re, cnt)
+            out["cold_f"][pair, s] = sc
+        base = int(pair_base[pair])
+        rs_c = int(w(min(max(int(prs), 0), int(w(int(pair_reflen[pair]) - 1))) + base))
+        lo_b, hi_b = 0, n_c
+        while lo_b < hi_b:
+            mid = (lo_b + hi_b) >> 1
+            lo_b, hi_b = (mid + 1, hi_b) if cst[mid] <= rs_c else (lo_b, mid)
+        ci = lo_b - 1
+        c_start = int(cst[ci + n_c if ci < 0 else ci])
+        c_end = int(w(c_start + int(clen[ci + n_c if ci < 0 else ci])))
+        w0 = int(w(base + int(prs) - int(pqs) - half))
+        lo = min(max(int(w(c_start - w0)), 0), wlen)
+        hi = min(max(int(w(c_end - w0)), 0), wlen)
+        out["head"][pair] = (w(w0 - c_start), ci, flags, pcnt)
+        out["flts"][pair] = (psc, s2)
+        out["lohi"][pair] = (lo, hi)
+        probe = (pst, ps["alt_qs"], ps["alt_qe"], ps["alt_rs"], ps["alt_re"]) if use_alt else (
+            c[c2][6], c[c2][2], c[c2][3], c[c2][4], c[c2][5])
+        out["cold_i"][pair, :4] = (pqs, pqe, prs, pre)
+        out["cold_i"][pair, 4 + 6 * n_out :] = probe
+        j = np.arange(wlen)
+        idx = np.clip(w(w0 + j).astype(np.int64), 0, 4 * len(pool_pack) - 1)
+        out["rwin"][pair] = (pool_pack[idx >> 2] >> ((idx & 3) * 2)) & 3
+        out["rvalid"][pair] = (j >= lo) & (j < hi)
+        j = np.arange(lmax)
+        ql = int(q_len[pair])
+        if pst == 1:
+            r = np.clip(w(ql - 1 - j), 0, lmax - 1)
+            code = np.where(j < ql, 3 - ((q_pack[pair][r >> 2] >> ((r & 3) * 2)) & 3), 0)
+        else:
+            code = (q_pack[pair][j >> 2] >> ((j & 3) * 2)) & 3
+        out["q_codes"][pair] = code
+    return out
+
+
+# --- B6c: one warp per pair, then one block for the compaction --------------------
+
+LANES = np.arange(32)
+
+
+def ballot(bits):
+    return int((bits.astype(np.int64) << LANES).sum())
+
+
+def popc(x):
+    return bin(x & 0xFFFFFFFF).count("1")
+
+
+def emu_finish_pack(sel, q_len, ext_score, end_d, match, mismatch, min_dp, zdrop):
+    """B6c pair by pair, 32 columns at a time as the warp's lanes: pass 1
+    counts mismatches by ballot; pass 2 takes each column's running count
+    from the popcount of the lanes at or below it, the z-drop running peak
+    from a 5-step shuffle-up max-scan after the peak carried in, and the
+    mismatch bytes from the ballot's reversed bits byte-swapped."""
+    q_codes, rwin, lohi, head = sel["q_codes"], sel["rwin"], sel["lohi"], sel["head"]
+    p, lmax = q_codes.shape
+    wlen = rwin.shape[1]
+    hot = head.copy()
+    bits = np.zeros((p, lmax // 8), np.uint8)
+    step = match + mismatch
+    for pair in range(p):
+        e, ql = int(end_d[pair]), int(q_len[pair])
+        lo, hi = lohi[pair]
+
+        def column(j):
+            col = w(e + j).astype(np.int64)
+            in_q = j < ql
+            neq = in_q & (q_codes[pair, j] != rwin[pair, np.clip(col, 0, wlen - 1)])
+            return neq, ((col >= lo) & (col < hi)) | ~in_q
+
+        neq_tot, vall = 0, True
+        for j0 in range(0, lmax, 32):
+            neq, vseg = column(j0 + LANES)
+            neq_tot += popc(ballot(neq))
+            vall = vall and bool(vseg.all())
+        carry, peak = 0, -BIG
+        min_pref, min_suf, dropmax = BIG, BIG, -BIG
+        for j0 in range(0, lmax, 32):
+            j = j0 + LANES
+            neq, _ = column(j)
+            b = ballot(neq)
+            cum = carry + np.array([popc(b & (0xFFFFFFFF >> (31 - ln))) for ln in LANES])
+            carry += popc(b)
+            prefv = w(match * (j + 1) - step * cum)
+            sufv = w(match * (ql - j) - step * (neq_tot - cum + 1))
+            rp = np.where(neq, w(match * j - step * (cum - 1)), -BIG)
+            for off in (1, 2, 4, 8, 16):
+                up = np.concatenate([rp[:off], rp[:-off]])
+                rp = np.where(LANES >= off, np.maximum(rp, up), rp)
+            rp = np.maximum(rp, peak)
+            peak = int(rp[31])
+            if neq.any():
+                min_pref = min(min_pref, int(prefv[neq].min()))
+                min_suf = min(min_suf, int(sufv[neq].min()))
+                dropmax = max(dropmax, int(w(rp - prefv)[neq].max()))
+            rev = int(f"{b:032b}"[::-1], 2)
+            bits[pair, j0 // 8 : j0 // 8 + 4] = np.frombuffer(rev.to_bytes(4, "big"), np.uint8)
+        best = int(w(match * (ql - neq_tot) - mismatch * neq_tot))
+        ext_i = int(np.float32(min(max(np.float32(ext_score[pair]), np.float32(-1e9)), np.float32(1e9))))
+        diag = vall and best == ext_i
+        full = (diag and best >= min_dp and (neq_tot == 0 or (min_pref > 0 and min_suf > 0))
+                and dropmax <= zdrop)
+        hot[pair, 2] = w(int(hot[pair, 2]) | diag * tfz.F_DIAG | full * tfz.F_FULL | (e << 8))
+    return hot, bits
+
+
+def emu_compact_cold(hot, cold_i, cold_f, cap=tfz.COLD_CAP):
+    """The compaction block: 1,024 rows a round, a rank from the warps'
+    ballot counts before this one and the lanes' below this one."""
+    p = len(hot)
+    cc_i = np.full((cap, cold_i.shape[1]), -7, np.int32)
+    cc_f = np.full((cap, cold_f.shape[1]), -7, np.float32)
+    base = 0
+    for r0 in range(0, p, 1024):
+        r = r0 + np.arange(1024)
+        fl = np.where(r < p, hot[np.minimum(r, p - 1), 2], 0)
+        need = ((fl & tfz.F_HAS) != 0) & ((fl & tfz.F_FULL) == 0) | ((fl & 0xE0) != 0)
+        need &= r < p
+        warp_n = [popc(ballot(need[x : x + 32])) for x in range(0, 1024, 32)]
+        for t in np.flatnonzero(need):
+            b = ballot(need[t - t % 32 : t - t % 32 + 32])
+            rank = base + sum(warp_n[: t // 32]) + popc(b & ((1 << (t % 32)) - 1))
+            if rank < cap:
+                cc_i[rank], cc_f[rank] = cold_i[r[t]], cold_f[r[t]]
+        base += sum(warp_n)
+    cc_i[min(base, cap) :] = 0
+    cc_f[min(base, cap) :] = 0
+    return cc_i, cc_f
+
+
+def emu_flush(chains, ins, kw, scoring, zdrop=100):
+    """The whole epilogue as the card runs it: B6b, B4's plain version,
+    B6c, the compaction; (packed bytes, cold_i, cold_f, selection)."""
+    sel = emu_select_window(chains, *ins, **kw)
+    t = {k: torch.from_numpy(v) for k, v in sel.items()}
+    ext = ope.extend_ref(t["q_codes"], torch.from_numpy(ins[4]), t["rwin"], t["rvalid"], scoring)
+    hot, bits = emu_finish_pack(sel, ins[4], ext.score.numpy(), ext.end_d.numpy(), scoring.match,
+                                scoring.mismatch, scoring.min_dp_score, zdrop)
+    cc_i, cc_f = emu_compact_cold(hot, sel["cold_i"], sel["cold_f"])
+    packed = b"".join(a.tobytes() for a in (hot, sel["flts"], bits, cc_i, cc_f))
+    return packed, sel["cold_i"], sel["cold_f"], sel
+
+
+# --- inputs ------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pool_calls():
+    """The (chain tail, select_extend) calls of the port's fused flush of
+    tests/test_torch_fused.py's pool, on the CPU."""
+    tasks, params = mixed_pool(PORT, 11)
+    tails, flushes = [], []
+    orig_tail, orig_sel = tchain.chain_tail, tfz.select_extend
+
+    def tail(*args):
+        tails.append(args)
+        return orig_tail(*args)
+
+    def sel(*args, **kw):
+        flushes.append((args, kw))
+        return orig_sel(*args, **kw)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tchain, "chain_tail", tail)
+    mp.setattr(tfz, "select_extend", sel)
+    try:
+        tae.flush_pairs_fused(tasks, params, device="cpu")
+    finally:
+        mp.undo()
+    assert tails and flushes
+    return tails, flushes
+
+
+def _np_chains(chains):
+    return [{n: getattr(c, n).numpy() for n in T.CHAIN_FIELDS} for c in chains]
+
+
+def _anchor_sets(rng, p, a, rmax, q16):
+    """Sorted random anchor sets, the last two rows all padding."""
+    rp = np.full((p, a), tchain.PAD_POS, np.int32)
+    qp = np.full((p, a), tchain.PAD_POS, np.int32)
+    for i in range(p - 2):
+        n = int(rng.integers(1, a + 1))
+        r, q = rng.integers(0, rmax, n).astype(np.int32), rng.integers(0, min(rmax, 60000), n).astype(np.int32)
+        o = np.lexsort((q, r))
+        rp[i, :n], qp[i, :n] = r[o], q[o]
+    if q16:
+        q = np.zeros((p, a), np.uint16)
+        np.copyto(q, qp, casting="unsafe", where=qp < tchain.PAD_POS)
+        qp = q.view(np.int16)
+    return rp, qp
+
+
+# --- B6a -----------------------------------------------------------------------------
+
+
+def test_chain_select_emulation_on_the_pool(pool_calls):
+    """Every chain tail of the pool's flush (each anchor bucket)."""
+    tails, _ = pool_calls
+    for f, parent, rpos, qpos, k, n_sup in tails:
+        want = tchain._chain_tail_ref(f, parent, rpos, qpos, k, n_sup)
+        got = emu_chain_select(f.numpy(), parent.numpy(), rpos.numpy(), qpos.numpy(), k, n_sup)
+        for n in T.CHAIN_FIELDS:
+            np.testing.assert_array_equal(got[n], getattr(want, n).numpy(), err_msg=n)
+
+
+@pytest.mark.parametrize("n_sup", [0, 1, 2, 3])
+@pytest.mark.parametrize("p,a,q16,rmax", [(40, 32, True, 300), (12, 64, False, 400), (6, 256, True, 2000),
+                                          (3, 1024, False, 6000), (3, 4096, True, 30000),
+                                          (3, 16384, False, 80000)])
+def test_chain_select_emulation_equals_plain_and_jax(p, a, q16, rmax, n_sup):
+    """Random anchor sets (overlapping chains, all-padding rows): the
+    emulation on chain_dp_ref's f / parent equals _chain_tail_ref and the
+    JAX package's chain_anchors (which stacks its segments, so n_sup >= 1
+    there); an all-padding row holds slot 0's values (the argmax of an all
+    -1e30 row), not zeros."""
+    rp, qp = _anchor_sets(np.random.default_rng(a + n_sup), p, a, rmax, q16)
+    r, q = torch.from_numpy(rp), torch.from_numpy(qp)
+    f, parent = tchain.chain_dp_ref(r, q, tchain.device_cost_table(21, 100, r.device), 21, 100, 100)
+    got = emu_chain_select(f.numpy(), parent.numpy(), rp, qp, 21, n_sup)
+    want = tchain._chain_tail_ref(f, parent, r, q, 21, n_sup)
+    jq = u16(qp).astype(np.int32) if q16 else qp
+    jx = jchain.chain_anchors(jnp.asarray(rp), jnp.asarray(jq), n_sup=n_sup) if n_sup else want
+    for n in T.CHAIN_FIELDS:
+        np.testing.assert_array_equal(got[n], getattr(want, n).numpy(), err_msg=n)
+        np.testing.assert_array_equal(got[n], np.asarray(getattr(jx, n)), err_msg=n)
+    q0 = int(u16(qp)[-1, 0])
+    assert got["score"][-1] == NEG and got["alt_score"][-1] == NEG and got["count"][-1] == 1
+    assert (got["qs"][-1], got["qe"][-1], got["re"][-1]) == (q0, q0 + 21, int(rp[-1, 0]) + 21)
+    assert (got["sup_score"][-1] == NEG).all() and (got["sup_count"][-1] == 1).all()
+
+
+# --- B6b, B6c and the compaction --------------------------------------------------------
+
+
+def test_flush_emulation_on_the_pool(pool_calls):
+    """Every select_extend of the pool's flush: the Selection equals
+    _select_ref's, the packed buffer and full cold rows equal the plain
+    select_extend's byte for byte."""
+    _, flushes = pool_calls
+    for args, kw in flushes:
+        kw = dict(kw)
+        scoring, zdrop = kw.pop("scoring"), kw.pop("zdrop")
+        kw.pop("pack")
+        chains, ins = _np_chains(args[0]), [a.numpy() for a in args[1:]]
+        packed, cold_i, cold_f, sel = emu_flush(chains, ins, kw, scoring, zdrop)
+        ref = tfz._select_ref(tfz._flatten_chains(args[0]), *args[1:], **kw)
+        for n, v in sel.items():
+            np.testing.assert_array_equal(v, getattr(ref, n).numpy(), err_msg=n)
+        want = tfz.select_extend(*args, scoring=scoring, zdrop=zdrop, pack=True, **kw)
+        assert packed == want[0].numpy().tobytes()
+        np.testing.assert_array_equal(cold_i, want[1][0].numpy())
+        np.testing.assert_array_equal(cold_f, want[1][1].numpy())
+
+
+@pytest.mark.parametrize("p,lmax,n_sup,wide,zdrop", [
+    (256, 160, 2, False, 100), (256, 160, 1, False, 100), (128, 160, 0, False, 100), (700, 160, 2, False, 100),
+    (48, 992, 2, False, 100), (128, 160, 2, True, 100), (256, 160, 2, False, 12)])
+def test_flush_emulation_equals_plain_and_jax(p, lmax, n_sup, wide, zdrop):
+    """testing.flush_case's pairs (no candidate, under the thresholds,
+    contig edges, chimeras with 1-2 segments, tied strands, off-diagonal
+    primaries, padding; P = 700 overflows COLD_CAP): the emulation's
+    packed bytes and cold rows equal the plain select_extend's and the
+    JAX package's; -A 200 -B 150 at ``wide``; the z-drop check at 100
+    (runs of 15 substitutions) and at 12. Padding pairs hold the dummy
+    candidate's values: hot (-half, 0, F_PRIMTYPE, 0), scores (-1e30, 0),
+    a zero cold row."""
+    chains, ins, kw = T.flush_case(np.random.default_rng(p + n_sup), p, lmax, 128, n_sup)
+    scoring = ope.SrScoring(match=200, mismatch=150) if wide else ope.SrScoring()
+    packed, cold_i, cold_f, sel = emu_flush(chains, ins, kw, scoring, zdrop)
+    tch = tuple(tchain.ChainResult(*[torch.from_numpy(c[n]) for n in T.CHAIN_FIELDS]) for c in chains)
+    want = tfz.select_extend(tch, *[torch.from_numpy(x) for x in ins], scoring=scoring, zdrop=zdrop, pack=True,
+                             **kw)
+    assert packed == want[0].numpy().tobytes()
+    np.testing.assert_array_equal(cold_i, want[1][0].numpy())
+    np.testing.assert_array_equal(cold_f, want[1][1].numpy())
+    jch = tuple(jchain.ChainResult(*[jnp.asarray(c[n]) for n in T.CHAIN_FIELDS]) for c in chains)
+    jx = jfz.select_extend(jch, *[jnp.asarray(x) for x in ins], scoring=jfz.SrScoring(**vars(scoring)),
+                           zdrop=zdrop, pack=True, **kw)
+    assert packed == np.asarray(jx[0]).tobytes()
+    np.testing.assert_array_equal(cold_i, np.asarray(jx[1][0]))
+    hot = np.frombuffer(packed[: 16 * p], np.int32).reshape(p, 4)
+    flts = np.frombuffer(packed[16 * p : 24 * p], np.float32).reshape(p, 2)
+    half = kw["half"]
+    assert (hot[-8:] == [-half, 0, tfz.F_PRIMTYPE, 0]).all() and (flts[-8:] == [NEG, 0]).all()
+    assert (cold_i[-8:] == 0).all()
+    none = (ins[0] == ins[0].max()).all(axis=1)[:-8]  # pairs with no candidate
+    assert none.any() and ((hot[:-8][none, 2] & 0xFF) == tfz.F_PRIMTYPE).all()
+    flags = hot[:, 2] & 0xFF
+    assert (flags & tfz.F_FULL).any() and (((flags & tfz.F_HAS) != 0) & ((flags & tfz.F_FULL) == 0)).any()
+    assert (flags & tfz.F_STRAND).any() and (flags & tfz.F_PROBE).any()
+    assert n_sup == 0 or (flags & tfz.F_SUP0).any()
+    assert (sel["lohi"][:, 0] > 0).any() or (sel["lohi"][:, 1] < kw["wlen"]).any()
+
+
+@pytest.mark.parametrize("zdrop", [12, 100])
+@pytest.mark.parametrize("wide", [False, True])
+def test_finish_pack_emulation_on_crafted_rows(zdrop, wide):
+    """B6c on rows whose mismatches sit where its warp scan could go wrong:
+    consecutive pairs and runs starting at or crossing a 32-column tile
+    (lane 0 of the max-scan; the peak carried from lane 31), mismatches on lanes 0
+    and 31 of every tile, a run of 15 (the z-drop), random ones; short
+    reads, windows cut by the contig, scores off the gapless one."""
+    scoring = ope.SrScoring(match=200, mismatch=150) if wide else ope.SrScoring()
+    q, rwin, lohi, head, q_len, ext, end_d = T.finish_case(np.random.default_rng(zdrop + wide), 96, 160, 128,
+                                                          scoring.match, scoring.mismatch)
+    p = len(q)
+    sel = dict(q_codes=q, rwin=rwin, lohi=lohi, head=head)
+    hot, bits = emu_finish_pack(sel, q_len, ext, end_d, scoring.match, scoring.mismatch,
+                                scoring.min_dp_score, zdrop)
+    ref = tfz.Selection(*[torch.from_numpy(x) for x in (q, rwin, rwin, lohi, head, np.zeros((p, 2), np.float32),
+                                                       np.zeros((p, 9), np.int32), np.zeros((p, 0), np.float32))])
+    want = tfz._finish_ref(ref, torch.from_numpy(q_len), torch.from_numpy(ext), torch.from_numpy(end_d), scoring,
+                           zdrop)
+    np.testing.assert_array_equal(hot, want[0].numpy())
+    np.testing.assert_array_equal(bits, want[1].numpy())
+    fl = hot[:, 2]
+    assert ((fl & tfz.F_DIAG) != 0).any() and ((fl & tfz.F_FULL) != 0).any()
+    assert (((fl & tfz.F_DIAG) != 0) & ((fl & tfz.F_FULL) == 0)).any()
+
+
+def test_compaction_emulation_overflow():
+    """More needed rows than COLD_CAP over several 1,024-row rounds: the
+    first COLD_CAP in order, as _compact_cold (and JAX's dropping scatter)
+    keeps them; few needed rows leave the other slots zero."""
+    rng = np.random.default_rng(4)
+    for p, share in ((3000, 0.4), (2100, 0.05)):
+        hot = np.zeros((p, 4), np.int32)
+        hot[:, 2] = rng.choice([tfz.F_HAS, tfz.F_HAS | tfz.F_FULL, tfz.F_SUP0 | tfz.F_FULL, tfz.F_PROBE, 0], p,
+                               p=[share / 3, 1 - share, share / 3, share / 3, 0])
+        hot[:, 2] |= rng.integers(0, 128, p).astype(np.int32) << 8
+        cold_i = rng.integers(-9, 9, (p, 19)).astype(np.int32)
+        cold_f = rng.random((p, 2)).astype(np.float32)
+        got = emu_compact_cold(hot, cold_i, cold_f)
+        want = tfz._compact_cold(*[torch.from_numpy(a) for a in (hot, cold_i, cold_f)])
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b.numpy())
+
+
+# --- dispatch ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_launch_no_b6_kernel(pool_calls):
+    """On CPU tensors chain_anchors and select_extend take the plain
+    versions: every B6 counter stays 0; the CUDA wrappers refuse CPU
+    tensors without counting."""
+    _, flushes = pool_calls
+    tchain.reset_launch_counts()
+    tfz.reset_launch_counts()
+    rp, qp = _anchor_sets(np.random.default_rng(1), 8, 32, 300, False)
+    tchain.chain_anchors(torch.from_numpy(rp), torch.from_numpy(qp))
+    args, kw = flushes[0]
+    tfz.select_extend(*args, **kw)
+    f = torch.zeros((2, 32))
+    i = torch.zeros((2, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tchain.chain_select_cuda(f, i, i, i, 21, 2)
+    kw = {k: v for k, v in kw.items() if k not in ("scoring", "zdrop", "pack")}
+    with pytest.raises(ValueError, match="CUDA"):
+        tfz.select_window_cuda(*args, **kw)
+    assert tchain.launch_counts() == {"chain_scan": 0, "chain_select": 0}
+    assert tfz.launch_counts() == {"select_window": 0, "finish_pack": 0, "compact_cold": 0}

@@ -188,7 +188,11 @@ KERNEL_ENTRIES = {
     "match_popcount": ("phylign_match_popcount_b1", "phylign_match_popcount_b2"),
     "chain_scan": ("phylign_chain_scan",),
     "extend_scan": ("phylign_extend_scan",),
+    "flush_epilogue": ("phylign_chain_select", "phylign_select_window", "phylign_finish_pack",
+                       "phylign_compact_cold"),
 }
+#: exported sizes a wrapper asks for before its launch (int64_t results)
+KERNEL_QUERIES = {"flush_epilogue": ("phylign_chain_select_workspace",)}
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_ENTRIES))
@@ -204,10 +208,13 @@ def test_every_kernel_source_is_built_and_bound(name):
     assert p.parent == REPO / "build" / "phylign_tpu_torch"
     assert p.name.startswith(f"lib{name}_") and p.suffix == ".so"
     src = (_kernels.SRC_DIR / f"{name}.cu").read_text()
+    queries = KERNEL_QUERIES.get(name, ())
     fake = types.SimpleNamespace(**{
-        fn: types.SimpleNamespace() for fn in (*KERNEL_ENTRIES[name], "phylign_cuda_error_string")
+        fn: types.SimpleNamespace() for fn in (*KERNEL_ENTRIES[name], *queries, "phylign_cuda_error_string")
     })
     _kernels._bind(name, fake)
+    for fn in queries:
+        assert f"int64_t {fn}(" in src and getattr(fake, fn).restype is ctypes.c_int64
     for fn in KERNEL_ENTRIES[name]:
         assert f"int {fn}(" in src
         entry = getattr(fake, fn)
@@ -229,7 +236,8 @@ def test_align_kernels_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ope.extend_cuda(q, torch.zeros(2, dtype=torch.int32), w, w)
     assert (opc.launch_counts(), ope.launch_counts()) == before
-    assert set(opc.launch_counts()) == {"chain_scan"} and set(ope.launch_counts()) == {"extend_scan"}
+    assert set(opc.launch_counts()) == {"chain_scan", "chain_select"}
+    assert set(ope.launch_counts()) == {"extend_scan"}
 
 
 def test_align_entry_points_default_to_cuda():
