@@ -17,6 +17,11 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
                                    # DIR/extend_scan.cu (PR 4's design)
                                    # timed beside; the full run takes the
                                    # option too
+    python3 chip_smoke.py --baseline-flush OLD.cu
+                                   # phase 5 also times B6b and the
+                                   # compaction of an older
+                                   # flush_epilogue.cu (the same C
+                                   # interface) beside this tree's
 
 Phases, each printing one JSON line:
   1 environment: versions, the card's name and power limit, and the
@@ -48,7 +53,9 @@ Phases, each printing one JSON line:
     strands, contig edges, 0-2 split segments, COLD_CAP overflow; also -A
     200 -B 150, one and no segment, long queries), every output bit-exact
     against the plain versions, timed, with the plain versions' times and
-    kernel counts, and the whole epilogue plain against B6 in turns;
+    kernel counts, each kernel's launches per call and the registers and
+    local memory of every B6 kernel instance (cuobjdump), and the whole
+    epilogue plain against B6 in turns;
   6 phase 3's fixture (with an assembly tar for its 3-hash batch) end to end
     through ``python -m phylign_tpu_torch.cli all`` on the card and again
     with ``--device cpu``: 05_map, sam_summary and stats must be identical,
@@ -57,7 +64,8 @@ Phases, each printing one JSON line:
     contigs, 16,384 reads of 150 bp with 5 candidates each (81,920 pairs,
     device_pair_chunk 16,384); >= 95% of the non-chimeric reads must map to
     their planted position, and a 2,048-read subset must give the same
-    records on the CPU;
+    records on the CPU; with the needed cold rows of each flush (against
+    COLD_CAP), and under --profile each B6 kernel's device time a flush;
   8 the device mesh (parallel/) on the one card, every cell on cuda:0:
     (a) B1/B2 on the doc-shard slices of phase 2's geometry (68 words pad
     to 80 at 2 doc shards, 40 a shard), bit-exact and timed; (b) phase 4's
@@ -928,10 +936,12 @@ def wide_scoring(rng, label: str) -> dict:
 
 #: B6a's cases: (name, P, A, qpos as uint16): every anchor bucket of the
 #: align stage (engine.ANCHOR_BUCKETS) on chain_sets' read-like sets, at
-#: phase 5's B3 sizes, and sets past shared memory (B6a's device
-#: workspace; chain_anchors' callers outside the engine's buckets)
+#: phase 5's B3 sizes, A = 32 also at phase 7's calls (P = 2,048), and sets
+#: past shared memory (B6a's device workspace; chain_anchors' callers
+#: outside the engine's buckets)
 B6A_CASES = [
     ("b6a_a32", 16384, 32, True),
+    ("b6a_a32_p2048", 2048, 32, True),
     ("b6a_a64", 8192, 64, True),
     ("b6a_a256", 2048, 256, True),
     ("b6a_a1024", 512, 1024, False),
@@ -1015,7 +1025,65 @@ def b6_bounds(cand_map, lmax: int, wlen: int, n_sup: int, n_out: int, need: int)
     )
 
 
-def phase_flush_kernels(label: str) -> dict:
+class BaselineFlush:
+    """Kernel B6 as an older csrc/flush_epilogue.cu with this tree's C
+    interface builds it (--baseline-flush): built with the same flags and
+    swapped in for this tree's library while ``active``, so the wrappers
+    launch its kernels on the same inputs."""
+
+    def __init__(self, src: Path):
+        import ctypes
+
+        from phylign_tpu_torch.ops import _kernels
+
+        out = ROOT / "build" / "chip_smoke_baseline_flush"
+        out.mkdir(parents=True, exist_ok=True)
+        self.path = out / "libbaseline_flush_epilogue.so"
+        res = subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(self.path), str(src)],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode:
+            raise RuntimeError(f"{src} failed to build:\n{res.stdout}{res.stderr}")
+        self.lib = ctypes.CDLL(str(self.path))
+        _kernels._bind("flush_epilogue", self.lib)
+
+    @contextlib.contextmanager
+    def active(self):
+        from phylign_tpu_torch.ops import _kernels
+
+        mine = _kernels.library("flush_epilogue")
+        _kernels._libs["flush_epilogue"] = self.lib
+        try:
+            yield
+        finally:
+            _kernels._libs["flush_epilogue"] = mine
+
+
+def kernel_resources(lib: Path) -> dict:
+    """Registers, stack, shared and local memory of each instance of B6b
+    (select_window<n_sup,n_out>) and of the compaction (compact_cold<n_out>;
+    an older source's untemplated kernels by their names) in a built
+    library (``cuobjdump -res-usage``); {} when cuobjdump is missing or
+    prints no such kernel."""
+    import re
+
+    from phylign_tpu_torch.ops import _kernels
+
+    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    res = subprocess.run([str(tool), "-res-usage", str(lib)], capture_output=True, text=True, timeout=120)
+    out = {}
+    for name, reg, stack, shared, local in re.findall(
+            r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", res.stdout):
+        m = re.search(r"(select_window|compact_cold)_kernel(?:I((?:Li\d+E)+)E)?", name)
+        if m:
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2) or ""))
+            out[f"{m.group(1)}<{args}>" if args else m.group(1)] = dict(
+                registers=int(reg), stack_bytes=int(stack), shared_bytes=int(shared), local_bytes=int(local))
+    return out
+
+
+def phase_flush_kernels(label: str, baseline: BaselineFlush | None = None) -> dict:
     """Kernel B6 against its plain versions at the align stage's shapes:
     B6a at every anchor bucket on B3's output; B6b -> B4 -> B6c and its
     compaction on testing.flush_case's flushes, every Selection field,
@@ -1025,12 +1093,17 @@ def phase_flush_kernels(label: str) -> dict:
     main path's flush also the whole epilogue, the plain path (torch ops
     around B4, as the parent tree runs it) against B6b + B4 + B6c, in
     turns from the host (the plain path's pageable constants cannot be
-    captured in a graph), with their kernel counts."""
+    captured in a graph), with their kernel counts. Each timed kernel's
+    launches per call and, from the built library, every B6 kernel's
+    registers and local memory. With ``baseline``, B6b and the compaction
+    of its library are held to the plain versions too and timed beside
+    this tree's in turns (baseline, new, new, baseline)."""
     import numpy as np
     import torch
 
     from phylign_tpu_torch import testing
     from phylign_tpu_torch.align import fused as fz
+    from phylign_tpu_torch.ops import _kernels
     from phylign_tpu_torch.ops import chain as opc
     from phylign_tpu_torch.ops import extend as ope
 
@@ -1107,6 +1180,14 @@ def phase_flush_kernels(label: str) -> dict:
             if not (none and c["has"] and c["full"] and c["reverse"] and c["contig_edge"]
                     and (n_sup < 1 or c["sup1"]) and (n_sup < 2 or c["sup2"])):
                 raise AssertionError(f"{name}: the flush lacks a kind of pair: {c}")
+            if baseline is not None and timed and not sels:
+                with baseline.active():
+                    old = fz.select_window_cuda(chains, *dev_in, **kw)
+                    old_cc = fz.compact_cold_cuda(sel)
+                torch.cuda.synchronize()
+                if not all(torch.equal(getattr(old, n).to(getattr(ref, n).dtype), getattr(ref, n))
+                           for n in ref._fields[:-1]) or not all(torch.equal(x, y) for x, y in zip(old_cc, cc)):
+                    raise AssertionError(f"{name}: the baseline's B6b or compaction differs from the plain version")
             sels.append(sel)
             exts.append(ext)
         row = dict(kernel="flush_epilogue", P=p, lmax=lmax, band=band, n_sup=n_sup,
@@ -1150,7 +1231,15 @@ def phase_flush_kernels(label: str) -> dict:
                 ms = min(graph_ms(fn, reps, ROTATION) for _ in range(2))
                 row[kname] = dict(ms=ms, plain_ms=cuda_ms(pfn, 2, 2),
                                   plain_launches=device_launches(lambda: pfn(0)), **bnd[kname],
-                                  bound_share=bnd[kname]["bound_ms"] / ms)
+                                  bound_share=bnd[kname]["bound_ms"] / ms,
+                                  launches_per_call=device_launches(lambda: fn(0)))
+                if baseline is not None and kname != "finish_pack":
+                    turns = []
+                    for who in ("baseline", "new", "new", "baseline"):
+                        with baseline.active() if who == "baseline" else contextlib.nullcontext():
+                            turns.append((who, graph_ms(fn, reps, ROTATION)))
+                    row[kname].update(turns=turns, turns_new_ms=min(t for w, t in turns if w == "new"),
+                                      baseline_ms=min(t for w, t in turns if w == "baseline"))
             times = [(who, cuda_ms(lambda i: flush(i, who == "b6"), 2 * ROTATION, ROTATION))
                      for who in ("plain", "b6", "b6", "plain")]
             row["epilogue"] = dict(
@@ -1161,6 +1250,11 @@ def phase_flush_kernels(label: str) -> dict:
         out[name] = row
         emit("flush_kernels", case=name, card=label, **row)
         del cases, sels, exts
+    out["resources"] = kernel_resources(_kernels._lib_path("flush_epilogue"))
+    if baseline is not None:
+        out["baseline_resources"] = kernel_resources(baseline.path)
+    emit("flush_kernels", case="resources", card=label, resources=out["resources"],
+         baseline_resources=out.get("baseline_resources"))
     torch.cuda.empty_cache()
     return out
 
@@ -1342,8 +1436,9 @@ def profile_align(pl, stem: str, out: Path) -> dict:
     profiler sees them all) and torch.profiler (device activity): device
     time by kernel, the device's busy share of the run's wall time, the
     host functions by own time, and per fused flush (engine._fused_dispatch
-    calls) the device time and the CUDA kernels launched (copies and
-    memsets not counted). The full tables go to ``out``."""
+    calls) the device time, the CUDA kernels launched (copies and memsets
+    not counted) and each B6 kernel's device time. The full tables go to
+    ``out``."""
     import cProfile
     import pstats
 
@@ -1390,9 +1485,11 @@ def profile_align(pl, stem: str, out: Path) -> dict:
             f.write(f"{tt:10.3f} {nc:8d}  {name}\n")
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:10]
     n_fl = max(1, len(flushes))
+    b6 = {k: sum(t for name, (t, _) in dev.items() if f"{k}_kernel" in name) / n_fl
+          for k in ("chain_select", "select_window", "finish_pack", "compact_cold")}
     return dict(profiled_wall_s=wall, device_ms=dev_ms, device_busy_share=dev_ms / 1e3 / wall,
                 flushes=len(flushes), kernels=kernels, kernels_per_flush=kernels / n_fl,
-                device_ms_per_flush=dev_ms / n_fl,
+                device_ms_per_flush=dev_ms / n_fl, b6_device_ms_per_flush=b6,
                 device_top=[[k[:80], t, n] for k, (t, n) in top],
                 host_top=[[n, tt, nc] for n, tt, nc in host[:15]], tables=str(out.relative_to(ROOT)))
 
@@ -1408,10 +1505,27 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
     pl, stem = _align_pipeline(wd, wd, "cuda", names, reads, cands, range(P7_READS))
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    # each flush's pairs and needed cold rows (the compaction's input),
+    # summed on the card without a sync and read after the run
+    from phylign_tpu_torch.align import fused as fz
+
+    cold_need, compact = [], fz.compact_cold_cuda
+
+    def count_need(sel):
+        fl = sel.head[:, 2]
+        need = (((fl & fz.F_HAS) != 0) & ((fl & fz.F_FULL) == 0)) | ((fl & 0xE0) != 0)
+        cold_need.append((len(fl), need.sum()))
+        return compact(sel)
+
+    fz.compact_cold_cuda = count_need
     t0 = time.perf_counter()
-    maps = pl.align(stem)
-    torch.cuda.synchronize()
+    try:
+        maps = pl.align(stem)
+        torch.cuda.synchronize()
+    finally:
+        fz.compact_cold_cuda = compact
     align_s = time.perf_counter() - t0
+    cold_rows = [dict(pairs=n, needed=int(c)) for n, c in cold_need]
     counts = _align_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     t1 = time.perf_counter()
@@ -1448,7 +1562,8 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
         batches=P7_BATCHES, genomes=P7_BATCHES * P7_GENOMES, reads=P7_READS, pairs=pairs,
         pair_chunk=pl.cfg.device_pair_chunk, setup_s=setup_s, align_s=align_s,
         pairs_per_s=pairs / align_s, reads_per_s=P7_READS / align_s, aggregate_stats_s=report_s,
-        peak_device_mb=peak_mb, launches=counts,
+        peak_device_mb=peak_mb, launches=counts, cold_rows_per_flush=cold_rows, cold_cap=fz.COLD_CAP,
+        cold_overflows=sum(r["needed"] > fz.COLD_CAP for r in cold_rows),
         planted=len(planted), placed=hit, placed_frac=frac,
         cpu_subset_reads=P7_SUBSET, cpu_subset_s=cpu_s, cpu_subset="identical",
         reduced=["2 batches of the collection's 305", f"{P7_CANDS} candidates per read, not nb_best_hits=100"],
@@ -1961,6 +2076,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--baseline-align", type=Path, default=None,
                     help="a directory holding PR 4's csrc/chain_scan.cu and "
                     "csrc/extend_scan.cu: time them beside this tree's B3/B4 in phase 5")
+    ap.add_argument("--baseline-flush", type=Path, default=None,
+                    help="an older csrc/flush_epilogue.cu with this tree's C interface: "
+                    "time its B6b and compaction beside this tree's in phase 5")
     ap.add_argument("--align-kernels-only", action="store_true",
                     help="phase 5 only (no kernel table, no ok line)")
     ap.add_argument("--kernels-only", action="store_true",
@@ -1988,15 +2106,16 @@ def main(argv: list[str] | None = None) -> int:
          cuda=torch.version.cuda, card=label, build_seconds=build_s)
 
     pr4 = Pr4AlignKernels(args.baseline_align) if args.baseline_align else None
+    b6_base = BaselineFlush(args.baseline_flush) if args.baseline_flush else None
     if args.align_kernels_only:
         phase_align_kernels(label, pr4)
-        phase_flush_kernels(label)
+        phase_flush_kernels(label, b6_base)
         return 0
     kern = phase_kernels(label, baseline)
     if args.kernels_only:
         return 0
     akern = phase_align_kernels(label, pr4)
-    fkern = phase_flush_kernels(label)
+    fkern = phase_flush_kernels(label, b6_base)
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -2043,8 +2162,8 @@ def main(argv: list[str] | None = None) -> int:
         ))
     for name, case in MAIN_B6_CASE.items():
         k = fkern[case] if name == "chain_select" else fkern[case][name]
-        checked = [v for v in fkern.values() if v["kernel"] == ("chain_select" if name == "chain_select"
-                                                                 else "flush_epilogue")]
+        checked = [v for v in fkern.values() if v.get("kernel") == ("chain_select" if name == "chain_select"
+                                                                     else "flush_epilogue")]
         table.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
             launches=c6[name] + c7[name] + c8[name] + c9[name], launches_phase6=c6[name],

@@ -18,10 +18,11 @@ and of the full cold rows):
     (``_flatten_chains``): the CPU path and the versions the kernels are
     held to.
   * CUDA kernel B6 (csrc/flush_epilogue.cu): ``select_window_cuda`` (B6b,
-    one warp per pair, reading each bucket's ChainResult through cand_map)
-    -> kernel B4 -> ``finish_pack_cuda`` (B6c) -> ``compact_cold_cuda``
-    (B6c's second launch), each writing straight into its regions of the
-    packed buffer; each returns what its plain version returns.
+    a thread's selection per pair reading each bucket's ChainResult
+    through cand_map, then a block's 16-byte gathers) -> kernel B4 ->
+    ``finish_pack_cuda`` (B6c) -> ``compact_cold_cuda`` (B6c's second
+    launch, blocks of 256 rows), each writing straight into its regions of
+    the packed buffer; each returns what its plain version returns.
 ``select_extend`` and ``dist_select_extend`` pick by the tensor's device.
 The packed byte buffer has the JAX module's layout byte for byte; only
 ``_packed_sizes`` and ``_packed_views`` know it (the kernels get region

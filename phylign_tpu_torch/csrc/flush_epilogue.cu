@@ -17,14 +17,19 @@
 //                      lives in shared memory; a longer set reads its inputs
 //                      in place and keeps its pointers and counts in a
 //                      device workspace.
-//   B6b select_window  align/fused.py:_select_ref. One warp per pair: every
-//                      lane runs the pair's selection (<= 6 candidates read
-//                      through cand_map from the buckets' ChainResults, no
-//                      concatenation) redundantly, so nothing is shuffled;
-//                      lane 0 writes the hot row (without the extension's
-//                      bits), the scores and the cold row; the lanes gather
-//                      the 2-bit window and the strand-adjusted query for
-//                      kernel B4, and its in-contig mask.
+//   B6b select_window  align/fused.py:_select_ref. A block of 32 pairs:
+//                      first one thread a pair runs its selection (<= 6
+//                      candidates read through cand_map from the buckets'
+//                      ChainResults, no concatenation; templated on n_sup
+//                      and n_out, so the candidates stay in registers) and
+//                      writes its hot row (without the extension's bits),
+//                      scores and bounds, staging the window's origin and
+//                      the cold row in shared memory; then the block's 256
+//                      threads write the cold rows coalesced and gather the
+//                      2-bit window, its in-contig mask and the
+//                      strand-adjusted query for kernel B4 as 16-byte
+//                      stores: 16 codes from two 32-bit pool words by a
+//                      funnel shift, spread to bytes by shifts and masks.
 //   B6c finish_pack    align/fused.py:_finish_ref. One warp per pair over
 //                      the query columns, 32 at a time: the mismatch bit of
 //                      a column by ballot, its running count by popcount,
@@ -32,10 +37,13 @@
 //                      max-scan; the big-endian mismatch bytes are the
 //                      ballot's reversed bits. ORs the diagonal, full-span
 //                      and end_d bits into the hot row.
-//       compact_cold   align/fused.py:_compact_cold. One block: an ordered
-//                      rank over the pairs' need flags (ballot + popcount),
-//                      the first COLD_CAP needed cold rows copied in order,
-//                      the other slots zeroed.
+//       compact_cold   align/fused.py:_compact_cold. A block of 256 rows:
+//                      its first rank from every row's need flag before it
+//                      (each block counts them all, so none waits on
+//                      another), ranks inside it by ballot + popcount; the
+//                      needed rows of rank < COLD_CAP copied into one
+//                      contiguous run of slots by consecutive threads, the
+//                      unused slots zeroed by all blocks.
 // Every output goes straight into its region of the packed byte buffer
 // engine._fused_finish unpacks (hot int32 [P, 4], flts f32 [P, 2], mismatch
 // bits u8 [P, lmax / 8], compacted cold int32 [CAP, 4 + 6*n_out + 5] and f32
@@ -48,8 +56,8 @@
 // What bounds it on an H100: bytes, about 2 KB a pair in and out (window,
 // query and mask written by B6b and read by B4 and B6c), a few microseconds
 // at P = 8,192; the chain tail is a few argmax passes over shared memory.
-// In practice it is launch and latency bound: the design is one launch per
-// stage and a warp (or block) per independent item, simple and exact first.
+// In practice it is launch and latency bound: one launch per stage, every
+// item of a stage independent, B6b's byte outputs written 16 bytes a store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,7 +75,6 @@ constexpr int32_t kHas = 1, kDiag = 2, kFullSpan = 4, kStrand = 8,
 constexpr int kMaxBuckets = 8;
 constexpr int kFields = 17;
 constexpr int kMaxSup = 2;
-constexpr int kMaxCand = 2 * (1 + kMaxSup);
 // B6a: the longest anchor set kept in shared memory (19-21 bytes a slot)
 constexpr int kSmemSlots = 8192;
 
@@ -307,85 +314,97 @@ struct ChainTable {
   int nb;
 };
 
-struct SetRow {
-  float score, alt;
-  int32_t count, qs, qe, rs, re, alt_qs, alt_qe, alt_rs, alt_re;
-  float sup_score[kMaxSup];
-  int32_t sup_count[kMaxSup], sup_qs[kMaxSup], sup_qe[kMaxSup],
-      sup_rs[kMaxSup], sup_re[kMaxSup];
+struct SelParams {
+  int p, lmax, wlen, half, nqb, min_cnt, n_contigs;
+  float min_score;
+  int64_t pool_bytes, pool_codes;  // the pool's bytes and 4 * that
+  bool pool_words;                 // the pool may be read as aligned 32-bit words
 };
 
-__device__ SetRow load_set(const ChainTable& tab, int s, int n_sup) {
-  SetRow r;
+// a[i] for a runtime i without indexing a register array (which would put
+// it in local memory): a chain of selects over the compile-time indices
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+  T v = a[0];
+#pragma unroll
+  for (int x = 1; x < N; x++)
+    if (i == x) v = a[x];
+  return v;
+}
+
+// the candidates of one pair in host insertion order [P+, P-, S+0.., S-0..]
+// and their strand sets' alt fields; N = 2 * (1 + NSUP) is compile-time, so
+// every loop over them unrolls and the arrays stay in registers
+template <int NSUP>
+struct Cands {
+  static constexpr int N = 2 * (1 + NSUP);
+  float sc[N];
+  int32_t cnt[N], qs[N], qe[N], rs[N], re[N];
+  float alt[2];
+  int32_t alt_qs[2], alt_qe[2], alt_rs[2], alt_re[2];
+  __host__ __device__ static constexpr int strand(int x) { return x < 2 ? x : (x - 2 >= NSUP ? 1 : 0); }
+};
+
+// fills side `side` of c from flat set s: the bucket found once, then the
+// row's fields read straight from that bucket's arrays
+template <int NSUP>
+__device__ __forceinline__ void load_side(const ChainTable& tab, int s, int side,
+                                          Cands<NSUP>& c) {
   const int total = tab.start[tab.nb];
   if (s < 0) s += total + 1;  // torch's index from the end
   int b = 0;
   while (b < tab.nb && s >= tab.start[b + 1]) b++;
-  if (b == tab.nb) {  // the dummy row: -1e30 scores, zero coordinates
-    r.score = r.alt = kNeg;
-    r.count = r.qs = r.qe = r.rs = r.re = 0;
-    r.alt_qs = r.alt_qe = r.alt_rs = r.alt_re = 0;
-    for (int j = 0; j < kMaxSup; j++) {
-      r.sup_score[j] = kNeg;
-      r.sup_count[j] = r.sup_qs[j] = r.sup_qe[j] = r.sup_rs[j] = r.sup_re[j] = 0;
-    }
-    return r;
+  const bool dummy = b == tab.nb;  // -1e30 scores, zero coordinates
+  const int64_t i = dummy ? 0 : s - tab.start[b];
+  const void* const* fl = tab.field[dummy ? 0 : b];
+  auto I = [&](int x, int64_t o) { return dummy ? 0 : ((const int32_t*)fl[x])[o]; };
+  auto F = [&](int x, int64_t o) { return dummy ? kNeg : ((const float*)fl[x])[o]; };
+  c.sc[side] = F(0, i);
+  c.cnt[side] = I(1, i);
+  c.qs[side] = I(2, i);
+  c.qe[side] = I(3, i);
+  c.rs[side] = I(4, i);
+  c.re[side] = I(5, i);
+  c.alt[side] = F(6, i);
+  c.alt_qs[side] = I(7, i);
+  c.alt_qe[side] = I(8, i);
+  c.alt_rs[side] = I(9, i);
+  c.alt_re[side] = I(10, i);
+#pragma unroll
+  for (int j = 0; j < NSUP; j++) {
+    const int x = 2 + side * NSUP + j;
+    const int64_t o = i * NSUP + j;
+    c.sc[x] = F(11, o);
+    c.cnt[x] = I(12, o);
+    c.qs[x] = I(13, o);
+    c.qe[x] = I(14, o);
+    c.rs[x] = I(15, o);
+    c.re[x] = I(16, o);
   }
-  const int64_t i = s - tab.start[b];
-  const void* const* fl = tab.field[b];
-  auto I = [&](int x, int64_t o) { return ((const int32_t*)fl[x])[o]; };
-  auto F = [&](int x, int64_t o) { return ((const float*)fl[x])[o]; };
-  r.score = F(0, i);
-  r.count = I(1, i);
-  r.qs = I(2, i);
-  r.qe = I(3, i);
-  r.rs = I(4, i);
-  r.re = I(5, i);
-  r.alt = F(6, i);
-  r.alt_qs = I(7, i);
-  r.alt_qe = I(8, i);
-  r.alt_rs = I(9, i);
-  r.alt_re = I(10, i);
-  for (int j = 0; j < kMaxSup; j++) {
-    if (j < n_sup) {
-      const int64_t o = i * n_sup + j;
-      r.sup_score[j] = F(11, o);
-      r.sup_count[j] = I(12, o);
-      r.sup_qs[j] = I(13, o);
-      r.sup_qe[j] = I(14, o);
-      r.sup_rs[j] = I(15, o);
-      r.sup_re[j] = I(16, o);
-    }
-  }
-  return r;
 }
-
-struct Cands {
-  float sc[kMaxCand];
-  int32_t cnt[kMaxCand], qs[kMaxCand], qe[kMaxCand], rs[kMaxCand], re[kMaxCand];
-  int st[kMaxCand];
-  int n;
-};
 
 // argmin of (-score, strand, qs, insertion order) over the candidates in
 // mask: ascending c with strict comparisons, so the first wins a tie; c = 0
 // when none is in mask (fused.py: lex_select)
-__device__ __forceinline__ void lex_select(const Cands& c, unsigned mask,
+template <int NSUP>
+__device__ __forceinline__ void lex_select(const Cands<NSUP>& c, unsigned mask,
                                            bool& has, int& bc) {
   has = false;
   bc = 0;
   float bsc = kNeg;
   int bst = 0;
   int32_t bqs = 0;
-  for (int x = 0; x < c.n; x++) {
+#pragma unroll
+  for (int x = 0; x < Cands<NSUP>::N; x++) {
     const float sc = c.sc[x];
+    const int st = Cands<NSUP>::strand(x);
     const bool better =
         ((mask >> x) & 1u) &&
-        (!has || sc > bsc || (sc == bsc && c.st[x] < bst) ||
-         (sc == bsc && c.st[x] == bst && c.qs[x] < bqs));
+        (!has || sc > bsc || (sc == bsc && st < bst) ||
+         (sc == bsc && st == bst && c.qs[x] < bqs));
     if (better) {
       bsc = sc;
-      bst = c.st[x];
+      bst = st;
       bqs = c.qs[x];
       bc = x;
       has = true;
@@ -401,13 +420,92 @@ __device__ __forceinline__ bool qov_ge_half(int32_t aqs, int32_t aqe,
   return wmul(2, ov) >= span;
 }
 
-struct SelParams {
-  int p, lmax, wlen, half, nqb, n_sup, n_out, min_cnt, n_contigs;
-  float min_score;
-  int64_t pool_codes;  // 4 * the pool's bytes
+// B6b's block: kSelPairs consecutive pairs, selected one a thread by the
+// first kSelPairs threads, then gathered by all kSelThreads threads
+constexpr int kSelPairs = 32;
+constexpr int kSelThreads = 256;
+constexpr int kMaxColdCols = 4 + 6 * kMaxSup + 5;
+
+// what the selection hands the gather, per pair of the block
+struct SelStage {
+  int32_t w0[kSelPairs], lo[kSelPairs], hi[kSelPairs], ql[kSelPairs];
+  uint8_t strand[kSelPairs];
+  int32_t cold[kSelPairs * kMaxColdCols];
 };
 
-__global__ void select_window_kernel(
+// 4 codes in the low byte -> 4 bytes, code i in byte i
+__device__ __forceinline__ uint32_t expand4(uint32_t v) {
+  uint32_t x = v & 0xffu;
+  x = (x | (x << 12)) & 0x000F000Fu;
+  return (x | (x << 6)) & 0x03030303u;
+}
+
+// 16 codes (code i at bits 2i) -> 16 bytes
+__device__ __forceinline__ uint4 expand16(uint32_t v) {
+  return make_uint4(expand4(v), expand4(v >> 8), expand4(v >> 16), expand4(v >> 24));
+}
+
+// the 16 2-bit codes from code position pos of a byte-packed row, code i at
+// bits 2i: the 4 or 5 bytes they span read one by one and funnel-shifted;
+// the caller keeps pos + 15 inside the row
+__device__ __forceinline__ uint32_t codes16(const uint8_t* row, int pos) {
+  const uint8_t* b = row + (pos >> 2);
+  const int sh = (pos & 3) * 2;
+  uint64_t u = (uint64_t)b[0] | ((uint64_t)b[1] << 8) | ((uint64_t)b[2] << 16) |
+               ((uint64_t)b[3] << 24);
+  if (sh) u |= (uint64_t)b[4] << 32;
+  return (uint32_t)(u >> sh);
+}
+
+// the 16 2-bit groups of v in reverse order
+__device__ __forceinline__ uint32_t rev2(uint32_t v) {
+  const uint32_t x = __brev(v);
+  return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+}
+
+// 16 bytes, byte i = fn(i), as a vector (no array, so nothing is indexed at
+// run time even where the loops stay rolled)
+template <typename Fn>
+__device__ __forceinline__ uint4 bytes16(Fn fn) {
+  auto four = [&](int i0) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int i = 0; i < 4; i++) x |= (uint32_t)fn(i0 + i) << (8 * i);
+    return x;
+  };
+  return make_uint4(four(0), four(4), four(8), four(12));
+}
+
+// writes the block's rows [0, n) of a [., row] byte output whose first row
+// is `out`: every 16-byte aligned chunk inside the rows as one vector store
+// (a chunk inside one row from chunk(r, j), one across rows byte by byte),
+// the unaligned bytes before the first and after the last chunk one by one;
+// byte(r, j) is the value of row r, column j. n * row < 2^31 (the host
+// checks it).
+template <typename Chunk, typename Byte>
+__device__ __forceinline__ void write_rows(uint8_t* out, int n, int row, Chunk chunk,
+                                           Byte byte) {
+  const int len = n * row;
+  const int head = min((int)((16 - ((uintptr_t)out & 15)) & 15), len);
+  const int n_vec = (len - head) >> 4;
+  const int tail0 = head + 16 * n_vec;
+  const int t = threadIdx.x;
+  auto at = [&](int f) {
+    const int r = f / row;
+    return byte(r, f - r * row);
+  };
+  for (int f = t; f < head; f += kSelThreads) out[f] = at(f);
+  for (int f = tail0 + t; f < len; f += kSelThreads) out[f] = at(f);
+  for (int v = t; v < n_vec; v += kSelThreads) {
+    const int f = head + 16 * v;
+    const int r = f / row;
+    const int j = f - r * row;
+    *(uint4*)(out + f) = j + 16 <= row ? chunk(r, j) : bytes16([&](int i) { return at(f + i); });
+  }
+}
+
+template <int NSUP, int NOUT>
+__global__ void __launch_bounds__(kSelThreads) select_window_kernel(
     ChainTable tab, SelParams sp, const int32_t* __restrict__ cand_map,
     const int32_t* __restrict__ pair_base,
     const int32_t* __restrict__ pair_reflen,
@@ -418,171 +516,192 @@ __global__ void select_window_kernel(
     int32_t* __restrict__ lohi, int32_t* __restrict__ hot,
     float* __restrict__ flts, int32_t* __restrict__ cold_i,
     float* __restrict__ cold_f) {
-  const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (pair >= sp.p) return;  // warp-uniform
-  const int n_sup = sp.n_sup;
+  constexpr int kCols = 4 + 6 * NOUT + 5;
+  __shared__ SelStage st;
+  const int p0 = blockIdx.x * kSelPairs;
+  const int n = min(kSelPairs, sp.p - p0);
+  const int t = threadIdx.x;
 
-  // the candidates in host insertion order: [P+, P-, S+0.., S-0..]
-  SetRow sr[2];
-  sr[0] = load_set(tab, cand_map[2 * pair], n_sup);
-  sr[1] = load_set(tab, cand_map[2 * pair + 1], n_sup);
-  Cands c;
-  c.n = 2 * (1 + n_sup);
-  unsigned valid = 0;
-  for (int x = 0; x < c.n; x++) {
-    const int side = x < 2 ? x : (x - 2 >= n_sup);
-    const SetRow& s = sr[side];
-    if (x < 2) {
-      c.sc[x] = s.score;
-      c.cnt[x] = s.count;
-      c.qs[x] = s.qs;
-      c.qe[x] = s.qe;
-      c.rs[x] = s.rs;
-      c.re[x] = s.re;
-    } else {
-      const int j = x - 2 - side * n_sup;
-      c.sc[x] = s.sup_score[j];
-      c.cnt[x] = s.sup_count[j];
-      c.qs[x] = s.sup_qs[j];
-      c.qe[x] = s.sup_qe[j];
-      c.rs[x] = s.sup_rs[j];
-      c.re[x] = s.sup_re[j];
-    }
-    c.st[x] = side;
-    if (c.cnt[x] >= sp.min_cnt && c.sc[x] >= sp.min_score) valid |= 1u << x;
-  }
+  if (t < n) {
+    const int pair = p0 + t;
+    const int32_t base = pair_base[pair], reflen = pair_reflen[pair];
+    const int32_t ql = q_len[pair];
+    Cands<NSUP> c;
+    load_side(tab, cand_map[2 * pair], 0, c);
+    load_side(tab, cand_map[2 * pair + 1], 1, c);
+    constexpr int N = Cands<NSUP>::N;
+    unsigned valid = 0;
+#pragma unroll
+    for (int x = 0; x < N; x++)
+      if (c.cnt[x] >= sp.min_cnt && c.sc[x] >= sp.min_score) valid |= 1u << x;
 
-  bool has_prim;
-  int pc;
-  lex_select(c, valid, has_prim, pc);
-  const float prim_score = c.sc[pc];
-  const int prim_strand = c.st[pc];
-  const int32_t prim_qs = c.qs[pc], prim_qe = c.qe[pc];
-  const int32_t prim_rs = c.rs[pc], prim_re = c.re[pc];
-  const bool prim_is_primary = pc < 2;
-  const float prim_alt = prim_is_primary ? fmaxf(sr[pc].alt, 0.f) : 0.f;
+    bool has_prim;
+    int pc;
+    lex_select(c, valid, has_prim, pc);
+    const float prim_score = pick(c.sc, pc);
+    const int prim_strand = Cands<NSUP>::strand(pc);
+    const int32_t prim_qs = pick(c.qs, pc), prim_qe = pick(c.qe, pc);
+    const int32_t prim_rs = pick(c.rs, pc), prim_re = pick(c.re, pc);
+    const bool prim_is_primary = pc < 2;
+    const float prim_alt = prim_is_primary ? fmaxf(pick(c.alt, pc), 0.f) : 0.f;
 
-  // s2: the best other candidate covering the primary, or the chain DP's alt
-  float s2_cand = kNeg;
-  int c2 = 0;
-  for (int x = 0; x < c.n; x++) {
-    const bool ok = ((valid >> x) & 1u) && x != pc &&
-                    qov_ge_half(c.qs[x], c.qe[x], prim_qs, prim_qe);
-    const float sc = ok ? c.sc[x] : kNeg;
-    if (x == 0 || sc > s2_cand) {
-      s2_cand = sc;
-      c2 = x;
+    // s2: the best other candidate covering the primary, or the chain DP's alt
+    float s2_cand = kNeg;
+    int c2 = 0;
+#pragma unroll
+    for (int x = 0; x < N; x++) {
+      const bool ok = ((valid >> x) & 1u) && x != pc &&
+                      qov_ge_half(c.qs[x], c.qe[x], prim_qs, prim_qe);
+      const float sc = ok ? c.sc[x] : kNeg;
+      if (x == 0 || sc > s2_cand) {
+        s2_cand = sc;
+        c2 = x;
+      }
     }
-  }
-  const float alt_term = (prim_is_primary && has_prim) ? prim_alt : 0.f;
-  const float s2 = has_prim ? fmaxf(fmaxf(s2_cand, alt_term), 0.f) : 0.f;
-  const bool use_alt = alt_term > fmaxf(s2_cand, 0.f);
-  const SetRow& ps = sr[min(max(pc, 0), 1)];
+    const float alt_term = (prim_is_primary && has_prim) ? prim_alt : 0.f;
+    const float s2 = has_prim ? fmaxf(fmaxf(s2_cand, alt_term), 0.f) : 0.f;
+    const bool use_alt = alt_term > fmaxf(s2_cand, 0.f);
+    const int ps = pc == 0 ? 0 : 1;  // the strand set of the alt (min(max(pc, 0), 1))
 
-  // split segments: greedily the best candidate mostly disjoint from every
-  // segment picked before (the primary first)
-  unsigned taken = 1u << pc;
-  int32_t pk_qs[kMaxSup + 1], pk_qe[kMaxSup + 1];
-  bool pk_live[kMaxSup + 1];
-  pk_qs[0] = prim_qs;
-  pk_qe[0] = prim_qe;
-  pk_live[0] = has_prim;
-  int32_t flags = (has_prim ? kHas : 0) | (prim_strand ? kStrand : 0) |
-                  (prim_is_primary ? kPrimType : 0) | (s2 > 0.f ? kProbe : 0);
-  const int ci_cols = 4 + 6 * sp.n_out + 5;
-  int32_t* crow = cold_i + (int64_t)pair * ci_cols;
-  for (int s = 0; s < sp.n_out; s++) {
-    unsigned ok = 0;
-    for (int x = 0; x < c.n; x++) {
-      bool blk = false;
-      for (int q = 0; q <= s; q++)
-        blk = blk || (qov_ge_half(c.qs[x], c.qe[x], pk_qs[q], pk_qe[q]) && pk_live[q]);
-      if (((valid >> x) & 1u) && !((taken >> x) & 1u) && !blk && has_prim) ok |= 1u << x;
-    }
-    bool found;
-    int ch;
-    lex_select(c, ok, found, ch);
-    if (found) {
-      taken |= 1u << ch;
-      flags |= kSup0 << s;
-    }
-    pk_qs[s + 1] = c.qs[ch];
-    pk_qe[s + 1] = c.qe[ch];
-    pk_live[s + 1] = found;
-    if (lane == 0) {
+    // split segments: greedily the best candidate mostly disjoint from every
+    // segment picked before (the primary first)
+    int32_t* crow = st.cold + t * kCols;
+    unsigned taken = 1u << pc;
+    int32_t pk_qs[NOUT + 1], pk_qe[NOUT + 1];
+    bool pk_live[NOUT + 1];
+    pk_qs[0] = prim_qs;
+    pk_qe[0] = prim_qe;
+    pk_live[0] = has_prim;
+    int32_t flags = (has_prim ? kHas : 0) | (prim_strand ? kStrand : 0) |
+                    (prim_is_primary ? kPrimType : 0) | (s2 > 0.f ? kProbe : 0);
+    float seg_sc[NOUT > 0 ? NOUT : 1];
+#pragma unroll
+    for (int s = 0; s < NOUT; s++) {
+      unsigned ok = 0;
+#pragma unroll
+      for (int x = 0; x < N; x++) {
+        bool blk = false;
+#pragma unroll
+        for (int q = 0; q <= s; q++)
+          blk = blk || (qov_ge_half(c.qs[x], c.qe[x], pk_qs[q], pk_qe[q]) && pk_live[q]);
+        if (((valid >> x) & 1u) && !((taken >> x) & 1u) && !blk && has_prim) ok |= 1u << x;
+      }
+      bool found;
+      int ch;
+      lex_select(c, ok, found, ch);
+      if (found) {
+        taken |= 1u << ch;
+        flags |= kSup0 << s;
+      }
+      pk_qs[s + 1] = pick(c.qs, ch);
+      pk_qe[s + 1] = pick(c.qe, ch);
+      pk_live[s + 1] = found;
       int32_t* o = crow + 4 + 6 * s;
-      o[0] = c.st[ch];
-      o[1] = c.qs[ch];
-      o[2] = c.qe[ch];
-      o[3] = c.rs[ch];
-      o[4] = c.re[ch];
-      o[5] = c.cnt[ch];
-      cold_f[(int64_t)pair * sp.n_out + s] = c.sc[ch];
+      o[0] = Cands<NSUP>::strand(ch);
+      o[1] = pk_qs[s + 1];
+      o[2] = pk_qe[s + 1];
+      o[3] = pick(c.rs, ch);
+      o[4] = pick(c.re, ch);
+      o[5] = pick(c.cnt, ch);
+      seg_sc[s] = pick(c.sc, ch);
     }
-  }
 
-  // the window: the primary's contig by binary search over the starts
-  const int32_t base = pair_base[pair];
-  const int32_t rs_c =
-      wadd(min(max(prim_rs, 0), wsub(pair_reflen[pair], 1)), base);
-  int lo_b = 0, hi_b = sp.n_contigs;  // first start > rs_c
-  while (lo_b < hi_b) {
-    const int mid = (lo_b + hi_b) >> 1;
-    if (cst[mid] <= rs_c) lo_b = mid + 1;
-    else hi_b = mid;
-  }
-  const int32_t ci = lo_b - 1;
-  const int ci_l = ci < 0 ? ci + sp.n_contigs : ci;  // -1 reads the last
-  const int32_t c_start = cst[ci_l];
-  const int32_t c_end = wadd(c_start, clen[ci_l]);
-  const int32_t w0 = wsub(wsub(wadd(base, prim_rs), prim_qs), sp.half);
-  const int32_t lo = min(max(wsub(c_start, w0), 0), sp.wlen);
-  const int32_t hi = min(max(wsub(c_end, w0), 0), sp.wlen);
+    // the window: the primary's contig by binary search over the starts
+    const int32_t rs_c = wadd(min(max(prim_rs, 0), wsub(reflen, 1)), base);
+    int lo_b = 0, hi_b = sp.n_contigs;  // first start > rs_c
+    while (lo_b < hi_b) {
+      const int mid = (lo_b + hi_b) >> 1;
+      if (cst[mid] <= rs_c) lo_b = mid + 1;
+      else hi_b = mid;
+    }
+    const int32_t ci = lo_b - 1;
+    const int ci_l = ci < 0 ? ci + sp.n_contigs : ci;  // -1 reads the last
+    const int32_t c_start = cst[ci_l];
+    const int32_t c_end = wadd(c_start, clen[ci_l]);
+    const int32_t w0 = wsub(wsub(wadd(base, prim_rs), prim_qs), sp.half);
+    const int32_t lo = min(max(wsub(c_start, w0), 0), sp.wlen);
+    const int32_t hi = min(max(wsub(c_end, w0), 0), sp.wlen);
 
-  if (lane == 0) {
-    int32_t* h = hot + 4 * (int64_t)pair;
-    h[0] = wsub(w0, c_start);
-    h[1] = ci;
-    h[2] = flags;
-    h[3] = c.cnt[pc];
-    flts[2 * (int64_t)pair] = prim_score;
-    flts[2 * (int64_t)pair + 1] = s2;
-    lohi[2 * (int64_t)pair] = lo;
-    lohi[2 * (int64_t)pair + 1] = hi;
+    ((int4*)hot)[pair] = make_int4(wsub(w0, c_start), ci, flags, pick(c.cnt, pc));
+    ((float2*)flts)[pair] = make_float2(prim_score, s2);
+    ((int2*)lohi)[pair] = make_int2(lo, hi);
+#pragma unroll
+    for (int s = 0; s < NOUT; s++) cold_f[(int64_t)pair * NOUT + s] = seg_sc[s];
     crow[0] = prim_qs;
     crow[1] = prim_qe;
     crow[2] = prim_rs;
     crow[3] = prim_re;
-    int32_t* pr = crow + 4 + 6 * sp.n_out;  // the MAPQ probe's coordinates
-    pr[0] = use_alt ? prim_strand : c.st[c2];
-    pr[1] = use_alt ? ps.alt_qs : c.qs[c2];
-    pr[2] = use_alt ? ps.alt_qe : c.qe[c2];
-    pr[3] = use_alt ? ps.alt_rs : c.rs[c2];
-    pr[4] = use_alt ? ps.alt_re : c.re[c2];
+    int32_t* pr = crow + 4 + 6 * NOUT;  // the MAPQ probe's coordinates
+    pr[0] = use_alt ? prim_strand : Cands<NSUP>::strand(c2);
+    pr[1] = use_alt ? pick(c.alt_qs, ps) : pick(c.qs, c2);
+    pr[2] = use_alt ? pick(c.alt_qe, ps) : pick(c.qe, c2);
+    pr[3] = use_alt ? pick(c.alt_rs, ps) : pick(c.rs, c2);
+    pr[4] = use_alt ? pick(c.alt_re, ps) : pick(c.re, c2);
+    st.w0[t] = w0;
+    st.lo[t] = lo;
+    st.hi[t] = hi;
+    st.ql[t] = ql;
+    st.strand[t] = (uint8_t)prim_strand;
   }
+  __syncthreads();
+  if (n <= 0) return;
 
-  const int64_t wrow = (int64_t)pair * sp.wlen;
-  for (int j = lane; j < sp.wlen; j += 32) {
-    int64_t idx = wadd(w0, j);
+  // the block's cold rows are one contiguous run of words
+  int32_t* cdst = cold_i + (int64_t)p0 * kCols;
+  for (int x = t; x < n * kCols; x += kSelThreads) cdst[x] = st.cold[x];
+
+  // the window codes: 16 a chunk from two aligned pool words when the chunk
+  // lies inside the pool (and int32), else code by code as the plain
+  // version clamps them
+  const uint32_t* pool32 = (const uint32_t*)pool;
+  auto win_byte = [&](int r, int j) -> uint8_t {
+    int64_t idx = wadd(st.w0[r], j);
     idx = idx < 0 ? 0 : (idx < sp.pool_codes ? idx : sp.pool_codes - 1);
-    rwin[wrow + j] = (pool[idx >> 2] >> ((idx & 3) * 2)) & 3;
-    rvalid[wrow + j] = j >= lo && j < hi;
-  }
-  const uint8_t* qp = q_pack + (int64_t)pair * sp.nqb;
-  const int32_t ql = q_len[pair];
-  const int64_t qrow = (int64_t)pair * sp.lmax;
-  for (int j = lane; j < sp.lmax; j += 32) {
-    uint8_t code;
-    if (prim_strand == 1) {
-      // the reverse complement, from the forward codes
-      const int32_t r = min(max(wsub(wsub(ql, 1), j), 0), sp.lmax - 1);
-      code = j < ql ? (uint8_t)(3 - ((qp[r >> 2] >> ((r & 3) * 2)) & 3)) : 0;
-    } else {
-      code = (qp[j >> 2] >> ((j & 3) * 2)) & 3;
+    return (pool[idx >> 2] >> ((idx & 3) * 2)) & 3;
+  };
+  write_rows(rwin + (int64_t)p0 * sp.wlen, n, sp.wlen,
+             [&](int r, int j) -> uint4 {
+               const int64_t x = (int64_t)st.w0[r] + j;
+               const int64_t k = x >> 4;
+               if (sp.pool_words && x >= 0 && x + 15 <= 0x7fffffff &&
+                   x + 16 <= sp.pool_codes && 4 * (k + 2) <= sp.pool_bytes) {
+                 const uint32_t v =
+                     __funnelshift_r(pool32[k], pool32[k + 1], (unsigned)(x & 15) * 2);
+                 return expand16(v);
+               }
+               return bytes16([&](int i) { return win_byte(r, j + i); });
+             },
+             win_byte);
+
+  // the in-contig mask
+  auto valid_byte = [&](int r, int j) -> uint8_t { return j >= st.lo[r] && j < st.hi[r]; };
+  write_rows(rvalid + (int64_t)p0 * sp.wlen, n, sp.wlen,
+             [&](int r, int j) { return bytes16([&](int i) { return valid_byte(r, j + i); }); },
+             valid_byte);
+
+  // the strand-adjusted query: the forward codes, or the reverse complement
+  // from them (3 - c is c ^ 3)
+  const uint8_t* qrows = q_pack + (int64_t)p0 * sp.nqb;
+  auto q_byte = [&](int r, int j) -> uint8_t {
+    const uint8_t* qp = qrows + (int64_t)r * sp.nqb;
+    if (st.strand[r] == 1) {
+      const int32_t ql = st.ql[r];
+      const int32_t x = min(max(wsub(wsub(ql, 1), j), 0), sp.lmax - 1);
+      return j < ql ? (uint8_t)(3 - ((qp[x >> 2] >> ((x & 3) * 2)) & 3)) : 0;
     }
-    q_codes[qrow + j] = code;
-  }
+    return (qp[j >> 2] >> ((j & 3) * 2)) & 3;
+  };
+  write_rows(q_codes + (int64_t)p0 * sp.lmax, n, sp.lmax,
+             [&](int r, int j) -> uint4 {
+               const uint8_t* qp = qrows + (int64_t)r * sp.nqb;
+               if (st.strand[r] != 1) return expand16(codes16(qp, j));
+               const int32_t ql = st.ql[r];
+               if (j >= ql) return make_uint4(0, 0, 0, 0);
+               if (j + 16 <= ql && ql <= sp.lmax)  // codes ql-1-j down to ql-16-j
+                 return expand16(rev2(codes16(qp, ql - 16 - j)) ^ 0xffffffffu);
+               return bytes16([&](int i) { return q_byte(r, j + i); });
+             },
+             q_byte);
 }
 
 // ---------------------------------------------------------------------------
@@ -684,52 +803,109 @@ __global__ void finish_pack_kernel(FinParams fp, const uint8_t* __restrict__ q_c
 }
 
 // the cold rows that are needed (a gapped primary, a split segment or a
-// probe), in pair order into the first cap slots; the other slots zeroed
-constexpr int kCompactThreads = 1024;
+// probe), in pair order into the first cap slots; the other slots zeroed.
+// One launch over many blocks, kCompactThreads rows a block, one a thread.
+// Every block counts the need flags of all P rows (4-byte words, read from
+// L2): those before its own rows give its first rank, all of them the slots
+// used. No block waits on another, so the result is deterministic.
+constexpr int kCompactThreads = 256;
 
+__device__ __forceinline__ int cold_needed(int32_t fl) {
+  return ((fl & kHas) && !(fl & kFullSpan)) || (fl & 0xE0);
+}
+
+template <int NOUT>
 __global__ void __launch_bounds__(kCompactThreads)
     compact_cold_kernel(const int32_t* __restrict__ hot,
                         const int32_t* __restrict__ cold_i,
-                        const float* __restrict__ cold_f, int p, int ci_cols,
-                        int cf_cols, int cap, int32_t* __restrict__ cc_i,
-                        float* __restrict__ cc_f) {
-  __shared__ int warp_n[kCompactThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int base = 0;
-  for (int r0 = 0; r0 < p; r0 += blockDim.x) {
-    const int r = r0 + threadIdx.x;
-    bool need = false;
-    if (r < p) {
-      const int32_t fl = hot[4 * (int64_t)r + 2];
-      need = ((fl & kHas) && !(fl & kFullSpan)) || (fl & 0xE0);
-    }
-    const unsigned b = __ballot_sync(kFull, need);
-    if (lane == 0) warp_n[warp] = __popc(b);
-    __syncthreads();
-    int before = 0, tot = 0;
-    for (int x = 0; x < nw; x++) {
-      before += x < warp ? warp_n[x] : 0;
-      tot += warp_n[x];
-    }
-    const int rank = base + before + __popc(b & ((1u << lane) - 1u));
-    if (need && rank < cap) {
-      for (int x = 0; x < ci_cols; x++)
-        cc_i[(int64_t)rank * ci_cols + x] = cold_i[(int64_t)r * ci_cols + x];
-      for (int x = 0; x < cf_cols; x++)
-        cc_f[(int64_t)rank * cf_cols + x] = cold_f[(int64_t)r * cf_cols + x];
-    }
-    base += tot;
-    __syncthreads();
+                        const float* __restrict__ cold_f, int p, int cap,
+                        int32_t* __restrict__ cc_i, float* __restrict__ cc_f) {
+  // the row widths as constants: the copies divide by them
+  constexpr int ci_cols = 4 + 6 * NOUT + 5, cf_cols = NOUT;
+  constexpr int kWarps = kCompactThreads / 32;
+  __shared__ int s_before[kWarps], s_total[kWarps], s_own[kWarps];
+  __shared__ int s_rows[kCompactThreads];  // the block's needed rows, in order
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int r0 = blockIdx.x * kCompactThreads;
+
+  // unrolled so that several flag loads are in flight in each thread
+  int before = 0, total = 0;
+#pragma unroll 8
+  for (int r = t; r < p; r += kCompactThreads) {
+    const int nd = cold_needed(hot[4 * (int64_t)r + 2]);
+    total += nd;
+    before += r < r0 ? nd : 0;
   }
-  const int used = min(base, cap);
-  for (int64_t x = (int64_t)used * ci_cols + threadIdx.x; x < (int64_t)cap * ci_cols; x += blockDim.x)
+  before = __reduce_add_sync(kFull, before);
+  total = __reduce_add_sync(kFull, total);
+  const int r = r0 + t;
+  const bool mine = r < p && cold_needed(hot[4 * (int64_t)r + 2]);
+  const unsigned b = __ballot_sync(kFull, mine);
+  if (lane == 0) {
+    s_before[warp] = before;
+    s_total[warp] = total;
+    s_own[warp] = __popc(b);
+  }
+  __syncthreads();
+  int first = 0, all = 0, own = 0, off = 0;
+#pragma unroll
+  for (int x = 0; x < kWarps; x++) {
+    first += s_before[x];
+    all += s_total[x];
+    off += x < warp ? s_own[x] : 0;
+    own += s_own[x];
+  }
+  if (mine) s_rows[off + __popc(b & ((1u << lane) - 1u))] = r;
+  __syncthreads();
+
+  // the block's ranks first .. first + own - 1 that fall below cap: one
+  // contiguous run of slots, written by consecutive threads
+  const int n_copy = max(0, min(own, cap - first));
+#pragma unroll 4
+  for (int w = t; w < n_copy * ci_cols; w += kCompactThreads) {
+    const int d = w / ci_cols;
+    cc_i[(int64_t)first * ci_cols + w] = cold_i[(int64_t)s_rows[d] * ci_cols + (w - d * ci_cols)];
+  }
+  if constexpr (cf_cols > 0) {
+#pragma unroll 4
+    for (int w = t; w < n_copy * cf_cols; w += kCompactThreads) {
+      const int d = w / cf_cols;
+      cc_f[(int64_t)first * cf_cols + w] = cold_f[(int64_t)s_rows[d] * cf_cols + (w - d * cf_cols)];
+    }
+  }
+  // the unused slots [used, cap), shared out over the blocks
+  const int used = min(all, cap);
+  const int stride = gridDim.x * kCompactThreads;
+  for (int x = used * ci_cols + blockIdx.x * kCompactThreads + t; x < cap * ci_cols; x += stride)
     cc_i[x] = 0;
-  for (int64_t x = (int64_t)used * cf_cols + threadIdx.x; x < (int64_t)cap * cf_cols; x += blockDim.x)
+  for (int x = used * cf_cols + blockIdx.x * kCompactThreads + t; x < cap * cf_cols; x += stride)
     cc_f[x] = 0.f;
 }
 
-constexpr int kPairThreads = 128;  // 4 pairs a block in B6b and B6c
+constexpr int kPairThreads = 128;  // 4 pairs a block in B6c
+
+template <int NSUP, int NOUT>
+int launch_select_window(const ChainTable& tab, const SelParams& sp, const void* const* in,
+                         void* const* out, cudaStream_t s) {
+  const unsigned grid = (unsigned)((sp.p + kSelPairs - 1) / kSelPairs);
+  select_window_kernel<NSUP, NOUT><<<grid, kSelThreads, 0, s>>>(
+      tab, sp, (const int32_t*)in[0], (const int32_t*)in[1], (const int32_t*)in[2],
+      (const uint8_t*)in[3], (const int32_t*)in[4], (const uint8_t*)in[5],
+      (const int32_t*)in[6], (const int32_t*)in[7], (uint8_t*)out[0], (uint8_t*)out[1],
+      (uint8_t*)out[2], (int32_t*)out[3], (int32_t*)out[4], (float*)out[5],
+      (int32_t*)out[6], (float*)out[7]);
+  return (int)cudaGetLastError();
+}
+
+template <int NSUP>
+int launch_select_window(int n_out, const ChainTable& tab, const SelParams& sp,
+                         const void* const* in, void* const* out, cudaStream_t s) {
+  return n_out == 0 ? launch_select_window<NSUP, 0>(tab, sp, in, out, s)
+       : n_out == 1 ? launch_select_window<NSUP, 1>(tab, sp, in, out, s)
+                    : launch_select_window<NSUP, 2>(tab, sp, in, out, s);
+}
+
+static_assert(kMaxSup == 2, "launch_select_window instantiates n_sup and n_out 0..2");
 
 template <typename QT, typename IT>
 int launch_chain_select(const void* f, const void* parent, const void* rpos,
@@ -797,7 +973,9 @@ int phylign_select_window(const void* const* fields, const int* rows,
   if (p <= 0) return 0;
   if (n_buckets < 1 || n_buckets > kMaxBuckets || n_sup < 0 ||
       n_sup > kMaxSup || n_out < 0 || n_out > kMaxSup || n_contigs < 1 ||
-      pool_bytes < 1 || lmax < 1 || wlen < 1)
+      pool_bytes < 1 || lmax < 1 || wlen < 1 ||
+      (int64_t)kSelPairs * (lmax > wlen ? lmax : wlen) >= (int64_t)1 << 31 ||
+      ((uintptr_t)hot & 15) || ((uintptr_t)flts & 7) || ((uintptr_t)lohi & 7))
     return (int)cudaErrorInvalidValue;
   ChainTable tab;
   tab.nb = n_buckets;
@@ -807,17 +985,14 @@ int phylign_select_window(const void* const* fields, const int* rows,
       tab.field[b][x] = b < n_buckets ? fields[b * kFields + x] : nullptr;
     if (b < n_buckets) tab.start[b + 1] = tab.start[b] + rows[b];
   }
-  const SelParams sp{p, lmax, wlen, half, nqb, n_sup, n_out, min_cnt,
-                     n_contigs, min_score, 4 * pool_bytes};
-  const unsigned grid = (unsigned)((p + kPairThreads / 32 - 1) / (kPairThreads / 32));
-  select_window_kernel<<<grid, kPairThreads, 0, (cudaStream_t)stream>>>(
-      tab, sp, (const int32_t*)cand_map, (const int32_t*)pair_base,
-      (const int32_t*)pair_reflen, (const uint8_t*)q_pack,
-      (const int32_t*)q_len, (const uint8_t*)pool, (const int32_t*)cst,
-      (const int32_t*)clen, (uint8_t*)q_codes, (uint8_t*)rwin,
-      (uint8_t*)rvalid, (int32_t*)lohi, (int32_t*)hot, (float*)flts, (int32_t*)cold_i,
-      (float*)cold_f);
-  return (int)cudaGetLastError();
+  const SelParams sp{p, lmax, wlen, half, nqb, min_cnt, n_contigs, min_score,
+                     pool_bytes, 4 * pool_bytes, ((uintptr_t)pool & 3) == 0};
+  const void* in[8] = {cand_map, pair_base, pair_reflen, q_pack, q_len, pool, cst, clen};
+  void* out[8] = {q_codes, rwin, rvalid, lohi, hot, flts, cold_i, cold_f};
+  cudaStream_t s = (cudaStream_t)stream;
+  return n_sup == 0 ? launch_select_window<0>(n_out, tab, sp, in, out, s)
+       : n_sup == 1 ? launch_select_window<1>(n_out, tab, sp, in, out, s)
+                    : launch_select_window<2>(n_out, tab, sp, in, out, s);
 }
 
 // B6c. ORs the extension's flag bits and end_d into the hot rows int32
@@ -841,15 +1016,17 @@ int phylign_finish_pack(const void* q_codes, const void* q_len,
 
 // B6c's second launch: from the hot rows int32 [P, 4] and the full cold
 // rows, the compacted cold rows cc_i int32 [cap, 4 + 6 * n_out + 5] and cc_f
-// f32 [cap, n_out].
+// f32 [cap, n_out]. One kernel launch.
 int phylign_compact_cold(const void* hot, const void* cold_i,
                          const void* cold_f, int p, int n_out, int cap,
                          void* cc_i, void* cc_f, void* stream) {
   if (p <= 0) return 0;
-  if (cap < 0 || n_out < 0) return (int)cudaErrorInvalidValue;
-  compact_cold_kernel<<<1, kCompactThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)hot, (const int32_t*)cold_i, (const float*)cold_f, p,
-      4 + 6 * n_out + 5, n_out, cap, (int32_t*)cc_i, (float*)cc_f);
+  if (cap < 0 || cap > (1 << 24) || n_out < 0 || n_out > kMaxSup) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((p + kCompactThreads - 1) / kCompactThreads);
+  auto kern = n_out == 0 ? compact_cold_kernel<0> : n_out == 1 ? compact_cold_kernel<1> : compact_cold_kernel<2>;
+  kern<<<grid, kCompactThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)hot, (const int32_t*)cold_i, (const float*)cold_f, p, cap, (int32_t*)cc_i,
+      (float*)cc_f);
   return (int)cudaGetLastError();
 }
 

@@ -586,3 +586,33 @@ def finish_case(rng, p: int, lmax: int, band: int, match: int, mismatch: int):
     head = np.zeros((p, 4), np.int32)
     head[:, 2] = rng.integers(0, 256, p) & ~6  # F_DIAG and F_FULL are B6c's
     return q, rwin, lohi, head, q_len, ext, end_d
+
+
+def cold_case(rng, p: int, kind, n_out: int = 2, cap: int = 512):
+    """Synthetic inputs of the cold-row compaction (``align/fused.
+    _compact_cold``) as numpy arrays: (hot int32 [P, 4], cold_i int32 [P, 4
+    + 6 * n_out + 5], cold_f f32 [P, n_out]); the flag words of ``kind``
+    ("none": no row needed, "all": every row, "random", or ("at", k): the
+    cap-th needed row on row k >= cap - 1, the rows after it needed at
+    random) with random end_d bits above them, the cold rows random."""
+    from phylign_tpu_torch.align.fused import F_FULL, F_HAS, F_PROBE, F_SUP0
+
+    hot = np.zeros((p, 4), np.int32)
+    hot[:, 0] = rng.integers(-99, 99, p)
+    done = F_HAS | F_FULL  # a gapless primary: not needed
+    if kind == "none":
+        hot[:, 2] = rng.choice([done, 0], p)
+    elif kind == "all":
+        hot[:, 2] = rng.choice([F_HAS, F_SUP0 | F_FULL | F_HAS, F_PROBE, F_SUP0 << 1], p)
+    elif kind == "random":
+        hot[:, 2] = rng.choice([F_HAS, done, F_SUP0 | done, F_PROBE, 0], p)
+    else:
+        k = kind[1]
+        hot[:, 2] = done
+        hot[np.sort(rng.choice(k, cap - 1, replace=False)), 2] = F_HAS
+        hot[k, 2] = F_PROBE
+        hot[k + 1 :, 2] = rng.choice([F_HAS, done], p - k - 1)
+    hot[:, 2] |= rng.integers(0, 128, p).astype(np.int32) << 8
+    cold_i = rng.integers(-9, 9, (p, 4 + 6 * n_out + 5)).astype(np.int32)
+    cold_f = rng.random((p, n_out)).astype(np.float32)
+    return hot, cold_i, cold_f

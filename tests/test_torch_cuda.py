@@ -785,3 +785,64 @@ def test_flush_epilogue_refuses_more_than_two_segments(cuda):
     with pytest.raises(ValueError, match="split segments"):
         fz.select_window_cuda(dchains3, *dev_in3, **dict(kw3, max_segments=3))
     assert not any(fz.launch_counts().values())
+
+
+@pytest.mark.parametrize("p,kind", [
+    (1, "none"), (1, "all"), (31, "all"), (33, "random"), (1025, "random"), (1025, "none"), (8192, "random"),
+    (8192, "all"), (1000, ("at", 767)), (2000, ("at", 1023)), (2000, ("at", 1024))])
+def test_compact_cold_edges_equal_plain_version(cuda, p, kind):
+    """The compaction's blocks of 256 rows against _compact_cold on
+    testing.cold_case's flags: no needed row, every row needed, P = 1, P
+    off the block size, the COLD_CAP-th needed row on a block's last row
+    (767, 1,023) and first row (1,024); every slot bit for bit, one launch."""
+    hot, cold_i, cold_f = (torch.from_numpy(x).to(cuda) for x in fixture_mod.cold_case(np.random.default_rng(p), p,
+                                                                                       kind))
+    n_out, lmax = cold_f.shape[1], 32
+    packed = torch.full((sum(fz._packed_sizes(p, lmax, n_out)),), 0x5A, dtype=torch.uint8, device=cuda)
+    fz._packed_views(packed, p, lmax, n_out)[0].copy_(hot)
+    none = torch.empty((p, lmax), dtype=torch.uint8, device=cuda)
+    sel = fz.Selection(none, none, none, none, hot, hot, cold_i, cold_f, packed)
+    fz.reset_launch_counts()
+    got = fz.compact_cold_cuda(sel)
+    want = fz._compact_cold(hot, cold_i, cold_f)
+    torch.cuda.synchronize()
+    assert fz.launch_counts()["compact_cold"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("p,lmax,band", [(p, 160, band) for p in (1, 31, 33, 1025, 8192) for band in (100, 128)])
+def test_select_window_alignment_equals_plain_version(cuda, p, lmax, band):
+    """B6b's 16-byte chunks on windows of 260 and 288 bytes (260: chunks
+    across rows, a tail in the last block; the packed buffer's layout keeps
+    lmax a multiple of 32), blocks of 32 pairs cut at P = 1, 31, 33, 1,025,
+    and w0 at every residue mod 16 on both strands: every Selection field
+    bit for bit."""
+    _, _, dchains, dev_in, kw = _flush_inputs(cuda, p, lmax, band, 2, 7 * p + lmax)
+    sel = fz.select_window_cuda(dchains, *dev_in, **kw)
+    ref = fz._select_ref(fz._flatten_chains(dchains), *dev_in, **kw)
+    torch.cuda.synchronize()
+    for name in ref._fields[:-1]:
+        assert torch.equal(getattr(sel, name).to(getattr(ref, name).dtype), getattr(ref, name)), name
+    if p >= 1025:
+        flags = ref.head[:, 2]
+        has = (flags & fz.F_HAS) != 0
+        w0 = dev_in[1] + ref.cold_i[:, 2] - ref.cold_i[:, 0] - kw["half"]
+        for rev in (False, True):
+            on = has & (((flags & fz.F_STRAND) != 0) == rev)
+            assert set((w0[on] % 16).tolist()) == set(range(16))
+
+
+@pytest.mark.parametrize("n_out", [0, 1, 2])
+@pytest.mark.parametrize("n_sup", [0, 1, 2])
+def test_select_window_every_instance_equals_plain_version(cuda, n_sup, n_out):
+    """Each of B6b's nine (n_sup, n_out) template instances against
+    _select_ref at P = 1,025: every Selection field bit for bit."""
+    _, _, dchains, dev_in, kw = _flush_inputs(cuda, 1025, 160, 100, n_sup, 40 + 3 * n_sup + n_out)
+    kw["max_segments"] = n_out + 1
+    fz.reset_launch_counts()
+    sel = fz.select_window_cuda(dchains, *dev_in, **kw)
+    ref = fz._select_ref(fz._flatten_chains(dchains), *dev_in, **kw)
+    torch.cuda.synchronize()
+    assert fz.launch_counts()["select_window"] == 1
+    for name in ref._fields[:-1]:
+        assert torch.equal(getattr(sel, name).to(getattr(ref, name).dtype), getattr(ref, name)), name

@@ -1,9 +1,11 @@
 """Kernel B6, the fused flush epilogue (``csrc/flush_epilogue.cu``), on the
 CPU: a numpy emulation of each of its four kernels' own algorithm (B6a's
 block with its shared-memory pointer doubling and strided argmax passes,
-B6b's per-pair selection read through the chain table and its gathers,
-B6c's warp over 32 columns at a time with ballots, popcounts, a shuffle
-max-scan and reversed-bit bytes, and the one-block ordered compaction),
+B6b's blocks of 32 pairs, a thread's selection read through the chain
+table and its 16-byte chunks of window, mask and query, B6c's warp over
+32 columns at a time with ballots, popcounts, a shuffle max-scan and
+reversed-bit bytes, and the compaction's blocks, each ranking its rows
+after counting every flag before them),
 held to the plain PyTorch versions (``ops/chain._chain_tail_ref``,
 ``align/fused._select_ref`` / ``_finish_ref`` / ``_compact_cold``) on the
 inputs of the fused flush of tests/test_torch_fused.py's pool, and to the
@@ -107,43 +109,118 @@ def emu_chain_select(f, parent, rpos, qpos, k, n_sup):
     return out
 
 
-# --- B6b: one warp per pair ------------------------------------------------------
+# --- B6b: a block of 32 pairs, a thread a pair, then 16-byte chunks -----------------
+
+SEL_PAIRS = 32
+M32 = 0xFFFFFFFF
+
+
+def expand16(v):
+    """16 codes (code i at bits 2i) -> 16 bytes: each byte of v spread by
+    two shift-and-mask steps."""
+    out = []
+    for k in range(4):
+        x = (v >> (8 * k)) & 0xFF
+        x = (x | (x << 12)) & 0x000F000F
+        x = (x | (x << 6)) & 0x03030303
+        out += [(x >> (8 * i)) & 0xFF for i in range(4)]
+    return out
+
+
+def codes16(row, pos):
+    """The 16 codes from code pos of a byte-packed row: the 4 or 5 bytes
+    they span, shifted."""
+    b, sh = pos >> 2, (pos & 3) * 2
+    u = int(row[b]) | int(row[b + 1]) << 8 | int(row[b + 2]) << 16 | int(row[b + 3]) << 24
+    if sh:
+        u |= int(row[b + 4]) << 32
+    return (u >> sh) & M32
+
+
+def rev2(v):
+    """The 16 2-bit groups of v in reverse order: the reversed word with
+    each pair's bits swapped back."""
+    x = int(f"{v:032b}"[::-1], 2)
+    return ((x >> 1) & 0x55555555) | ((x & 0x55555555) << 1)
+
+
+def write_rows(out, base, n, row, chunk, byte):
+    """The block's rows [0, n) of a byte output whose first row starts at
+    flat offset 0 of ``out``, its address ``base`` mod 16: the bytes before
+    the first aligned chunk and after the last one by one, every aligned
+    16-byte chunk at once (chunk(r, j) inside a row, byte by byte across
+    rows)."""
+    length = n * row
+    head = min((16 - base % 16) % 16, length)
+    n_vec = (length - head) >> 4
+    tail0 = head + 16 * n_vec
+
+    def at(f):
+        return byte(f // row, f % row)
+
+    for f in [*range(head), *range(tail0, length)]:
+        out[f] = at(f)
+    for v in range(n_vec):
+        f = head + 16 * v
+        r, j = divmod(f, row)
+        out[f : f + 16] = chunk(r, j) if j + 16 <= row else [at(f + i) for i in range(16)]
 
 
 def emu_select_window(chains, cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen,
-                      *, lmax, wlen, half, min_cnt, min_score, max_segments):
-    """B6b pair by pair: the two sets' rows found through the bucket table
-    (the dummy past the last bucket), the candidates in insertion order,
-    the lexicographic selections, the window by binary search, the
-    gathers. Returns the Selection fields as numpy arrays."""
+                      *, lmax, wlen, half, min_cnt, min_score, max_segments, base=0):
+    """B6b block by block, as csrc/flush_epilogue.cu runs it (instance n_sup,
+    n_out): each pair's thread finds its two sets' buckets once (the dummy
+    past the last), lays out the 2 * (1 + n_sup) candidates with their
+    strands by position, selects, writes the hot row, scores, bounds and
+    split-segment scores, and stages the window origin and the cold row;
+    then the block copies its cold rows as one run of words and writes the
+    window, mask and query through write_rows: a window chunk from two
+    little-endian pool words funnel-shifted when it lies in the pool (else
+    code by code, clamped as the plain version clamps), a reverse-strand
+    query chunk as the complemented, reversed forward chunk. ``base``: the
+    byte outputs' address mod 16. Returns the Selection fields as numpy
+    arrays."""
     p = len(cand_map)
     n_sup = chains[0]["sup_score"].shape[1]
     n_out = max(0, max_segments - 1)
+    n_cand = 2 * (1 + n_sup)
+    kcols = 4 + 6 * n_out + 5
     starts = np.concatenate([[0], np.cumsum([len(c["score"]) for c in chains])])
     n_c = len(cst)
+    pool_bytes, pool_codes = len(pool_pack), 4 * len(pool_pack)
+    pool32 = np.frombuffer(pool_pack[: pool_bytes // 4 * 4].tobytes(), "<u4")
     out = dict(q_codes=np.zeros((p, lmax), np.uint8), rwin=np.zeros((p, wlen), np.uint8),
                rvalid=np.zeros((p, wlen), bool), lohi=np.zeros((p, 2), np.int32),
                head=np.zeros((p, 4), np.int32), flts=np.zeros((p, 2), np.float32),
-               cold_i=np.zeros((p, 4 + 6 * n_out + 5), np.int32), cold_f=np.zeros((p, n_out), np.float32))
+               cold_i=np.zeros((p, kcols), np.int32), cold_f=np.zeros((p, n_out), np.float32))
     min_score = np.float32(min_score)
 
-    def load(s):
+    def strand(x):
+        return x if x < 2 else int(x - 2 >= n_sup)
+
+    def load_side(s, side, c):
         if s < 0:
             s += starts[-1] + 1
         b = int(np.searchsorted(starts[1:], s, side="right"))
-        if b == len(chains):  # the dummy row: -1e30 scores, zero coordinates
-            row = {n: NEG if n.endswith("score") else 0 for n in T.CHAIN_FIELDS[:11]}
-            row.update({n: [NEG if n == "sup_score" else 0] * n_sup for n in T.CHAIN_FIELDS[11:]})
-            return row
-        i = s - starts[b]
-        return {n: chains[b][n][i] for n in T.CHAIN_FIELDS}
+        dummy = b == len(chains)
+        i = 0 if dummy else s - starts[b]
+
+        def get(name, j=None):
+            if dummy:
+                return NEG if name.endswith("score") else 0
+            return chains[b][name][i] if j is None else chains[b][name][i, j]
+
+        c[side] = [get(n) for n in ("score", "count", "qs", "qe", "rs", "re")]
+        c["alt"][side] = [get(n) for n in ("alt_score", "alt_qs", "alt_qe", "alt_rs", "alt_re")]
+        for j in range(n_sup):
+            c[2 + side * n_sup + j] = [get(n, j) for n in T.CHAIN_FIELDS[11:]]
 
     def lex(c, mask):
         has, bc, bsc, bst, bqs = False, 0, NEG, 0, 0
-        for x in range(len(c)):
-            sc, st, qs = c[x][0], c[x][6], c[x][2]
-            if mask[x] and (not has or sc > bsc or (sc == bsc and st < bst)
-                            or (sc == bsc and st == bst and qs < bqs)):
+        for x in range(n_cand):
+            sc, st, qs = c[x][0], strand(x), c[x][2]
+            if (mask >> x) & 1 and (not has or sc > bsc or (sc == bsc and st < bst)
+                                    or (sc == bsc and st == bst and qs < bqs)):
                 has, bc, bsc, bst, bqs = True, x, sc, st, qs
         return has, bc
 
@@ -152,44 +229,41 @@ def emu_select_window(chains, cand_map, pair_base, pair_reflen, q_pack, q_len, p
         span = max(min(int(w(aqe - aqs)), int(w(bqe - bqs))), 1)
         return int(w(2 * ov)) >= span
 
-    for pair in range(p):
-        sr = [load(int(s)) for s in cand_map[pair]]
-        # (score, count, qs, qe, rs, re, strand)
-        c = [(sr[x]["score"], sr[x]["count"], sr[x]["qs"], sr[x]["qe"], sr[x]["rs"], sr[x]["re"], x)
-             for x in (0, 1)]
-        for side in (0, 1):
-            for j in range(n_sup):
-                c.append(tuple(sr[side][n][j] for n in T.CHAIN_FIELDS[11:]) + (side,))
-        valid = [x[1] >= min_cnt and x[0] >= min_score for x in c]
+    def select(pair, crow):
+        """One thread's pair; returns what it stages for the gather."""
+        c = {"alt": [None, None]}
+        load_side(int(cand_map[pair, 0]), 0, c)
+        load_side(int(cand_map[pair, 1]), 1, c)
+        valid = sum(1 << x for x in range(n_cand) if c[x][1] >= min_cnt and c[x][0] >= min_score)
         has, pc = lex(c, valid)
-        psc, pcnt, pqs, pqe, prs, pre, pst = c[pc]
-        primary = pc < 2
-        prim_alt = np.float32(max(sr[pc]["alt_score"], 0)) if primary else np.float32(0)
+        psc, pcnt, pqs, pqe, prs, pre = c[pc]
+        pst, primary = strand(pc), pc < 2
+        prim_alt = np.float32(max(c["alt"][pc][0], 0)) if primary else np.float32(0)
         s2c, c2 = NEG, 0
-        for x in range(len(c)):
-            sc = c[x][0] if valid[x] and x != pc and qov(c[x][2], c[x][3], pqs, pqe) else NEG
+        for x in range(n_cand):
+            sc = c[x][0] if (valid >> x) & 1 and x != pc and qov(c[x][2], c[x][3], pqs, pqe) else NEG
             if x == 0 or sc > s2c:
                 s2c, c2 = sc, x
         alt_term = prim_alt if primary and has else np.float32(0)
         s2 = np.float32(max(s2c, alt_term, 0)) if has else np.float32(0)
         use_alt = alt_term > max(s2c, 0)
-        ps = sr[min(max(pc, 0), 1)]
-        taken, picked = {pc}, [(pqs, pqe, has)]
+        ps = 0 if pc == 0 else 1
+        taken, picked = 1 << pc, [(pqs, pqe, has)]
         flags = has * tfz.F_HAS | pst * tfz.F_STRAND | primary * tfz.F_PRIMTYPE | (s2 > 0) * tfz.F_PROBE
         for s in range(n_out):
-            ok = [valid[x] and x not in taken and has
-                  and not any(qov(c[x][2], c[x][3], a, b) and live for a, b, live in picked)
-                  for x in range(len(c))]
+            ok = sum(1 << x for x in range(n_cand)
+                     if (valid >> x) & 1 and not (taken >> x) & 1 and has
+                     and not any(qov(c[x][2], c[x][3], a, b) and live for a, b, live in picked))
             found, ch = lex(c, ok)
             if found:
-                taken.add(ch)
+                taken |= 1 << ch
                 flags |= tfz.F_SUP0 << s
-            picked.append((c[ch][2], c[ch][3], found))
-            sc, cnt, qs, qe, rs, re, st = c[ch]
-            out["cold_i"][pair, 4 + 6 * s : 10 + 6 * s] = (st, qs, qe, rs, re, cnt)
+            sc, cnt, qs, qe, rs, re = c[ch]
+            picked.append((qs, qe, found))
+            crow[4 + 6 * s : 10 + 6 * s] = (strand(ch), qs, qe, rs, re, cnt)
             out["cold_f"][pair, s] = sc
-        base = int(pair_base[pair])
-        rs_c = int(w(min(max(int(prs), 0), int(w(int(pair_reflen[pair]) - 1))) + base))
+        b0 = int(pair_base[pair])
+        rs_c = int(w(min(max(int(prs), 0), int(w(int(pair_reflen[pair]) - 1))) + b0))
         lo_b, hi_b = 0, n_c
         while lo_b < hi_b:
             mid = (lo_b + hi_b) >> 1
@@ -197,32 +271,67 @@ def emu_select_window(chains, cand_map, pair_base, pair_reflen, q_pack, q_len, p
         ci = lo_b - 1
         c_start = int(cst[ci + n_c if ci < 0 else ci])
         c_end = int(w(c_start + int(clen[ci + n_c if ci < 0 else ci])))
-        w0 = int(w(base + int(prs) - int(pqs) - half))
+        w0 = int(w(b0 + int(prs) - int(pqs) - half))
         lo = min(max(int(w(c_start - w0)), 0), wlen)
         hi = min(max(int(w(c_end - w0)), 0), wlen)
         out["head"][pair] = (w(w0 - c_start), ci, flags, pcnt)
         out["flts"][pair] = (psc, s2)
         out["lohi"][pair] = (lo, hi)
-        probe = (pst, ps["alt_qs"], ps["alt_qe"], ps["alt_rs"], ps["alt_re"]) if use_alt else (
-            c[c2][6], c[c2][2], c[c2][3], c[c2][4], c[c2][5])
-        out["cold_i"][pair, :4] = (pqs, pqe, prs, pre)
-        out["cold_i"][pair, 4 + 6 * n_out :] = probe
-        j = np.arange(wlen)
-        idx = np.clip(w(w0 + j).astype(np.int64), 0, 4 * len(pool_pack) - 1)
-        out["rwin"][pair] = (pool_pack[idx >> 2] >> ((idx & 3) * 2)) & 3
-        out["rvalid"][pair] = (j >= lo) & (j < hi)
-        j = np.arange(lmax)
-        ql = int(q_len[pair])
-        if pst == 1:
-            r = np.clip(w(ql - 1 - j), 0, lmax - 1)
-            code = np.where(j < ql, 3 - ((q_pack[pair][r >> 2] >> ((r & 3) * 2)) & 3), 0)
-        else:
-            code = (q_pack[pair][j >> 2] >> ((j & 3) * 2)) & 3
-        out["q_codes"][pair] = code
+        crow[:4] = (pqs, pqe, prs, pre)
+        crow[4 + 6 * n_out :] = (pst, *c["alt"][ps][1:]) if use_alt else (strand(c2), *c[c2][2:6])
+        return w0, lo, hi, int(q_len[pair]), pst
+
+    for p0 in range(0, p, SEL_PAIRS):
+        n = min(SEL_PAIRS, p - p0)
+        cold = np.zeros(n * kcols, np.int32)
+        stage = [select(p0 + t, cold[t * kcols : (t + 1) * kcols]) for t in range(n)]
+        out["cold_i"].reshape(-1)[p0 * kcols : (p0 + n) * kcols] = cold
+
+        def win_byte(r, j):
+            idx = min(max(int(w(stage[r][0] + j)), 0), pool_codes - 1)
+            return (int(pool_pack[idx >> 2]) >> ((idx & 3) * 2)) & 3
+
+        def win_chunk(r, j):
+            x = stage[r][0] + j
+            k = x >> 4
+            if 0 <= x and x + 15 <= 2**31 - 1 and x + 16 <= pool_codes and 4 * (k + 2) <= pool_bytes:
+                lo_w, hi_w = int(pool32[k]), int(pool32[k + 1])
+                return expand16(((hi_w << 32 | lo_w) >> ((x & 15) * 2)) & M32)
+            return [win_byte(r, j + i) for i in range(16)]
+
+        def valid_byte(r, j):
+            return int(stage[r][1] <= j < stage[r][2])
+
+        def q_byte(r, j):
+            qp = q_pack[p0 + r]
+            if stage[r][4] == 1:
+                ql = stage[r][3]
+                x = min(max(int(w(ql - 1 - j)), 0), lmax - 1)
+                return 3 - ((int(qp[x >> 2]) >> ((x & 3) * 2)) & 3) if j < ql else 0
+            return (int(qp[j >> 2]) >> ((j & 3) * 2)) & 3
+
+        def q_chunk(r, j):
+            qp = q_pack[p0 + r]
+            if stage[r][4] != 1:
+                return expand16(codes16(qp, j))
+            ql = stage[r][3]
+            if j >= ql:
+                return [0] * 16
+            if j + 16 <= ql <= lmax:
+                return expand16(rev2(codes16(qp, ql - 16 - j)) ^ M32)
+            return [q_byte(r, j + i) for i in range(16)]
+
+        for name, row, chunk, byte in (("rwin", wlen, win_chunk, win_byte),
+                                       ("rvalid", wlen, lambda r, j: [valid_byte(r, j + i) for i in range(16)],
+                                        valid_byte),
+                                       ("q_codes", lmax, q_chunk, q_byte)):
+            flat = np.zeros(n * row, np.uint8)
+            write_rows(flat, base + p0 * row, n, row, chunk, byte)
+            out[name][p0 : p0 + n] = flat.reshape(n, row)
     return out
 
 
-# --- B6c: one warp per pair, then one block for the compaction --------------------
+# --- B6c: one warp per pair, then the compaction's blocks of 256 rows --------------------
 
 LANES = np.arange(32)
 
@@ -293,28 +402,52 @@ def emu_finish_pack(sel, q_len, ext_score, end_d, match, mismatch, min_dp, zdrop
     return hot, bits
 
 
+COMPACT_THREADS = 256
+
+
 def emu_compact_cold(hot, cold_i, cold_f, cap=tfz.COLD_CAP):
-    """The compaction block: 1,024 rows a round, a rank from the warps'
-    ballot counts before this one and the lanes' below this one."""
+    """The compaction's blocks of 256 rows, one thread a row: each block's
+    threads count the need flags of all rows in strides of 256 (those
+    before the block's first row, and all), summed over the warps; the
+    block's own rows ranked by ballot + popcount into a list; its ranks
+    below cap copied as one run of slots, word w from row list[w // cols];
+    the slots past the used ones zeroed in a stride over all blocks."""
     p = len(hot)
-    cc_i = np.full((cap, cold_i.shape[1]), -7, np.int32)
-    cc_f = np.full((cap, cold_f.shape[1]), -7, np.float32)
-    base = 0
-    for r0 in range(0, p, 1024):
-        r = r0 + np.arange(1024)
-        fl = np.where(r < p, hot[np.minimum(r, p - 1), 2], 0)
-        need = ((fl & tfz.F_HAS) != 0) & ((fl & tfz.F_FULL) == 0) | ((fl & 0xE0) != 0)
-        need &= r < p
-        warp_n = [popc(ballot(need[x : x + 32])) for x in range(0, 1024, 32)]
-        for t in np.flatnonzero(need):
-            b = ballot(need[t - t % 32 : t - t % 32 + 32])
-            rank = base + sum(warp_n[: t // 32]) + popc(b & ((1 << (t % 32)) - 1))
-            if rank < cap:
-                cc_i[rank], cc_f[rank] = cold_i[r[t]], cold_f[r[t]]
-        base += sum(warp_n)
-    cc_i[min(base, cap) :] = 0
-    cc_f[min(base, cap) :] = 0
-    return cc_i, cc_f
+    ci, cf = cold_i.shape[1], cold_f.shape[1]
+    cc_i = np.full(cap * ci, -7, np.int32)
+    cc_f = np.full(cap * cf, -7, np.float32)
+    fl = hot[:, 2]
+    need = (((fl & tfz.F_HAS) != 0) & ((fl & tfz.F_FULL) == 0)) | ((fl & 0xE0) != 0)
+    n_blocks = -(-p // COMPACT_THREADS)
+    stride = n_blocks * COMPACT_THREADS
+    src_i, src_f = cold_i.reshape(-1), cold_f.reshape(-1)
+    for blk in range(n_blocks):
+        r0 = blk * COMPACT_THREADS
+        t = np.arange(COMPACT_THREADS)
+        before = np.zeros(COMPACT_THREADS, np.int64)
+        total = np.zeros(COMPACT_THREADS, np.int64)
+        for r in range(0, p, COMPACT_THREADS):  # thread t reads row r + t
+            rows = r + t
+            nd = np.where(rows < p, need[np.minimum(rows, p - 1)], False)
+            total += nd
+            before += nd & (rows < r0)
+        first, used = int(before.sum()), min(int(total.sum()), cap)
+        rows = r0 + t
+        mine = (rows < p) & need[np.minimum(rows, p - 1)]
+        warp_n = [popc(ballot(mine[x : x + 32])) for x in range(0, COMPACT_THREADS, 32)]
+        listed = np.zeros(COMPACT_THREADS, np.int64)
+        for x in np.flatnonzero(mine):
+            b = ballot(mine[x - x % 32 : x - x % 32 + 32])
+            listed[sum(warp_n[: x // 32]) + popc(b & ((1 << (x % 32)) - 1))] = rows[x]
+        n_copy = max(0, min(sum(warp_n), cap - first))
+        for dst, src, cols in ((cc_i, src_i, ci), (cc_f, src_f, cf)):
+            for wd in range(n_copy * cols):
+                d = wd // cols
+                dst[first * cols + wd] = src[listed[d] * cols + wd - d * cols]
+        for dst, cols in ((cc_i, ci), (cc_f, cf)):
+            for th in t:  # thread th zeroes words used * cols + r0 + th + k * stride
+                dst[used * cols + r0 + th : cap * cols : stride] = 0
+    return cc_i.reshape(cap, ci), cc_f.reshape(cap, cf)
 
 
 def emu_flush(chains, ins, kw, scoring, zdrop=100):
@@ -524,6 +657,62 @@ def test_compaction_emulation_overflow():
         want = tfz._compact_cold(*[torch.from_numpy(a) for a in (hot, cold_i, cold_f)])
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("p,kind", [
+    (1, "none"), (1, "all"), (31, "all"), (33, "random"), (256, "all"), (1025, "random"), (1025, "none"),
+    (1000, ("at", 767)), (2000, ("at", 1023)), (2000, ("at", 1024)), (8192, "random")])
+def test_compaction_emulation_edges(p, kind):
+    """The compaction's edges: no needed row, every row needed, P = 1, P
+    not a multiple of the 256-row block, the COLD_CAP-th needed row on a
+    block's last row (767, 1,023) and first row (1,024), the main path's P:
+    equal to _compact_cold, every slot."""
+    hot, cold_i, cold_f = T.cold_case(np.random.default_rng(p), p, kind)
+    got = emu_compact_cold(hot, cold_i, cold_f)
+    want = tfz._compact_cold(*[torch.from_numpy(a) for a in (hot, cold_i, cold_f)])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+def _select_case(p, lmax, band, n_sup, n_out, seed):
+    ch, ins, kw = T.flush_case(np.random.default_rng(seed), p, lmax, band, n_sup)
+    kw["max_segments"] = n_out + 1
+    tch = tuple(tchain.ChainResult(*[torch.from_numpy(c[n]) for n in T.CHAIN_FIELDS]) for c in ch)
+    ref = tfz._select_ref(tfz._flatten_chains(tch), *[torch.from_numpy(x) for x in ins], **kw)
+    return ch, ins, kw, ref
+
+
+@pytest.mark.parametrize("n_out", [0, 1, 2])
+@pytest.mark.parametrize("n_sup", [0, 1, 2])
+def test_select_window_emulation_every_instance(n_sup, n_out):
+    """Every (n_sup, n_out) instance of B6b, at a window of 260 columns (not
+    a multiple of 16: chunks across rows, a tail in the last block of 13
+    pairs): every Selection field equal to _select_ref's."""
+    ch, ins, kw, ref = _select_case(77, 160, 100, n_sup, n_out, 40 + 3 * n_sup + n_out)
+    got = emu_select_window(ch, *ins, **kw)
+    for n, v in got.items():
+        np.testing.assert_array_equal(v, getattr(ref, n).numpy(), err_msg=n)
+    assert ((ref.head[:, 2] & tfz.F_STRAND) != 0).any()
+
+
+@pytest.mark.parametrize("base", [0, 5, 13])
+@pytest.mark.parametrize("p,lmax,band", [(1, 160, 128), (33, 150, 100), (300, 150, 100), (300, 160, 128)])
+def test_select_window_emulation_alignment(p, lmax, band, base):
+    """B6b's 16-byte chunks against the byte outputs' alignment: rows of 150
+    and 250 or 260 bytes, outputs starting at every kind of address (a head
+    before the first chunk), w0 at every residue mod 16 (P = 300): equal to
+    _select_ref's."""
+    ch, ins, kw, ref = _select_case(p, lmax, band, 2, 2, 7 * p + lmax + base)
+    got = emu_select_window(ch, *ins, **kw, base=base)
+    for n, v in got.items():
+        np.testing.assert_array_equal(v, getattr(ref, n).numpy(), err_msg=n)
+    if p >= 300:
+        ci = ref.cold_i.numpy().astype(np.int64)
+        w0 = ins[1] + ci[:, 2] - ci[:, 0] - kw["half"]
+        has = (ref.head[:, 2].numpy() & tfz.F_HAS) != 0
+        assert set((w0[has] % 16).tolist()) == set(range(16))
+        strand = (ref.head[:, 2].numpy() & tfz.F_STRAND) != 0
+        assert (has & strand).any() and (has & ~strand).any()
 
 
 # --- dispatch ---------------------------------------------------------------------------
