@@ -33,14 +33,20 @@ Phases, each printing one JSON line:
     each case's distinct rows, bytes, bound and share of the bound;
   3 the synthetic fixture (three 1-hash batches + one 3-hash batch) end to
     end through ``python -m phylign_tpu_torch.cli match``; every 03_match
-    file must equal the numpy oracle's rendering, and both kernels must
-    have been launched;
+    file must equal the numpy oracle's rendering, and B1, B2 and B5's three
+    kernels (B5a with H = 3 on the 3-hash batch) must have been launched;
   4 the match stage at full batch geometry: 4 batches of 2,000,000 rows x
     2,169 docs in the mem-disk device-cache layout, 10,240 reads of 150 bp
     (~15% duplicates); every planted read must reach its doc in 04_filter
-    and a sample of reads must equal the oracle on the full-size index;
-    then the match epilogue B5 (still torch ops) timed at its first call,
-    with its kernel count, torch.topk's time and its bound;
+    and a sample of reads must equal the oracle on the full-size index, and
+    B2 and B5 must have been launched; then kernel B5 (the match epilogue:
+    B5a Bloom rows, B5b threshold + top-k, B5c flat hit packing) at the
+    first batch's call, each kernel bit-exact against its plain version
+    there and on three calls built from it (a cut of 0, scores tied at the
+    window's edge, total > cap with the dense refetch), timed from CUDA
+    graphs over ROTATION input sets beside its bound, with the plain
+    versions' times and kernel counts, torch.topk's time, and the kernels
+    and device time of one _hash_topk_flat call;
   5 kernels B3 (chain DP scan) and B4 (banded extension scan) against their
     plain versions at the align stage's shapes and at every lane count each
     is built for, bit-exact on every input set (B4 also at bands 256 and
@@ -59,7 +65,7 @@ Phases, each printing one JSON line:
   6 phase 3's fixture (with an assembly tar for its 3-hash batch) end to end
     through ``python -m phylign_tpu_torch.cli all`` on the card and again
     with ``--device cpu``: 05_map, sam_summary and stats must be identical,
-    and B3/B4 must have been launched on the card;
+    and B3-B6 must have been launched on the card;
   7 the align stage at full width: 2 batches x 8 genomes of 2-5 Mb in 1-3
     contigs, 16,384 reads of 150 bp with 5 candidates each (81,920 pairs,
     device_pair_chunk 16,384); >= 95% of the non-chimeric reads must map to
@@ -121,6 +127,9 @@ SOURCE = {
     "select_window": "phylign_tpu_torch/csrc/flush_epilogue.cu",
     "finish_pack": "phylign_tpu_torch/csrc/flush_epilogue.cu",
     "compact_cold": "phylign_tpu_torch/csrc/flush_epilogue.cu",
+    "hash_rows": "phylign_tpu_torch/csrc/match_epilogue.cu",
+    "threshold_topk": "phylign_tpu_torch/csrc/match_epilogue.cu",
+    "pack_hits": "phylign_tpu_torch/csrc/match_epilogue.cu",
 }
 REPLACES = {
     "match_popcount_b1": "phylign_tpu/ops/match.py:276",
@@ -135,7 +144,14 @@ REPLACES = {
     "select_window": "phylign_tpu/align/fused.py:104",
     "finish_pack": "phylign_tpu/align/fused.py:277",
     "compact_cold": "phylign_tpu/align/fused.py:347",
+    # B5, the jitted match epilogue (phylign_tpu/models/matcher.py:122):
+    # the Bloom rows, the threshold + top-k, the flat hit packing
+    "hash_rows": "phylign_tpu/models/matcher.py:70",
+    "threshold_topk": "phylign_tpu/models/matcher.py:44",
+    "pack_hits": "phylign_tpu/models/matcher.py:148",
 }
+#: kernel B5's three kernels, launched by every hash-path match call
+B5_KERNELS = ("hash_rows", "threshold_topk", "pack_hits")
 
 
 def emit(phase: str, **kw) -> None:
@@ -396,19 +412,31 @@ def phase_fixture(work: Path) -> dict:
     from phylign_tpu_torch.io import cobs as iocobs
     from phylign_tpu_torch.io.fastx import read_fastx_file
     from phylign_tpu_torch import cli
-    from phylign_tpu_torch.ops import match as opm
+    from phylign_tpu_torch.models import matcher as tm
 
     wd = work / "fixture"
     testing.make_fixture(wd, n_batches=3, seed=42)
     add_multi_hash_batch(wd)
     inputs = sorted(str(p) for p in (wd / "input").iterdir())
-    opm.reset_launch_counts()
+    hashes_a_kmer = set()  # H of every B5a call
+    orig = tm.hash_rows_cuda
+
+    def record(hi, *a):
+        hashes_a_kmer.add(hi.shape[2])
+        return orig(hi, *a)
+
+    tm.hash_rows_cuda = record
+    _reset_counts()
     t0 = time.perf_counter()
-    cli.main(["match", "--workdir", str(wd), "--config", str(wd / "config.yaml"), *inputs])
+    try:
+        cli.main(["match", "--workdir", str(wd), "--config", str(wd / "config.yaml"), *inputs])
+    finally:
+        tm.hash_rows_cuda = orig
     seconds = time.perf_counter() - t0
-    counts = opm.launch_counts()
-    if not all(counts.values()):
-        raise AssertionError(f"fixture match did not launch every kernel: {counts}")
+    counts = {k: v for k, v in _kernel_counts().items() if k in ("match_popcount_b1", "match_popcount_b2", *B5_KERNELS)}
+    if not all(counts.values()) or hashes_a_kmer != {1, 3}:
+        raise AssertionError(f"fixture match did not launch B1, B2 and every B5 kernel, B5a at H = 1 and 3: "
+                             f"{counts}, H {sorted(hashes_a_kmer)}")
     cfg = Config.from_yaml(wd / "config.yaml")
     merged = next((wd / "intermediate" / "01_queries_merged").glob("*.fa"))
     records = list(read_fastx_file(merged))
@@ -424,7 +452,7 @@ def phase_fixture(work: Path) -> dict:
     if n_hits == 0:
         raise AssertionError("fixture produced no hits")
     emit("fixture_cli", batches=len(batches), reads=len(records), hit_lines=n_hits,
-         seconds=seconds, launches=counts, oracle="equal")
+         seconds=seconds, launches=counts, hash_rows_h=sorted(hashes_a_kmer), oracle="equal")
     return counts
 
 
@@ -489,7 +517,6 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     from phylign_tpu_torch.io import cobs as iocobs
     from phylign_tpu_torch.io.fastx import read_fastx_file
     from phylign_tpu_torch.models import matcher as tmatcher
-    from phylign_tpu_torch.ops import match as opm
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
     wd = work / "full"
@@ -498,7 +525,7 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     batches, names, target = make_full_geometry(wd, n_batches, n_reads, seed=7)
     setup_s = time.perf_counter() - t0
     cfg = Config.from_yaml(wd / "config.yaml")
-    opm.reset_launch_counts()
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     pl = Pipeline(cfg, wd, device="cuda")
     t0 = time.perf_counter()
@@ -521,9 +548,9 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     t2 = time.perf_counter()
     pl.filter(stem)
     t3 = time.perf_counter()
-    counts = opm.launch_counts()
-    if counts["match_popcount_b2"] == 0:
-        raise AssertionError(f"full-geometry match did not launch kernel B2: {counts}")
+    counts = _kernel_counts()
+    if not (counts["match_popcount_b2"] and all(counts[k] for k in B5_KERNELS)):
+        raise AssertionError(f"full-geometry match did not launch B2 and every B5 kernel: {counts}")
     # every planted read reaches its doc
     cands = {r.name: r.comment.split(",") if r.comment else [] for r in read_fastx_file(pl.filter_path(stem))}
     missed = [
@@ -554,39 +581,172 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     emit("full_geometry", **res)
     if not first_call:
         raise AssertionError("phase 4 did not reach models/matcher._hash_topk_flat")
-    emit("match_epilogue", card=label, **match_epilogue(*first_call[0]))
-    return counts
+    b5 = match_epilogue(*first_call[0])
+    emit("match_epilogue", card=label, **b5)
+    emit("match_warm", card=label, **warm_match(wd, cfg))
+    return counts, b5
+
+
+def warm_match(wd: Path, cfg) -> dict:
+    """The match stage once more over phase 4's batches, warm (a fresh
+    workdir linked to the same device-cache layout: every index comes from
+    the process-wide device cache), under torch.profiler: wall time, the
+    device's busy time and idle share, kernels, and B5's and B2's device
+    time (by kernel name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from phylign_tpu_torch.pipeline.stages import Pipeline
+
+    warm = wd.parent / "full_warm"
+    warm.mkdir()
+    for name in ("cobs_device_cache", "data", "input", "config.yaml"):
+        (warm / name).symlink_to(wd / name)
+    pl = Pipeline(cfg, warm, device="cuda")
+    stem = pl.preprocess([str(warm / "input" / "reads.fq")])
+    hits0 = pl._index_cache.hits
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pl.match(stem)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if pl._index_cache.hits - hits0 != len(pl.batches()):
+        raise AssertionError("the warm match did not take every index from the device cache")
+    dev = device_table(prof)
+    dev_ms = sum(t for t, _ in dev.values())
+
+    def named(*words):
+        return sum(t for k, (t, _) in dev.items() if any(w in k for w in words))
+
+    n = len(pl.batches())
+    return dict(batches=n, wall_s=wall, device_ms=dev_ms, idle_share=1 - dev_ms / (wall * 1e3),
+                kernels=kernel_count(dev), kernels_per_batch=kernel_count(dev) / n,
+                launches={w: sum(c for k, (_, c) in dev.items() if w in k)
+                          for w in ("hash_rows", "match_popcount", "threshold_topk", "pack_hits")},
+                b5_ms=named("hash_rows", "threshold_topk", "pack_hits"),
+                b2_ms=named("match_popcount"), copies_ms=named("Memcpy", "Memset"))
+
+
+def b5_bounds(hi, nk, q: int, d: int, kk: int, cap: int, taken: int) -> dict:
+    """Each B5 kernel's least time from these inputs: bytes at
+    HBM_BYTES_PER_S (B5a: the hash halves of the real slots, nk, the rows
+    out; B5b: the first d scores of every row and the cut in, the window
+    and n_keep out; B5c: n_keep and the taken entries below cap in, the
+    whole flat buffer out), operations at INT32_OPS_PER_S (B5a: 2 a real
+    hash, the shift-or and the modulo; B5b: one compare a score)."""
+    k, h = hi.shape[1], hi.shape[2]
+    real = int(nk.clamp(max=k).sum()) * h
+    return dict(
+        hash_rows=bound(16 * real + 4 * q + 4 * q * k * h, 2 * real),
+        threshold_topk=bound(4 * q * d + 4 * q + 4 * (2 * q * kk + q), q * d),
+        pack_hits=bound(4 * q + 8 * min(taken, cap) + 4 * (cap + q + 1), 0),
+    )
 
 
 def match_epilogue(args, kw) -> dict:
-    """B5, the match epilogue still run as torch ops (models/matcher.
-    _hash_topk_flat: Bloom rows from the hashes, kernel B2, threshold +
-    top-k, flat hit compaction), at phase 4's first call: the whole call
-    and B2 alone from CUDA graphs, the epilogue's time as their difference
-    and its kernel count; torch.topk alone on the masked scores (the
-    library's time for the top-k part); the bound of the epilogue: the
-    [Q, 32 Wp] int32 scores read once and the flat hits written once."""
+    """Kernel B5 at phase 4's first _hash_topk_flat call (models/matcher):
+    B5a, B5b and B5c each against its plain version on the call's inputs,
+    and the whole flat buffer against the plain versions' chain; then B5b
+    and B5c on three more calls built from those inputs (a cut of 0: every
+    doc qualifies and every query overflows kk; the scores folded onto a
+    few values, tied at the window's edge; a cap of a third of the hits:
+    total > cap and the dense refetch, _hash_topk). Each kernel timed from
+    CUDA graphs over ROTATION input sets in turn (rows rolled), beside its
+    bound; the plain versions from the host with CUDA events and their
+    kernel counts (profiler); torch.topk on the masked scores (B5b's
+    library call); kernels and device time per _hash_topk_flat call."""
     import torch
 
-    from phylign_tpu_torch.models import matcher as tmatcher
+    from phylign_tpu_torch.models import matcher as tm
     from phylign_tpu_torch.ops import match as opm
 
     words, hi, lo, nk, cut = args
-    rows = tmatcher._hash_rows(hi, lo, nk, kw["s"], kw["pad_row"])
+    s, pad_row, kk, d, cap = (kw[n] for n in ("s", "pad_row", "kk", "d", "cap"))
+    err = 0
+
+    def same(what, got, want):
+        nonlocal err
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for a, b in zip(got, want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"B5 {what} differs from its plain version")
+            err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+
+    rows = tm.hash_rows_cuda(hi, lo, nk, s, pad_row)
+    same("hash_rows", rows, tm._hash_rows_ref(hi, lo, nk, s, pad_row))
     scores = opm.match_scores(words, rows)
-    masked = torch.where(scores[:, : kw["d"]] >= cut[:, None], scores[:, : kw["d"]], -1)
-    reps = 12
-    whole_ms = min(graph_ms(lambda i: tmatcher._hash_topk_flat(*args, **kw), reps) for _ in range(2))
-    b2_ms = min(graph_ms(lambda i: opm.match_scores(words, rows), reps) for _ in range(2))
-    topk_ms = min(graph_ms(lambda i: torch.topk(masked, kw["kk"], dim=1), reps) for _ in range(2))
-    launches = device_launches(lambda: tmatcher._hash_topk_flat(*args, **kw))
-    q, w = scores.shape
-    res = dict(Q=q, score_columns=w, K=rows.shape[1], H=rows.shape[2], kk=kw["kk"], cap=kw["cap"],
-               whole_ms=whole_ms, b2_ms=b2_ms, epilogue_ms=whole_ms - b2_ms,
-               epilogue_launches=launches - 1, torch_topk_ms=topk_ms,
-               **bound(q * w * 4 + (kw["cap"] + q + 1) * 4, 0))
-    del scores, masked, rows
-    return res
+    q = scores.shape[0]
+    tied = scores >> 3  # 0..16 at K = 128: runs of equal scores at the edge
+    checked = {}
+    calls = {"first": (scores, cut, cap), "threshold_0": (scores, torch.zeros_like(cut), cap),
+             "ties": (tied, torch.full_like(cut, 4), cap), "small_cap": (scores, cut, None)}
+    for name, (sc, ct, cp) in calls.items():
+        win = tm.topk_scores_cuda(sc, ct, kk, d)
+        ref = tm._topk_scores_ref(sc, ct, kk, d)
+        same(f"threshold_topk ({name})", win, ref)
+        total = int(torch.clamp(ref[2], max=kk).sum())
+        cp = max(1, total // 3) if cp is None else cp
+        same(f"pack_hits ({name})", tm.pack_hits_cuda(*win, kk, cp), tm._pack_hits_ref(*ref, kk, cp))
+        checked[name] = dict(cap=cp, total=total, overflow_rows=int((ref[2] > kk).sum()),
+                             max_n_keep=int(ref[2].max()))
+    plain_flat = tm._pack_hits_ref(*tm._topk_scores_ref(scores, cut, kk, d), kk, cap)
+    same("_hash_topk_flat", tm._hash_topk_flat(*args, **kw), plain_flat)
+    small = checked["small_cap"]["cap"]
+    same("_hash_topk_flat (total > cap)", tm._hash_topk_flat(*args, **{**kw, "cap": small}),
+         tm._pack_hits_ref(*tm._topk_scores_ref(scores, cut, kk, d), kk, small))
+    dense_kw = {k: v for k, v in kw.items() if k != "cap"}
+    same("_hash_topk (the refetch)", tm._hash_topk(*args, **dense_kw), tm._topk_scores_ref(scores, cut, kk, d))
+    if not (checked["threshold_0"]["overflow_rows"] == q and checked["ties"]["overflow_rows"]
+            and checked["small_cap"]["total"] > small):
+        raise AssertionError(f"B5's extra calls missed their edge: {checked}")
+
+    # ROTATION input sets: the call's rows rolled, so the L2 does not serve
+    # one launch the last one's inputs
+    shifts = [(1537 * i) % q for i in range(ROTATION)]
+    his = [torch.roll(hi, sh, 0) for sh in shifts]
+    los = [torch.roll(lo, sh, 0) for sh in shifts]
+    nks = [torch.roll(nk, sh, 0) for sh in shifts]
+    scs = [torch.roll(scores, sh, 0) for sh in shifts]
+    cuts = [torch.roll(cut, sh, 0) for sh in shifts]
+    wins = [tm.topk_scores_cuda(scs[i], cuts[i], kk, d) for i in range(ROTATION)]
+    masked = [torch.where(scs[i][:, :d] >= cuts[i][:, None], scs[i][:, :d], -1) for i in range(ROTATION)]
+    reps = 4 * ROTATION
+    kernels = {
+        "hash_rows": (lambda i: tm.hash_rows_cuda(his[i], los[i], nks[i], s, pad_row),
+                      lambda i: tm._hash_rows_ref(his[i], los[i], nks[i], s, pad_row)),
+        "threshold_topk": (lambda i: tm.topk_scores_cuda(scs[i], cuts[i], kk, d),
+                           lambda i: tm._topk_scores_ref(scs[i], cuts[i], kk, d)),
+        "pack_hits": (lambda i: tm.pack_hits_cuda(*wins[i], kk, cap),
+                      lambda i: tm._pack_hits_ref(*wins[i], kk, cap)),
+    }
+    bounds = b5_bounds(hi, nk, q, d, kk, cap, checked["first"]["total"])
+    res = {}
+    for name, (kern, plain) in kernels.items():
+        ms = min(graph_ms(kern, reps, ROTATION) for _ in range(2))
+        plain_ms = min(cuda_ms(plain, reps, ROTATION) for _ in range(2))
+        b = bounds[name]
+        res[name] = dict(ms=ms, plain_ms=plain_ms, plain_launches=device_launches(lambda: plain(0)),
+                         library_ms=None, bound_share=b["bound_ms"] / ms, max_abs_err=err, **b)
+    topk = res["threshold_topk"]
+    topk["library_ms"] = min(graph_ms(lambda i: torch.topk(masked[i], kk, dim=1), reps, ROTATION)
+                             for _ in range(2))
+    whole_ms = min(graph_ms(lambda i: tm._hash_topk_flat(*args, **kw), 12) for _ in range(2))
+    b2_ms = min(graph_ms(lambda i: opm.match_scores(words, rows), 12) for _ in range(2))
+    per_call = device_launches(lambda: tm._hash_topk_flat(*args, **kw))
+    plain_epi = (lambda: tm._pack_hits_ref(*tm._topk_scores_ref(
+        opm.match_scores(words, tm._hash_rows_ref(hi, lo, nk, s, pad_row)), cut, kk, d), kk, cap))
+    plain_per_call = device_launches(plain_epi)
+    plain_whole_ms = min(graph_ms(lambda i: plain_epi(), 12) for _ in range(2))
+    del his, los, nks, scs, cuts, wins, masked, scores, tied, rows
+    torch.cuda.empty_cache()
+    return dict(
+        Q=q, K=hi.shape[1], H=hi.shape[2], d=d, kk=kk, cap=cap, calls=checked, kernels=res,
+        kernels_per_call=per_call, plain_kernels_per_call=plain_per_call, whole_ms=whole_ms, b2_ms=b2_ms,
+        b5_ms=sum(res[n]["ms"] for n in B5_KERNELS), b5_whole_less_b2_ms=whole_ms - b2_ms,
+        plain_whole_ms=plain_whole_ms, plain_b5_ms=plain_whole_ms - b2_ms, max_abs_err=err,
+    )
 
 
 # --- phase 5: the align stage's kernels B3 and B4 ------------------------------
@@ -983,16 +1143,19 @@ def kernel_count(dev: dict) -> int:
     return sum(n for k, (_, n) in dev.items() if not k.startswith(("Memcpy", "Memset")))
 
 
-def device_launches(fn) -> int:
-    """CUDA kernels one call of fn launches (torch.profiler)."""
+def device_launches(fn, calls: int = 3) -> int:
+    """CUDA kernels one call of fn launches (torch.profiler): the count over
+    `calls` calls in one profile, divided and rounded (a trace has been
+    seen to miss its first kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return kernel_count(device_table(prof))
+    return round(kernel_count(device_table(prof)) / calls)
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -1276,25 +1439,24 @@ def _align_outputs(wd: Path) -> dict:
 ALIGN_KERNELS = ("chain_scan", "extend_scan", "chain_select", "select_window", "finish_pack", "compact_cold")
 
 
-def _align_counts() -> dict:
+def _counting_modules() -> tuple:
+    """Every module that keeps a LaunchCounts of the port's kernels."""
     from phylign_tpu_torch.align import fused as fz
+    from phylign_tpu_torch.models import matcher as tm
     from phylign_tpu_torch.ops import chain as opc
     from phylign_tpu_torch.ops import extend as ope
     from phylign_tpu_torch.ops import match as opm
 
-    return {**opm.launch_counts(), **opc.launch_counts(), **ope.launch_counts(), **fz.launch_counts()}
+    return opm, tm, opc, ope, fz
+
+
+def _kernel_counts() -> dict:
+    return {k: v for m in _counting_modules() for k, v in m.launch_counts().items()}
 
 
 def _reset_counts() -> None:
-    from phylign_tpu_torch.align import fused as fz
-    from phylign_tpu_torch.ops import chain as opc
-    from phylign_tpu_torch.ops import extend as ope
-    from phylign_tpu_torch.ops import match as opm
-
-    opm.reset_launch_counts()
-    opc.reset_launch_counts()
-    ope.reset_launch_counts()
-    fz.reset_launch_counts()
+    for m in _counting_modules():
+        m.reset_launch_counts()
 
 
 def phase_fixture_all(work: Path) -> dict:
@@ -1311,11 +1473,11 @@ def phase_fixture_all(work: Path) -> dict:
         cli.main(["all", "--workdir", str(wd), "--config", str(wd / "config.yaml"),
                   "--device", dev, *inputs])
         secs[dev] = time.perf_counter() - t0
-        counts[dev] = _align_counts()
+        counts[dev] = _kernel_counts()
         outs[dev] = _align_outputs(wd)
     c = counts["cuda"]
-    if not all(c[k] for k in ALIGN_KERNELS):
-        raise AssertionError(f"fixture `all` did not launch B3, B4 and B6: {c}")
+    if not all(c[k] for k in (*ALIGN_KERNELS, *B5_KERNELS)):
+        raise AssertionError(f"fixture `all` did not launch B3, B4, B5 and B6: {c}")
     if any(counts["cpu"].values()):
         raise AssertionError(f"the CPU run launched kernels: {counts['cpu']}")
     if outs["cuda"] != outs["cpu"]:
@@ -1526,7 +1688,7 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
         fz.compact_cold_cuda = compact
     align_s = time.perf_counter() - t0
     cold_rows = [dict(pairs=n, needed=int(c)) for n, c in cold_need]
-    counts = _align_counts()
+    counts = _kernel_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     t1 = time.perf_counter()
     summary = pl.aggregate(stem)
@@ -1678,7 +1840,7 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
         res = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts[key] = _align_counts()
+        counts[key] = _kernel_counts()
         return res, secs
 
     # (b) phase 4's batches through score_hits_raw, 2x2 mesh against 1x1
@@ -1719,8 +1881,9 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
     got, want = _outputs(wd), _outputs(work / "fixture_all_cuda")
     if got != want:
         raise AssertionError(f"fixture on the 2x2 mesh differs from phase 6 in {[k for k in want if got.get(k) != want[k]]}")
-    # a mesh ships the full cold rows (no compaction), as the JAX mesh path does
-    if not all(v for k, v in counts["c"].items() if k != "compact_cold"):
+    # a mesh ships the full cold rows (no compaction), as the JAX mesh path
+    # does, and takes its top-k per doc shard (no B5)
+    if not all(v for k, v in counts["c"].items() if k not in ("compact_cold", *B5_KERNELS)):
         raise AssertionError(f"the fixture on the 2x2 mesh did not launch every kernel: {counts['c']}")
     emit("mesh_fixture", mesh="2x2", files=len(got), seconds=secs, launches=counts["c"],
          one_device="identical", card=label)
@@ -1862,7 +2025,7 @@ def phase_cli(work: Path, label: str, p7: dict) -> dict:
         _reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        counts[key] = _align_counts()
+        counts[key] = _kernel_counts()
         return out
 
     src = work / "align"
@@ -1928,8 +2091,8 @@ def phase_cli(work: Path, label: str, p7: dict) -> dict:
     out = drive("c", lambda: run_cli(["all", "--workdir", str(wd), "--config", str(wd / "config.yaml"), reads_fq]))
     all_s = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    if not (counts["c"]["match_popcount_b2"] and all(counts["c"][k] for k in ALIGN_KERNELS)):
-        raise AssertionError(f"`cli all` on the self-built indexes did not launch B2, B3, B4 and B6: {counts['c']}")
+    if not (counts["c"]["match_popcount_b2"] and all(counts["c"][k] for k in (*ALIGN_KERNELS, *B5_KERNELS))):
+        raise AssertionError(f"`cli all` on the self-built indexes did not launch B2, B3, B4, B5 and B6: {counts['c']}")
     summary = Path(out.strip().split(": ", 1)[1])
     stem = summary.name.split(".sam_summary")[0]
     thr, keep = 0.7, 100  # Config defaults, which this workdir keeps
@@ -2005,8 +2168,8 @@ def phase_cli(work: Path, label: str, p7: dict) -> dict:
     t_out = drive("e", lambda: run_cli(["test", "--workdir", str(work / "p9_test")]))
     if "test PASSED" not in t_out:
         raise AssertionError(f"cli test: {t_out!r}")
-    if not (counts["e"]["match_popcount_b2"] and all(counts["e"][k] for k in ALIGN_KERNELS)):
-        raise AssertionError(f"`cli test` did not launch B2, B3, B4 and B6: {counts['e']}")
+    if not (counts["e"]["match_popcount_b2"] and all(counts["e"][k] for k in (*ALIGN_KERNELS, *B5_KERNELS))):
+        raise AssertionError(f"`cli test` did not launch B2, B3, B4, B5 and B6: {counts['e']}")
     rest = {
         "stats": ["stats", str(summary), "--queries", str(wd / "intermediate" / "01_queries_merged" / f"{stem}.fa")],
         "report": ["report", "--workdir", str(wd)],
@@ -2121,7 +2284,7 @@ def main(argv: list[str] | None = None) -> int:
     work.mkdir(parents=True)
     try:
         c3 = phase_fixture(work)
-        c4 = phase_full_geometry(work, label)
+        c4, b5 = phase_full_geometry(work, label)
         c6 = phase_fixture_all(work)
         c7, p7 = phase_align_geometry(work, label, args.profile)
         mkern = phase_mesh_kernels(label)
@@ -2172,6 +2335,18 @@ def main(argv: list[str] | None = None) -> int:
             ms=k["ms"], plain_ms=k["plain_ms"], plain_launches=k["plain_launches"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], bound_share=k["bound_share"], bytes=k["bytes"],
             operations=k["operations"], library_ms=None,
+        ))
+    for name in B5_KERNELS:
+        k = b5["kernels"][name]
+        table.append(dict(
+            name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+            launches=c3[name] + c4[name] + c6[name] + c8[name] + c9[name], launches_phase3=c3[name],
+            launches_phase4=c4[name], launches_phase6=c6[name], launches_phase8=c8[name],
+            launches_phase9=c9[name], case=f"phase 4's first call: Q={b5['Q']}, K={b5['K']}, d={b5['d']}, "
+            f"kk={b5['kk']}, cap={b5['cap']}", max_abs_err=k["max_abs_err"],
+            ms=k["ms"], plain_ms=k["plain_ms"], plain_launches=k["plain_launches"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], bound_share=k["bound_share"], bytes=k["bytes"],
+            operations=k["operations"], library_ms=k["library_ms"],
         ))
     emit("runtime", script_s=time.perf_counter() - t_start, card=label)
     print(json.dumps({"kernels": table}), flush=True)

@@ -4,7 +4,8 @@
 Holds one batch's packed Bloom bit-matrix on the device and scores query
 k-mers against it: hash -> Bloom row, gather + vertical popcount (the
 kernels of ``phylign_tpu_torch.ops.match``), integer threshold, top-k and
-hit compaction on the device; only the qualifying hits cross to the host.
+hit compaction on the device (kernel B5, ``csrc/match_epilogue.cu``, on the
+card); only the qualifying hits cross to the host.
 The text postprocessing stays on the host (``phylign_tpu_torch.match``).
 
 Unsigned data live in signed tensors with the same bits: words and the hit
@@ -21,6 +22,7 @@ import torch
 
 from phylign_tpu_torch.io.cobs import DeviceIndex
 from phylign_tpu_torch.kmer import cobs_row_indices, encode_seq, rows_from_hashes
+from phylign_tpu_torch.ops import _kernels
 from phylign_tpu_torch.ops.match import (
     dedup_rows,
     match_scores,
@@ -58,7 +60,7 @@ def _compact_scores(
     return scores[:, :d_pad].to(dtype)
 
 
-def _topk_scores(
+def _topk_scores_ref(
     scores: torch.Tensor, cut: torch.Tensor, kk: int, d: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Device-side threshold + top-k: returns (vals int32 [Q, kk], idx int32
@@ -70,14 +72,16 @@ def _topk_scores(
     idx 0, and n_keep bounds the real count. When n_keep[q] > kk the caller
     re-scores that query on the dense path.
 
-    ``torch.topk`` puts equal values in no promised order (jax.lax.top_k
-    puts the lower index first). No caller depends on it: a window with
-    n_keep <= kk holds every qualifying doc, a larger one is re-scored, and
-    the 03_match writer sorts by (-score, name)."""
+    The window's order is defined: (score descending, doc ascending), the
+    first kk columns of a stable descending sort, which is the order
+    ``jax.lax.top_k`` gives (the lower index first among equal values). So
+    the window, and the flat hit buffer packed from it, equal the JAX
+    package's bit for bit."""
     s = scores[:, :d]
     ok = s >= cut[:, None]
     masked = torch.where(ok, s, torch.full_like(s, -1))
-    vals, idx = torch.topk(masked, kk, dim=1)
+    vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :kk], idx[:, :kk]
     n_keep = ok.sum(dim=1, dtype=torch.int32)
     keep = vals >= 0
     zero = torch.zeros_like(vals)
@@ -102,7 +106,7 @@ def _rows_from_hashes(
     return ((hi % s) * ((1 << 32) % s) + lo % s) % s
 
 
-def _hash_rows(
+def _hash_rows_ref(
     hi: torch.Tensor, lo: torch.Tensor, nk: torch.Tensor, s: int, pad_row: int
 ) -> torch.Tensor:
     """int32 [Q, K, H] Bloom rows; slots at or past a query's k-mer count
@@ -111,6 +115,187 @@ def _hash_rows(
     col = torch.arange(hi.shape[1], device=hi.device)
     valid = col[None, :, None] < nk[:, None, None]
     return torch.where(valid, rows, torch.full_like(rows, pad_row)).to(torch.int32)
+
+
+def _pack_hits_ref(
+    vals: torch.Tensor, idx: torch.Tensor, n_keep: torch.Tensor, kk: int, cap: int
+) -> torch.Tensor:
+    """The flat hit buffer int32 [cap hits | Q n_keep | total] from a top-k
+    window: each query's take = min(n_keep, kk) (score << 16 | doc) words,
+    the queries one after another; total = the sum of the takes.
+
+    Every value fits int32 (score <= K <= 512 < 2**15, doc < 2**16); the
+    host views the buffer as uint32. Words at positions >= cap are dropped:
+    they are routed to one scratch slot past the returned buffer, inside
+    the allocation, so nothing is written out of range and the scatter
+    needs no device-to-host sync."""
+    q = n_keep.shape[0]
+    dev = n_keep.device
+    take = torch.clamp(n_keep, max=kk).to(torch.int64)
+    off = torch.cumsum(take, 0) - take
+    colk = torch.arange(kk, device=dev)
+    pos = off[:, None] + colk[None, :]
+    valid = (colk[None, :] < take[:, None]) & (pos < cap)
+    scratch = cap + q + 1
+    out = torch.zeros(scratch + 1, dtype=torch.int32, device=dev)
+    packed = (vals << 16) | idx
+    out.index_put_((torch.where(valid, pos, scratch).reshape(-1),), packed.reshape(-1))
+    out[cap : cap + q] = n_keep
+    out[cap + q] = take.sum().to(torch.int32)
+    return out[:scratch]
+
+
+# --- kernel B5, the match epilogue (csrc/match_epilogue.cu) -------------------
+
+_launches = _kernels.LaunchCounts("hash_rows", "threshold_topk", "pack_hits")
+
+
+def launch_counts() -> dict[str, int]:
+    """B5's kernel launches since the last reset, by kernel name."""
+    return _launches.snapshot()
+
+
+def reset_launch_counts() -> None:
+    _launches.reset()
+
+
+def _on_one_cuda_device(what: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{what} runs on CUDA tensors on one device; got "
+            f"{[str(t.device) for t in tensors]}"
+        )
+    return dev
+
+
+def hash_rows_cuda(
+    hi: torch.Tensor, lo: torch.Tensor, nk: torch.Tensor, s: int, pad_row: int
+) -> torch.Tensor:
+    """Kernel B5a (replaces ``_rows_from_hashes_dev`` and the padding-row
+    mask of ``phylign_tpu/models/matcher.py:_hash_topk``). CUDA tensors
+    only; same contract as _hash_rows_ref for hash halves below 2**32."""
+    dev = _on_one_cuda_device("hash_rows", hi, lo, nk)
+    if (hi.dtype, lo.dtype, nk.dtype) != (torch.int64, torch.int64, torch.int32):
+        raise TypeError(f"hash_rows takes int64 hi, lo and int32 nk; got {hi.dtype}, {lo.dtype}, {nk.dtype}")
+    if hi.dim() != 3 or lo.shape != hi.shape or nk.shape != hi.shape[:1]:
+        raise ValueError(
+            f"hash_rows: hi and lo must be [Q, K, H] and nk [Q]; got "
+            f"{tuple(hi.shape)}, {tuple(lo.shape)}, {tuple(nk.shape)}"
+        )
+    if not (hi.is_contiguous() and lo.is_contiguous() and nk.is_contiguous()):
+        raise ValueError("hash_rows takes contiguous tensors")
+    if not 0 < s < 1 << 31 or not -(1 << 31) <= pad_row < 1 << 31:
+        raise ValueError(f"hash_rows: s = {s} outside 1..2**31-1 or pad_row {pad_row} outside int32")
+    q, k, h = hi.shape
+    rows = torch.empty((q, k, h), dtype=torch.int32, device=dev)
+    if rows.numel():
+        _kernels.launch(
+            _launches, "hash_rows", "match_epilogue", "phylign_hash_rows",
+            hi, lo, nk, q, k, h, int(s), int(pad_row), rows,
+        )
+    return rows
+
+
+def topk_scores_cuda(
+    scores: torch.Tensor, cut: torch.Tensor, kk: int, d: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B5b (replaces ``phylign_tpu/models/matcher.py:_topk_scores``).
+    CUDA tensors only; same contract and order as _topk_scores_ref for
+    scores >= 0, at any kk <= d (a window past 512 keeps its stash in a
+    device workspace). The kernel reads each row in 16-byte loads, so the
+    rows must start 16-byte aligned, a multiple of 4 words apart, and hold
+    d rounded up to 4 columns: the [Q, 32 Wp] matrices B1/B2 write."""
+    dev = _on_one_cuda_device("threshold_topk", scores, cut)
+    if (scores.dtype, cut.dtype) != (torch.int32, torch.int32):
+        raise TypeError(f"threshold_topk takes int32 scores and cut; got {scores.dtype}, {cut.dtype}")
+    if scores.dim() != 2 or cut.shape != scores.shape[:1] or not cut.is_contiguous():
+        raise ValueError(
+            f"threshold_topk: scores must be [Q, W] and cut a contiguous [Q]; got "
+            f"{tuple(scores.shape)}, {tuple(cut.shape)}"
+        )
+    q, w = scores.shape
+    if not 0 <= kk <= d <= w:
+        raise ValueError(f"threshold_topk needs 0 <= kk <= d <= W; got kk={kk}, d={d}, W={w}")
+    if not (
+        scores.stride(1) == 1 and scores.stride(0) % 4 == 0 and w >= round_up(d, 4)
+        and scores.data_ptr() % 16 == 0
+    ):
+        raise ValueError(
+            "threshold_topk takes rows that start 16-byte aligned, a multiple of 4 "
+            f"words apart, of at least d rounded up to 4 columns; got strides "
+            f"{scores.stride()}, W={w}, d={d}"
+        )
+    vals = torch.empty((q, kk), dtype=torch.int32, device=dev)
+    idx = torch.empty((q, kk), dtype=torch.int32, device=dev)
+    n_keep = torch.empty(q, dtype=torch.int32, device=dev)
+    if q:
+        ws_bytes = _kernels.library("match_epilogue").phylign_threshold_topk_workspace(q, kk)
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
+        _kernels.launch(
+            _launches, "threshold_topk", "match_epilogue", "phylign_threshold_topk",
+            scores, scores.stride(0), cut, q, d, kk, ws, vals, idx, n_keep,
+        )
+    return vals, idx, n_keep
+
+
+def pack_hits_cuda(
+    vals: torch.Tensor, idx: torch.Tensor, n_keep: torch.Tensor, kk: int, cap: int
+) -> torch.Tensor:
+    """Kernel B5c (replaces the flat packing of ``phylign_tpu/models/
+    matcher.py:_hash_topk_flat``). CUDA tensors only; same contract as
+    _pack_hits_ref."""
+    dev = _on_one_cuda_device("pack_hits", vals, idx, n_keep)
+    if (vals.dtype, idx.dtype, n_keep.dtype) != (torch.int32,) * 3:
+        raise TypeError(f"pack_hits takes int32 tensors; got {vals.dtype}, {idx.dtype}, {n_keep.dtype}")
+    q = n_keep.shape[0]
+    if n_keep.dim() != 1 or vals.shape != (q, kk) or idx.shape != (q, kk):
+        raise ValueError(
+            f"pack_hits: vals and idx must be [Q, kk] = [{q}, {kk}] and n_keep [Q]; got "
+            f"{tuple(vals.shape)}, {tuple(idx.shape)}, {tuple(n_keep.shape)}"
+        )
+    if not (vals.is_contiguous() and idx.is_contiguous() and n_keep.is_contiguous()):
+        raise ValueError("pack_hits takes contiguous tensors")
+    if cap < 0:
+        raise ValueError(f"pack_hits: cap = {cap} < 0")
+    out = torch.empty(cap + q + 1, dtype=torch.int32, device=dev)
+    _kernels.launch(
+        _launches, "pack_hits", "match_epilogue", "phylign_pack_hits",
+        vals, idx, n_keep, q, kk, cap, out,
+    )
+    return out
+
+
+def _by_device(t: torch.Tensor, plain, kernel, *args):
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor;
+    any other device raises."""
+    if t.device.type == "cpu":
+        return plain(*args)
+    if t.device.type != "cuda":
+        raise ValueError(f"no match epilogue kernel for device {t.device}")
+    return kernel(*args)
+
+
+def _hash_rows(
+    hi: torch.Tensor, lo: torch.Tensor, nk: torch.Tensor, s: int, pad_row: int
+) -> torch.Tensor:
+    """_hash_rows_ref on a CPU tensor, kernel B5a on a CUDA tensor."""
+    return _by_device(hi, _hash_rows_ref, hash_rows_cuda, hi, lo, nk, s, pad_row)
+
+
+def _topk_scores(
+    scores: torch.Tensor, cut: torch.Tensor, kk: int, d: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """_topk_scores_ref on a CPU tensor, kernel B5b on a CUDA tensor: the
+    one dispatch point of every threshold + top-k of the matcher."""
+    return _by_device(scores, _topk_scores_ref, topk_scores_cuda, scores, cut, kk, d)
+
+
+def _pack_hits(
+    vals: torch.Tensor, idx: torch.Tensor, n_keep: torch.Tensor, kk: int, cap: int
+) -> torch.Tensor:
+    """_pack_hits_ref on a CPU tensor, kernel B5c on a CUDA tensor."""
+    return _by_device(n_keep, _pack_hits_ref, pack_hits_cuda, vals, idx, n_keep, kk, cap)
 
 
 def _hash_topk(
@@ -125,9 +310,9 @@ def _hash_topk(
     kk: int,
     d: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Hash -> row, gather/popcount (the hand-written kernel on CUDA),
-    threshold + top-k, over device-resident raw query hashes: per batch only
-    the [Q] cut vector and the hit window cross the link."""
+    """Hash -> row (B5a), gather/popcount (B1/B2), threshold + top-k (B5b)
+    over device-resident raw query hashes: per batch only the [Q] cut
+    vector and the hit window cross the link."""
     rows = _hash_rows(hi, lo, nk, s, pad_row)
     scores = match_scores(words, rows)
     return _topk_scores(scores, cut, kk, d)
@@ -146,34 +331,16 @@ def _hash_topk_flat(
     d: int,
     cap: int,
 ) -> torch.Tensor:
-    """_hash_topk with the hit window compacted on the device: qualifying
-    (score << 16 | doc) pairs pack into one flat buffer of the queries'
-    take counts (take = min(n_keep, kk)). Returns ONE int32 tensor
+    """_hash_topk with the hit window compacted on the device (B5c):
+    qualifying (score << 16 | doc) pairs pack into one flat buffer of the
+    queries' take counts (take = min(n_keep, kk)). Returns ONE int32 tensor
     [cap hits | Q n_keep | total] so the fetch is a single copy; total >
-    cap signals overflow (the caller refetches the dense window).
-
-    Every value fits int32 (score <= K <= 512 < 2**15, doc < 2**16); the
-    host views the buffer as uint32. Hits at positions >= cap are dropped:
-    they are routed to one scratch slot past the returned buffer, inside
-    the allocation, so nothing is written out of range and the scatter
-    needs no device-to-host sync."""
+    cap signals overflow (the caller refetches the dense window). On the
+    card: four kernels, B5a, B1/B2, B5b, B5c."""
     vals, idx, n_keep = _hash_topk(
         words, hi, lo, nk, cut, s=s, pad_row=pad_row, kk=kk, d=d
     )
-    q = hi.shape[0]
-    dev = hi.device
-    take = torch.clamp(n_keep, max=kk).to(torch.int64)
-    off = torch.cumsum(take, 0) - take
-    colk = torch.arange(kk, device=dev)
-    pos = off[:, None] + colk[None, :]
-    valid = (colk[None, :] < take[:, None]) & (pos < cap)
-    scratch = cap + q + 1
-    out = torch.zeros(scratch + 1, dtype=torch.int32, device=dev)
-    packed = (vals << 16) | idx
-    out.index_put_((torch.where(valid, pos, scratch).reshape(-1),), packed.reshape(-1))
-    out[cap : cap + q] = n_keep
-    out[cap + q] = take.sum().to(torch.int32)
-    return out[:scratch]
+    return _pack_hits(vals, idx, n_keep, kk, cap)
 
 
 @dataclass

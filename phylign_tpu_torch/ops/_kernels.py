@@ -186,6 +186,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.phylign_finish_pack.argtypes = [p, p, p, p, p, p, *[i32] * 7, p, p, p]
         # hot, cold_i, cold_f, p, n_out, cap, cc_i, cc_f, stream
         lib.phylign_compact_cold.argtypes = [p, p, p, *[i32] * 3, p, p, p]
+    elif name == "match_epilogue":
+        for fn in (lib.phylign_hash_rows, lib.phylign_threshold_topk, lib.phylign_pack_hits):
+            fn.restype = i32
+        lib.phylign_threshold_topk_workspace.restype = i64
+        lib.phylign_threshold_topk_workspace.argtypes = [i32, i32]
+        # hi, lo, nk, q, k, h, s, pad_row, rows, stream
+        lib.phylign_hash_rows.argtypes = [p, p, p, i32, i32, i32, i64, i32, p, p]
+        # scores, stride, cut, q, d, kk, ws, vals, idx, n_keep, stream
+        lib.phylign_threshold_topk.argtypes = [p, i64, p, i32, i32, i32, p, p, p, p, p]
+        # vals, idx, n_keep, q, kk, cap, out, stream
+        lib.phylign_pack_hits.argtypes = [p, p, p, i32, i32, i32, p, p]
     lib.phylign_cuda_error_string.restype = ctypes.c_char_p
     lib.phylign_cuda_error_string.argtypes = [i32]
 

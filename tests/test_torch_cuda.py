@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (B1/B2 of the match stage, B3/B4/B6 of
+"""The hand-written CUDA kernels (B1/B2/B5 of the match stage, B3/B4/B6 of
 the align stage) and the port's pipeline on an NVIDIA GPU. Every test here needs the card: it is marked ``cuda`` and skips
 without one. On a machine with the card (which has no jax, so the repo's
 conftest is left out):
@@ -130,30 +130,209 @@ def test_misaligned_table_and_clamped_rows(cuda):
     assert torch.equal(opm.match_scores_b1(words, bad), opm.match_scores_ref(words, clamped))
 
 
-def test_hash_topk_flat_equals_cpu(cuda):
-    rng = np.random.default_rng(0)
-    s, wp, q, k = 997, 3, 40, 64
+def _hash_case(seed, q=40, k=64, h=1, s=997, wp=3, thr=0.45):
+    """Words, hash halves, k-mer counts and cuts (numpy) of a small batch:
+    hashes >= 2**63 in the first rows, the last three queries empty."""
+    rng = np.random.default_rng(seed)
     words = np.zeros((s + 1, wp), np.uint32)
     words[:s] = rng.integers(0, 2**32, (s, wp), dtype=np.uint32)
-    raw = rng.integers(0, 2**64, (q, k, 1), dtype=np.uint64)
+    raw = rng.integers(0, 2**64, (q, k, h), dtype=np.uint64)
+    raw[:5] |= np.uint64(2**63)
     nk = rng.integers(40, k + 1, q).astype(np.int32)
-    cut = tm._int_cut(0.45, nk)
-    args = [
+    nk[-3:] = 0
+    return [
         words.view(np.int32), (raw >> np.uint64(32)).astype(np.int64),
-        (raw & np.uint64(0xFFFFFFFF)).astype(np.int64), nk, cut,
+        (raw & np.uint64(0xFFFFFFFF)).astype(np.int64), nk, tm._int_cut(thr, nk),
     ]
-    kw = dict(s=s, pad_row=s, kk=96, d=96, cap=q * 96)  # kk = d: no ties cut
-    out = [
-        tm._hash_topk_flat(*[torch.from_numpy(a).to(dev) for a in args], **kw).cpu().numpy()
-        for dev in ("cpu", cuda)
-    ]
-    cap = kw["cap"]
-    np.testing.assert_array_equal(out[1][cap:], out[0][cap:])  # n_keep, total
-    take = out[0][cap : cap + q]
-    offs = np.cumsum(take) - take
-    for i in range(q):
-        seg = slice(offs[i], offs[i] + take[i])
-        assert sorted(out[1][seg]) == sorted(out[0][seg])
+
+
+@pytest.mark.parametrize("h,kk,cap_frac", [(1, 96, 1.0), (1, 64, 1.0), (1, 64, 0.3), (3, 64, 1.0)])
+def test_hash_topk_flat_equals_cpu(cuda, h, kk, cap_frac):
+    """The whole flat buffer of _hash_topk_flat on the card equals the CPU
+    run word for word (the window's order is defined), through four
+    kernels: B5a, B1/B2, B5b, B5c; with cap_frac 0.3 total > cap, and the
+    dense refetch (_hash_topk: B5a, B1/B2, B5b) equals the CPU's too."""
+    args = _hash_case(h, h=h, thr=0.45 / h)
+    q = args[1].shape[0]
+    kw = dict(s=997, pad_row=997, kk=kk, d=96, cap=max(1, int(cap_frac * q * kk)))
+    want = tm._hash_topk_flat(*[torch.from_numpy(a) for a in args], **kw)
+    dev_args = [torch.from_numpy(a).to(cuda) for a in args]
+    tm.reset_launch_counts()
+    opm.reset_launch_counts()
+    got = tm._hash_topk_flat(*dev_args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert tm.launch_counts() == {"hash_rows": 1, "threshold_topk": 1, "pack_hits": 1}
+    assert sum(opm.launch_counts().values()) == 1
+    assert (int(want[-1]) > kw["cap"]) == (cap_frac < 1)
+    kw.pop("cap")
+    for a, b in zip(tm._hash_topk(*dev_args, **kw), tm._hash_topk(*[torch.from_numpy(a) for a in args], **kw)):
+        assert torch.equal(a.cpu(), b)
+
+
+#: B5b's cases: (Q, W, d, kk, kind): small; phase 4's call (9,216 rows of
+#: 2,176 columns, d 2,169, kk 160); threshold 0 (every row overflows kk);
+#: ties at the window's edge; kk == d past the shared-memory stash (the
+#: device workspace), all qualifying and few; kk past 512 with ties;
+#: segment scores past 2**16; kk 0 with d not a multiple of 4
+B5B_CASES = [
+    (37, 96, 96, 64, "hits"),
+    (9216, 2176, 2169, 160, "hits"),
+    (2048, 2176, 2169, 160, "zero"),
+    (2048, 2176, 2169, 160, "ties"),
+    (64, 2176, 2169, 2169, "zero"),
+    (64, 2176, 2169, 2169, "hits"),
+    (300, 2176, 2169, 600, "ties"),
+    (500, 512, 301, 96, "wide"),
+    (5, 160, 131, 0, "hits"),
+]
+
+
+def _score_rows(gen, q, w, d, kind, dev):
+    """int32 scores [Q, W] and cuts [Q] on the card: phase 4's kind (few
+    docs at or above a cut of 84, every 7th query without k-mers), a cut of
+    0, scores tied around the cut, or scores up to 2**20 in steps of 1,000;
+    columns past d hold a large score that must never count."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    s, cut = ints(0, 40, (q, w)), torch.full((q,), 84, dtype=torch.int32, device=dev)
+    if kind == "hits":
+        hit = torch.rand((q, w), generator=gen, device=dev) < max(0.002, 4 / w)
+        s = torch.where(hit, ints(84, 129, (q, w)), s)
+        cut[::7] = 1 << 30
+    elif kind == "zero":
+        cut.zero_()
+    elif kind == "ties":
+        s, cut = ints(80, 90, (q, w)), ints(80, 90, (q,))
+    else:
+        s, cut = ints(0, 1 << 10, (q, w)) * 1000, ints(0, 1 << 20, (q,))
+    s[:, d:] = 1 << 29
+    return s, cut
+
+
+@pytest.mark.parametrize("q,w,d,kk,kind", B5B_CASES)
+def test_threshold_topk_equals_plain_version(cuda, q, w, d, kk, kind):
+    """Kernel B5b against _topk_scores_ref (a stable sort on the card):
+    vals, idx and n_keep equal, the order inside the window included."""
+    g = torch.Generator(device=cuda).manual_seed(q + w + kk)
+    s, cut = _score_rows(g, q, w, d, kind, cuda)
+    before = tm.launch_counts()["threshold_topk"]
+    got = tm.topk_scores_cuda(s, cut, kk, d)
+    torch.cuda.synchronize()
+    assert tm.launch_counts()["threshold_topk"] == before + 1
+    want = tm._topk_scores_ref(s, cut, kk, d)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    n_keep = want[2]
+    if kind in ("zero", "ties") and 0 < kk < d:
+        assert (n_keep > kk).any()
+    if kind == "hits" and kk:
+        assert (n_keep > 0).any() and (n_keep == 0).any()
+
+
+def test_threshold_topk_refuses_unaligned_scores(cuda):
+    """Rows the kernel cannot read in 16-byte loads (a view one column in,
+    a row stride not a multiple of 4, too few columns) are refused before
+    any launch."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    s, cut = _score_rows(g, 100, 332, 330, "ties", cuda)
+    before = tm.launch_counts()
+    for bad, d in ((s[:, 1:], 300), (s[:, :331].contiguous(), 300), (s[:, :330], 329)):
+        with pytest.raises(ValueError, match="16-byte"):
+            tm._topk_scores(bad, cut, 64, d)
+    assert tm.launch_counts() == before
+
+
+@pytest.mark.parametrize("q,k,h,s", [
+    (37, 64, 1, 997), (9216, 128, 1, 2_000_000), (1024, 128, 3, 2_000_000),
+    (50, 33, 2, 2**31 - 1), (3, 700, 5, 1000),
+])
+def test_hash_rows_equals_plain_version(cuda, q, k, h, s):
+    """Kernel B5a against _hash_rows_ref: hashes >= 2**63, empty and full
+    queries, phase 4's and phase 3's shapes (H = 1 and 3)."""
+    rng = np.random.default_rng(q + k + h)
+    raw = rng.integers(0, 2**64, (q, k, h), dtype=np.uint64)
+    raw[:5] |= np.uint64(2**63)
+    hi = torch.from_numpy((raw >> np.uint64(32)).astype(np.int64))
+    lo = torch.from_numpy((raw & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    nk = torch.from_numpy(rng.integers(0, k + 1, q).astype(np.int32))
+    nk[0], nk[-1] = k, 0
+    before = tm.launch_counts()["hash_rows"]
+    got = tm.hash_rows_cuda(hi.to(cuda), lo.to(cuda), nk.to(cuda), s, s)
+    torch.cuda.synchronize()
+    assert tm.launch_counts()["hash_rows"] == before + 1
+    assert torch.equal(got.cpu(), tm._hash_rows_ref(hi, lo, nk, s, s))
+
+
+@pytest.mark.parametrize("q,kk,cap,share_empty", [
+    (37, 64, 500, 0.5), (9216, 160, 9216 * 112, 0.9), (9216, 160, 3000, 0.5),
+    (1, 8, 3, 0.0), (0, 8, 5, 0.0), (700, 32, 0, 0.3), (257, 16, 4000, 0.5),
+])
+def test_pack_hits_equals_plain_version(cuda, q, kk, cap, share_empty):
+    """Kernel B5c against _pack_hits_ref, every word: blocks of 256 (one,
+    ragged, 36), the cap inside a block's run, cap 0, Q = 0."""
+    rng = np.random.default_rng(q + kk + cap)
+    n_keep = rng.integers(0, 2 * kk, q).astype(np.int32)
+    n_keep[rng.random(q) < share_empty] = 0
+    vals = rng.integers(0, 513, (q, kk)).astype(np.int32)
+    idx = rng.integers(0, 65536, (q, kk)).astype(np.int32)
+    host = [torch.from_numpy(a) for a in (vals, idx, n_keep)]
+    got = tm.pack_hits_cuda(*[t.to(cuda) for t in host], kk, cap)
+    assert torch.equal(got.cpu(), tm._pack_hits_ref(*host, kk, cap))
+
+
+def test_matcher_top_k_paths_on_card_equal_cpu(cuda):
+    """Every caller of the top-k on the card (the hash path, whole and as
+    its begin/end halves, score_hits_unique, the chunked matcher) gives
+    the CPU run's hit lists, in the same order, through B5."""
+    from phylign_tpu_torch.kmer import cobs_kmer_hashes_batch, encode_seq
+
+    didx, seqs = _planted_index()
+    raw = cobs_kmer_hashes_batch([encode_seq(x) for x in seqs], 31, 1)
+    tm.reset_launch_counts()
+    for thr, topn in ((0.7, 5), (0.0, 3)):
+        res = {}
+        for dev in ("cpu", cuda):
+            m = tm.Matcher.from_device_index(didx, dev)
+            dq = tm.DeviceQueryHashes.build(raw, dev)
+            ch = tm.ChunkedMatcher.from_device_index(didx, 1, device=dev)
+            res[str(dev)] = [
+                m.score_hits(seqs, thr, topn), m.score_hits_hashes(dq, thr, topn),
+                m.score_hits_hashes_end(m.score_hits_hashes_begin(dq, thr, topn, cap=1)),
+                ch.score_hits(seqs, thr, topn),
+            ]
+        for (h_cpu, n_cpu), (h_dev, n_dev) in zip(res["cpu"], res[str(cuda)]):
+            assert h_dev == h_cpu
+            np.testing.assert_array_equal(n_dev, n_cpu)
+    assert all(tm.launch_counts().values()), tm.launch_counts()
+
+
+def test_b5_library_failure_raises_kernel_error(cuda, monkeypatch):
+    """A CUDA tensor whose kernel library cannot load raises KernelError:
+    no plain version runs, no launch is counted."""
+    from phylign_tpu_torch.ops import _kernels
+
+    def broken(name):
+        raise _kernels.KernelError(f"cannot load the {name} library: test")
+
+    def plain(*a):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(_kernels, "library", broken)
+    for name in ("_hash_rows_ref", "_topk_scores_ref", "_pack_hits_ref"):
+        monkeypatch.setattr(tm, name, plain)
+    before = tm.launch_counts()
+    i64 = torch.zeros((4, 8, 1), dtype=torch.int64, device=cuda)
+    i32 = torch.zeros((4, 32), dtype=torch.int32, device=cuda)
+    n = torch.ones(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(_kernels.KernelError):
+        tm._hash_rows(i64, i64, n, 997, 997)
+    with pytest.raises(_kernels.KernelError):
+        tm._topk_scores(i32, n, 8, 32)
+    with pytest.raises(_kernels.KernelError):
+        tm._pack_hits(i32, i32, n, 32, 10)
+    assert tm.launch_counts() == before
 
 
 def test_pipeline_on_cuda_equals_cpu(cuda, tmp_path):

@@ -190,9 +190,11 @@ KERNEL_ENTRIES = {
     "extend_scan": ("phylign_extend_scan",),
     "flush_epilogue": ("phylign_chain_select", "phylign_select_window", "phylign_finish_pack",
                        "phylign_compact_cold"),
+    "match_epilogue": ("phylign_hash_rows", "phylign_threshold_topk", "phylign_pack_hits"),
 }
 #: exported sizes a wrapper asks for before its launch (int64_t results)
-KERNEL_QUERIES = {"flush_epilogue": ("phylign_chain_select_workspace",)}
+KERNEL_QUERIES = {"flush_epilogue": ("phylign_chain_select_workspace",),
+                  "match_epilogue": ("phylign_threshold_topk_workspace",)}
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_ENTRIES))

@@ -1,0 +1,394 @@
+"""Kernel B5, the match epilogue (``csrc/match_epilogue.cu``), on the CPU.
+
+The port's plain versions (``models/matcher._topk_scores_ref``,
+``_hash_rows_ref``, ``_pack_hits_ref``) against the JAX package's
+``_topk_scores``, ``_hash_topk`` and ``_hash_topk_flat`` on inputs made
+from a numpy seed: the window in ``jax.lax.top_k``'s order (score
+descending, doc ascending) and the whole flat hit buffer, bit for bit.
+Then a numpy emulation of each kernel's own algorithm (B5a's thread per
+slot in 64-bit unsigned arithmetic, B5b's warp per row with its 16-byte
+chunks, stash, radix-select digits and LSD rank rule, B5c's blocks of 256
+queries, each recounting every take before it), held to the plain
+versions, and mutants of the emulations that the comparison must catch.
+Tolerance: exact (0 difference, whole buffers)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_matcher import _hash_inputs, _t
+
+from phylign_tpu.models import matcher as jm
+from phylign_tpu_torch.models import matcher as tm
+
+NO_KMERS = 1 << 30
+
+
+# --- cases --------------------------------------------------------------------
+
+
+def _scores_case(name, seed=0):
+    """(scores int32 [Q, W], cut int32 [Q], kk, d) of one named case."""
+    rng = np.random.default_rng(seed)
+    q, d, w, kk = 48, 300, 320, 64
+    if name == "dense_ties":  # 6 values: most rows overflow the window on ties
+        s = rng.integers(0, 6, (q, w))
+        cut = rng.integers(0, 6, q)
+    elif name == "kk_eq_d":
+        d = w = kk = 96
+        s = rng.integers(0, 10, (q, w))
+        cut = rng.integers(0, 10, q)
+    elif name == "n_keep_edges":  # n_keep 0, kk - 1, kk, kk + 1 and more
+        s = rng.integers(0, 50, (q, w))
+        cut = np.full(q, 50)
+        for r, n in enumerate([0, 1, kk - 1, kk, kk + 1, 2 * kk, d]):
+            docs = rng.choice(d, n, replace=False)
+            s[r, docs] = rng.integers(50, 53, n)
+            cut[r] = 50
+    elif name == "threshold_zero":  # every doc qualifies, every row overflows
+        s = rng.integers(0, 129, (q, w))
+        cut = np.zeros(q)
+    elif name == "no_kmers":  # rows of queries without k-mers: an unreachable cut
+        s = rng.integers(0, 20, (q, w))
+        cut = np.where(rng.random(q) < 0.5, NO_KMERS, rng.integers(0, 20, q))
+    elif name == "segment_scores":  # accumulated segment scores past 512, tied
+        s = 50 * rng.integers(8, 60, (q, w))
+        cut = rng.integers(400, 2000, q)
+    elif name == "ragged_d":  # d not a multiple of 4 or 128, one partial chunk
+        d, w, kk = 131, 160, 32
+        s = rng.integers(0, 4, (q, w))
+        cut = rng.integers(0, 4, q)
+    else:
+        raise KeyError(name)
+    s[:, d:] = 7  # columns past d never count
+    return s.astype(np.int32), cut.astype(np.int32), kk, d
+
+
+SCORE_CASES = ["dense_ties", "kk_eq_d", "n_keep_edges", "threshold_zero", "no_kmers",
+               "segment_scores", "ragged_d"]
+
+
+def _plain_topk(s, cut, kk, d):
+    return [a.numpy() for a in tm._topk_scores(torch.from_numpy(s), torch.from_numpy(cut), kk, d)]
+
+
+# --- the plain versions against the JAX package ---------------------------------
+
+
+@pytest.mark.parametrize("name", SCORE_CASES)
+def test_topk_scores_equals_jax_in_order(name):
+    """vals, idx and n_keep equal jax's _topk_scores (its u16 window as
+    int32), the order inside the window included."""
+    s, cut, kk, d = _scores_case(name)
+    want = [np.asarray(a).astype(np.int32)
+            for a in jm._topk_scores(jnp.asarray(s), jnp.asarray(cut), kk=kk, d=d)]
+    got = _plain_topk(s, cut, kk, d)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_)
+    n_keep = got[2]
+    if name == "n_keep_edges":
+        assert list(n_keep[:7]) == [0, 1, kk - 1, kk, kk + 1, 2 * kk, d]
+    if name in ("dense_ties", "threshold_zero"):
+        assert (n_keep > kk).sum() > 10
+    if name == "no_kmers":
+        assert (n_keep == 0).any() and (n_keep > 0).any()
+    if name == "segment_scores":
+        assert got[0].max() > 512
+
+
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("cap_frac", [1.0, 0.3])
+def test_flat_buffer_equals_jax(h, cap_frac):
+    """The whole [cap | Q n_keep | total] buffer of _hash_topk_flat, viewed
+    as uint32, equals JAX's word for word (cap_frac 0.3: total > cap)."""
+    words, hi, lo, nk, cut = _hash_inputs(3 + h, h=h, thr=0.45 / h)
+    s, kk, d, q = 997, 64, 96, hi.shape[0]
+    cap = max(1, int(cap_frac * q * kk))
+    want = np.asarray(jm._hash_topk_flat(
+        jnp.asarray(words), jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(nk), jnp.asarray(cut),
+        s=s, pad_row=s, kk=kk, d=d, cap=cap,
+    ))
+    got = tm._hash_topk_flat(
+        _t(words.view(np.int32)), _t(hi.astype(np.int64)), _t(lo.astype(np.int64)), _t(nk), _t(cut),
+        s=s, pad_row=s, kk=kk, d=d, cap=cap,
+    ).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    assert (int(want[-1]) > cap) == (cap_frac < 1)
+
+
+def test_dense_window_equals_jax():
+    """_hash_topk's dense [Q, kk] window (the refetch when total > cap)
+    equals JAX's, order included."""
+    words, hi, lo, nk, cut = _hash_inputs(9, thr=0.4)
+    kw = dict(s=997, pad_row=997, kk=64, d=96)
+    want = jm._hash_topk(jnp.asarray(words), jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(nk),
+                         jnp.asarray(cut), **kw)
+    got = tm._hash_topk(_t(words.view(np.int32)), _t(hi.astype(np.int64)), _t(lo.astype(np.int64)),
+                        _t(nk), _t(cut), **kw)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_).astype(np.int32))
+    assert (got[2].numpy() > 64).any()
+
+
+# --- numpy emulations of the kernels --------------------------------------------
+
+
+def emu_hash_rows(hi, lo, nk, s, pad_row, mutant=None):
+    """B5a: a block per query, a thread per (slot, hash); the 64-bit
+    unsigned hash modulo s, the padding row at slot >= nk."""
+    q, k, h = hi.shape
+    x = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    if mutant == "signed_hash":  # the hash read as int64
+        rows = x.view(np.int64) % np.int64(s)
+    else:
+        rows = x % np.uint64(s)
+    slot = np.arange(k * h).reshape(k, h) // h
+    return np.where(slot[None] < nk[:, None, None], rows, pad_row).astype(np.int32)
+
+
+def _warp_excl(x):
+    """The warp's exclusive shuffle prefix over 32 lanes, and the total."""
+    inc = np.cumsum(x)
+    return inc - x, int(inc[-1])
+
+
+def _chunks(row, d):
+    """Each 128-doc chunk as the warp loads it: lane l holds docs j0 + 4l ..
+    j0 + 4l + 3 ([32, 4] docs and scores, -1 past d)."""
+    for base in range(0, d, 128):
+        j = base + 4 * np.arange(32)[:, None] + np.arange(4)[None, :]
+        yield j, np.where(j < d, row[np.minimum(j, len(row) - 1)], -1)
+
+
+def _stash_flagged(fl, x, j, n, kk, sv, sd):
+    """Stash the flagged docs at n + the lane's prefix + its earlier flags;
+    positions >= kk are dropped."""
+    excl, total = _warp_excl(fl.sum(1))
+    for lane in range(32):
+        pos = n + excl[lane]
+        for t in range(4):
+            if fl[lane, t]:
+                if pos < kk:
+                    sv[pos], sd[pos] = x[lane, t], j[lane, t]
+                pos += 1
+    return total
+
+
+def _select_bin(hist, rem, mutant):
+    """Lane l owns bins 255 - 8l .. 248 - 8l; the bin holding the rem-th
+    largest entry, and the entries above it."""
+    own = np.array([hist[255 - 8 * lane - np.arange(8)].sum() for lane in range(32)])
+    cum0, _ = _warp_excl(own)
+    for lane in range(32):
+        cum = cum0[lane]
+        for i in range(8):
+            b = 255 - 8 * lane - i
+            if cum < rem <= cum + hist[b]:
+                return (b - 1 if mutant == "digit_off_by_one" and b > 0 else b), cum
+            cum += hist[b]
+    raise AssertionError("no bin holds the rem-th entry")
+
+
+def emu_threshold_topk(scores, cut, kk, d, mutant=None):
+    """B5b, a warp per row: one pass counting and stashing; past kk the
+    radix select of t* over 8-bit digits and a compaction pass; then the
+    stable LSD radix sort of the stash, one 32-entry chunk at a time (an
+    entry's place in its digit's run: the lanes below it with that digit)."""
+    q = scores.shape[0]
+    vals = np.zeros((q, kk), np.int32)
+    idx = np.zeros((q, kk), np.int32)
+    n_keep = np.zeros(q, np.int32)
+    for r in range(q):
+        row, c = scores[r].astype(np.int64), int(cut[r])
+        sv, sd = np.zeros(kk, np.int64), np.zeros(kk, np.int64)
+        n, mx = 0, 0
+        for j, x in _chunks(row, d):
+            fl = (x >= 0) & (x >= c)
+            mx = max(mx, int(x[fl].max(initial=0)))
+            n += _stash_flagged(fl, x, j, n, kk, sv, sd)
+        if n > kk and kk > 0:
+            rem, prefix = kk, 0
+            top = mx.bit_length() - 1 if mx > 0 else 0
+            for shift in range(top // 8 * 8, -1, -8):
+                hist = np.zeros(256, np.int64)
+                hmask = 0 if shift + 8 >= 32 else (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF
+                for _, x in _chunks(row, d):
+                    sel = (x >= 0) & (x >= c) & ((x & hmask) == prefix)
+                    np.add.at(hist, (x[sel] >> shift) & 255, 1)
+                b, above = _select_bin(hist, rem, mutant)
+                rem -= above
+                prefix |= b << shift
+            tstar, need_eq, m, eq_seen = prefix, rem, 0, 0
+            for j, x in _chunks(row, d):
+                eq = x == tstar
+                excl, te = _warp_excl(eq.sum(1))
+                e = eq_seen + excl[:, None] + np.cumsum(eq, 1) - eq
+                lim = need_eq + (mutant == "one_more_tie")
+                fl = (x > tstar) | (eq & (e < lim))
+                eq_seen += te
+                m += _stash_flagged(fl, x, j, m, kk, sv, sd)
+        m = min(n, kk)
+        passes = (mx.bit_length() + 7) // 8 if m > 1 else 0
+        for p in range(passes):
+            dig = (sv[:m] >> (8 * p)) & 255
+            hist = np.bincount(dig, minlength=256)
+            own = np.array([hist[255 - 8 * lane - np.arange(8)].sum() for lane in range(32)])
+            start = np.zeros(256, np.int64)
+            cum0, _ = _warp_excl(own)
+            for lane in range(32):
+                cum = cum0[lane]
+                for i in range(8):
+                    b = 255 - 8 * lane - i
+                    start[b], cum = cum, cum + hist[b]
+            tv, td = np.zeros(kk, np.int64), np.zeros(kk, np.int64)
+            for i0 in range(0, m, 32):
+                dg = dig[i0 : i0 + 32]
+                for lane, g in enumerate(dg):
+                    peers = dg == g
+                    ahead = peers[lane + 1 :].sum() if mutant == "tie_later_doc" else peers[:lane].sum()
+                    pos = start[g] + ahead
+                    tv[pos], td[pos] = sv[i0 + lane], sd[i0 + lane]
+                for g in np.unique(dg):
+                    start[g] += (dg == g).sum()
+            sv, sd = tv, td
+        vals[r, :m], idx[r, :m], n_keep[r] = sv[:m], sd[:m], n
+    return vals, idx, n_keep
+
+
+def emu_pack_hits(vals, idx, n_keep, kk, cap, mutant=None):
+    """B5c, blocks of 256 queries: each block's first word from every take
+    before it, its own by a block scan, its words by consecutive threads
+    (each finding its query by binary search), the rest of [0, cap)
+    zeroed."""
+    q = len(n_keep)
+    out = np.full(cap + q + 1, -7, np.int64)  # every word must be written
+    take = np.minimum(n_keep.astype(np.int64), kk)
+    total = int(take.sum())
+    for q0 in range(0, max(q, 1), 256):
+        mine = take[q0 : q0 + 256]
+        first = int(take[: q0 + 1].sum() if mutant == "prefix_counts_own_first" else take[:q0].sum())
+        s_off = np.zeros(256, np.int64)
+        s_off[: len(mine)] = np.cumsum(mine) - mine
+        s_off[len(mine) :] = mine.sum()
+        own = int(mine.sum())
+        out[cap + q0 : cap + q0 + len(mine)] = n_keep[q0 : q0 + 256]
+        for w_ in range(max(0, min(own, cap - first))):
+            a = int(np.searchsorted(s_off, w_, side="right")) - 1
+            v, i = vals[q0 + a, w_ - s_off[a]], idx[q0 + a, w_ - s_off[a]]
+            out[first + w_] = ((int(v) << 16) | int(i)) & 0xFFFFFFFF
+    out[cap + q] = total
+    out[min(total, cap) : cap] = 0
+    return out.astype(np.int64).astype(np.uint32).view(np.int32)
+
+
+def _plain_pack(vals, idx, n_keep, kk, cap):
+    return tm._pack_hits(*[torch.from_numpy(a) for a in (vals, idx, n_keep)], kk, cap).numpy()
+
+
+@pytest.mark.parametrize("name", SCORE_CASES)
+def test_threshold_topk_emulation_equals_plain(name):
+    s, cut, kk, d = _scores_case(name, seed=1)
+    got = emu_threshold_topk(s, cut, kk, d)
+    for g, w_ in zip(got, _plain_topk(s, cut, kk, d)):
+        np.testing.assert_array_equal(g, w_)
+
+
+def test_threshold_topk_emulation_at_every_digit_count():
+    """Scores of 1-4 significant bytes (one select digit and one sort pass
+    each), ties at the window's edge in each, d past one 512-doc pass of
+    the unrolled loads, and kk = 0."""
+    rng = np.random.default_rng(5)
+    d = 1100
+    for top in (200, 60_000, 9_000_000, 2**31 - 1):
+        vals = rng.integers(0, top, 12)
+        s = vals[rng.integers(0, 12, (6, d))].astype(np.int32)
+        cut = np.array([0, 0, int(np.median(vals)), top // 3, NO_KMERS, 1], np.int32)
+        for kk in (0, 1, 40, 300):
+            got = emu_threshold_topk(s, cut, kk, d)
+            for g, w_ in zip(got, _plain_topk(s, cut, kk, d)):
+                np.testing.assert_array_equal(g, w_)
+
+
+def test_hash_rows_emulation_equals_plain():
+    """B5a's 64-bit arithmetic against _hash_rows_ref, hashes >= 2**63 and
+    the padding past nk included, H = 1 and 3."""
+    for h, s in ((1, 2_000_000), (3, 997), (1, 2**31 - 1)):
+        _, hi, lo, nk, _ = _hash_inputs(11 + h, q=30, h=h)
+        hi64, lo64 = hi.astype(np.int64), lo.astype(np.int64)
+        want = tm._hash_rows(_t(hi64), _t(lo64), _t(nk), s, s).numpy()
+        np.testing.assert_array_equal(emu_hash_rows(hi64, lo64, nk, s, s), want)
+
+
+def _pack_case(seed, q, kk, share_empty):
+    rng = np.random.default_rng(seed)
+    n_keep = rng.integers(0, 2 * kk, q).astype(np.int32)
+    n_keep[rng.random(q) < share_empty] = 0
+    vals = rng.integers(0, 513, (q, kk)).astype(np.int32)
+    idx = rng.integers(0, 65536, (q, kk)).astype(np.int32)
+    return vals, idx, n_keep
+
+
+@pytest.mark.parametrize("q,kk,share_empty,cap", [
+    (1, 8, 0.0, 3), (255, 16, 0.5, 4000), (257, 16, 0.5, 4000), (700, 32, 0.9, 2500),
+    (700, 32, 0.0, 100), (513, 4, 0.2, 0), (0, 8, 0.0, 5), (1000, 160, 0.95, 10**5),
+])
+def test_pack_hits_emulation_equals_plain(q, kk, share_empty, cap):
+    """Blocks of 256 (one, ragged, several), the cap inside a block's run,
+    cap 0, Q = 0 and a cap past every take: every word equal."""
+    vals, idx, n_keep = _pack_case(q + kk, q, kk, share_empty)
+    want = _plain_pack(vals, idx, n_keep, kk, cap)
+    np.testing.assert_array_equal(emu_pack_hits(vals, idx, n_keep, kk, cap), want)
+
+
+MUTANTS = [
+    ("hash_rows", "signed_hash"),
+    ("threshold_topk", "tie_later_doc"),
+    ("threshold_topk", "digit_off_by_one"),
+    ("threshold_topk", "one_more_tie"),
+    ("pack_hits", "prefix_counts_own_first"),
+]
+
+
+@pytest.mark.parametrize("kernel,mutant", MUTANTS)
+def test_emulation_mutants_are_caught(kernel, mutant):
+    """Each mutant of an emulation's rule differs from the plain version
+    on the inputs the tests above use: the comparison sees the order of
+    ties, the select's digits, the tie count at t*, the block prefix and
+    the unsigned hash."""
+    if kernel == "hash_rows":
+        _, hi, lo, nk, _ = _hash_inputs(12, q=30)
+        hi64, lo64 = hi.astype(np.int64), lo.astype(np.int64)
+        want = tm._hash_rows(_t(hi64), _t(lo64), _t(nk), 997, 997).numpy()
+        assert not np.array_equal(emu_hash_rows(hi64, lo64, nk, 997, 997, mutant), want)
+    elif kernel == "threshold_topk":
+        s, cut, kk, d = _scores_case("dense_ties", seed=1)
+        got = emu_threshold_topk(s, cut, kk, d, mutant)
+        want = _plain_topk(s, cut, kk, d)
+        assert not all(np.array_equal(g, w_) for g, w_ in zip(got, want))
+    else:
+        vals, idx, n_keep = _pack_case(3, 700, 32, 0.5)
+        want = _plain_pack(vals, idx, n_keep, 32, 5000)
+        assert not np.array_equal(emu_pack_hits(vals, idx, n_keep, 32, 5000, mutant), want)
+
+
+# --- dispatch -------------------------------------------------------------------
+
+
+def test_cpu_tensors_launch_no_b5_kernel():
+    """On CPU tensors _hash_topk_flat takes the plain versions: every B5
+    counter stays 0; the CUDA wrappers refuse CPU tensors without
+    counting."""
+    tm.reset_launch_counts()
+    words, hi, lo, nk, cut = _hash_inputs(2)
+    tm._hash_topk_flat(_t(words.view(np.int32)), _t(hi.astype(np.int64)), _t(lo.astype(np.int64)),
+                       _t(nk), _t(cut), s=997, pad_row=997, kk=64, d=96, cap=500)
+    i64 = torch.zeros((2, 4, 1), dtype=torch.int64)
+    i32 = torch.zeros((2, 8), dtype=torch.int32)
+    n = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.hash_rows_cuda(i64, i64, n, 997, 997)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.topk_scores_cuda(i32, n, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.pack_hits_cuda(i32, i32, n, 8, 10)
+    assert tm.launch_counts() == {"hash_rows": 0, "threshold_topk": 0, "pack_hits": 0}
