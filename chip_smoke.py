@@ -18,8 +18,8 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
                                    # timed beside; the full run takes the
                                    # option too
     python3 chip_smoke.py --baseline-flush OLD.cu
-                                   # phase 5 also times B6b and the
-                                   # compaction of an older
+                                   # phase 5 also times B6a, B6b, B6c
+                                   # and the compaction of an older
                                    # flush_epilogue.cu (the same C
                                    # interface) beside this tree's
 
@@ -158,11 +158,19 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-#: the H100's memory rate and its non-tensor 32-bit rate (NVIDIA's data
-#: sheet, SXM, 700 W): the bounds of the kernel table
+#: the bounds of the kernel table: the H100 SXM's memory rate (NVIDIA's
+#: data sheet, 700 W) and the issue rates scripts/issue_rates.py measures
+#: on the card, times 132 SMs at its top SM clock (nvidia-smi
+#: clocks.max.sm: 1,980 MHz). INT32_OPS_PER_S: 64 a clock an SM of the
+#: integer ALU's instructions (int32 min/max, compare, logic, byte permute,
+#: int-to-f32, and the DPX add-and-max or max of three, each one
+#: instruction; measured 63.4-63.75). F32_OPS_PER_S: 128 a clock, f32 add,
+#: multiply or fma (measured 126-127), and the most an SM issues of any mix
+#: (int32 adds reach 122 split between IADD3 and IMAD)
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
-F32_OPS_PER_S = 67e12
+SM_COUNT, SM_CLOCK_HZ = 132, 1.98e9
+INT32_OPS_PER_S = SM_COUNT * 64 * SM_CLOCK_HZ
+F32_OPS_PER_S = SM_COUNT * 128 * SM_CLOCK_HZ
 #: row sets each kernel is timed over in rotation, so that the 50 MB L2
 #: does not serve one launch the rows of the one before
 ROTATION = 6
@@ -781,9 +789,19 @@ MAIN_ALIGN_CASE = {"chain_scan": "b3_a32", "extend_scan": "b4_score"}
 #: -A 200 -B 150: match and mismatch outside a signed byte (B4's int32
 #: substitution)
 WIDE_SCORING = (200, 150)
-#: f32 operations per (anchor slot, predecessor) of B3 and per cell of B4
+#: f32 operations per (anchor slot, predecessor) of B3 (an estimate, at
+#: F32_OPS_PER_S: the SM's issue limit whatever their mix)
 B3_OPS_PER_PAIR = 13
-B4_OPS_PER_CELL = 20
+#: operations of the functions B4, B6a and B6c compute, counted from their
+#: plain versions (extend_ref, _chain_tail_ref, _finish_ref) with a row's or
+#: a column's constants hoisted and gathers not counted: ALU ones (min, max,
+#: compare, select, logic, int-to-f32, a table lookup; a DPX add-and-max or
+#: max of three as one) and others (add, subtract, multiply, which may
+#: issue on either pipe). B4 a band cell: the substitution lookup, two gap
+#: openings (add-and-max), the max of three, two running maxima of the
+#: deletion rows (add-and-max) and two add-and-max into H; adds: H + the
+#: substitution and the two opening costs
+B4_ALU_CELL, B4_OTHER_CELL = 8, 3
 
 
 def chain_sets(rng, p: int, a: int, q16: bool):
@@ -866,16 +884,12 @@ def extend_inputs(rng, p: int, l: int, band: int, kind: str = "reads"):
 
 def b4_bound(q_len, p: int, l: int, band: int, plane: bool) -> dict:
     """Bytes: codes, q_len, window, mask, score, end_d (and the plane) once
-    each; operations: B4_OPS_PER_CELL f32 operations for each band cell of
+    each; operations: B4_ALU_CELL + B4_OTHER_CELL for each band cell of
     each row these inputs need (rows < q_len without the plane, all L rows
     with it)."""
     rows = p * l if plane else int(q_len.clip(0, l).sum())
     nbytes = p * l + 4 * p + 2 * p * (l + band) + 8 * p + (4 * p * l * band if plane else 0)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = rows * band * B4_OPS_PER_CELL
-    ops_ms = ops / F32_OPS_PER_S * 1e3
-    return dict(bytes=nbytes, operations=ops, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return bound(nbytes, rows * band * B4_ALU_CELL, rows * band * B4_OTHER_CELL)
 
 
 def max_abs_diff(a, b) -> float:
@@ -1120,11 +1134,22 @@ B6_FLUSH_CASES = [
 ]
 MAIN_B6_CASE = {"chain_select": "b6a_a32", "select_window": "b6_flush", "finish_pack": "b6_flush",
                 "compact_cold": "b6_flush"}
-#: 32-bit operations of B6a per slot and doubling round, and per slot and
-#: argmax pass; of B6b per pair and per gathered column; of B6c per column
-B6A_OPS_ROUND, B6A_OPS_PASS = 4, 20
+#: B6a's operations (as B4's above): a slot's setup (parent test, root
+#: select, count, validity), the primary's argmax, the s2 pass (the
+#: overlap test: min, max, clamp, two int-to-f32, min, compare, live; the
+#: root compare, two ands, the mask, the argmax) and the blocked bits, and
+#: per split segment the mask, the argmax, the overlap test and the four
+#: blocked-bit updates; others: the query end, the overlap test's two
+#: subtractions and f32 halving, and one add a doubling round
+B6A_ALU_SLOT, B6A_OTHER_SLOT, B6A_ALU_SUP, B6A_OTHER_SUP = 19, 4, 14, 3
+#: B6c's a column: the q_len and window-bounds tests (5), the mismatch (2),
+#: the all-valid reduction, the two masked minima (4), the masked running
+#: peak (2), the masked largest drop (2) and the packed bit; others: the
+#: column, the count, the running count, step x count, prefv, r_before,
+#: sufv (2) and the drop
+B6C_ALU_COLUMN, B6C_OTHER_COLUMN = 17, 9
+#: 32-bit operations of B6b per pair and per gathered column (ALU)
 B6B_OPS_PAIR, B6B_OPS_COLUMN = 300, 6
-B6C_OPS_COLUMN = 30
 
 
 def device_table(prof) -> dict:
@@ -1158,10 +1183,55 @@ def device_launches(fn, calls: int = 3) -> int:
     return round(kernel_count(device_table(prof)) / calls)
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def launched_kernel(fn, key: str) -> dict:
+    """The kernel whose name holds ``key`` that one call of fn launches, as
+    torch.profiler's trace records it: its instance (``name<arguments>``,
+    the key of kernel_resources), grid and block (None where the trace
+    holds no such kernel or field)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "chip_smoke_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    trace.unlink()
+    types = {"unsigned short": "uint16", "int": "int32", "unsigned char": "uint8", "unsigned int": "uint32",
+             "short": "int16", "true": "1", "false": "0"}
+    for e in events:
+        m = re.search(rf"({key}\w*)_kernel<([^>]*)>", e.get("name", ""))
+        if e.get("cat") == "kernel" and m:
+            args = ",".join(types.get(x.strip(), x.strip()) for x in m.group(2).split(","))
+            grid, block = (e.get("args", {}).get(x) for x in ("grid", "block"))
+            return dict(instance=f"{m.group(1)}<{args}>", grid=grid, block=block)
+    return dict(instance=None, grid=None, block=None)
+
+
+def in_turns(baseline, fn, reps: int, n_args: int) -> dict:
+    """fn timed from CUDA graphs with the baseline's library and this
+    tree's in turns (baseline, new, new, baseline): the turns and the best
+    of each."""
+    turns = []
+    for who in ("baseline", "new", "new", "baseline"):
+        with baseline.active() if who == "baseline" else contextlib.nullcontext():
+            turns.append((who, graph_ms(fn, reps, n_args)))
+    return dict(turns=turns, turns_new_ms=min(t for w, t in turns if w == "new"),
+                baseline_ms=min(t for w, t in turns if w == "baseline"))
+
+
+def bound(nbytes: int, alu: int, other: int = 0) -> dict:
+    """The larger of the bytes at HBM_BYTES_PER_S and the operations: alu
+    at INT32_OPS_PER_S, and all of them (other: those that may issue on
+    either pipe) at the SM's issue limit, F32_OPS_PER_S."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    return dict(bytes=nbytes, operations=ops, bound_ms=max(bytes_ms, ops_ms),
+    ops_ms = max(alu / INT32_OPS_PER_S, (alu + other) / F32_OPS_PER_S) * 1e3
+    return dict(bytes=nbytes, operations=alu + other, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
@@ -1183,7 +1253,8 @@ def b6_bounds(cand_map, lmax: int, wlen: int, n_sup: int, n_out: int, need: int)
     b_out = p * (lmax + 2 * wlen + 8 + 16 + 8 + 4 * ci + 4 * n_out)
     return dict(
         select_window=bound(b_in + b_out, p * (B6B_OPS_PAIR + B6B_OPS_COLUMN * (lmax + wlen))),
-        finish_pack=bound(p * (2 * lmax + 28) + p * (4 + lmax // 8), p * lmax * B6C_OPS_COLUMN),
+        finish_pack=bound(p * (2 * lmax + 28) + p * (4 + lmax // 8), p * lmax * B6C_ALU_COLUMN,
+                          p * lmax * B6C_OTHER_COLUMN),
         compact_cold=bound(4 * p + (min(need, COLD_CAP) + COLD_CAP) * 4 * (ci + n_out), 10 * p),
     )
 
@@ -1222,11 +1293,13 @@ class BaselineFlush:
 
 
 def kernel_resources(lib: Path) -> dict:
-    """Registers, stack, shared and local memory of each instance of B6b
-    (select_window<n_sup,n_out>) and of the compaction (compact_cold<n_out>;
-    an older source's untemplated kernels by their names) in a built
-    library (``cuobjdump -res-usage``); {} when cuobjdump is missing or
-    prints no such kernel."""
+    """Registers, stack, shared and local memory of each instance of the B6
+    kernels in a built library (``cuobjdump -res-usage``): B6a's
+    chain_select<qpos, index> and chain_select_warp<qpos, slots a lane>,
+    B6b's select_window<n_sup, n_out>, B6c's finish_pack<one tile> and the
+    compaction's compact_cold<n_out> (an older source's kernels by their
+    own names and arguments); {} when cuobjdump is missing or prints no
+    such kernel."""
     import re
 
     from phylign_tpu_torch.ops import _kernels
@@ -1235,12 +1308,15 @@ def kernel_resources(lib: Path) -> dict:
     if not tool.exists():
         return {}
     res = subprocess.run([str(tool), "-res-usage", str(lib)], capture_output=True, text=True, timeout=120)
+    types = {"i": "int32", "t": "uint16", "h": "uint8", "j": "uint32"}
     out = {}
     for name, reg, stack, shared, local in re.findall(
             r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", res.stdout):
-        m = re.search(r"(select_window|compact_cold)_kernel(?:I((?:Li\d+E)+)E)?", name)
-        if m:
-            args = ",".join(re.findall(r"Li(\d+)E", m.group(2) or ""))
+        m = re.search(r"(select_window|compact_cold|chain_select_warp|chain_select|finish_pack)_kernel"
+                      r"(I(?:L[a-z]\d+E|[a-z])+E)?", name)
+        if m:  # template arguments: a type letter, or L, its type's letter, the value, E
+            args = ",".join(n or types.get(t, t) for n, t in re.findall(r"L[a-z](\d+)E|([a-z])",
+                                                                        (m.group(2) or "")[1:-1]))
             out[f"{m.group(1)}<{args}>" if args else m.group(1)] = dict(
                 registers=int(reg), stack_bytes=int(stack), shared_bytes=int(shared), local_bytes=int(local))
     return out
@@ -1258,9 +1334,11 @@ def phase_flush_kernels(label: str, baseline: BaselineFlush | None = None) -> di
     turns from the host (the plain path's pageable constants cannot be
     captured in a graph), with their kernel counts. Each timed kernel's
     launches per call and, from the built library, every B6 kernel's
-    registers and local memory. With ``baseline``, B6b and the compaction
-    of its library are held to the plain versions too and timed beside
-    this tree's in turns (baseline, new, new, baseline)."""
+    registers and local memory; each B6a row names the instance that ran,
+    its grid and block (torch.profiler's trace) and its resources. With ``baseline``, its library's B6a, B6b,
+    B6c and compaction are held to the plain versions too and timed beside
+    this tree's in turns (baseline, new, new, baseline) at every timed
+    case."""
     import numpy as np
     import torch
 
@@ -1271,7 +1349,7 @@ def phase_flush_kernels(label: str, baseline: BaselineFlush | None = None) -> di
     from phylign_tpu_torch.ops import extend as ope
 
     rng = np.random.default_rng(13)
-    out = {}
+    out = {"resources": kernel_resources(_kernels._lib_path("flush_epilogue"))}
     cuda = torch.device("cuda")
     cost = opc.device_cost_table(21, 100, cuda)
     for name, p, a, q16 in B6A_CASES:
@@ -1282,20 +1360,34 @@ def phase_flush_kernels(label: str, baseline: BaselineFlush | None = None) -> di
         err = 0.0
         for s in sets:
             got, want = opc.chain_select_cuda(*s, 21, 2), opc._chain_tail_ref(*s, 21, 2)
+            if baseline is not None:
+                with baseline.active():
+                    old = opc.chain_select_cuda(*s, 21, 2)
             torch.cuda.synchronize()
             for n in want._fields:
                 err = max(err, max_abs_diff(getattr(got, n), getattr(want, n)))
                 if err != 0 or not torch.equal(getattr(got, n), getattr(want, n)):
                     raise AssertionError(f"{name}: chain_select differs from _chain_tail_ref in {n}")
-        ms = min(graph_ms(lambda i: opc.chain_select_cuda(*sets[i], 21, 2), 4 * ROTATION, ROTATION)
-                 for _ in range(2))
+                if baseline is not None and not torch.equal(getattr(old, n), getattr(want, n)):
+                    raise AssertionError(f"{name}: the baseline's chain_select differs from _chain_tail_ref in {n}")
+
+        def b6a(i):
+            return opc.chain_select_cuda(*sets[i], 21, 2)
+
+        ms = min(graph_ms(b6a, 4 * ROTATION, ROTATION) for _ in range(2))
         nbytes = p * a * (12 + (2 if q16 else 4)) + p * (11 + 6 * 2) * 4
-        ops = p * a * (opc.doubling_rounds(a) * B6A_OPS_ROUND + 4 * B6A_OPS_PASS)
+        alu = p * a * (B6A_ALU_SLOT + 2 * B6A_ALU_SUP)
+        other = p * a * (B6A_OTHER_SLOT + opc.doubling_rounds(a) + 2 * B6A_OTHER_SUP)
+        ran = launched_kernel(lambda: b6a(0), "chain_select")
         row = dict(kernel="chain_select", P=p, A=a, n_sup=2, qpos="uint16" if q16 else "int32",
                    max_abs_err=err, ms=ms, plain_ms=cuda_ms(lambda i: opc._chain_tail_ref(*sets[i], 21, 2), 2, 2),
-                   plain_launches=device_launches(lambda: opc._chain_tail_ref(*sets[0], 21, 2)),
-                   threads=256 if a >= 256 else -(-a // 32) * 32, **bound(nbytes, ops))
-        row["bound_share"] = row["bound_ms"] / ms
+                   plain_launches=device_launches(lambda: opc._chain_tail_ref(*sets[0], 21, 2)), **ran,
+                   # the threads a set: the block's threads over the sets a block
+                   threads=ran["block"][0] // -(-p // ran["grid"][0]) if ran["grid"] and ran["block"] else None,
+                   **bound(nbytes, alu, other))
+        row.update(bound_share=row["bound_ms"] / ms, resources=out["resources"].get(row["instance"]))
+        if baseline is not None:
+            row.update(in_turns(baseline, b6a, 4 * ROTATION, ROTATION))
         out[name] = row
         emit("flush_kernels", case=name, rotation=ROTATION, card=label, **row)
         del sets
@@ -1346,11 +1438,15 @@ def phase_flush_kernels(label: str, baseline: BaselineFlush | None = None) -> di
             if baseline is not None and timed and not sels:
                 with baseline.active():
                     old = fz.select_window_cuda(chains, *dev_in, **kw)
+                    torch.cuda.synchronize()
+                    same_sel = all(torch.equal(getattr(old, n).to(getattr(ref, n).dtype), getattr(ref, n))
+                                   for n in ref._fields[:-1])
+                    old_fin = fz.finish_pack_cuda(old, q_len, ext.score, ext.end_d, scoring, 100)
                     old_cc = fz.compact_cold_cuda(sel)
                 torch.cuda.synchronize()
-                if not all(torch.equal(getattr(old, n).to(getattr(ref, n).dtype), getattr(ref, n))
-                           for n in ref._fields[:-1]) or not all(torch.equal(x, y) for x, y in zip(old_cc, cc)):
-                    raise AssertionError(f"{name}: the baseline's B6b or compaction differs from the plain version")
+                if not same_sel or not all(torch.equal(x, y) for x, y in zip((*old_fin, *old_cc), (hot, neq, *cc))):
+                    raise AssertionError(f"{name}: the baseline's B6b, B6c or compaction differs from the plain "
+                                         "version")
             sels.append(sel)
             exts.append(ext)
         row = dict(kernel="flush_epilogue", P=p, lmax=lmax, band=band, n_sup=n_sup,
@@ -1396,13 +1492,8 @@ def phase_flush_kernels(label: str, baseline: BaselineFlush | None = None) -> di
                                   plain_launches=device_launches(lambda: pfn(0)), **bnd[kname],
                                   bound_share=bnd[kname]["bound_ms"] / ms,
                                   launches_per_call=device_launches(lambda: fn(0)))
-                if baseline is not None and kname != "finish_pack":
-                    turns = []
-                    for who in ("baseline", "new", "new", "baseline"):
-                        with baseline.active() if who == "baseline" else contextlib.nullcontext():
-                            turns.append((who, graph_ms(fn, reps, ROTATION)))
-                    row[kname].update(turns=turns, turns_new_ms=min(t for w, t in turns if w == "new"),
-                                      baseline_ms=min(t for w, t in turns if w == "baseline"))
+                if baseline is not None:
+                    row[kname].update(in_turns(baseline, fn, reps, ROTATION))
             times = [(who, cuda_ms(lambda i: flush(i, who == "b6"), 2 * ROTATION, ROTATION))
                      for who in ("plain", "b6", "b6", "plain")]
             row["epilogue"] = dict(
@@ -1413,7 +1504,6 @@ def phase_flush_kernels(label: str, baseline: BaselineFlush | None = None) -> di
         out[name] = row
         emit("flush_kernels", case=name, card=label, **row)
         del cases, sels, exts
-    out["resources"] = kernel_resources(_kernels._lib_path("flush_epilogue"))
     if baseline is not None:
         out["baseline_resources"] = kernel_resources(baseline.path)
     emit("flush_kernels", case="resources", card=label, resources=out["resources"],
@@ -1603,6 +1693,7 @@ def profile_align(pl, stem: str, out: Path) -> dict:
     ``out``."""
     import cProfile
     import pstats
+    import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1647,7 +1738,7 @@ def profile_align(pl, stem: str, out: Path) -> dict:
             f.write(f"{tt:10.3f} {nc:8d}  {name}\n")
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:10]
     n_fl = max(1, len(flushes))
-    b6 = {k: sum(t for name, (t, _) in dev.items() if f"{k}_kernel" in name) / n_fl
+    b6 = {k: sum(t for name, (t, _) in dev.items() if re.search(rf"\b{k}(_warp)?_kernel", name)) / n_fl
           for k in ("chain_select", "select_window", "finish_pack", "compact_cold")}
     return dict(profiled_wall_s=wall, device_ms=dev_ms, device_busy_share=dev_ms / 1e3 / wall,
                 flushes=len(flushes), kernels=kernels, kernels_per_flush=kernels / n_fl,
@@ -2241,7 +2332,7 @@ def main(argv: list[str] | None = None) -> int:
                     "csrc/extend_scan.cu: time them beside this tree's B3/B4 in phase 5")
     ap.add_argument("--baseline-flush", type=Path, default=None,
                     help="an older csrc/flush_epilogue.cu with this tree's C interface: "
-                    "time its B6b and compaction beside this tree's in phase 5")
+                    "time its B6a, B6b, B6c and compaction beside this tree's in phase 5")
     ap.add_argument("--align-kernels-only", action="store_true",
                     help="phase 5 only (no kernel table, no ok line)")
     ap.add_argument("--kernels-only", action="store_true",

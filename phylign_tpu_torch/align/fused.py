@@ -584,7 +584,8 @@ def finish_pack_cuda(
     (hot, neq_pack) equal to _finish_ref's, as views of ``sel.packed``. It
     ORs F_DIAG, F_FULL and end_d into the hot rows in place (``sel.head``
     is the returned hot) and writes the mismatch bits. CUDA tensors from
-    select_window_cuda; lmax a multiple of 32; integer scoring."""
+    select_window_cuda (q_codes 8-byte aligned); lmax a multiple of 32;
+    integer scoring."""
     p, lmax = sel.q_codes.shape
     wlen = sel.rwin.shape[1]
     dev = sel.q_codes.device
@@ -592,6 +593,8 @@ def finish_pack_cuda(
           and all(t.device == dev for t in (q_len, ext_score, end_d)),
           "finish_pack runs on a CUDA Selection from select_window_cuda")
     _need(lmax % 32 == 0 and wlen >= lmax, f"finish_pack: lmax {lmax} must be a multiple of 32, wlen >= lmax")
+    _need(sel.q_codes.is_contiguous() and sel.q_codes.data_ptr() % 8 == 0,
+          "finish_pack reads q_codes rows 8 bytes a lane: contiguous and 8-byte aligned")
     _need(ext_score.dtype == torch.float32 and end_d.dtype == torch.int32 and q_len.dtype == torch.int32
           and ext_score.shape == end_d.shape == q_len.shape == (p,)
           and all(t.is_contiguous() for t in (q_len, ext_score, end_d)),

@@ -7,16 +7,22 @@
 // the body of phylign_tpu/align/fused.py:select_extend (jax.jit at :377):
 // _select_extend_core (:104-344) and _compact_cold (:347-367). Four kernels,
 // each equal bit for bit to its plain PyTorch version:
-//   B6a chain_select   ops/chain.py:_chain_tail_ref. One block per anchor
-//                      set: chain root and edge count of every slot by
-//                      pointer doubling (the plain version's rounds), then
-//                      the primary (first argmax of f), the s2 alt (best
-//                      slot overlapping the primary off its root) and n_sup
-//                      greedy split segments, each a block argmax; every
-//                      ChainResult field out. Up to kSmemSlots slots the set
-//                      lives in shared memory; a longer set reads its inputs
-//                      in place and keeps its pointers and counts in a
-//                      device workspace.
+//   B6a chain_select   ops/chain.py:_chain_tail_ref. Up to kWarpMaxSlots
+//                      slots a warp per anchor set, kWarpSets sets a block:
+//                      each lane holds N = ceil(A / 32) slots (slot
+//                      32 s + lane) in registers; chain root and edge count
+//                      of every slot by pointer doubling (the plain
+//                      version's rounds; shuffles at N = 1, else a
+//                      warp-private slice of shared memory and __syncwarp);
+//                      then the primary (first argmax of f), the s2 alt
+//                      (best slot overlapping the primary off its root) and
+//                      n_sup greedy split segments, each one redux.sync
+//                      argmax (max of an order-preserving key, then min
+//                      index among its holders); the winner's lane stages
+//                      its fields and the block writes each field row's run
+//                      of sets. Longer sets: one block per set, the set in
+//                      shared memory up to kSmemSlots slots, else its
+//                      pointers and counts in a device workspace.
 //   B6b select_window  align/fused.py:_select_ref. A block of 32 pairs:
 //                      first one thread a pair runs its selection (<= 6
 //                      candidates read through cand_map from the buckets'
@@ -30,13 +36,22 @@
 //                      strand-adjusted query for kernel B4 as 16-byte
 //                      stores: 16 codes from two 32-bit pool words by a
 //                      funnel shift, spread to bytes by shifts and masks.
-//   B6c finish_pack    align/fused.py:_finish_ref. One warp per pair over
-//                      the query columns, 32 at a time: the mismatch bit of
-//                      a column by ballot, its running count by popcount,
-//                      the running peak of the z-drop check by a shuffle
-//                      max-scan; the big-endian mismatch bytes are the
-//                      ballot's reversed bits. ORs the diagonal, full-span
-//                      and end_d bits into the hot row.
+//   B6c finish_pack    align/fused.py:_finish_ref. One warp per pair, 8
+//                      consecutive columns a lane (256 a tile): the query
+//                      as one 8-byte load, the window from the aligned
+//                      words around its 8 bytes by funnel shifts (byte by
+//                      byte at the plain version's clamp where they leave
+//                      the row); the lane's big-endian mismatch byte by a
+//                      per-byte compare, stored as it is; the total by one
+//                      redux.sync add, the lane's first rank by one warp
+//                      scan of the popcounts, the z-drop running peak by
+//                      one exclusive max-scan of the lanes' own maxima;
+//                      each lane's minima and largest drop by a loop over
+//                      its mismatch bits, then three redux.sync reductions. A row
+//                      past 256 columns counts its tiles first, then
+//                      reloads them carrying the count and the peak. ORs
+//                      the diagonal, full-span and end_d bits into the hot
+//                      row.
 //       compact_cold   align/fused.py:_compact_cold. A block of 256 rows:
 //                      its first rank from every row's need flag before it
 //                      (each block counts them all, so none waits on
@@ -55,12 +70,16 @@
 //
 // What bounds it on an H100: bytes, about 2 KB a pair in and out (window,
 // query and mask written by B6b and read by B4 and B6c), a few microseconds
-// at P = 8,192; the chain tail is a few argmax passes over shared memory.
-// In practice it is launch and latency bound: one launch per stage, every
-// item of a stage independent, B6b's byte outputs written 16 bytes a store.
+// at P = 8,192; the chain tail a few argmax passes over registers. In
+// practice it is latency bound: one launch per stage, every item of a stage
+// independent, so each item's chain of dependent steps is kept short (B6a's
+// and B6c's warp reductions by redux.sync, no block barrier inside a set or
+// a pair, B6b's byte outputs written 16 bytes a store).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -75,8 +94,11 @@ constexpr int32_t kHas = 1, kDiag = 2, kFullSpan = 4, kStrand = 8,
 constexpr int kMaxBuckets = 8;
 constexpr int kFields = 17;
 constexpr int kMaxSup = 2;
-// B6a: the longest anchor set kept in shared memory (19-21 bytes a slot)
+// B6a: the longest anchor set kept in shared memory (19-21 bytes a slot);
+// the longest set a warp takes (8 slots a lane) and the sets of its block
 constexpr int kSmemSlots = 8192;
+constexpr int kWarpMaxSlots = 256;
+constexpr int kWarpSets = 8;
 
 // -inf: below every value, so a thread with no slot never wins an argmax
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -89,6 +111,17 @@ __device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
 }
 __device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a * (uint32_t)b);
+}
+
+// a[i] for a runtime i without indexing a register array (which would put
+// it in local memory): a chain of selects over the compile-time indices
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+  T v = a[0];
+#pragma unroll
+  for (int x = 1; x < N; x++)
+    if (i == x) v = a[x];
+  return v;
 }
 
 // (value, index) argmax: the larger value, on a tie the smaller index
@@ -301,6 +334,204 @@ __global__ void chain_select_kernel(const float* __restrict__ f,
   }
 }
 
+// an order-preserving int32 key of a float (-0 as +0, so that equal floats
+// give equal keys): a < b as floats iff key(a) < key(b)
+__device__ __forceinline__ int32_t fkey(float x) {
+  int32_t b = __float_as_int(x);
+  b = b == (int32_t)0x80000000 ? 0 : b;
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+// the warp's first slot of its largest key: each lane passes its own best
+// (key, slot), and every lane gets the winner's slot (torch.argmax's tie rule)
+__device__ __forceinline__ int warp_argmax(int32_t key, int slot) {
+  const int32_t top = __reduce_max_sync(kFull, key);
+  return __reduce_min_sync(kFull, key == top ? slot : 0x7fffffff);
+}
+
+// B6a's block for sets of up to 32 N slots: warp w takes set kWarpSets *
+// blockIdx.x + w, lane l its slots 32 s + l (s < N). Shared memory: the
+// block's output stage [11 + 6 * n_sup fields x kWarpSets sets] (fields
+// 0-10 a row of kWarpSets sets each, the six split-segment fields a run of
+// kWarpSets * n_sup each, as the output lays them out), then, at N > 1, each
+// warp's slice: the packed (root | count << 16), qpos and rpos of its slots.
+template <typename QT, int N>
+__global__ void __launch_bounds__(kWarpSets * 32)
+    chain_select_warp_kernel(const float* __restrict__ f, const int32_t* __restrict__ parent,
+                             const int32_t* __restrict__ rpos, const QT* __restrict__ qpos, int p,
+                             int a, int k, int n_sup, int rounds, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) int32_t wsm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int set0 = blockIdx.x * kWarpSets;
+  const int set = set0 + warp;
+  int32_t* stage = wsm;
+  float* stagef = (float*)wsm;
+  const int sup0 = 11 * kWarpSets;  // the split-segment fields' stage
+  const int sup_run = kWarpSets * n_sup;
+
+  if (set < p) {
+    const int64_t row = (int64_t)set * a;
+    float fv[N];
+    int32_t rp[N], qe[N], qs[N], par[N], cnt[N];
+#pragma unroll
+    for (int s = 0; s < N; s++) {
+      const int i = 32 * s + lane;
+      const bool in = i < a;
+      fv[s] = in ? f[row + i] : neg_inf();  // a slot past A never wins
+      rp[s] = in ? rpos[row + i] : kPadPos;
+      qs[s] = in ? (int32_t)qpos[row + i] : 0;  // qpos until the roots are known
+      const int32_t pa = in ? parent[row + i] : -1;  // -1 or a slot before i (B3)
+      par[s] = pa >= 0 ? min(pa, a - 1) : i;
+      cnt[s] = pa >= 0 ? 1 : 0;
+    }
+    // pointer doubling, the plain version's rounds: cnt += cnt[par]; par =
+    // par[par], both from the round before; roots loop on themselves
+    uint32_t* spc = (uint32_t*)wsm + 11 * kWarpSets + sup_run * 6 + warp * 3 * 32 * N;
+    int32_t* sq = (int32_t*)spc + 32 * N;
+    int32_t* sr = sq + 32 * N;
+    if (N == 1) {
+      for (int r = 0; r < rounds; r++) {
+        const int32_t c = __shfl_sync(kFull, cnt[0], par[0]);
+        par[0] = __shfl_sync(kFull, par[0], par[0]);
+        cnt[0] += c;
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < N; s++) {
+        spc[32 * s + lane] = (uint32_t)par[s] | ((uint32_t)cnt[s] << 16);
+        sq[32 * s + lane] = qs[s];
+        sr[32 * s + lane] = rp[s];
+      }
+      __syncwarp();
+      for (int r = 0; r < rounds; r++) {
+        uint32_t nx[N];
+#pragma unroll
+        for (int s = 0; s < N; s++) nx[s] = spc[par[s]];
+        __syncwarp();
+#pragma unroll
+        for (int s = 0; s < N; s++) {
+          par[s] = (int32_t)(nx[s] & 0xffffu);
+          cnt[s] += (int32_t)(nx[s] >> 16);
+          spc[32 * s + lane] = (uint32_t)par[s] | ((uint32_t)cnt[s] << 16);
+        }
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < N; s++) {
+      qe[s] = wadd(qs[s], k);  // the end anchor of slot i is i itself
+      qs[s] = N == 1 ? __shfl_sync(kFull, qs[0], par[0]) : sq[par[s]];
+    }
+    // the rpos of a slot's root, read only for the winners
+    const int32_t rs0 = N == 1 ? __shfl_sync(kFull, rp[0], par[0]) : 0;
+    auto root_rpos = [&](int so) { return N == 1 ? rs0 : sr[pick(par, so)]; };
+
+    // the order keys of f (a slot past A holds -inf's, the least) and of
+    // -1e30, the value of a masked slot; real: bit s set for a slot < A
+    const int32_t key_neg = fkey(kNeg);
+    int32_t kf[N];
+    unsigned real = 0;
+#pragma unroll
+    for (int s = 0; s < N; s++) {
+      kf[s] = fkey(fv[s]);
+      real |= (unsigned)(32 * s + lane < a) << s;
+    }
+    // the slot of the first largest key(s) over the set
+    auto argmax = [&](auto key) {
+      int32_t bk = key(0);
+      int bi = lane;
+#pragma unroll
+      for (int s = 1; s < N; s++) {
+        const int32_t kx = key(s);
+        if (kx > bk) {
+          bk = kx;
+          bi = 32 * s + lane;
+        }
+      }
+      return warp_argmax(bk, bi);
+    };
+    // a real slot's key: f's when take, else -1e30's
+    auto masked = [&](int s, bool take) { return ((real >> s) & 1u) ? (take ? kf[s] : key_neg) : kf[s]; };
+    auto bcast = [&](const int32_t(&x)[N], int e) { return __shfl_sync(kFull, pick(x, e >> 5), e & 31); };
+    auto ov_ok = [&](int s, int32_t sqs, int32_t sqe) {
+      const int32_t ov = max(wsub(min(qe[s], sqe), max(qs[s], sqs)), 0);
+      const int32_t span = min(wsub(qe[s], qs[s]), wsub(sqe, sqs));
+      return __int2float_rn(ov) >= __fmul_rn(0.5f, __int2float_rn(span));
+    };
+
+    // primary: the first argmax of f
+    const int e1 = argmax([&](int s) { return kf[s]; });
+    const int s1 = e1 >> 5;
+    const float score1 = __shfl_sync(kFull, pick(fv, s1), e1 & 31);
+    const int32_t qs1 = bcast(qs, e1), qe1 = bcast(qe, e1), root1 = bcast(par, e1);
+    const bool live1 = score1 > 0.f;
+    if (lane == (e1 & 31)) {
+      stagef[0 * kWarpSets + warp] = score1;
+      stage[1 * kWarpSets + warp] = pick(cnt, s1) + 1;
+      stage[2 * kWarpSets + warp] = qs1;
+      stage[3 * kWarpSets + warp] = qe1;
+      stage[4 * kWarpSets + warp] = root_rpos(s1);
+      stage[5 * kWarpSets + warp] = wadd(pick(rp, s1), k);
+    }
+
+    // s2 alt: the best valid slot overlapping the primary, off its root; the
+    // slots the primary blocks for the split segments (bit s: slot 32 s + lane)
+    unsigned blocked = 0, alt = 0;
+#pragma unroll
+    for (int s = 0; s < N; s++) {
+      const bool ov = live1 && ov_ok(s, qs1, qe1);
+      const bool valid = rp[s] < kPadPos;
+      alt |= (unsigned)(ov && valid && par[s] != root1) << s;
+      blocked |= (unsigned)(ov || !valid) << s;
+    }
+    const int e2 = argmax([&](int s) { return masked(s, (alt >> s) & 1u); });
+    if (lane == (e2 & 31)) {
+      const int so = e2 >> 5;
+      stagef[6 * kWarpSets + warp] = ((alt >> so) & 1u) ? pick(fv, so) : kNeg;
+      stage[7 * kWarpSets + warp] = pick(qs, so);
+      stage[8 * kWarpSets + warp] = pick(qe, so);
+      stage[9 * kWarpSets + warp] = root_rpos(so);
+      stage[10 * kWarpSets + warp] = wadd(pick(rp, so), k);
+    }
+
+    // split segments: greedily the best slot not yet blocked
+    for (int n = 0; n < n_sup; n++) {
+      const int e = argmax([&](int s) { return masked(s, !((blocked >> s) & 1u)); });
+      const int so = e >> 5;
+      const float v = __shfl_sync(kFull, ((blocked >> so) & 1u) ? kNeg : pick(fv, so), e & 31);
+      const int32_t qs_n = bcast(qs, e), qe_n = bcast(qe, e);
+      if (lane == (e & 31)) {
+        const int o = sup0 + warp * n_sup + n;
+        stagef[o] = v;
+        stage[o + sup_run] = pick(cnt, so) + 1;
+        stage[o + 2 * sup_run] = qs_n;
+        stage[o + 3 * sup_run] = qe_n;
+        stage[o + 4 * sup_run] = root_rpos(so);
+        stage[o + 5 * sup_run] = wadd(pick(rp, so), k);
+      }
+      if (v > 0.f) {
+#pragma unroll
+        for (int s = 0; s < N; s++)
+          blocked |= (unsigned)(ov_ok(s, qs_n, qe_n) || 32 * s + lane == e) << s;
+      }
+    }
+  }
+  __syncthreads();
+
+  // each field row's run of the block's sets
+  const int nw = min(kWarpSets, p - set0);
+  for (int x = threadIdx.x; x < 11 * nw; x += blockDim.x) {
+    const int r = x / nw;
+    out[r * (int64_t)p + set0 + (x - r * nw)] = stage[r * kWarpSets + (x - r * nw)];
+  }
+  const int run = nw * n_sup;
+  for (int x = threadIdx.x; x < 6 * run; x += blockDim.x) {
+    const int r = x / run;
+    out[(11 + r * (int64_t)n_sup) * p + (int64_t)set0 * n_sup + (x - r * run)] =
+        stage[sup0 + r * sup_run + (x - r * run)];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // B6b: candidate selection, window gather, strand-adjusted query
 // ---------------------------------------------------------------------------
@@ -320,17 +551,6 @@ struct SelParams {
   int64_t pool_bytes, pool_codes;  // the pool's bytes and 4 * that
   bool pool_words;                 // the pool may be read as aligned 32-bit words
 };
-
-// a[i] for a runtime i without indexing a register array (which would put
-// it in local memory): a chain of selects over the compile-time indices
-template <int N, typename T>
-__device__ __forceinline__ T pick(const T (&a)[N], int i) {
-  T v = a[0];
-#pragma unroll
-  for (int x = 1; x < N; x++)
-    if (i == x) v = a[x];
-  return v;
-}
 
 // the candidates of one pair in host insertion order [P+, P-, S+0.., S-0..]
 // and their strand sets' alt fields; N = 2 * (1 + NSUP) is compile-time, so
@@ -712,6 +932,45 @@ struct FinParams {
   int p, lmax, wlen, match, mismatch, min_dp, zdrop;
 };
 
+// B6c's tile: 8 consecutive columns a lane
+constexpr int kLaneCols = 8;
+constexpr int kTileCols = 32 * kLaneCols;
+
+// the window bytes of columns col0 .. col0 + 7 of a row of wlen bytes, as
+// two little-endian words: from the aligned words that hold them (each
+// holds one of them) by funnel shifts when all 8 lie in the row, else byte
+// by byte at the plain version's clamped column
+__device__ __forceinline__ uint2 window8(const uint8_t* __restrict__ w, int32_t col0, int wlen) {
+  if (col0 >= 0 && col0 <= wlen - kLaneCols) {
+    const int off = (int)((uintptr_t)(w + col0) & 3);
+    const uint32_t* b = (const uint32_t*)(w + (col0 - off));
+    const unsigned sh = (unsigned)off * 8;
+    const uint32_t w0 = __ldg(b), w1 = __ldg(b + 1), w2 = sh ? __ldg(b + 2) : 0u;
+    return make_uint2(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh));
+  }
+  uint32_t lo = 0, hi = 0;
+#pragma unroll
+  for (int s = 0; s < 4; s++) {
+    lo |= (uint32_t)w[min(max(wadd(col0, s), 0), wlen - 1)] << (8 * s);
+    hi |= (uint32_t)w[min(max(wadd(col0, s + 4), 0), wlen - 1)] << (8 * s);
+  }
+  return make_uint2(lo, hi);
+}
+
+// the mismatch byte of 8 columns (byte s of q and w: column s), big-endian:
+// column s at bit 7 - s. Each byte compare gives 0xff or 0; the masks keep
+// one distinct bit of each, and the multiply sums the 4 bytes of a word
+// into its top byte without a carry.
+__device__ __forceinline__ uint32_t neq_byte(uint2 q, uint2 w) {
+  const uint32_t lo = __vcmpne4(q.x, w.x) & 0x10204080u;
+  const uint32_t hi = __vcmpne4(q.y, w.y) & 0x01020408u;
+  return ((lo | hi) * 0x01010101u) >> 24;
+}
+
+// kOneTile: lmax <= kTileCols, the row held in registers from one load
+// (and 32 registers against 44 for the loop over tiles: two thirds more
+// warps an SM)
+template <bool kOneTile>
 __global__ void finish_pack_kernel(FinParams fp, const uint8_t* __restrict__ q_codes,
                                    const int32_t* __restrict__ q_len,
                                    const uint8_t* __restrict__ rwin,
@@ -725,80 +984,127 @@ __global__ void finish_pack_kernel(FinParams fp, const uint8_t* __restrict__ q_c
   if (pair >= fp.p) return;  // warp-uniform
   const int32_t e = end_d[pair], ql = q_len[pair];
   const int32_t lo = lohi[2 * (int64_t)pair], hi = lohi[2 * (int64_t)pair + 1];
+  // lane 0's last reads, issued first so that they are not on the tail
+  int32_t* h = hot + 4 * (int64_t)pair + 2;
+  const float ext = lane == 0 ? ext_score[pair] : 0.f;
+  const int32_t h0 = lane == 0 ? *h : 0;
   const uint8_t* q = q_codes + (int64_t)pair * fp.lmax;
   const uint8_t* w = rwin + (int64_t)pair * fp.wlen;
-  const unsigned le_mask = 0xffffffffu >> (31 - lane);  // lanes <= this one
+  uint8_t* bits = neq_bits + (int64_t)pair * (fp.lmax >> 3);
+  const int tiles = kOneTile ? 1 : (fp.lmax + kTileCols - 1) / kTileCols;
 
-  // column j's mismatch bit and in-contig test
-  auto column = [&](int j, bool& neq, bool& vseg) {
-    const int32_t col = wadd(e, j);
-    const bool in_q = j < ql;
-    const int cc = min(max(col, 0), fp.wlen - 1);
-    neq = in_q && q[j] != w[cc];
-    vseg = (col >= lo && col < hi) || !in_q;
+  // this lane's 8 columns j0 .. j0 + 7 of tile t: the mismatch byte, and
+  // whether each column is in the contig or past the query
+  uint32_t mb = 0;
+  bool vok = true;
+  auto load = [&](int t) {
+    const int j0 = t * kTileCols + kLaneCols * lane;
+    mb = 0;
+    vok = true;
+    if (j0 >= fp.lmax) return;  // lmax % 32 == 0: a lane's columns are all in or all out
+    const int32_t col0 = wadd(e, j0);
+    const int n_in = ql <= j0 ? 0 : min(ql - j0, kLaneCols);  // columns before ql
+    mb = neq_byte(__ldg((const uint2*)(q + j0)), window8(w, col0, fp.wlen)) & ((0xff00u >> n_in) & 0xffu);
+    if (col0 <= 0x7fffffff - kLaneCols) {  // no wrap: the n_in columns are one run
+      vok = n_in == 0 || (col0 >= lo && col0 + n_in - 1 < hi);
+    } else {
+#pragma unroll
+      for (int s = 0; s < kLaneCols; s++) {
+        const int32_t col = wadd(col0, s);
+        vok = vok && ((col >= lo && col < hi) || s >= n_in);
+      }
+    }
   };
 
-  // pass 1: the mismatch count and whether every column is in the contig
+  // pass 1: the mismatch count and whether every column is in the contig;
+  // the mismatch bytes stored as they are
   int32_t neq_tot = 0;
   bool vall = true;
-  for (int j0 = 0; j0 < fp.lmax; j0 += 32) {
-    bool neq, vseg;
-    column(j0 + lane, neq, vseg);
-    neq_tot += __popc(__ballot_sync(kFull, neq));
-    vall = vall && vseg;
+  for (int t = 0; t < tiles; t++) {
+    load(t);
+    neq_tot += __reduce_add_sync(kFull, __popc(mb));
+    vall = vall && vok;
+    const int j0 = t * kTileCols + kLaneCols * lane;
+    if (j0 < fp.lmax) bits[j0 >> 3] = (uint8_t)mb;
   }
   vall = __all_sync(kFull, vall);
 
-  // pass 2: running count, Kadane prefix/suffix minima, z-drop running peak
-  const int32_t m = fp.match, step = fp.match + fp.mismatch;
+  // pass 2 (a row of one tile keeps it in registers): running count,
+  // Kadane prefix/suffix minima, z-drop running peak, all over the
+  // mismatch columns only, each lane looping over its set bits. The plain
+  // version's column values, with cum the mismatches of columns 0 .. j,
+  //   prefv = m (j + 1) - step cum, r_before = m j - step (cum - 1) and
+  //   sufv = m (ql - j) - step (neq_tot - cum + 1),
+  // are taken in the same wrapping int32 ring as (m j0 - step cum0) +
+  // m (s + 1) - step r for the lane's r-th mismatch at column j0 + s,
+  // prefv + (step - m) and (m ql - step (neq_tot + 1) + m) - prefv: the
+  // same bits.
+  const int32_t m = fp.match, step = wadd(fp.match, fp.mismatch);
+  const int32_t d_rb = wsub(step, m);
+  const int32_t k_suf = wadd(wsub(wmul(m, ql), wmul(step, wadd(neq_tot, 1))), m);
   int32_t carry = 0, peak = -kBig;
   int32_t min_pref = kBig, min_suf = kBig, dropmax = -kBig;
-  uint8_t* bits = neq_bits + (int64_t)pair * (fp.lmax >> 3);
-  for (int j0 = 0; j0 < fp.lmax; j0 += 32) {
-    const int32_t j = j0 + lane;
-    bool neq, vseg;
-    column(j, neq, vseg);
-    const unsigned b = __ballot_sync(kFull, neq);
-    const int32_t cum = carry + __popc(b & le_mask);
-    carry += __popc(b);
-    const int32_t prefv = wsub(wmul(m, j + 1), wmul(step, cum));
-    const int32_t sufv =
-        wsub(wmul(m, wsub(ql, j)), wmul(step, wadd(wsub(neq_tot, cum), 1)));
-    const int32_t r_before = wsub(wmul(m, j), wmul(step, wsub(cum, 1)));
-    // inclusive max-scan over the lanes, after the peak carried in
-    int32_t rp = neq ? r_before : -kBig;
+  for (int t = 0; t < tiles; t++) {
+    if (tiles > 1) load(t);
+    const int j0 = t * kTileCols + kLaneCols * lane;
+    // the mismatches before this lane's columns: an exclusive scan of the
+    // lanes' counts after the count carried in
+    const int32_t c = __popc(mb);
+    int32_t incl = c;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int32_t o = __shfl_up_sync(kFull, rp, off);
-      if (lane >= off) rp = max(rp, o);
+      const int32_t o = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += o;
     }
-    rp = max(rp, peak);
-    peak = __shfl_sync(kFull, rp, 31);
-    if (neq) {
-      min_pref = min(min_pref, prefv);
-      min_suf = min(min_suf, sufv);
-      dropmax = max(dropmax, wsub(rp, prefv));
+    const int32_t cum0 = carry + incl - c;
+    // the lane's minima and largest r_before over its mismatch columns
+    const int32_t base = wsub(wmul(m, j0), wmul(step, cum0));
+    auto prefv = [&](int s, int32_t r) { return wadd(base, wsub(wmul(m, s + 1), wmul(step, r))); };
+    int32_t lpeak = -kBig;
+    uint32_t left = mb;
+    for (int32_t r = 1; left; r++) {
+      const int s = __clz(left) - 24;  // the next mismatch, column j0 + s (bit 7 - s)
+      left ^= 0x80u >> s;
+      const int32_t pv = prefv(s, r);
+      min_pref = min(min_pref, pv);
+      min_suf = min(min_suf, wsub(k_suf, pv));
+      lpeak = max(lpeak, wadd(pv, d_rb));
     }
-    // big-endian bytes: column 8i + s at bit 7 - s of byte i
-    if (lane == 0) *(uint32_t*)(bits + (j0 >> 3)) = __byte_perm(__brev(b), 0, 0x0123);
-  }
+    // the running peak before this lane's columns: an exclusive max-scan of
+    // the lanes' own peaks after the peak carried in
+    int32_t pk = lpeak;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    min_pref = min(min_pref, __shfl_xor_sync(kFull, min_pref, off));
-    min_suf = min(min_suf, __shfl_xor_sync(kFull, min_suf, off));
-    dropmax = max(dropmax, __shfl_xor_sync(kFull, dropmax, off));
+    for (int off = 1; off < 32; off <<= 1) {
+      const int32_t o = __shfl_up_sync(kFull, pk, off);
+      if (lane >= off) pk = max(pk, o);
+    }
+    int32_t run = __shfl_up_sync(kFull, pk, 1);
+    run = max(lane == 0 ? -kBig : run, peak);
+    if (tiles > 1) {  // what the next tile carries in
+      carry += __shfl_sync(kFull, incl, 31);
+      peak = max(peak, __shfl_sync(kFull, pk, 31));
+    }
+    left = mb;
+    for (int32_t r = 1; left; r++) {
+      const int s = __clz(left) - 24;
+      left ^= 0x80u >> s;
+      const int32_t pv = prefv(s, r);
+      run = max(run, wadd(pv, d_rb));
+      dropmax = max(dropmax, wsub(run, pv));
+    }
   }
+  min_pref = __reduce_min_sync(kFull, min_pref);
+  min_suf = __reduce_min_sync(kFull, min_suf);
+  dropmax = __reduce_max_sync(kFull, dropmax);
   if (lane == 0) {
     const int32_t best_gapless =
         wsub(wmul(m, wsub(ql, neq_tot)), wmul(fp.mismatch, neq_tot));
-    const int32_t ext_i = __float2int_rz(fminf(fmaxf(ext_score[pair], -1e9f), 1e9f));
+    const int32_t ext_i = __float2int_rz(fminf(fmaxf(ext, -1e9f), 1e9f));
     const bool diag = vall && best_gapless == ext_i;
     const bool full = diag && best_gapless >= fp.min_dp &&
                       (neq_tot == 0 || (min_pref > 0 && min_suf > 0)) &&
                       dropmax <= fp.zdrop;
-    int32_t* h = hot + 4 * (int64_t)pair + 2;
-    *h = *h | (diag ? kDiag : 0) | (full ? kFullSpan : 0) |
-         (int32_t)((uint32_t)e << 8);
+    *h = h0 | (diag ? kDiag : 0) | (full ? kFullSpan : 0) | (int32_t)((uint32_t)e << 8);
   }
 }
 
@@ -925,6 +1231,42 @@ int launch_chain_select(const void* f, const void* parent, const void* rpos,
   return (int)cudaGetLastError();
 }
 
+template <typename QT, int N>
+int launch_chain_select_warp(const void* f, const void* parent, const void* rpos,
+                             const void* qpos, int p, int a, int k, int n_sup,
+                             int rounds, void* out, cudaStream_t s) {
+  auto kern = chain_select_warp_kernel<QT, N>;
+  const size_t smem = 4 * (size_t)kWarpSets * ((11 + 6 * (size_t)n_sup) + (N > 1 ? 3 * 32 * N : 0));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned grid = (unsigned)((p + kWarpSets - 1) / kWarpSets);
+  kern<<<grid, kWarpSets * 32, smem, s>>>((const float*)f, (const int32_t*)parent,
+                                          (const int32_t*)rpos, (const QT*)qpos, p, a, k,
+                                          n_sup, rounds, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// a set of a <= kWarpMaxSlots slots: a warp of ceil(a / 32) slots a lane,
+// rounded up to a power of two
+template <typename QT>
+int launch_chain_select_warp(const void* f, const void* parent, const void* rpos,
+                             const void* qpos, int p, int a, int k, int n_sup,
+                             int rounds, void* out, cudaStream_t s) {
+  auto go = [&](auto n) {
+    return launch_chain_select_warp<QT, decltype(n)::value>(f, parent, rpos, qpos, p, a, k, n_sup,
+                                                            rounds, out, s);
+  };
+  return a <= 32    ? go(std::integral_constant<int, 1>())
+         : a <= 64  ? go(std::integral_constant<int, 2>())
+         : a <= 128 ? go(std::integral_constant<int, 4>())
+                    : go(std::integral_constant<int, 8>());
+}
+
+static_assert(kWarpMaxSlots == 8 * 32, "launch_chain_select_warp instantiates 1, 2, 4 and 8 slots a lane");
+
 }  // namespace
 
 extern "C" {
@@ -938,7 +1280,8 @@ int64_t phylign_chain_select_workspace(int p, int a) {
 // B6a. Returns a cudaError_t (0 on success). q16 != 0: qpos is uint16
 // bits. ws: phylign_chain_select_workspace(p, a) bytes of device memory
 // (null when that is 0). out: int32 [11 + 6 * n_sup, P]
-// (chain_select_kernel's layout).
+// (chain_select_kernel's layout). A set of up to kWarpMaxSlots slots takes
+// the warp kernel, a longer one the block kernel.
 int phylign_chain_select(const void* f, const void* parent, const void* rpos,
                          const void* qpos, int q16, int p, int a, int k,
                          int n_sup, int rounds, void* ws, void* out,
@@ -947,6 +1290,9 @@ int phylign_chain_select(const void* f, const void* parent, const void* rpos,
   if (a < 1 || n_sup < 0 || rounds < 1 || ((a > kSmemSlots) != (ws != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (a <= kWarpMaxSlots)
+    return q16 ? launch_chain_select_warp<uint16_t>(f, parent, rpos, qpos, p, a, k, n_sup, rounds, out, s)
+               : launch_chain_select_warp<int32_t>(f, parent, rpos, qpos, p, a, k, n_sup, rounds, out, s);
   if (ws == nullptr)
     return q16 ? launch_chain_select<uint16_t, uint16_t>(f, parent, rpos, qpos, p, a, k, n_sup, rounds, ws, out, s)
                : launch_chain_select<int32_t, uint16_t>(f, parent, rpos, qpos, p, a, k, n_sup, rounds, ws, out, s);
@@ -996,7 +1342,8 @@ int phylign_select_window(const void* const* fields, const int* rows,
 }
 
 // B6c. ORs the extension's flag bits and end_d into the hot rows int32
-// [P, 4] and writes the mismatch bits u8 [P, lmax / 8]. lmax % 32 == 0.
+// [P, 4] and writes the mismatch bits u8 [P, lmax / 8]. lmax % 32 == 0;
+// q_codes 8-byte aligned (its rows are read 8 bytes a lane).
 int phylign_finish_pack(const void* q_codes, const void* q_len,
                         const void* rwin, const void* lohi,
                         const void* ext_score, const void* end_d, int p,
@@ -1004,10 +1351,12 @@ int phylign_finish_pack(const void* q_codes, const void* q_len,
                         int min_dp, int zdrop, void* hot, void* neq,
                         void* stream) {
   if (p <= 0) return 0;
-  if (lmax < 32 || lmax % 32 != 0 || wlen < lmax) return (int)cudaErrorInvalidValue;
+  if (lmax < 32 || lmax % 32 != 0 || wlen < lmax || ((uintptr_t)q_codes & 7))
+    return (int)cudaErrorInvalidValue;
   const FinParams fp{p, lmax, wlen, match, mismatch, min_dp, zdrop};
   const unsigned grid = (unsigned)((p + kPairThreads / 32 - 1) / (kPairThreads / 32));
-  finish_pack_kernel<<<grid, kPairThreads, 0, (cudaStream_t)stream>>>(
+  auto kern = lmax <= kTileCols ? finish_pack_kernel<true> : finish_pack_kernel<false>;
+  kern<<<grid, kPairThreads, 0, (cudaStream_t)stream>>>(
       fp, (const uint8_t*)q_codes, (const int32_t*)q_len,
       (const uint8_t*)rwin, (const int32_t*)lohi, (const float*)ext_score,
       (const int32_t*)end_d, (int32_t*)hot, (uint8_t*)neq);

@@ -24,7 +24,9 @@ Implementations with identical results:
 ``chain_dp`` picks by the tensor's device. Everything after the scan
 (pointer doubling, the s2 competitor, the split-read segments) is
 ``chain_tail``: ``_chain_tail_ref`` in plain PyTorch, or CUDA kernel B6a
-(csrc/flush_epilogue.cu, ``chain_select_cuda``), one block per anchor set.
+(csrc/flush_epilogue.cu, ``chain_select_cuda``): a warp per anchor set of
+up to 256 slots, its slots in the lanes' registers, one block per longer
+set.
 
 Arithmetic is float32 as in the JAX function: positions become f32 (padded
 slots 2e9), dr / dq / dd are f32 differences, ``cand = (f + gain) - cost``.
@@ -437,8 +439,9 @@ def chain_select_cuda(
     """Kernel B6a (replaces the tail of ``phylign_tpu/ops/chain.py:
     chain_anchors`` after its scan). CUDA tensors only; same contract as
     _chain_tail_ref for a parent from chain_dp (-1 or an earlier slot), at
-    any A: a set of up to 8,192 slots is held in shared memory, a longer
-    one in a device workspace. Every field is a view of one int32 buffer
+    any A: a set of up to 256 slots takes a warp (8 sets a block), a longer
+    one a block, with the set in shared memory up to 8,192 slots and in a
+    device workspace past that. Every field is a view of one int32 buffer
     the kernel fills."""
     dev = rpos.device
     if dev.type != "cuda" or any(t.device != dev for t in (f, parent, qpos)):

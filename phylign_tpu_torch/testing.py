@@ -552,29 +552,40 @@ def flush_case(rng, p: int, lmax: int = 160, band: int = 128, n_sup: int = 2, n_
     return chains, (cand_map, pair_base, pair_reflen, q_pack, q_len, pool_pack, cst, clen), kw
 
 
-def finish_case(rng, p: int, lmax: int, band: int, match: int, mismatch: int):
+def finish_case(rng, p: int, lmax: int, band: int, match: int, mismatch: int, ends: bool = False,
+                qmax: int = 150):
     """Synthetic inputs of the checks after the extension (align/fused.
     _finish_ref, kernel B6c) as numpy arrays: (q_codes, rwin, lohi, head,
     q_len, ext_score, end_d). Each row's window holds its query on the
-    diagonal end_d with mismatches where a 32-column warp scan could go
-    wrong: consecutive pairs and runs starting at or crossing a tile
-    boundary, a mismatch on lanes 0 and 31 of every tile, a run of 15,
-    random ones; some reads short, some windows cut by the contig, some
-    scores off the gapless one or -1e30, head rows of random flag bits."""
+    diagonal end_d with mismatches where a warp's scans could go wrong:
+    consecutive pairs and runs starting at or crossing a 32-column and a
+    256-column boundary, a mismatch on lanes 0 and 31 of every 32 columns,
+    a run of 15, the first and last column of one 8-column group (a later
+    column's peak within a lane), a mismatch near the end of a long row
+    after an earlier one (the count carried over tiles), random ones;
+    some reads short, some windows cut by the contig, some scores off the
+    gapless one or -1e30, head rows of random flag bits. q_len min(qmax,
+    lmax). ``ends``: end_d at the window's ends, 0 and band (= wlen -
+    lmax), on two rows in three. The pattern count (19) is prime, so every
+    pattern meets every other per-row rule."""
     wlen = lmax + band
     patterns = [[], [32, 33], [64, 65, 66], [30, 31, 32, 33], [31, 32], [63, 64], [95, 96, 97],
                 list(range(60, 75)), list(range(90, 106)),
-                [j for t in range(0, 150, 32) for j in (t, t + 31) if j < 150], [0, 1], [148, 149], [96]]
+                [j for t in range(0, 150, 32) for j in (t, t + 31) if j < 150], [0, 1], [148, 149], [96],
+                [40, 47], [40, 46], list(range(248, 264)), [255, 256], [100, "tail"], [120, 127]]
     q = rng.integers(0, 4, (p, lmax)).astype(np.uint8)
-    q_len = np.full(p, min(150, lmax), np.int32)
+    q_len = np.full(p, min(qmax, lmax), np.int32)
     q_len[::7] = rng.integers(1, q_len[0], len(q_len[::7]))
     end_d = rng.integers(0, band, p).astype(np.int32)
+    if ends:
+        end_d[::3], end_d[1::3] = 0, band
     rwin = rng.integers(0, 4, (p, wlen)).astype(np.uint8)
     lohi = np.tile(np.int32([0, wlen]), (p, 1))
     lohi[5::11] = (40, wlen - 30)
     ext = np.zeros(p, np.float32)
     for i in range(p):
-        cols = np.array([j for j in patterns[i % len(patterns)] if j < q_len[i]]
+        pat = [int(q_len[i]) - 6 if j == "tail" else j for j in patterns[i % len(patterns)]]
+        cols = np.array([j for j in pat if 0 <= j < q_len[i]]
                         + (rng.choice(int(q_len[i]), min(4, int(q_len[i])), replace=False).tolist()
                            if i % 17 == 3 else []), np.int64)
         r = q[i].copy()
@@ -586,6 +597,16 @@ def finish_case(rng, p: int, lmax: int, band: int, match: int, mismatch: int):
     head = np.zeros((p, 4), np.int32)
     head[:, 2] = rng.integers(0, 256, p) & ~6  # F_DIAG and F_FULL are B6c's
     return q, rwin, lohi, head, q_len, ext, end_d
+
+
+def window_padded(rwin, lohi, end_d, pad: int):
+    """(rwin, lohi, end_d) with every window widened by ``pad`` copies of
+    its first byte before it and of its last byte after it, and the
+    columns shifted to match: the plain version's reading of an end_d up
+    to ``pad`` columns outside the window when each column is clamped to
+    the window (kernel B6c's reading), as numpy arrays."""
+    wide = np.concatenate([np.repeat(rwin[:, :1], pad, 1), rwin, np.repeat(rwin[:, -1:], pad, 1)], axis=1)
+    return wide, (lohi + pad).astype(np.int32), (end_d + pad).astype(np.int32)
 
 
 def cold_case(rng, p: int, kind, n_out: int = 2, cap: int = 512):

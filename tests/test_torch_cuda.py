@@ -807,8 +807,16 @@ def test_match_step_on_the_card(cuda, h, k, thr):
 B6A_SHAPES = [
     # (P, A, q16, rmax): the anchor buckets, the main path's A = 32 bucket
     # at P = 16,384, A past 48 KB of shared memory (4096, 8192), A past
-    # shared memory (the device workspace: 8,193, 16,384), one slot
+    # shared memory (the device workspace: 8,193, 16,384), one slot; the
+    # warp kernel's edges: A = 31, 33 and 65 (a lane's last slots past A),
+    # its largest A (256) and one past it (257, a block a set), at P off
+    # its 8 sets a block
     (70, 32, False, 400),
+    (13, 31, True, 300),
+    (29, 33, False, 300),
+    (21, 65, True, 500),
+    (17, 256, False, 2000),
+    (11, 257, True, 2000),
     (16384, 32, True, 400),
     (66, 64, True, 400),
     (40, 256, True, 2000),
@@ -908,7 +916,7 @@ def test_flush_epilogue_equals_plain_version(cuda, p, lmax, band, n_sup, scoring
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got[1], cpu[1]))
 
 
-@pytest.mark.parametrize("zdrop", [12, 100])
+@pytest.mark.parametrize("zdrop", [10, 12, 100])
 @pytest.mark.parametrize("scoring", [ope.SrScoring(), WIDE], ids=["sr", "wide"])
 def test_finish_pack_on_crafted_rows(cuda, scoring, zdrop):
     """B6c against _finish_ref on testing.finish_case's rows (mismatch runs
@@ -931,6 +939,66 @@ def test_finish_pack_on_crafted_rows(cuda, scoring, zdrop):
     assert torch.equal(hot, want[0]) and torch.equal(bits, want[1])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert bool(((hot[:, 2] & fz.F_DIAG) != 0).any()) and bool(((hot[:, 2] & fz.F_FULL) != 0).any())
+
+
+@pytest.mark.parametrize("lmax", [32, 160, 2208])
+def test_finish_pack_at_the_window_ends(cuda, lmax):
+    """B6c against _finish_ref with end_d at both ends of the window (0 and
+    wlen - lmax: a lane's 8 window bytes at the row's first and last
+    columns, read through the clamp path where their words would leave the
+    row), at lmax 32 (4 lanes of a tile), 160 and 2,208 (9 tiles, the count
+    and peak carried): hot rows and mismatch bits bit for bit."""
+    q, rwin, lohi, head, q_len, ext, end_d = fixture_mod.finish_case(
+        np.random.default_rng(lmax), 120, lmax, 128, 2, 8, ends=True, qmax=lmax)
+    p = len(q)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in dict(q=q, rwin=rwin, lohi=lohi, q_len=q_len, ext=ext,
+                                                            end_d=end_d).items()}
+    packed = torch.zeros(sum(fz._packed_sizes(p, lmax, 0)), dtype=torch.uint8, device=cuda)
+    hot, flts, bits = fz._packed_views(packed, p, lmax, 0)[:3]
+    hot.copy_(torch.from_numpy(head))
+    empty = torch.zeros((p, 0), dtype=torch.float32, device=cuda)
+    sel = fz.Selection(t["q"], t["rwin"], t["rwin"], t["lohi"], hot, flts, empty, empty, packed)
+    ref = sel._replace(head=torch.from_numpy(head).to(cuda), packed=None)
+    fz.reset_launch_counts()
+    got = fz.finish_pack_cuda(sel, t["q_len"], t["ext"], t["end_d"], ope.SrScoring(), 100)
+    want = fz._finish_ref(ref, t["q_len"], t["ext"], t["end_d"], ope.SrScoring(), 100)
+    torch.cuda.synchronize()
+    assert fz.launch_counts()["finish_pack"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(((want[0][:, 2] & fz.F_FULL) != 0).any())
+
+
+def test_finish_pack_clamps_outside_the_window(cuda):
+    """B6c with end_d 7 columns before or past the window: the lanes whose
+    8 bytes leave the row read each column clamped to the window, which is
+    _finish_ref on the window widened by copies of its end bytes
+    (testing.window_padded); end_d's own bits of the hot row stay the
+    given ones."""
+    sc = ope.SrScoring()
+    q, rwin, lohi, head, q_len, ext, end_d = fixture_mod.finish_case(
+        np.random.default_rng(5), 30, 160, 128, sc.match, sc.mismatch, ends=True, qmax=160)
+    end_d = end_d.copy()
+    end_d[::3] -= 7
+    end_d[1::3] += 7
+    p, lmax = q.shape
+    wide, wlohi, wend = fixture_mod.window_padded(rwin, lohi, end_d, 8)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in dict(q=q, rwin=rwin, lohi=lohi, q_len=q_len, ext=ext,
+                                                            end_d=end_d, wide=wide, wlohi=wlohi,
+                                                            wend=wend).items()}
+    packed = torch.zeros(sum(fz._packed_sizes(p, lmax, 0)), dtype=torch.uint8, device=cuda)
+    hot, flts, bits = fz._packed_views(packed, p, lmax, 0)[:3]
+    hot.copy_(torch.from_numpy(head))
+    empty = torch.zeros((p, 0), dtype=torch.float32, device=cuda)
+    sel = fz.Selection(t["q"], t["rwin"], t["rwin"], t["lohi"], hot, flts, empty, empty, packed)
+    ref = fz.Selection(t["q"], t["wide"], t["wide"], t["wlohi"], torch.from_numpy(head).to(cuda), flts, empty,
+                       empty, None)
+    got = fz.finish_pack_cuda(sel, t["q_len"], t["ext"], t["end_d"], sc, 100)
+    want = fz._finish_ref(ref, t["q_len"], t["ext"], t["wend"], sc, 100)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][:, [0, 1, 3]], want[0][:, [0, 1, 3]])
+    assert torch.equal(got[0][:, 2] & 0xFF, want[0][:, 2] & 0xFF)
+    assert torch.equal(got[0][:, 2] >> 8, t["end_d"])
 
 
 def test_flush_epilogue_on_a_mesh_equals_one_device(cuda):

@@ -1,10 +1,12 @@
 """Kernel B6, the fused flush epilogue (``csrc/flush_epilogue.cu``), on the
 CPU: a numpy emulation of each of its four kernels' own algorithm (B6a's
-block with its shared-memory pointer doubling and strided argmax passes,
-B6b's blocks of 32 pairs, a thread's selection read through the chain
-table and its 16-byte chunks of window, mask and query, B6c's warp over
-32 columns at a time with ballots, popcounts, a shuffle max-scan and
-reversed-bit bytes, and the compaction's blocks, each ranking its rows
+warp a set, 8 sets a block, with pointer doubling by shuffles or through
+the warp's shared slice, redux argmaxes and field rows written as runs of
+sets, and its block kernel past 256 slots; B6b's blocks of 32 pairs, a
+thread's selection read through the chain table and its 16-byte chunks of
+window, mask and query; B6c's warp with 8 columns a lane, the window from
+aligned words, exclusive lane scans and a loop over each lane's mismatch
+bits, tile by tile; and the compaction's blocks, each ranking its rows
 after counting every flag before them),
 held to the plain PyTorch versions (``ops/chain._chain_tail_ref``,
 ``align/fused._select_ref`` / ``_finish_ref`` / ``_compact_cold``) on the
@@ -12,6 +14,9 @@ inputs of the fused flush of tests/test_torch_fused.py's pool, and to the
 JAX package's ``chain_anchors`` / ``select_extend`` on inputs made from a
 numpy seed. Tolerance: exact (0 difference; whole byte buffers, padding
 rows included)."""
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,15 +45,146 @@ def u16(q):
     return q.view(np.uint16) if q.dtype == np.int16 else q
 
 
-# --- B6a: one block per anchor set ---------------------------------------------
+# --- B6a: a warp per anchor set (a block per set past 256 slots) ---------------
 
 
-def emu_chain_select(f, parent, rpos, qpos, k, n_sup):
-    """B6a block by block: pointer doubling (root and count both read from
-    the previous round; uint16 in shared memory up to 8,192 slots, int32 in
-    the device workspace above), then each pass's threads scanning slots
-    t, t+T, ... for their first strict maximum, combined by (larger value,
-    smaller index)."""
+def cu_constant(name):
+    """A ``constexpr int`` of csrc/flush_epilogue.cu: the emulation takes the
+    kernel's geometry from its source."""
+    src = (Path(tchain.__file__).resolve().parents[1] / "csrc" / "flush_epilogue.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+WARP_MAX_SLOTS, WARP_SETS = cu_constant("kWarpMaxSlots"), cu_constant("kWarpSets")
+INF32 = np.float32(np.inf)
+
+
+def fkey(x):
+    """The kernel's order-preserving int32 key of f32 values (-0 as +0)."""
+    b = np.asarray(x, np.float32).view(np.int32).copy()
+    b[b == np.int32(-(2**31))] = 0
+    return np.where(b >= 0, b, b ^ np.int32(0x7FFFFFFF))
+
+
+def redux_argmax(keys, slots):
+    """redux.sync: the largest of the lanes' keys, then the smallest slot
+    among the lanes holding it."""
+    top = keys.max()
+    return int(np.where(keys == top, slots, 2**31 - 1).min())
+
+
+def emu_chain_select_warp(f, parent, rpos, qpos, k, n_sup):
+    """B6a's warp kernel block by block: 8 sets a block, a warp a set; lane
+    l holds slots 32 s + l (s < N, N the power of two >= A / 32) as [N, 32]
+    arrays, a slot past A f = -inf and padding. Pointer doubling by
+    shuffles at N = 1, else through the warp's shared slice of packed
+    (root | count << 16) words, every lane reading before any writes; qs
+    by a shuffle or the slice. Each argmax: every lane's first strict
+    maximum of its own slots' keys (f's order keys, taken once; -1e30's
+    for a masked slot), then redux.sync; the winner's lane stages its own
+    values (fields 0-10 at field * 8 + warp, split segment
+    n of field x at 88 + (x * 8 + warp) * n_sup + n) and broadcasts what
+    the next pass needs. Then the block writes each field row's run of its
+    nw <= 8 sets into the int32 [11 + 6 n_sup, P] buffer, which is split
+    into fields as chain_select_cuda does."""
+    p, a = rpos.shape
+    n = 1 << max(0, int(np.ceil(np.log2(-(-a // 32)))))
+    lane = np.arange(32)
+    slot = 32 * np.arange(n)[:, None] + lane[None, :]
+    real = slot < a
+    q_all = u16(qpos).astype(np.int64)
+    buf = np.zeros((11 + 6 * n_sup) * p, np.int32)
+    run = WARP_SETS * n_sup
+
+    def bits(v):
+        return int(np.float32(v).view(np.int32))
+
+    for set0 in range(0, p, WARP_SETS):
+        stage = np.zeros((11 + 6 * n_sup) * WARP_SETS, np.int32)
+        for warp in range(min(WARP_SETS, p - set0)):
+            s = set0 + warp
+            idx = np.minimum(slot, a - 1)
+            fv = np.where(real, f[s][idx], -INF32).astype(np.float32)
+            rp = np.where(real, rpos[s][idx].astype(np.int64), int(tchain.PAD_POS))
+            qv = np.where(real, q_all[s][idx], 0)
+            pa = np.where(real, parent[s][idx].astype(np.int64), -1)
+            par = np.where(pa >= 0, np.minimum(pa, a - 1), slot)
+            cnt = (pa >= 0).astype(np.int64)
+            if n == 1:  # c = shfl(cnt, par); par = shfl(par, par)
+                for _ in range(tchain.doubling_rounds(a)):
+                    par, cnt = par[0][par], cnt + cnt[0][par]
+            else:
+                smem = (par | cnt << 16).reshape(-1)
+                for _ in range(tchain.doubling_rounds(a)):
+                    nx = smem[par]  # every lane reads ...
+                    par, cnt = nx & 0xFFFF, cnt + (nx >> 16)
+                    smem = (par | cnt << 16).reshape(-1)  # ... then writes its own
+            qs = qv.reshape(-1)[par]
+            qe = w(qv + k).astype(np.int64)
+            rs_root = rp.reshape(-1)[par]
+
+            kf, key_neg = fkey(fv), int(fkey(NEG))  # a slot past A: -inf's key, the least
+
+            def argmax(keys):
+                first = keys.argmax(axis=0)  # each lane's first strict maximum
+                return redux_argmax(keys[first, lane], slot[first, lane])
+
+            def masked(take):  # a real slot's key: f's where take, else -1e30's
+                return np.where(real & ~take, key_neg, kf)
+
+            def ov_ok(sqs, sqe):
+                ov = np.maximum(w(np.minimum(qe, sqe) - np.maximum(qs, sqs)), 0)
+                span = np.minimum(w(qe - qs), w(sqe - sqs))
+                return ov.astype(np.float32) >= np.float32(0.5) * span.astype(np.float32)
+
+            def own(x, e):  # the winner's lane's value of its slot e
+                return x[e >> 5, e & 31]
+
+            def fields(e, v):  # score, count, qs, qe, rs, re of slot e
+                return [bits(v), int(own(cnt, e)) + 1, own(qs, e), own(qe, e), own(rs_root, e), w(own(rp, e) + k)]
+
+            e1 = argmax(kf)
+            score1 = own(fv, e1)
+            for x, val in enumerate(fields(e1, score1)):
+                stage[x * WARP_SETS + warp] = val
+            ov = ov_ok(own(qs, e1), own(qe, e1)) & (score1 > 0)
+            valid = rp < int(tchain.PAD_POS)
+            alt = ov & valid & (par != own(par, e1))
+            blocked = ov | ~valid
+            e2 = argmax(masked(alt))
+            for x_, val in zip((6, 7, 8, 9, 10), np.delete(fields(e2, own(fv, e2) if own(alt, e2) else NEG), 1)):
+                stage[x_ * WARP_SETS + warp] = val
+            for j in range(n_sup):
+                e = argmax(masked(~blocked))
+                v = NEG if own(blocked, e) else own(fv, e)
+                o = 11 * WARP_SETS + warp * n_sup + j
+                for x_, val in enumerate(fields(e, v)):
+                    stage[o + x_ * run] = val
+                if v > 0:
+                    blocked = blocked | ov_ok(own(qs, e), own(qe, e)) | (slot == e)
+        nw = min(WARP_SETS, p - set0)
+        for t in range(11 * nw):
+            r = t // nw
+            buf[r * p + set0 + t - r * nw] = stage[r * WARP_SETS + t - r * nw]
+        for t in range(6 * nw * n_sup):
+            r = t // (nw * n_sup)
+            buf[(11 + r * n_sup) * p + set0 * n_sup + t - r * nw * n_sup] = stage[11 * WARP_SETS + r * run + t
+                                                                                    - r * nw * n_sup]
+    rows, sups = buf[: 11 * p].reshape(11, p), buf[11 * p :].reshape(6, p, n_sup)
+    out = dict(zip(T.CHAIN_FIELDS[:11], rows))
+    out.update(zip(T.CHAIN_FIELDS[11:], sups))
+    for c in ("score", "alt_score", "sup_score"):
+        out[c] = out[c].view(np.float32)
+    return out
+
+
+def emu_chain_select_block(f, parent, rpos, qpos, k, n_sup):
+    """B6a's block kernel, one block per anchor set of more than 256 slots:
+    pointer doubling (root and count both read from the previous round;
+    uint16 in shared memory up to 8,192 slots, int32 in the device
+    workspace above), then each pass's threads scanning slots t, t+T, ...
+    for their first strict maximum, combined by (larger value, smaller
+    index)."""
     p, a = rpos.shape
     nt = 256 if a >= 256 else -(-a // 32) * 32
     it = np.uint16 if a <= 8192 else np.int32
@@ -107,6 +243,13 @@ def emu_chain_select(f, parent, rpos, qpos, k, n_sup):
             if v > 0:
                 blocked = blocked | ov_ok(qs_all[e], qe_all[e]) | (np.arange(a) == e)
     return out
+
+
+def emu_chain_select(f, parent, rpos, qpos, k, n_sup):
+    """B6a as phylign_chain_select dispatches it: the warp kernel up to 256
+    slots a set, the block kernel above."""
+    emu = emu_chain_select_warp if rpos.shape[1] <= WARP_MAX_SLOTS else emu_chain_select_block
+    return emu(f, parent, rpos, qpos, k, n_sup)
 
 
 # --- B6b: a block of 32 pairs, a thread a pair, then 16-byte chunks -----------------
@@ -334,6 +477,7 @@ def emu_select_window(chains, cand_map, pair_base, pair_reflen, q_pack, q_len, p
 # --- B6c: one warp per pair, then the compaction's blocks of 256 rows --------------------
 
 LANES = np.arange(32)
+LANE_COLS, TILE_COLS = 8, 256
 
 
 def ballot(bits):
@@ -344,55 +488,138 @@ def popc(x):
     return bin(x & 0xFFFFFFFF).count("1")
 
 
-def emu_finish_pack(sel, q_len, ext_score, end_d, match, mismatch, min_dp, zdrop):
-    """B6c pair by pair, 32 columns at a time as the warp's lanes: pass 1
-    counts mismatches by ballot; pass 2 takes each column's running count
-    from the popcount of the lanes at or below it, the z-drop running peak
-    from a 5-step shuffle-up max-scan after the peak carried in, and the
-    mismatch bytes from the ballot's reversed bits byte-swapped."""
+def shfl_up(x, off, fill=0):
+    """__shfl_up_sync over the lanes: lane l gets lane l - off's value; the
+    lanes below off keep their own (the caller masks them)."""
+    return np.concatenate([x[:off], x[:-off]]) if off else x
+
+
+def emu_window8(row, col0, wlen, base):
+    """A lane's 8 window bytes (columns col0 .. col0 + 7 of a row whose first
+    byte sits at address ``base``): when all 8 lie in the row, the aligned
+    little-endian words that hold them funnel-shifted by the address's
+    residue (the third word read only off a word boundary); else byte by
+    byte at the clamped column."""
+    if 0 <= col0 <= wlen - LANE_COLS:
+        addr = base + col0
+        first = addr & ~3
+        sh = (addr & 3) * 8
+        n_words = 3 if sh else 2
+
+        def byte_at(a):  # bytes of the words outside the row are never kept
+            return int(row[a - base]) if 0 <= a - base < wlen else 0xEE
+
+        words = [sum(byte_at(first + 4 * i + b) << (8 * b) for b in range(4)) for i in range(n_words)] + [0]
+        lo = ((words[1] << 32 | words[0]) >> sh) & M32
+        hi = ((words[2] << 32 | words[1]) >> sh) & M32
+    else:
+        cols = [min(max(int(w(col0 + i)), 0), wlen - 1) for i in range(LANE_COLS)]
+        lo = sum(int(row[c]) << (8 * i) for i, c in enumerate(cols[:4]))
+        hi = sum(int(row[c]) << (8 * i) for i, c in enumerate(cols[4:]))
+    return lo, hi
+
+
+def emu_neq_byte(q, win):
+    """The big-endian mismatch byte of 8 columns: per-byte compares (0xff /
+    0) masked to one bit each, the 4 bytes of a word summed by a multiply."""
+    def vcmpne4(a, b):
+        return sum(0xFF << (8 * i) for i in range(4) if (a >> (8 * i)) & 0xFF != (b >> (8 * i)) & 0xFF)
+
+    lo = vcmpne4(q[0], win[0]) & 0x10204080
+    hi = vcmpne4(q[1], win[1]) & 0x01020408
+    return (((lo | hi) * 0x01010101) & M32) >> 24
+
+
+def emu_finish_pack(sel, q_len, ext_score, end_d, match, mismatch, min_dp, zdrop, base=0):
+    """B6c pair by pair as its warp runs: lane l holds columns j0 = 256 t +
+    8 l .. j0 + 7 of tile t, the query as one little-endian 8-byte word and
+    the window through emu_window8 (``base``: the window buffer's address
+    mod 16); its big-endian mismatch byte, cut to the columns before q_len,
+    stored as it is. Pass 1 counts the row (a redux add a tile); pass 2 (the
+    same registers at one tile) takes each lane's first rank from an
+    exclusive shuffle-up scan of the lanes' popcounts after the count
+    carried in, its running peak from an exclusive max-scan of the lanes'
+    own peaks after the peak carried in, and its minima and largest drop
+    by two loops over its mismatch bits (the r-th at column j0 + s: prefv
+    = (m j0 - step cum0) + m (s + 1) - step r, r_before and sufv from
+    prefv, in the wrapping int32 ring); three redux reductions end the
+    row."""
     q_codes, rwin, lohi, head = sel["q_codes"], sel["rwin"], sel["lohi"], sel["head"]
     p, lmax = q_codes.shape
     wlen = rwin.shape[1]
     hot = head.copy()
     bits = np.zeros((p, lmax // 8), np.uint8)
-    step = match + mismatch
+    step = int(w(match + mismatch))
+    d_rb = int(w(step - match))
+    tiles = -(-lmax // TILE_COLS)
     for pair in range(p):
         e, ql = int(end_d[pair]), int(q_len[pair])
-        lo, hi = lohi[pair]
+        lo, hi = int(lohi[pair, 0]), int(lohi[pair, 1])
+        qrow = q_codes[pair].tobytes()
 
-        def column(j):
-            col = w(e + j).astype(np.int64)
-            in_q = j < ql
-            neq = in_q & (q_codes[pair, j] != rwin[pair, np.clip(col, 0, wlen - 1)])
-            return neq, ((col >= lo) & (col < hi)) | ~in_q
+        def load(t):
+            mb, vok = np.zeros(32, np.int64), np.ones(32, bool)
+            for ln in LANES:
+                j0 = t * TILE_COLS + LANE_COLS * ln
+                if j0 >= lmax:
+                    continue
+                col0 = int(w(e + j0))
+                n_in = 0 if ql <= j0 else min(ql - j0, LANE_COLS)
+                qw = np.frombuffer(qrow[j0 : j0 + 8], "<u4")
+                win = emu_window8(rwin[pair], col0, wlen, base + pair * wlen)
+                mb[ln] = emu_neq_byte((int(qw[0]), int(qw[1])), win) & ((0xFF00 >> n_in) & 0xFF)
+                if col0 <= 2**31 - 1 - LANE_COLS:  # no wrap: the n_in columns are one run
+                    vok[ln] = n_in == 0 or (col0 >= lo and col0 + n_in - 1 < hi)
+                else:
+                    cols = [int(w(col0 + i)) for i in range(LANE_COLS)]
+                    vok[ln] = all((lo <= c < hi) or i >= n_in for i, c in enumerate(cols))
+            return mb, vok
 
-        neq_tot, vall = 0, True
-        for j0 in range(0, lmax, 32):
-            neq, vseg = column(j0 + LANES)
-            neq_tot += popc(ballot(neq))
-            vall = vall and bool(vseg.all())
+        neq_tot, vall, tile = 0, True, None
+        for t in range(tiles):
+            tile = load(t)
+            neq_tot += sum(popc(int(x)) for x in tile[0])
+            vall = vall and bool(tile[1].all())
+            for ln in LANES:
+                j0 = t * TILE_COLS + LANE_COLS * ln
+                if j0 < lmax:
+                    bits[pair, j0 >> 3] = tile[0][ln]
+        k_suf = int(w(int(w(match * ql)) - int(w(step * int(w(neq_tot + 1)))) + match))
         carry, peak = 0, -BIG
-        min_pref, min_suf, dropmax = BIG, BIG, -BIG
-        for j0 in range(0, lmax, 32):
-            j = j0 + LANES
-            neq, _ = column(j)
-            b = ballot(neq)
-            cum = carry + np.array([popc(b & (0xFFFFFFFF >> (31 - ln))) for ln in LANES])
-            carry += popc(b)
-            prefv = w(match * (j + 1) - step * cum)
-            sufv = w(match * (ql - j) - step * (neq_tot - cum + 1))
-            rp = np.where(neq, w(match * j - step * (cum - 1)), -BIG)
+        min_pref, min_suf, dropmax = np.full(32, BIG), np.full(32, BIG), np.full(32, -BIG)
+        for t in range(tiles):
+            mb = (load(t) if tiles > 1 else tile)[0]
+            c = np.array([popc(int(x)) for x in mb])
+            incl = c.copy()
             for off in (1, 2, 4, 8, 16):
-                up = np.concatenate([rp[:off], rp[:-off]])
-                rp = np.where(LANES >= off, np.maximum(rp, up), rp)
-            rp = np.maximum(rp, peak)
-            peak = int(rp[31])
-            if neq.any():
-                min_pref = min(min_pref, int(prefv[neq].min()))
-                min_suf = min(min_suf, int(sufv[neq].min()))
-                dropmax = max(dropmax, int(w(rp - prefv)[neq].max()))
-            rev = int(f"{b:032b}"[::-1], 2)
-            bits[pair, j0 // 8 : j0 // 8 + 4] = np.frombuffer(rev.to_bytes(4, "big"), np.uint8)
+                incl = np.where(LANES >= off, incl + shfl_up(incl, off), incl)
+            cum0 = carry + incl - c
+            lpeak = np.full(32, -BIG)
+
+            def mismatches(ln):  # (s, r, prefv) of the lane's r-th mismatch, at column j0 + s
+                base = int(w(int(w(match * (t * TILE_COLS + LANE_COLS * ln))) - int(w(step * int(cum0[ln])))))
+                on = [sb for sb in range(LANE_COLS) if (int(mb[ln]) >> (7 - sb)) & 1]
+                return [(sb, r, int(w(base + int(w(int(w(match * (sb + 1))) - int(w(step * r)))))))
+                        for r, sb in enumerate(on, 1)]
+
+            for ln in LANES:
+                for _, _, pv in mismatches(ln):
+                    min_pref[ln] = min(min_pref[ln], pv)
+                    min_suf[ln] = min(min_suf[ln], int(w(k_suf - pv)))
+                    lpeak[ln] = max(lpeak[ln], int(w(pv + d_rb)))
+            pk = lpeak.copy()
+            for off in (1, 2, 4, 8, 16):
+                pk = np.where(LANES >= off, np.maximum(pk, shfl_up(pk, off)), pk)
+            run = np.maximum(np.where(LANES == 0, -BIG, shfl_up(pk, 1)), peak)
+            if tiles > 1:  # what the next tile carries in
+                carry += int(incl[31])
+                peak = max(peak, int(pk[31]))
+            for ln in LANES:
+                r = int(run[ln])
+                for _, _, pv in mismatches(ln):
+                    r = max(r, int(w(pv + d_rb)))
+                    dropmax[ln] = max(dropmax[ln], int(w(r - pv)))
+        min_pref, min_suf, dropmax = int(min_pref.min()), int(min_suf.min()), int(dropmax.max())
         best = int(w(match * (ql - neq_tot) - mismatch * neq_tot))
         ext_i = int(np.float32(min(max(np.float32(ext_score[pair]), np.float32(-1e9)), np.float32(1e9))))
         diag = vall and best == ext_i
@@ -529,13 +756,16 @@ def test_chain_select_emulation_on_the_pool(pool_calls):
 @pytest.mark.parametrize("n_sup", [0, 1, 2, 3])
 @pytest.mark.parametrize("p,a,q16,rmax", [(40, 32, True, 300), (12, 64, False, 400), (6, 256, True, 2000),
                                           (3, 1024, False, 6000), (3, 4096, True, 30000),
-                                          (3, 16384, False, 80000)])
+                                          (3, 16384, False, 80000), (13, 31, True, 300), (11, 33, False, 300),
+                                          (9, 65, True, 500), (5, 257, False, 2000)])
 def test_chain_select_emulation_equals_plain_and_jax(p, a, q16, rmax, n_sup):
     """Random anchor sets (overlapping chains, all-padding rows): the
     emulation on chain_dp_ref's f / parent equals _chain_tail_ref and the
     JAX package's chain_anchors (which stacks its segments, so n_sup >= 1
     there); an all-padding row holds slot 0's values (the argmax of an all
-    -1e30 row), not zeros."""
+    -1e30 row), not zeros. The warp kernel's edges: A = 31, 33 and 65 (a
+    lane's last slots past A), its largest A (256) and one past (257, the
+    block kernel), P off its 8 sets a block."""
     rp, qp = _anchor_sets(np.random.default_rng(a + n_sup), p, a, rmax, q16)
     r, q = torch.from_numpy(rp), torch.from_numpy(qp)
     f, parent = tchain.chain_dp_ref(r, q, tchain.device_cost_table(21, 100, r.device), 21, 100, 100)
@@ -615,14 +845,14 @@ def test_flush_emulation_equals_plain_and_jax(p, lmax, n_sup, wide, zdrop):
     assert (sel["lohi"][:, 0] > 0).any() or (sel["lohi"][:, 1] < kw["wlen"]).any()
 
 
-@pytest.mark.parametrize("zdrop", [12, 100])
+@pytest.mark.parametrize("zdrop", [10, 12, 100])
 @pytest.mark.parametrize("wide", [False, True])
 def test_finish_pack_emulation_on_crafted_rows(zdrop, wide):
-    """B6c on rows whose mismatches sit where its warp scan could go wrong:
-    consecutive pairs and runs starting at or crossing a 32-column tile
-    (lane 0 of the max-scan; the peak carried from lane 31), mismatches on lanes 0
-    and 31 of every tile, a run of 15 (the z-drop), random ones; short
-    reads, windows cut by the contig, scores off the gapless one."""
+    """B6c on rows whose mismatches sit where its warp scans could go
+    wrong (testing.finish_case): runs at and across lane and 32-column
+    boundaries, a lane's first and last column (a later column's peak in
+    the lane, which z-drop 10 tells apart), a run of 15 (the z-drop);
+    short reads, windows cut by the contig, scores off the gapless one."""
     scoring = ope.SrScoring(match=200, mismatch=150) if wide else ope.SrScoring()
     q, rwin, lohi, head, q_len, ext, end_d = T.finish_case(np.random.default_rng(zdrop + wide), 96, 160, 128,
                                                           scoring.match, scoring.mismatch)
@@ -639,6 +869,60 @@ def test_finish_pack_emulation_on_crafted_rows(zdrop, wide):
     fl = hot[:, 2]
     assert ((fl & tfz.F_DIAG) != 0).any() and ((fl & tfz.F_FULL) != 0).any()
     assert (((fl & tfz.F_DIAG) != 0) & ((fl & tfz.F_FULL) == 0)).any()
+
+
+@pytest.mark.parametrize("lmax,base,zdrop", [(32, 0, 100), (160, 1, 100), (160, 2, 100), (2208, 3, 100),
+                                            (992, 0, 10), (992, 0, 100)])
+def test_finish_pack_emulation_at_the_window_ends(lmax, base, zdrop):
+    """B6c with end_d at both ends of the window (0 and wlen - lmax: a
+    lane's 8 bytes at the row's first and last columns, each word read
+    holding one of them), window rows at every address residue mod 4
+    (wlen 160 + 128 = 288 is a multiple of 4, so ``base`` shifts every
+    row), queries as long as lmax: 32 (4 lanes a tile), 992 and 2,208 (4
+    and 9 tiles: runs across the 256-column tile carry the z-drop's peak,
+    a mismatch 6 columns before the end the count into sufv; z-drop 10
+    and 100): equal to _finish_ref."""
+    sc = ope.SrScoring()
+    q, rwin, lohi, head, q_len, ext, end_d = T.finish_case(np.random.default_rng(lmax + base + zdrop), 24, lmax,
+                                                          128, sc.match, sc.mismatch, ends=True, qmax=lmax)
+    p = len(q)
+    hot, bits = emu_finish_pack(dict(q_codes=q, rwin=rwin, lohi=lohi, head=head), q_len, ext, end_d, sc.match,
+                                sc.mismatch, sc.min_dp_score, zdrop, base=base)
+    ref = tfz.Selection(*[torch.from_numpy(x) for x in (q, rwin, rwin, lohi, head, np.zeros((p, 2), np.float32),
+                                                       np.zeros((p, 9), np.int32), np.zeros((p, 0), np.float32))])
+    want = tfz._finish_ref(ref, torch.from_numpy(q_len), torch.from_numpy(ext), torch.from_numpy(end_d), sc,
+                           zdrop)
+    np.testing.assert_array_equal(hot, want[0].numpy())
+    np.testing.assert_array_equal(bits, want[1].numpy())
+    assert (end_d == 0).any() and (end_d == 128).any()
+    assert ((hot[:, 2] & tfz.F_FULL) != 0).any()
+
+
+def test_finish_pack_emulation_clamps_outside_the_window():
+    """An end_d 7 columns before or past the window (the plain version's
+    gather would refuse it): the lanes whose 8 bytes leave the row read
+    each column clamped to the window, which is _finish_ref on the window
+    widened by copies of its end bytes (testing.window_padded); end_d's
+    own bits of the hot row stay the given ones."""
+    sc = ope.SrScoring()
+    q, rwin, lohi, head, q_len, ext, end_d = T.finish_case(np.random.default_rng(5), 30, 160, 128, sc.match,
+                                                          sc.mismatch, ends=True, qmax=160)
+    end_d = end_d.copy()
+    end_d[::3] -= 7
+    end_d[1::3] += 7
+    p = len(q)
+    hot, bits = emu_finish_pack(dict(q_codes=q, rwin=rwin, lohi=lohi, head=head), q_len, ext, end_d, sc.match,
+                                sc.mismatch, sc.min_dp_score, 100)
+    wide, wlohi, wend = T.window_padded(rwin, lohi, end_d, 8)
+    ref = tfz.Selection(*[torch.from_numpy(x) for x in (q, wide, wide, wlohi, head, np.zeros((p, 2), np.float32),
+                                                       np.zeros((p, 9), np.int32), np.zeros((p, 0), np.float32))])
+    want = [x.numpy() for x in tfz._finish_ref(ref, torch.from_numpy(q_len), torch.from_numpy(ext),
+                                                torch.from_numpy(wend), sc, 100)]
+    np.testing.assert_array_equal(bits, want[1])
+    np.testing.assert_array_equal(hot[:, [0, 1, 3]], want[0][:, [0, 1, 3]])
+    np.testing.assert_array_equal(hot[:, 2] & 0xFF, want[0][:, 2] & 0xFF)
+    np.testing.assert_array_equal(hot[:, 2] >> 8, end_d)
+    assert bits.any() and ((want[0][:, 2] & tfz.F_DIAG) == 0).any()
 
 
 def test_compaction_emulation_overflow():
