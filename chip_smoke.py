@@ -22,6 +22,10 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
                                    # and the compaction of an older
                                    # flush_epilogue.cu (the same C
                                    # interface) beside this tree's
+    python3 chip_smoke.py --baseline-match OLD.cu
+                                   # phase 4 also times B5a, B5b and B5c
+                                   # of an older match_epilogue.cu (the
+                                   # same C interface) beside this tree's
 
 Phases, each printing one JSON line:
   1 environment: versions, the card's name and power limit, and the
@@ -43,10 +47,12 @@ Phases, each printing one JSON line:
     B5a Bloom rows, B5b threshold + top-k, B5c flat hit packing) at the
     first batch's call, each kernel bit-exact against its plain version
     there and on three calls built from it (a cut of 0, scores tied at the
-    window's edge, total > cap with the dense refetch), timed from CUDA
-    graphs over ROTATION input sets beside its bound, with the plain
-    versions' times and kernel counts, torch.topk's time, and the kernels
-    and device time of one _hash_topk_flat call;
+    window's edge, total > cap with the dense refetch), B5c also at the
+    cap the match stage gives every later batch (the hint cap), timed
+    from CUDA graphs over ROTATION input sets beside its bound, with the
+    plain versions' times and kernel counts, torch.topk's time, the
+    kernels and device time of one _hash_topk_flat call, and each B5
+    kernel's registers and local memory (cuobjdump);
   5 kernels B3 (chain DP scan) and B4 (banded extension scan) against their
     plain versions at the align stage's shapes and at every lane count each
     is built for, bit-exact on every input set (B4 also at bands 256 and
@@ -517,7 +523,7 @@ def make_full_geometry(wd: Path, n_batches: int, n_reads: int, seed: int):
     return batches, names, target
 
 
-def phase_full_geometry(work: Path, label: str) -> dict:
+def phase_full_geometry(work: Path, label: str, b5_base: BaselineLib | None = None) -> dict:
     import numpy as np
     import torch
 
@@ -589,7 +595,7 @@ def phase_full_geometry(work: Path, label: str) -> dict:
     emit("full_geometry", **res)
     if not first_call:
         raise AssertionError("phase 4 did not reach models/matcher._hash_topk_flat")
-    b5 = match_epilogue(*first_call[0])
+    b5 = match_epilogue(*first_call[0], b5_base)
     emit("match_epilogue", card=label, **b5)
     emit("match_warm", card=label, **warm_match(wd, cfg))
     return counts, b5
@@ -636,37 +642,72 @@ def warm_match(wd: Path, cfg) -> dict:
                 b2_ms=named("match_popcount"), copies_ms=named("Memcpy", "Memset"))
 
 
-def b5_bounds(hi, nk, q: int, d: int, kk: int, cap: int, taken: int) -> dict:
-    """Each B5 kernel's least time from these inputs: bytes at
-    HBM_BYTES_PER_S (B5a: the hash halves of the real slots, nk, the rows
-    out; B5b: the first d scores of every row and the cut in, the window
-    and n_keep out; B5c: n_keep and the taken entries below cap in, the
-    whole flat buffer out), operations at INT32_OPS_PER_S (B5a: 2 a real
-    hash, the shift-or and the modulo; B5b: one compare a score)."""
-    k, h = hi.shape[1], hi.shape[2]
+#: operations of B5's functions, counted from their plain versions
+#: (_hash_rows_ref, _topk_scores_ref, _pack_hits_ref) as B4's and B6's
+#: are, where the data need them: B5a a real hash: three modulos by the
+#: call's s (each a multiply-high, a multiply and a subtract, and a compare
+#: and a select to correct it), the multiply by 2**32 mod s and the add; a
+#: slot: the compare with the k-mer count and the select of the padding row
+B5A_ALU_HASH, B5A_OTHER_HASH, B5A_ALU_SLOT = 6, 11, 2
+#: B5b a score: the compare with the cut and the select of -1, the add to
+#: n_keep; a taken entry: the compare with 0 and the two selects; a row's
+#: sort of its m = min(n_keep, kk) qualifying docs, m ceil(log2 m)
+#: compares, and past kk one compare a qualifying doc to select the window
+B5B_ALU_SCORE, B5B_OTHER_SCORE, B5B_ALU_ENTRY = 2, 1, 3
+#: B5c a query: the clamp to kk, the add of the prefix and the subtract of
+#: its own take; a taken word below cap: the shift and the or of the pack,
+#: the compare with cap, the add of its position
+B5C_ALU_QUERY, B5C_OTHER_QUERY, B5C_ALU_WORD, B5C_OTHER_WORD = 1, 2, 3, 1
+
+
+def b5_bounds(hi, nk, n_keep, d: int, kk: int, cap: int) -> dict:
+    """Each B5 kernel's least time from these inputs (n_keep: the call's,
+    from the plain top-k): bytes at HBM_BYTES_PER_S (B5a: the hash halves
+    of the real slots, nk, the rows out; B5b: the first d scores of every
+    row and the cut in, the window and n_keep out; B5c: n_keep and the
+    taken entries below cap in, the whole flat buffer out), operations
+    (B5A_*, B5B_*, B5C_*) through ``bound``."""
+    q, k, h = hi.shape
     real = int(nk.clamp(max=k).sum()) * h
+    m = n_keep.clamp(max=kk).tolist()
+    sort = sum(x * (x - 1).bit_length() for x in m)  # x ceil(log2 x) compares
+    over = int(n_keep[n_keep > kk].sum())
+    taken = sum(m)
+    words = min(taken, cap)
     return dict(
-        hash_rows=bound(16 * real + 4 * q + 4 * q * k * h, 2 * real),
-        threshold_topk=bound(4 * q * d + 4 * q + 4 * (2 * q * kk + q), q * d),
-        pack_hits=bound(4 * q + 8 * min(taken, cap) + 4 * (cap + q + 1), 0),
+        hash_rows=bound(16 * real + 4 * q + 4 * q * k * h, B5A_ALU_HASH * real + B5A_ALU_SLOT * q * k * h,
+                        B5A_OTHER_HASH * real),
+        threshold_topk=bound(4 * q * d + 4 * q + 4 * (2 * q * kk + q),
+                             B5B_ALU_SCORE * q * d + B5B_ALU_ENTRY * taken + sort + over,
+                             B5B_OTHER_SCORE * q * d),
+        pack_hits=bound(4 * q + 8 * words + 4 * (cap + q + 1), B5C_ALU_QUERY * q + B5C_ALU_WORD * words,
+                        B5C_OTHER_QUERY * q + B5C_OTHER_WORD * words),
     )
 
 
-def match_epilogue(args, kw) -> dict:
+def match_epilogue(args, kw, baseline: BaselineLib | None = None) -> dict:
     """Kernel B5 at phase 4's first _hash_topk_flat call (models/matcher):
     B5a, B5b and B5c each against its plain version on the call's inputs,
     and the whole flat buffer against the plain versions' chain; then B5b
     and B5c on three more calls built from those inputs (a cut of 0: every
     doc qualifies and every query overflows kk; the scores folded onto a
     few values, tied at the window's edge; a cap of a third of the hits:
-    total > cap and the dense refetch, _hash_topk). Each kernel timed from
-    CUDA graphs over ROTATION input sets in turn (rows rolled), beside its
-    bound; the plain versions from the host with CUDA events and their
-    kernel counts (profiler); torch.topk on the masked scores (B5b's
-    library call); kernels and device time per _hash_topk_flat call."""
+    total > cap and the dense refetch, _hash_topk), and B5c at the first
+    call's hint cap, the cap the match stage gives every later batch
+    (``1 << max(12, (4 total + 2048).bit_length())``, stages.py). Each
+    kernel timed from CUDA graphs over ROTATION input sets in turn (rows
+    rolled), beside its bound; the plain versions from the host with CUDA
+    events and their kernel counts (profiler); torch.topk on the masked
+    scores (B5b's library call); B5c's time on an empty call (its launch
+    alone); kernels and device time per _hash_topk_flat call; each B5
+    kernel's registers and local memory.
+    With ``baseline``, its library's B5a, B5b and B5c are held to the plain
+    versions on the same calls and timed beside this tree's in turns
+    (baseline, new, new, baseline)."""
     import torch
 
     from phylign_tpu_torch.models import matcher as tm
+    from phylign_tpu_torch.ops import _kernels
     from phylign_tpu_torch.ops import match as opm
 
     words, hi, lo, nk, cut = args
@@ -684,30 +725,45 @@ def match_epilogue(args, kw) -> dict:
 
     rows = tm.hash_rows_cuda(hi, lo, nk, s, pad_row)
     same("hash_rows", rows, tm._hash_rows_ref(hi, lo, nk, s, pad_row))
+    if baseline is not None:
+        with baseline.active():
+            same("the baseline's hash_rows", tm.hash_rows_cuda(hi, lo, nk, s, pad_row), rows)
     scores = opm.match_scores(words, rows)
     q = scores.shape[0]
     tied = scores >> 3  # 0..16 at K = 128: runs of equal scores at the edge
-    checked = {}
+    checked, refs = {}, {}
     calls = {"first": (scores, cut, cap), "threshold_0": (scores, torch.zeros_like(cut), cap),
              "ties": (tied, torch.full_like(cut, 4), cap), "small_cap": (scores, cut, None)}
     for name, (sc, ct, cp) in calls.items():
         win = tm.topk_scores_cuda(sc, ct, kk, d)
-        ref = tm._topk_scores_ref(sc, ct, kk, d)
+        ref = refs[name] = tm._topk_scores_ref(sc, ct, kk, d)
         same(f"threshold_topk ({name})", win, ref)
+        if baseline is not None:
+            with baseline.active():
+                same(f"the baseline's threshold_topk ({name})", tm.topk_scores_cuda(sc, ct, kk, d), ref)
         total = int(torch.clamp(ref[2], max=kk).sum())
         cp = max(1, total // 3) if cp is None else cp
-        same(f"pack_hits ({name})", tm.pack_hits_cuda(*win, kk, cp), tm._pack_hits_ref(*ref, kk, cp))
-        checked[name] = dict(cap=cp, total=total, overflow_rows=int((ref[2] > kk).sum()),
-                             max_n_keep=int(ref[2].max()))
-    plain_flat = tm._pack_hits_ref(*tm._topk_scores_ref(scores, cut, kk, d), kk, cap)
-    same("_hash_topk_flat", tm._hash_topk_flat(*args, **kw), plain_flat)
+        caps = {name: cp}
+        if name == "first":  # and the cap of every later batch
+            caps["hint_cap"] = 1 << max(12, (4 * total + 2048).bit_length())
+        for case, c in caps.items():
+            flat = tm._pack_hits_ref(*ref, kk, c)
+            same(f"pack_hits ({case})", tm.pack_hits_cuda(*win, kk, c), flat)
+            if baseline is not None:
+                with baseline.active():
+                    same(f"the baseline's pack_hits ({case})", tm.pack_hits_cuda(*win, kk, c), flat)
+            checked[case] = dict(cap=c, total=total, overflow_rows=int((ref[2] > kk).sum()),
+                                 max_n_keep=int(ref[2].max()))
+    first = refs["first"]
+    same("_hash_topk_flat", tm._hash_topk_flat(*args, **kw), tm._pack_hits_ref(*first, kk, cap))
     small = checked["small_cap"]["cap"]
     same("_hash_topk_flat (total > cap)", tm._hash_topk_flat(*args, **{**kw, "cap": small}),
-         tm._pack_hits_ref(*tm._topk_scores_ref(scores, cut, kk, d), kk, small))
+         tm._pack_hits_ref(*first, kk, small))
     dense_kw = {k: v for k, v in kw.items() if k != "cap"}
-    same("_hash_topk (the refetch)", tm._hash_topk(*args, **dense_kw), tm._topk_scores_ref(scores, cut, kk, d))
+    same("_hash_topk (the refetch)", tm._hash_topk(*args, **dense_kw), first)
+    hint = checked["hint_cap"]["cap"]
     if not (checked["threshold_0"]["overflow_rows"] == q and checked["ties"]["overflow_rows"]
-            and checked["small_cap"]["total"] > small):
+            and checked["small_cap"]["total"] > small and checked["first"]["total"] < hint < cap):
         raise AssertionError(f"B5's extra calls missed their edge: {checked}")
 
     # ROTATION input sets: the call's rows rolled, so the L2 does not serve
@@ -728,8 +784,11 @@ def match_epilogue(args, kw) -> dict:
                            lambda i: tm._topk_scores_ref(scs[i], cuts[i], kk, d)),
         "pack_hits": (lambda i: tm.pack_hits_cuda(*wins[i], kk, cap),
                       lambda i: tm._pack_hits_ref(*wins[i], kk, cap)),
+        "pack_hits_hint_cap": (lambda i: tm.pack_hits_cuda(*wins[i], kk, hint),
+                               lambda i: tm._pack_hits_ref(*wins[i], kk, hint)),
     }
-    bounds = b5_bounds(hi, nk, q, d, kk, cap, checked["first"]["total"])
+    bounds = b5_bounds(hi, nk, first[2], d, kk, cap)
+    bounds["pack_hits_hint_cap"] = b5_bounds(hi, nk, first[2], d, kk, hint)["pack_hits"]
     res = {}
     for name, (kern, plain) in kernels.items():
         ms = min(graph_ms(kern, reps, ROTATION) for _ in range(2))
@@ -737,9 +796,18 @@ def match_epilogue(args, kw) -> dict:
         b = bounds[name]
         res[name] = dict(ms=ms, plain_ms=plain_ms, plain_launches=device_launches(lambda: plain(0)),
                          library_ms=None, bound_share=b["bound_ms"] / ms, max_abs_err=err, **b)
+        if baseline is not None:
+            res[name].update(in_turns(baseline, kern, reps, ROTATION))
     topk = res["threshold_topk"]
     topk["library_ms"] = min(graph_ms(lambda i: torch.topk(masked[i], kk, dim=1), reps, ROTATION)
                              for _ in range(2))
+    # B5c with nothing to do (Q = 0, cap = 0: it writes the total): the
+    # launch's own time in the same CUDA graphs
+    none = (torch.zeros((0, kk), dtype=torch.int32, device=cut.device),) * 2 + (cut[:0],)
+    empty = lambda i: tm.pack_hits_cuda(*none, kk, 0)  # noqa: E731
+    res["pack_hits"]["empty_call_ms"] = min(graph_ms(empty, reps) for _ in range(2))
+    if baseline is not None:
+        res["pack_hits"]["empty_call_turns"] = in_turns(baseline, empty, reps, 1)
     whole_ms = min(graph_ms(lambda i: tm._hash_topk_flat(*args, **kw), 12) for _ in range(2))
     b2_ms = min(graph_ms(lambda i: opm.match_scores(words, rows), 12) for _ in range(2))
     per_call = device_launches(lambda: tm._hash_topk_flat(*args, **kw))
@@ -749,10 +817,16 @@ def match_epilogue(args, kw) -> dict:
     plain_whole_ms = min(graph_ms(lambda i: plain_epi(), 12) for _ in range(2))
     del his, los, nks, scs, cuts, wins, masked, scores, tied, rows
     torch.cuda.empty_cache()
+    resources = kernel_resources(_kernels._lib_path("match_epilogue"))
+    if baseline is not None:
+        resources = dict(new=resources, baseline=kernel_resources(baseline.path))
     return dict(
-        Q=q, K=hi.shape[1], H=hi.shape[2], d=d, kk=kk, cap=cap, calls=checked, kernels=res,
+        Q=q, K=hi.shape[1], H=hi.shape[2], d=d, kk=kk, cap=cap, hint_cap=hint, calls=checked, kernels=res,
+        resources=resources,
         kernels_per_call=per_call, plain_kernels_per_call=plain_per_call, whole_ms=whole_ms, b2_ms=b2_ms,
-        b5_ms=sum(res[n]["ms"] for n in B5_KERNELS), b5_whole_less_b2_ms=whole_ms - b2_ms,
+        b5_ms=sum(res[n]["ms"] for n in B5_KERNELS),
+        b5_hint_cap_ms=sum(res[n]["ms"] for n in ("hash_rows", "threshold_topk", "pack_hits_hint_cap")),
+        b5_whole_less_b2_ms=whole_ms - b2_ms,
         plain_whole_ms=plain_whole_ms, plain_b5_ms=plain_whole_ms - b2_ms, max_abs_err=err,
     )
 
@@ -1259,44 +1333,47 @@ def b6_bounds(cand_map, lmax: int, wlen: int, n_sup: int, n_out: int, need: int)
     )
 
 
-class BaselineFlush:
-    """Kernel B6 as an older csrc/flush_epilogue.cu with this tree's C
-    interface builds it (--baseline-flush): built with the same flags and
-    swapped in for this tree's library while ``active``, so the wrappers
-    launch its kernels on the same inputs."""
+class BaselineLib:
+    """One of this tree's kernel sources (``source``: flush_epilogue for
+    --baseline-flush, match_epilogue for --baseline-match) as an older
+    copy with the same C interface builds it: built with the same flags
+    and swapped in for this tree's library while ``active``, so the
+    wrappers launch its kernels on the same inputs."""
 
-    def __init__(self, src: Path):
+    def __init__(self, source: str, src: Path):
         import ctypes
 
         from phylign_tpu_torch.ops import _kernels
 
-        out = ROOT / "build" / "chip_smoke_baseline_flush"
+        out = ROOT / "build" / f"chip_smoke_baseline_{source}"
         out.mkdir(parents=True, exist_ok=True)
-        self.path = out / "libbaseline_flush_epilogue.so"
+        self.source = source
+        self.path = out / f"libbaseline_{source}.so"
         res = subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(self.path), str(src)],
                              capture_output=True, text=True, timeout=900)
         if res.returncode:
             raise RuntimeError(f"{src} failed to build:\n{res.stdout}{res.stderr}")
         self.lib = ctypes.CDLL(str(self.path))
-        _kernels._bind("flush_epilogue", self.lib)
+        _kernels._bind(source, self.lib)
 
     @contextlib.contextmanager
     def active(self):
         from phylign_tpu_torch.ops import _kernels
 
-        mine = _kernels.library("flush_epilogue")
-        _kernels._libs["flush_epilogue"] = self.lib
+        mine = _kernels.library(self.source)
+        _kernels._libs[self.source] = self.lib
         try:
             yield
         finally:
-            _kernels._libs["flush_epilogue"] = mine
+            _kernels._libs[self.source] = mine
 
 
 def kernel_resources(lib: Path) -> dict:
-    """Registers, stack, shared and local memory of each instance of the B6
-    kernels in a built library (``cuobjdump -res-usage``): B6a's
-    chain_select<qpos, index> and chain_select_warp<qpos, slots a lane>,
-    B6b's select_window<n_sup, n_out>, B6c's finish_pack<one tile> and the
+    """Registers, stack, shared and local memory of each instance of the B5
+    and B6 kernels in a built library (``cuobjdump -res-usage``): B5's
+    hash_rows, threshold_topk and pack_hits; B6a's chain_select<qpos,
+    index> and chain_select_warp<qpos, slots a lane>, B6b's
+    select_window<n_sup, n_out>, B6c's finish_pack<one tile> and the
     compaction's compact_cold<n_out> (an older source's kernels by their
     own names and arguments); {} when cuobjdump is missing or prints no
     such kernel."""
@@ -1312,7 +1389,8 @@ def kernel_resources(lib: Path) -> dict:
     out = {}
     for name, reg, stack, shared, local in re.findall(
             r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", res.stdout):
-        m = re.search(r"(select_window|compact_cold|chain_select_warp|chain_select|finish_pack)_kernel"
+        m = re.search(r"(select_window|compact_cold|chain_select_warp|chain_select|finish_pack|hash_rows"
+                      r"|threshold_topk|pack_hits)_kernel"
                       r"(I(?:L[a-z]\d+E|[a-z])+E)?", name)
         if m:  # template arguments: a type letter, or L, its type's letter, the value, E
             args = ",".join(n or types.get(t, t) for n, t in re.findall(r"L[a-z](\d+)E|([a-z])",
@@ -1322,7 +1400,7 @@ def kernel_resources(lib: Path) -> dict:
     return out
 
 
-def phase_flush_kernels(label: str, baseline: BaselineFlush | None = None) -> dict:
+def phase_flush_kernels(label: str, baseline: BaselineLib | None = None) -> dict:
     """Kernel B6 against its plain versions at the align stage's shapes:
     B6a at every anchor bucket on B3's output; B6b -> B4 -> B6c and its
     compaction on testing.flush_case's flushes, every Selection field,
@@ -2333,6 +2411,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--baseline-flush", type=Path, default=None,
                     help="an older csrc/flush_epilogue.cu with this tree's C interface: "
                     "time its B6a, B6b, B6c and compaction beside this tree's in phase 5")
+    ap.add_argument("--baseline-match", type=Path, default=None,
+                    help="an older csrc/match_epilogue.cu with this tree's C interface: "
+                    "time its B5a, B5b and B5c beside this tree's in phase 4")
     ap.add_argument("--align-kernels-only", action="store_true",
                     help="phase 5 only (no kernel table, no ok line)")
     ap.add_argument("--kernels-only", action="store_true",
@@ -2360,7 +2441,8 @@ def main(argv: list[str] | None = None) -> int:
          cuda=torch.version.cuda, card=label, build_seconds=build_s)
 
     pr4 = Pr4AlignKernels(args.baseline_align) if args.baseline_align else None
-    b6_base = BaselineFlush(args.baseline_flush) if args.baseline_flush else None
+    b6_base = BaselineLib("flush_epilogue", args.baseline_flush) if args.baseline_flush else None
+    b5_base = BaselineLib("match_epilogue", args.baseline_match) if args.baseline_match else None
     if args.align_kernels_only:
         phase_align_kernels(label, pr4)
         phase_flush_kernels(label, b6_base)
@@ -2375,7 +2457,7 @@ def main(argv: list[str] | None = None) -> int:
     work.mkdir(parents=True)
     try:
         c3 = phase_fixture(work)
-        c4, b5 = phase_full_geometry(work, label)
+        c4, b5 = phase_full_geometry(work, label, b5_base)
         c6 = phase_fixture_all(work)
         c7, p7 = phase_align_geometry(work, label, args.profile)
         mkern = phase_mesh_kernels(label)
@@ -2429,6 +2511,10 @@ def main(argv: list[str] | None = None) -> int:
         ))
     for name in B5_KERNELS:
         k = b5["kernels"][name]
+        hint = b5["kernels"]["pack_hits_hint_cap"]
+        extra = dict(hint_cap=b5["hint_cap"], hint_ms=hint["ms"], hint_plain_ms=hint["plain_ms"],
+                     hint_bound_ms=hint["bound_ms"], hint_bound_by=hint["bound_by"],
+                     hint_bound_share=hint["bound_share"]) if name == "pack_hits" else {}
         table.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
             launches=c3[name] + c4[name] + c6[name] + c8[name] + c9[name], launches_phase3=c3[name],
@@ -2437,7 +2523,7 @@ def main(argv: list[str] | None = None) -> int:
             f"kk={b5['kk']}, cap={b5['cap']}", max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], plain_launches=k["plain_launches"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], bound_share=k["bound_share"], bytes=k["bytes"],
-            operations=k["operations"], library_ms=k["library_ms"],
+            operations=k["operations"], library_ms=k["library_ms"], **extra,
         ))
     emit("runtime", script_s=time.perf_counter() - t_start, card=label)
     print(json.dumps({"kernels": table}), flush=True)

@@ -32,18 +32,29 @@
 //                       Up to kSmemKK entries the stash lives in shared
 //                       memory; above, in a device workspace of one stash
 //                       a warp, each warp looping over rows.
-//   B5c pack_hits       _pack_hits_ref. Blocks of 256 queries: each block
-//                       sums min(n_keep, kk) over every query before its own
-//                       (read from L2, so no block waits on another) for its
-//                       first offset, ranks its own by a block scan, and
-//                       writes its contiguous run of (score << 16 | doc)
-//                       words with consecutive threads (each finds its query
-//                       by a binary search of the block's offsets); words at
-//                       or past cap are dropped. Each block writes its
-//                       queries' n_keep, block 0 the total, and all blocks
-//                       share out zeroing [min(total, cap), cap), with
-//                       blocks past the queries' added so that about 4,096
-//                       words fall to a block.
+//   B5c pack_hits       _pack_hits_ref. A tile is 32 16-byte chunks of
+//                       n_keep's aligned granules, 128 queries (32 << shift
+//                       chunks past kPackMaxTiles tiles). Every block reads
+//                       all of n_keep in one round of 16-byte loads (up to
+//                       16,384 queries) and folds each warp's 32 chunks
+//                       into its tile's take sum (min(n_keep, kk)) in
+//                       shared memory, waiting on no other block; after one
+//                       barrier each warp sums the tiles before its own and
+//                       all of them. A warp a tile (a tile a block where the
+//                       grid allows) writes its queries' hit words (score
+//                       << 16 | doc), consecutive lanes on consecutive
+//                       words, word w's query by a search of the lanes'
+//                       first words in shuffles. The loads of its first 128
+//                       words go out before the fold (they need the tile's
+//                       own takes only) and stay in flight, score and doc
+//                       apart, until the words are stored. The copy of
+//                       n_keep at [cap, cap + Q) goes out before the fold
+//                       too; the zeros [min(total, cap), cap) and the total
+//                       follow it. Both in 16-byte stores from the first
+//                       16-byte boundary on, scalar stores for the head and
+//                       tail (out need only be 4-byte aligned). The grid: a
+//                       block a tile, or enough blocks for kPackFillStores
+//                       16-byte stores a thread, at most a block an SM.
 //
 // What bounds it on an H100: bytes. B5b reads the [Q, 32 Wp] int32 score
 // matrix B1/B2 wrote (80 MB at Q = 9,216, Wp = 68) and writes the [Q, kk]
@@ -66,9 +77,17 @@ constexpr int kBins = 256;
 constexpr int kTopkWarps = 8;
 constexpr int kSmemKK = 512;
 constexpr int64_t kWsBudget = (int64_t)256 << 20;
-// B5c: queries a block, and the most blocks a launch adds to zero words
+// B5c: threads a block; 16-byte loads of n_keep in flight a thread; the
+// most tiles (their sums in shared memory, 32 KB); rounds of 32 hit words
+// a warp loads before it stores them; the zeros' 16-byte stores a thread
+// the grid is sized for; the most blocks, one an SM of an H100
 constexpr int kPackThreads = 256;
-constexpr int64_t kPackZeroBlocks = 1024;
+constexpr int kPackWarps = kPackThreads / 32;
+constexpr int kPackLoads = 16;
+constexpr int kPackMaxTiles = 8192;
+constexpr int kPackRounds = 4;
+constexpr int kPackFillStores = 4;
+constexpr int kPackMaxBlocks = 132;
 
 // the warp's exclusive prefix of x in lane order; total gets the sum
 __device__ __forceinline__ int warp_excl(int x, int lane, int& total) {
@@ -354,68 +373,223 @@ __global__ void __launch_bounds__(kTopkWarps * 32)
 // B5c: flat hit packing
 // ---------------------------------------------------------------------------
 
-// Output: int32 [cap + Q + 1] = [cap hit words | Q n_keep | total].
+// the hit word (score << 16 | doc) of a window entry's score and doc
+__device__ __forceinline__ int32_t hit_word(int32_t score, int32_t doc) {
+  return (int32_t)(((uint32_t)score << 16) | (uint32_t)doc);
+}
+
+// the takes min(n_keep, kk) of chunk c's 4 queries 4c - a .. 4c - a + 3
+// (0 for a word of the granule outside [0, q))
+__device__ __forceinline__ void chunk_takes(int4 v, int c, int a, int q, int kk, int (&tk)[4]) {
+  const int e = 4 * c - a;
+  tk[0] = e >= 0 && e < q ? min(v.x, kk) : 0;
+  tk[1] = e + 1 >= 0 && e + 1 < q ? min(v.y, kk) : 0;
+  tk[2] = e + 2 >= 0 && e + 2 < q ? min(v.z, kk) : 0;
+  tk[3] = e + 3 < q ? min(v.w, kk) : 0;
+}
+
+// The 16-byte granules of out's words [lo, hi): the first word of the
+// first whole granule at or past lo (a word is 16-byte aligned where mis +
+// its index is a multiple of 4, mis: out's first word in its granule), the
+// count of whole granules, and the first word past them.
+struct Granules {
+  int64_t p0, n, pb;
+  __device__ __forceinline__ Granules(int64_t lo, int64_t hi, int mis) {
+    p0 = lo + ((4 - ((mis + lo) & 3)) & 3);
+    n = p0 < hi ? (hi - p0) >> 2 : 0;
+    pb = p0 + 4 * n;
+  }
+  // the head [lo, p0) and tail [pb, hi), at most 3 words each: word i of
+  // the 6 (-1 past them)
+  __device__ __forceinline__ int64_t edge(int64_t lo, int64_t hi, int i) const {
+    const int64_t w = i < 3 ? lo + i : pb + i - 3;
+    return w < (i < 3 ? min(p0, hi) : hi) ? w : -1;
+  }
+};
+
+// One pass of a warp: 32 chunks (128 queries) from chunk c0, a chunk a
+// lane: the lane's 4 takes, its first word in the pass, the pass's words.
+// Word w of the pass goes to lane w % 32, kPackRounds rounds of 32 words a
+// batch: its chunk's lane is the last lane whose first word is <= w (a
+// search of the lanes' first words in shuffles), its query and column by
+// that lane's takes.
+struct PackPass {
+  int c0, tk[4], first, n;
+
+  __device__ __forceinline__ void load(const int4* nk4, int c0_, int nchunks, int a, int q, int kk,
+                                       int lane) {
+    c0 = c0_;
+    const int c = c0 + lane;
+    chunk_takes(c < nchunks ? __ldg(nk4 + c) : make_int4(0, 0, 0, 0), c, a, q, kk, tk);
+    first = warp_excl(tk[0] + tk[1] + tk[2] + tk[3], lane, n);
+  }
+
+  // the scores and docs of the words w0 + 32 r + lane below lim of a
+  // batch, loaded (0 past lim): packed only when stored, so that the loads
+  // stay in flight until then
+  __device__ __forceinline__ void words(const int32_t* vals, const int32_t* idx, int a, int kk, int w0,
+                                        int lim, int lane, int32_t (&sv)[kPackRounds],
+                                        int32_t (&sd)[kPackRounds]) const {
+#pragma unroll
+    for (int r = 0; r < kPackRounds; r++) {
+      const int w = w0 + 32 * r + lane;
+      sv[r] = sd[r] = 0;
+      if (w0 + 32 * r < lim) {
+        int l = 0;
+#pragma unroll
+        for (int step = 16; step; step >>= 1)
+          if (__shfl_sync(kFull, first, l + step) <= w) l += step;
+        int col = w - __shfl_sync(kFull, first, l), k = 0;
+#pragma unroll
+        for (int y = 0; y < 3; y++) {
+          const int ty = __shfl_sync(kFull, tk[y], l);
+          if (k == y && col >= ty) {
+            col -= ty;
+            k++;
+          }
+        }
+        if (w < lim) {
+          const int64_t at = (int64_t)(4 * (c0 + l) - a + k) * kk + col;
+          sv[r] = __ldg(vals + at);
+          sd[r] = __ldg(idx + at);
+        }
+      }
+    }
+  }
+};
+
+// chunks b + u kPackThreads + t of n_keep's granules (0 past nchunks)
+__device__ __forceinline__ void load_round(const int4* nk4, int b, int nchunks, int t,
+                                           int4 (&v)[kPackLoads]) {
+#pragma unroll
+  for (int u = 0; u < kPackLoads; u++) {
+    const int c = b + u * kPackThreads + t;
+    v[u] = c < nchunks ? __ldg(nk4 + c) : make_int4(0, 0, 0, 0);
+  }
+}
+
+// the sum of s_tile[0 .. j) and of all nt entries, to every lane of the warp
+__device__ __forceinline__ void tile_sums(const int* s_tile, int nt, int j, int lane, int& before,
+                                          int& all) {
+  int b = 0, t = 0;
+  for (int i = lane; i < nt; i += 32) {
+    const int x = s_tile[i];
+    b += i < j ? x : 0;
+    t += x;
+  }
+  before = (int)__reduce_add_sync(kFull, (unsigned)b);
+  all = (int)__reduce_add_sync(kFull, (unsigned)t);
+}
+
+// Output: int32 [cap + Q + 1] = [cap hit words | Q n_keep | total]. Tile j
+// is chunks j << (5 + shift) .. of n_keep's granules; nt tiles. out need
+// only be 4-byte aligned.
 __global__ void __launch_bounds__(kPackThreads)
     pack_hits_kernel(const int32_t* __restrict__ vals, const int32_t* __restrict__ idx,
-                     const int32_t* __restrict__ n_keep, int q, int kk, int cap,
+                     const int32_t* __restrict__ n_keep, int q, int kk, int cap, int shift, int nt,
                      int32_t* __restrict__ out) {
-  constexpr int kWarps = kPackThreads / 32;
-  __shared__ int s_before[kWarps], s_total[kWarps], s_own[kWarps];
-  __shared__ int s_off[kPackThreads];  // each query's first word, from the block's first
+  extern __shared__ int s_tile[];  // each tile's takes
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int q0 = blockIdx.x * kPackThreads;
+  const int a = (int)(((uintptr_t)n_keep >> 2) & 3);  // n_keep's first word in its granule
+  const int4* nk4 = reinterpret_cast<const int4*>(n_keep - a);
+  const int nchunks = (q + a + 3) >> 2;
+  // tiles a warp at a time, consecutive tiles on consecutive blocks
+  const int j0 = warp * gridDim.x + blockIdx.x, tile_step = gridDim.x * kPackWarps;
 
-  // unrolled so that several loads are in flight in each thread
-  int before = 0, total = 0;
-#pragma unroll 8
-  for (int r = t; r < q; r += kPackThreads) {
-    const int tk = min(n_keep[r], kk);
-    total += tk;
-    before += r < q0 ? tk : 0;
+  // 1. every tile's takes: n_keep in rounds of kPackLoads 16-byte loads a
+  // thread (one round up to 16,384 queries), folded a warp's 32 chunks at
+  // a time. The first round's loads go out first, then the loads of the
+  // warp's first batch of hit words (they need its tile's takes, not where
+  // the tile starts), then the copy of n_keep, then the fold.
+  int4 v[kPackLoads];
+  load_round(nk4, 0, nchunks, t, v);
+  PackPass pass;
+  int32_t sv[kPackRounds], sd[kPackRounds];
+  if (j0 < nt) {
+    pass.load(nk4, j0 << (5 + shift), nchunks, a, q, kk, lane);
+    pass.words(vals, idx, a, kk, 0, pass.n, lane, sv, sd);
   }
-  before = __reduce_add_sync(kFull, before);
-  total = __reduce_add_sync(kFull, total);
-  const int r = q0 + t;
-  const int tk = r < q ? min(n_keep[r], kk) : 0;
-  int wsum;
-  const int excl = warp_excl(tk, lane, wsum);
-  if (lane == 0) {
-    s_before[warp] = before;
-    s_total[warp] = total;
-    s_own[warp] = wsum;
-  }
-  __syncthreads();
-  int first = 0, all = 0, woff = 0, own = 0;
-#pragma unroll
-  for (int x = 0; x < kWarps; x++) {
-    first += s_before[x];
-    all += s_total[x];
-    woff += x < warp ? s_own[x] : 0;
-    own += s_own[x];
-  }
-  s_off[t] = woff + excl;
-  if (r < q) out[cap + r] = n_keep[r];
-  if (blockIdx.x == 0 && t == 0) out[cap + q] = all;
-  __syncthreads();
-
-  // the block's words first .. first + own - 1 that fall below cap, in
-  // order, by consecutive threads
-  const int n_copy = max(0, min(own, cap - first));
-  for (int w = t; w < n_copy; w += kPackThreads) {
-    int a = 0, b = kPackThreads - 1;  // the last query whose first word is <= w
-    while (a < b) {
-      const int mid = (a + b + 1) >> 1;
-      if (s_off[mid] <= w) a = mid;
-      else b = mid - 1;
+  // the copy of n_keep at [cap, cap + q) needs no take (16-byte loads
+  // where its words and n_keep's share their place in the granule)
+  const int mis = (int)(((uintptr_t)out >> 2) & 3);  // out's first word in its granule
+  const int64_t gt = (int64_t)blockIdx.x * kPackThreads + t, gstride = (int64_t)gridDim.x * kPackThreads;
+  {
+    const Granules g(cap, (int64_t)cap + q, mis);
+    const bool same = ((mis + cap - a) & 3) == 0;
+    for (int64_t k = gt; k < g.n; k += gstride) {
+      const int64_t p = g.p0 + 4 * k;
+      const int32_t* src = n_keep + (p - cap);
+      *reinterpret_cast<int4*>(out + p) =
+          same ? __ldg(reinterpret_cast<const int4*>(src)) : make_int4(src[0], src[1], src[2], src[3]);
     }
-    const int64_t src = (int64_t)(q0 + a) * kk + (w - s_off[a]);
-    out[first + w] = (int32_t)(((uint32_t)vals[src] << 16) | (uint32_t)idx[src]);
+    if (blockIdx.x == 0 && t < 6) {
+      const int64_t w = g.edge(cap, (int64_t)cap + q, t);
+      if (w >= 0) out[w] = n_keep[w - cap];
+    }
   }
-  // the unused words [min(total, cap), cap), shared out over the blocks
-  const int used = min(all, cap);
-  for (int64_t x = used + (int64_t)blockIdx.x * kPackThreads + t; x < cap;
-       x += (int64_t)gridDim.x * kPackThreads)
-    out[x] = 0;
+  if (shift) {  // several warps' chunks add to a tile
+    for (int j = t; j < nt; j += kPackThreads) s_tile[j] = 0;
+    __syncthreads();
+  }
+  for (int b = 0;;) {
+    int sum[kPackLoads];
+#pragma unroll
+    for (int u = 0; u < kPackLoads; u++) {
+      int tk[4];
+      chunk_takes(v[u], b + u * kPackThreads + t, a, q, kk, tk);
+      sum[u] = (int)__reduce_add_sync(kFull, (unsigned)(tk[0] + tk[1] + tk[2] + tk[3]));
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < kPackLoads; u++) {
+        const int c0 = b + u * kPackThreads + warp * 32;
+        if (c0 < nchunks) {
+          if (shift) atomicAdd(&s_tile[c0 >> (5 + shift)], sum[u]);
+          else s_tile[c0 >> 5] = sum[u];
+        }
+      }
+    }
+    b += kPackThreads * kPackLoads;
+    if (b >= nchunks) break;
+    load_round(nk4, b, nchunks, t, v);
+  }
+  __syncthreads();
+  // 2. the total, and where the warp's first tile starts
+  int base, total;
+  tile_sums(s_tile, nt, j0, lane, base, total);
+
+  // 3. the zeros [min(total, cap), cap) in 16-byte stores (head and tail by
+  // the last block), and the total
+  {
+    const int used = min(total, cap);
+    const Granules g(used, cap, mis);
+    for (int64_t k = gt; k < g.n; k += gstride)
+      *reinterpret_cast<int4*>(out + g.p0 + 4 * k) = make_int4(0, 0, 0, 0);
+    if (blockIdx.x == gridDim.x - 1 && t < 7) {
+      const int64_t w = t < 6 ? g.edge(used, cap, t) : (int64_t)cap + q;
+      if (w >= 0) out[w] = t < 6 ? 0 : total;
+    }
+  }
+
+  // 4. the hit words, the first batch from the loads of step 1
+  for (int j = j0; j < nt; j += tile_step) {
+    if (j != j0) tile_sums(s_tile, nt, j, lane, base, total);
+    const int c_end = min(nchunks, (j + 1) << (5 + shift));
+    for (int c0 = j << (5 + shift); c0 < c_end && base < cap; c0 += 32) {
+      const bool loaded = j == j0 && c0 == j0 << (5 + shift);
+      if (!loaded) pass.load(nk4, c0, nchunks, a, q, kk, lane);
+      const int lim = min(pass.n, cap - base);  // the pass's words below cap
+      for (int w0 = 0; w0 < lim; w0 += 32 * kPackRounds) {
+        if (!(loaded && w0 == 0)) pass.words(vals, idx, a, kk, w0, lim, lane, sv, sd);
+#pragma unroll
+        for (int r = 0; r < kPackRounds; r++) {
+          const int w = w0 + 32 * r + lane;
+          if (w < lim) out[base + w] = hit_word(sv[r], sd[r]);
+        }
+      }
+      base += pass.n;
+    }
+  }
 }
 
 }  // namespace
@@ -468,17 +642,24 @@ int phylign_threshold_topk(const void* scores, int64_t stride, const void* cut,
   return (int)cudaGetLastError();
 }
 
-// B5c. vals, idx int32 [Q, kk]; n_keep int32 [Q]; out int32 [cap + Q + 1].
+// B5c. vals, idx int32 [Q, kk]; n_keep int32 [Q]; out int32 [cap + Q + 1]
+// (4-byte aligned: any word offset).
 int phylign_pack_hits(const void* vals, const void* idx, const void* n_keep,
                       int q, int kk, int cap, void* out, void* stream) {
   if (q < 0 || kk < 0 || cap < 0) return (int)cudaErrorInvalidValue;
-  // a block per 256 queries, and at least a block per 4,096 words to zero
-  // (up to kPackZeroBlocks): the blocks past the queries only zero
-  const int64_t qb = ((int64_t)q + kPackThreads - 1) / kPackThreads;
-  const int64_t zb = (((int64_t)cap + 4095) / 4096) < kPackZeroBlocks ? ((int64_t)cap + 4095) / 4096 : kPackZeroBlocks;
-  const unsigned grid = (unsigned)(qb > zb ? qb : (zb > 0 ? zb : 1));
-  pack_hits_kernel<<<grid, kPackThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)vals, (const int32_t*)idx, (const int32_t*)n_keep, q, kk, cap,
+  // tiles of 32 << shift chunks, at most kPackMaxTiles; a block a tile, or
+  // kPackFillStores 16-byte stores a thread of the words past the hits
+  // (at most cap + q + 1), at most kPackMaxBlocks
+  const int64_t nchunks = ((int64_t)q + (((uintptr_t)n_keep >> 2) & 3) + 3) / 4;
+  int shift = 0;
+  while (((nchunks + (32 << shift) - 1) >> (5 + shift)) > kPackMaxTiles) shift++;
+  const int nt = (int)((nchunks + (32 << shift) - 1) >> (5 + shift));
+  const int64_t stores = ((int64_t)cap + q + 4) / 4;
+  const int64_t by_stores = (stores + kPackThreads * kPackFillStores - 1) / (kPackThreads * kPackFillStores);
+  int64_t grid = nt > by_stores ? nt : by_stores;
+  grid = grid < 1 ? 1 : (grid > kPackMaxBlocks ? kPackMaxBlocks : grid);
+  pack_hits_kernel<<<(unsigned)grid, kPackThreads, nt * sizeof(int), (cudaStream_t)stream>>>(
+      (const int32_t*)vals, (const int32_t*)idx, (const int32_t*)n_keep, q, kk, cap, shift, nt,
       (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -265,21 +265,75 @@ def test_hash_rows_equals_plain_version(cuda, q, k, h, s):
     assert torch.equal(got.cpu(), tm._hash_rows_ref(hi, lo, nk, s, s))
 
 
-@pytest.mark.parametrize("q,kk,cap,share_empty", [
-    (37, 64, 500, 0.5), (9216, 160, 9216 * 112, 0.9), (9216, 160, 3000, 0.5),
-    (1, 8, 3, 0.0), (0, 8, 5, 0.0), (700, 32, 0, 0.3), (257, 16, 4000, 0.5),
-])
-def test_pack_hits_equals_plain_version(cuda, q, kk, cap, share_empty):
-    """Kernel B5c against _pack_hits_ref, every word: blocks of 256 (one,
-    ragged, 36), the cap inside a block's run, cap 0, Q = 0."""
-    rng = np.random.default_rng(q + kk + cap)
+def _pack_inputs(q, kk, share_empty, seed, total_mod=None):
+    """(vals, idx, n_keep) int32 of a B5c call; total_mod: n_keep[0] moved
+    so that the total take is total_mod mod 4."""
+    rng = np.random.default_rng(seed)
     n_keep = rng.integers(0, 2 * kk, q).astype(np.int32)
     n_keep[rng.random(q) < share_empty] = 0
+    if total_mod is not None:
+        take = np.minimum(n_keep, kk)
+        t0 = int(take[0]) + (total_mod - int(take.sum())) % 4
+        n_keep[0] = t0 if t0 <= kk else t0 - 4
     vals = rng.integers(0, 513, (q, kk)).astype(np.int32)
     idx = rng.integers(0, 65536, (q, kk)).astype(np.int32)
-    host = [torch.from_numpy(a) for a in (vals, idx, n_keep)]
+    return [torch.from_numpy(a) for a in (vals, idx, n_keep)]
+
+
+#: phase 4's first call's total and the cap the match stage gives every
+#: later batch from it (stages.py: 1 << max(12, (4 total + 2048).bit_length()))
+HINT_CAP = 1 << max(12, (4 * 2081 + 2048).bit_length())
+
+
+@pytest.mark.parametrize("q,kk,cap,share_empty,total_mod", [
+    (37, 64, 500, 0.5, None), (9216, 160, 9216 * 112, 0.9, None), (9216, 160, 3000, 0.5, None),
+    (1, 8, 3, 0.0, None), (0, 8, 5, 0.0, None), (700, 32, 0, 0.3, None), (257, 16, 4000, 0.5, None),
+    # min(total, cap) = total at each remainder mod 4; cap at each
+    # remainder, below and above the total; phase 4's shape at the hint cap
+    *((300, 16, 10**4, 0.6, r) for r in range(4)),
+    *((300, 16, c + r, 0.6, None) for r in range(4) for c in (4000, 148)),
+    (9216, 160, HINT_CAP, 0.997, None),
+])
+def test_pack_hits_equals_plain_version(cuda, q, kk, cap, share_empty, total_mod):
+    """Kernel B5c against _pack_hits_ref, every word: one tile and 72
+    (Q = 9,216), the cap inside a run, cap 0, Q = 0, the fill's head and
+    body at every alignment of min(total, cap) and of cap, and the hint
+    cap at Q = 9,216."""
+    host = _pack_inputs(q, kk, share_empty, q + kk + cap, total_mod)
+    before = tm.launch_counts()["pack_hits"]
     got = tm.pack_hits_cuda(*[t.to(cuda) for t in host], kk, cap)
-    assert torch.equal(got.cpu(), tm._pack_hits_ref(*host, kk, cap))
+    want = tm._pack_hits_ref(*host, kk, cap)
+    assert tm.launch_counts()["pack_hits"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    total = int(want[-1]) if q else 0
+    if total_mod is not None:
+        assert total % 4 == total_mod and total < cap
+    if cap == HINT_CAP:
+        assert 0 < total < cap
+
+
+@pytest.mark.parametrize("out_at,nk_at", [(1, 0), (2, 3), (3, 1), (5, 2)])
+def test_pack_hits_into_a_view_at_any_word_offset(cuda, out_at, nk_at):
+    """phylign_pack_hits through _kernels.launch into a view of a
+    sentinel-filled buffer at a word offset that is not 16-byte aligned,
+    n_keep a view at another offset: the view equals _pack_hits_ref
+    (every alignment of the fill's head, body and tail), and every word
+    before and after it keeps the sentinel."""
+    from phylign_tpu_torch.ops import _kernels
+
+    q, kk = 1000, 32
+    for cap in (4001, 1002, 10**4 + 3):
+        vals, idx, n_keep = _pack_inputs(q, kk, 0.7, cap + out_at)
+        n = cap + q + 1
+        buf = torch.full((out_at + n + 9,), -5, dtype=torch.int32, device=cuda)
+        nk_buf = torch.full((nk_at + q + 5,), 1 << 20, dtype=torch.int32, device=cuda)
+        nk_view = nk_buf[nk_at : nk_at + q]
+        nk_view.copy_(n_keep)
+        _kernels.launch(tm._launches, "pack_hits", "match_epilogue", "phylign_pack_hits",
+                        vals.to(cuda), idx.to(cuda), nk_view, q, kk, cap, buf[out_at : out_at + n])
+        got = buf.cpu()
+        assert torch.equal(got[out_at : out_at + n], tm._pack_hits_ref(vals, idx, n_keep, kk, cap))
+        assert (got[:out_at] == -5).all() and (got[out_at + n :] == -5).all()
 
 
 def test_matcher_top_k_paths_on_card_equal_cpu(cuda):

@@ -7,9 +7,11 @@ from a numpy seed: the window in ``jax.lax.top_k``'s order (score
 descending, doc ascending) and the whole flat hit buffer, bit for bit.
 Then a numpy emulation of each kernel's own algorithm (B5a's thread per
 slot in 64-bit unsigned arithmetic, B5b's warp per row with its 16-byte
-chunks, stash, radix-select digits and LSD rank rule, B5c's blocks of 256
-queries, each recounting every take before it), held to the plain
-versions, and mutants of the emulations that the comparison must catch.
+chunks, stash, radix-select digits and LSD rank rule, B5c's tiles of
+n_keep's 16-byte granules, a warp a tile with each word's query found by
+a search over the lanes, and its fill of 16-byte stores from the first
+aligned word), held to the plain versions, and mutants of the emulations
+that the comparison must catch.
 Tolerance: exact (0 difference, whole buffers)."""
 
 import jax.numpy as jnp
@@ -255,30 +257,96 @@ def emu_threshold_topk(scores, cut, kk, d, mutant=None):
     return vals, idx, n_keep
 
 
-def emu_pack_hits(vals, idx, n_keep, kk, cap, mutant=None):
-    """B5c, blocks of 256 queries: each block's first word from every take
-    before it, its own by a block scan, its words by consecutive threads
-    (each finding its query by binary search), the rest of [0, cap)
-    zeroed."""
+#: B5c's constants (csrc/match_epilogue.cu): threads a block, the most
+#: tiles, rounds of 32 hit words a warp loads before it stores them, the
+#: 16-byte stores a thread the grid is sized for, the most blocks
+PACK_THREADS, PACK_MAX_TILES, PACK_ROUNDS, PACK_FILL_STORES, PACK_MAX_BLOCKS = 256, 8192, 4, 4, 132
+PACK_WARPS = PACK_THREADS // 32
+
+
+def pack_geometry(q, cap, nk_mis, max_tiles=PACK_MAX_TILES, max_blocks=PACK_MAX_BLOCKS):
+    """phylign_pack_hits's launch: (chunks of n_keep's 16-byte granules,
+    tile shift, tiles, blocks)."""
+    nchunks = (q + nk_mis + 3) // 4
+    shift = 0
+    while -(-nchunks // (32 << shift)) > max_tiles:
+        shift += 1
+    nt = -(-nchunks // (32 << shift))
+    by_fill = -(-((cap + q + 4) // 4) // (PACK_THREADS * PACK_FILL_STORES))
+    return nchunks, shift, nt, min(max(nt, by_fill, 1), max_blocks)
+
+
+def emu_pack_hits(vals, idx, n_keep, kk, cap, nk_mis=0, out_mis=0, max_tiles=PACK_MAX_TILES,
+                  max_blocks=PACK_MAX_BLOCKS, mutant=None):
+    """B5c. n_keep read as its 16-byte granules (nk_mis: its first word's
+    place in its granule; the granule's other words hold junk the takes
+    must not count), a tile of 32 << shift chunks. The copy of n_keep at
+    [cap, cap + Q), then the tile sums a warp's 32 chunks at a time, the
+    total, the zeros [min(total, cap), cap) and the total's word; each
+    region from the first word whose address (out_mis: the buffer's first
+    word's place in its granule) is 16-byte aligned: the scalar head, the
+    16-byte body, the scalar tail. Then a warp a tile over the grid's warps
+    (warp * grid + block, striding by every warp), from the sum of the
+    tiles before it, 32 chunks a pass, the pass's words below cap by lane
+    w % 32: word w's lane by a search of the lanes' first words (steps of
+    16, 8, 4, 2, 1), its query and column by that lane's select chain.
+    Every word must be written exactly once: a word written twice comes
+    back -9, one never written -7."""
     q = len(n_keep)
-    out = np.full(cap + q + 1, -7, np.int64)  # every word must be written
-    take = np.minimum(n_keep.astype(np.int64), kk)
-    total = int(take.sum())
-    for q0 in range(0, max(q, 1), 256):
-        mine = take[q0 : q0 + 256]
-        first = int(take[: q0 + 1].sum() if mutant == "prefix_counts_own_first" else take[:q0].sum())
-        s_off = np.zeros(256, np.int64)
-        s_off[: len(mine)] = np.cumsum(mine) - mine
-        s_off[len(mine) :] = mine.sum()
-        own = int(mine.sum())
-        out[cap + q0 : cap + q0 + len(mine)] = n_keep[q0 : q0 + 256]
-        for w_ in range(max(0, min(own, cap - first))):
-            a = int(np.searchsorted(s_off, w_, side="right")) - 1
-            v, i = vals[q0 + a, w_ - s_off[a]], idx[q0 + a, w_ - s_off[a]]
-            out[first + w_] = ((int(v) << 16) | int(i)) & 0xFFFFFFFF
-    out[cap + q] = total
-    out[min(total, cap) : cap] = 0
-    return out.astype(np.int64).astype(np.uint32).view(np.int32)
+    nchunks, shift, nt, grid = pack_geometry(q, cap, nk_mis, max_tiles, max_blocks)
+    gran = np.full(4 * nchunks + 128, 1 << 20, np.int64)  # junk past the granules too
+    gran[nk_mis : nk_mis + q] = n_keep
+    e_of = np.arange(len(gran)) - nk_mis
+    take = np.where((e_of >= 0) & (e_of < q), np.minimum(gran, kk), 0).reshape(-1, 4)
+    out = np.full(cap + q + 1, -7, np.int64)
+    writes = np.zeros(cap + q + 1, np.int64)
+
+    def store(p, v):
+        out[p] = v
+        writes[p] += 1
+
+    def fill(lo, hi, value, below=False):
+        """[lo, hi): the head, 16-byte granules from p0, the tail."""
+        p0 = lo - (out_mis + lo) % 4 if below else lo + (-(out_mis + lo)) % 4
+        pb = p0 + 4 * ((hi - p0) // 4 if p0 < hi else 0)
+        assert (out_mis + p0) % 4 == 0
+        body = np.arange(p0, pb)
+        store(body, value(body))
+        for w_ in [*range(lo, min(p0, hi)), *range(pb, hi)]:
+            store(w_, value(w_))
+
+    fill(cap, cap + q, lambda w_: n_keep[w_ - cap])
+    tile_sum = np.zeros(nt, np.int64)
+    for c0 in range(0, nchunks, 32):
+        tile_sum[c0 >> (5 + shift)] += take[c0 : c0 + 32].sum()
+    total = int(tile_sum.sum())
+    fill(min(total, cap), cap, lambda w_: 0 * w_, below=mutant == "body_from_aligned_below")
+    store(cap + q, total)
+    for blk in range(grid):
+        for w_ in range(PACK_WARPS):
+            for j in range(w_ * grid + blk, nt, grid * PACK_WARPS):
+                base = int(tile_sum[: j + (mutant == "prefix_counts_own_first")].sum())
+                for c0 in range(j << (5 + shift), min(nchunks, (j + 1) << (5 + shift)), 32):
+                    if base >= cap:
+                        break
+                    tk = take[c0 : c0 + 32]
+                    lane_first, n = _warp_excl(tk.sum(1))
+                    lim = n if mutant == "words_past_cap" else min(n, cap - base)
+                    for w0 in range(0, lim, 32 * PACK_ROUNDS):  # word w by lane w % 32
+                        for w in range(w0, min(lim, w0 + 32 * PACK_ROUNDS)):
+                            ln = 0
+                            for step in (16, 8, 4, 2, 1):
+                                if lane_first[ln + step] <= w:
+                                    ln += step
+                            k, col = 0, w - lane_first[ln]
+                            for y in range(3):
+                                if k == y and col >= tk[ln, y]:
+                                    col, k = col - tk[ln, y], k + 1
+                            e = 4 * (c0 + ln) - nk_mis + k
+                            store(base + w, ((int(vals[e, col]) << 16) | int(idx[e, col])) & 0xFFFFFFFF)
+                    base += n
+    out[writes > 1] = -9
+    return out.astype(np.uint32).view(np.int32)
 
 
 def _plain_pack(vals, idx, n_keep, kk, cap):
@@ -333,11 +401,93 @@ def _pack_case(seed, q, kk, share_empty):
     (700, 32, 0.0, 100), (513, 4, 0.2, 0), (0, 8, 0.0, 5), (1000, 160, 0.95, 10**5),
 ])
 def test_pack_hits_emulation_equals_plain(q, kk, share_empty, cap):
-    """Blocks of 256 (one, ragged, several), the cap inside a block's run,
-    cap 0, Q = 0 and a cap past every take: every word equal."""
+    """One tile and ragged ones, the cap inside a tile's run, cap 0, Q = 0
+    and a cap past every take: every word equal."""
     vals, idx, n_keep = _pack_case(q + kk, q, kk, share_empty)
     want = _plain_pack(vals, idx, n_keep, kk, cap)
     np.testing.assert_array_equal(emu_pack_hits(vals, idx, n_keep, kk, cap), want)
+
+
+def _pack_edge(name):
+    """(vals, idx, n_keep, kk, cap, emulation options) of one named B5c
+    edge: used_mod{r}_out{m} (min(total, cap) = total at r mod 4, the
+    buffer's first word at word m of its granule), cap_mod{r}_{below,above}
+    (cap at r mod 4, below or above the total), nk_mis{m} (n_keep from
+    word m of its granule), more tiles than one pass of the grid's warps,
+    tiles of 256 chunks, the cap inside a pass's first round and in a
+    later batch of rounds, and phase 4's first call at its cap and at the
+    hint cap."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    opts, kk = {}, 16
+    if name.startswith("used_mod"):
+        r, m = int(name[8]), int(name[-1])
+        vals, idx, n_keep = _pack_case(r + 4 * m, 300, kk, 0.6)
+        take = np.minimum(n_keep, kk)
+        t0 = int(take[0]) + (r - int(take.sum())) % 4
+        n_keep[0] = t0 if t0 <= kk else t0 - 4
+        cap, opts = 10**4, {"out_mis": m}
+    elif name.startswith("cap_mod"):
+        vals, idx, n_keep = _pack_case(7, 300, kk, 0.6)
+        cap = (4000 if name.endswith("below") else 148) + int(name[7])
+    elif name.startswith("nk_mis"):
+        vals, idx, n_keep = _pack_case(8, 301, kk, 0.5)
+        cap, opts = 3001, {"nk_mis": int(name[-1]), "out_mis": 2}
+    elif name == "tiles_past_one_pass":  # 157 tiles, 8 blocks' 64 warps: 3 a warp
+        vals, idx, n_keep = _pack_case(9, 20000, 8, 0.7)
+        kk, cap, opts = 8, 30001, {"max_blocks": 8}
+    elif name == "tiles_of_256_chunks":  # shift 3: 5 tiles of 8 passes each
+        vals, idx, n_keep = _pack_case(10, 5000, 8, 0.7)
+        kk, cap, opts = 8, 6001, {"max_tiles": 8, "nk_mis": 3}
+    elif name == "cap_in_round":  # 2 words a query: the cap splits a query's run
+        vals, idx, n_keep = _pack_case(11, 300, kk, 0.0)
+        n_keep[:], cap = 2, 301
+    elif name == "cap_past_rounds":  # 100 words a query: 50 batches of rounds a pass
+        kk = 128
+        vals, idx, n_keep = _pack_case(12, 300, kk, 0.0)
+        n_keep[:], cap = 100, 12345
+    elif name.startswith("phase4"):  # mostly 0 or 1 hit, a few long runs
+        kk = 160
+        vals, idx, _ = _pack_case(13, 9216, kk, 0.0)
+        n_keep = rng.choice([0, 1, 2, 5, 300], 9216, p=[0.8, 0.17, 0.02, 0.008, 0.002]).astype(np.int32)
+        total = int(np.minimum(n_keep, kk).sum())
+        cap = 968_240 if name.endswith("first_call") else 1 << max(12, (4 * total + 2048).bit_length())
+    else:
+        raise KeyError(name)
+    return vals, idx, n_keep, kk, cap, opts
+
+
+PACK_EDGES = [
+    *(f"used_mod{r}_out{m}" for r in range(4) for m in range(4)),
+    *(f"cap_mod{r}_{w}" for r in range(4) for w in ("below", "above")),
+    *(f"nk_mis{m}" for m in (1, 2, 3)),
+    "tiles_past_one_pass", "tiles_of_256_chunks", "cap_in_round", "cap_past_rounds",
+    "phase4_first_call", "phase4_hint_cap",
+]
+
+
+@pytest.mark.parametrize("name", PACK_EDGES)
+def test_pack_hits_emulation_at_edges(name):
+    """The fill's head, body and tail at every alignment of min(total,
+    cap), of cap and of the buffer, n_keep's granules at every offset, the
+    grid's tile loop, tiles of several passes, the cap inside a round and
+    past several batches of rounds, phase 4's shapes: every word equal,
+    each written once."""
+    vals, idx, n_keep, kk, cap, opts = _pack_edge(name)
+    want = _plain_pack(vals, idx, n_keep, kk, cap)
+    np.testing.assert_array_equal(emu_pack_hits(vals, idx, n_keep, kk, cap, **opts), want)
+    total, q = int(want[-1]), len(n_keep)
+    if name.startswith("used_mod"):
+        assert total % 4 == int(name[8]) and total < cap
+    elif name.startswith("cap_mod"):
+        assert (total > cap) == name.endswith("above")
+    elif name.startswith("tiles"):
+        _, shift, nt, grid = pack_geometry(q, cap, opts.get("nk_mis", 0), **{
+            k: v for k, v in opts.items() if k.startswith("max")})
+        assert (nt > grid * PACK_WARPS) if name == "tiles_past_one_pass" else (shift == 3 and nt == 5)
+    elif name in ("cap_in_round", "cap_past_rounds"):
+        assert total > cap
+    elif name == "phase4_hint_cap":
+        assert total < cap < 968_240
 
 
 MUTANTS = [
@@ -346,15 +496,21 @@ MUTANTS = [
     ("threshold_topk", "digit_off_by_one"),
     ("threshold_topk", "one_more_tie"),
     ("pack_hits", "prefix_counts_own_first"),
+    ("pack_hits", "body_from_aligned_below"),
+    ("pack_hits", "words_past_cap"),
 ]
+#: the edge each B5c mutant is held on (None: the 700-query case)
+PACK_MUTANT_EDGE = {"prefix_counts_own_first": None, "body_from_aligned_below": "used_mod1_out0",
+                    "words_past_cap": "cap_in_round"}
 
 
 @pytest.mark.parametrize("kernel,mutant", MUTANTS)
 def test_emulation_mutants_are_caught(kernel, mutant):
     """Each mutant of an emulation's rule differs from the plain version
     on the inputs the tests above use: the comparison sees the order of
-    ties, the select's digits, the tie count at t*, the block prefix and
-    the unsigned hash."""
+    ties, the select's digits, the tie count at t*, the tile prefix, a
+    fill body that starts below min(total, cap), a pass's words past the
+    cap, and the unsigned hash."""
     if kernel == "hash_rows":
         _, hi, lo, nk, _ = _hash_inputs(12, q=30)
         hi64, lo64 = hi.astype(np.int64), lo.astype(np.int64)
@@ -366,9 +522,11 @@ def test_emulation_mutants_are_caught(kernel, mutant):
         want = _plain_topk(s, cut, kk, d)
         assert not all(np.array_equal(g, w_) for g, w_ in zip(got, want))
     else:
-        vals, idx, n_keep = _pack_case(3, 700, 32, 0.5)
-        want = _plain_pack(vals, idx, n_keep, 32, 5000)
-        assert not np.array_equal(emu_pack_hits(vals, idx, n_keep, 32, 5000, mutant), want)
+        edge = PACK_MUTANT_EDGE[mutant]
+        vals, idx, n_keep, kk, cap, opts = (_pack_case(3, 700, 32, 0.5) + (32, 5000, {}) if edge is None
+                                            else _pack_edge(edge))
+        want = _plain_pack(vals, idx, n_keep, kk, cap)
+        assert not np.array_equal(emu_pack_hits(vals, idx, n_keep, kk, cap, mutant=mutant, **opts), want)
 
 
 # --- dispatch -------------------------------------------------------------------
