@@ -86,7 +86,10 @@ Phases, each printing one JSON line:
     2x2 mesh, every output byte equal to phase 6's card run; (d) phase 7's
     align stage on a 1x2 mesh, 05_map and outputs equal to phase 7's; (e) a
     one-rank nccl process group, the mesh's top-k gather through
-    all_gather_into_tensor, hits equal to (b)'s. Phase 5 also runs B4 at
+    all_gather_into_tensor, hits equal to (b)'s. (b), (c) and (e) must have
+    launched B5b on the doc shards and B5d, the merge of their windows,
+    which is held to its plain version at (b)'s first call and timed
+    beside torch.topk over the gathered windows. Phase 5 also runs B4 at
     -A 200 -B 150 (its int32 substitution) and at its per-query-shard
     shapes (B3 P = 8,192, B4 P = 4,096: half of a call on a 1x2 mesh);
   9 the rest of the CLI on the card, over indexes the port builds itself:
@@ -101,9 +104,24 @@ Phases, each printing one JSON line:
     on the card and with ``--device cpu``: every output identical; (e)
     ``test`` on the card, then ``stats``, ``report``, ``index-sizes``,
     ``config``, ``check-cluster`` and ``clean --all``; (f) ``match_step``
-    on phase 2's matrix at Q = 2,048, K = 128, H = 1 and 3: scores equal
-    to match_scores_ref, keep equal to the float32 formula, with empty
-    queries and scores on the cut.
+    on phase 2's matrix at Q = 2,048, K = 128, H = 1 and 3: one launch of
+    the keep instance of B1/B2 a call, scores equal to match_scores_ref,
+    keep equal to the float32 formula and to the plain version, with empty
+    queries and scores on the cut; timed in turns with the parent's
+    spelling (B1/B2, then its torch ops);
+ 10 an oversized index, row-chunked: (a) the match stage's own call,
+    ChunkedMatcher.from_device_index at the default config's chunk budget
+    (Pipeline._chunk_budget_mb, 6,656 MB) then score_hits_raw, on an index
+    the size of the largest real batch (pseudomonas_aeruginosa__01, 10.6
+    GB: 39,000,000 Bloom rows x 68 words, phase 2's matrix tiled, with
+    reads planted) with phase 4's 10,240 reads: hits equal to the resident
+    Matcher's on the same index on the card, the pass's accumulator equal
+    to B2's scores on the whole index; the pass's wall time, its blocks,
+    its H2D rate against a pinned copy's, the accumulating kernel's time a
+    block in turns with B2 + add_, peak device memory against the budget;
+    (b) phase 4's batches through ``cli match`` with device_hbm_gb 1 (a
+    chunk budget of 256 MB: about 17 blocks a 544 MB index), every
+    03_match byte equal to phase 4's resident run.
 Then the script's runtime, the kernel table, the card's label, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA device, exits
 non-zero without that line. All data are made from fixed seeds.
@@ -136,6 +154,9 @@ SOURCE = {
     "hash_rows": "phylign_tpu_torch/csrc/match_epilogue.cu",
     "threshold_topk": "phylign_tpu_torch/csrc/match_epilogue.cu",
     "pack_hits": "phylign_tpu_torch/csrc/match_epilogue.cu",
+    "match_popcount_acc": "phylign_tpu_torch/csrc/match_popcount.cu",
+    "match_popcount_keep": "phylign_tpu_torch/csrc/match_popcount.cu",
+    "merge_topk": "phylign_tpu_torch/csrc/match_epilogue.cu",
 }
 REPLACES = {
     "match_popcount_b1": "phylign_tpu/ops/match.py:276",
@@ -155,6 +176,11 @@ REPLACES = {
     "hash_rows": "phylign_tpu/models/matcher.py:70",
     "threshold_topk": "phylign_tpu/models/matcher.py:44",
     "pack_hits": "phylign_tpu/models/matcher.py:148",
+    # the jitted programs around B2 and B1/B2: the row-chunked pass's
+    # accumulation, match_step's keep mask, the mesh's re-top-k
+    "match_popcount_acc": "phylign_tpu/models/matcher.py:838",
+    "match_popcount_keep": "phylign_tpu/models/matcher.py:252",
+    "merge_topk": "phylign_tpu/parallel/dist.py:107",
 }
 #: kernel B5's three kernels, launched by every hash-path match call
 B5_KERNELS = ("hash_rows", "threshold_topk", "pack_hits")
@@ -1980,9 +2006,62 @@ def _outputs(wd: Path, dirs=("intermediate/03_match", "intermediate/04_filter",
 
 
 def _same_hits(got, want) -> bool:
-    """Hit lists equal as sets per query (torch.topk orders ties freely),
-    n_keep exactly."""
-    return list(got[1]) == list(want[1]) and all(sorted(a) == sorted(b) for a, b in zip(got[0], want[0]))
+    """Hit lists equal, in order, and n_keep."""
+    return list(got[1]) == list(want[1]) and [list(h) for h in got[0]] == [list(h) for h in want[0]]
+
+
+#: the mesh's match epilogue: B5b on each doc shard, B5d merging them
+MESH_B5 = ("threshold_topk", "merge_topk")
+#: operations of B5d's function, counted from its plain version
+#: (_merge_topk_ref) where the data need them: a taken entry's place in the
+#: merge of nd sorted windows, ceil(log2 nd) compares, and the add of its
+#: shard's column offset
+B5D_ALU_ENTRY_PER_LEVEL, B5D_OTHER_ENTRY = 1, 1
+
+
+def merge_epilogue(windows, lims, w_loc: int, kk: int) -> dict:
+    """Kernel B5d at phase 8 (b)'s first merge (one query column of the
+    2x2 mesh): against _merge_topk_ref on the call's windows and on
+    ROTATION sets of them with the queries rolled, timed from CUDA graphs
+    over those sets beside its bound, the plain version (CUDA events, its
+    kernel count) and torch.topk over the gathered windows (the second
+    top-k of the parent's spelling; its library call)."""
+    import torch
+
+    from phylign_tpu_torch.models import matcher as tm
+
+    q = windows[0][0].shape[0]
+    nd = len(windows)
+    sets = [[tuple(None if t is None else torch.roll(t, (997 * i) % q, 0) for t in w) for w in windows]
+            for i in range(ROTATION)]
+    for ws in sets:
+        got, want = tm.merge_topk_cuda(ws, lims, w_loc, kk), tm._merge_topk_ref(ws, lims, w_loc, kk)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("B5d merge_topk differs from its plain version")
+    reps = 4 * ROTATION
+    kern = lambda i: tm.merge_topk_cuda(sets[i], lims, w_loc, kk)  # noqa: E731
+    plain = lambda i: tm._merge_topk_ref(sets[i], lims, w_loc, kk)  # noqa: E731
+    gathered = []
+    for ws in sets:
+        parts = []
+        for (v, _, n), lim in zip(ws, lims):
+            if n is not None:
+                ok = torch.arange(lim, device=v.device)[None, :] < torch.clamp(n, 0, lim)[:, None]
+                parts.append(torch.where(ok, v[:, :lim], -1))
+        gathered.append(torch.cat(parts, dim=1))
+    takes = sum(int(torch.clamp(n, 0, lim).sum()) for (_, _, n), lim in zip(windows, lims) if n is not None)
+    levels = max(1, (nd - 1).bit_length())
+    b = bound(8 * takes + 4 * q * sum(w[2] is not None for w in windows) + 8 * q * kk + 4 * q,
+              B5D_ALU_ENTRY_PER_LEVEL * levels * takes, B5D_OTHER_ENTRY * takes)
+    ms = min(graph_ms(kern, reps, ROTATION) for _ in range(2))
+    return dict(
+        Q=q, shards=nd, w_loc=w_loc, kk=kk, lims=list(lims), taken=takes, ms=ms,
+        plain_ms=min(cuda_ms(plain, reps, ROTATION) for _ in range(2)),
+        plain_launches=device_launches(lambda: plain(0)), max_abs_err=0,
+        library_ms=min(graph_ms(lambda i: torch.topk(gathered[i], min(kk, gathered[i].shape[1]), dim=1), reps,
+                                ROTATION) for _ in range(2)),
+        bound_share=b["bound_ms"] / ms, **b,
+    )
 
 
 def phase_mesh(work: Path, label: str, p7: dict) -> dict:
@@ -1998,6 +2077,7 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
     from phylign_tpu_torch.io.fastx import read_fastx_file
     from phylign_tpu_torch.kmer import cobs_kmer_hashes_batch, encode_seq
     from phylign_tpu_torch.models.matcher import Matcher
+    from phylign_tpu_torch.parallel import dist
     from phylign_tpu_torch.parallel.mesh import make_mesh
     from phylign_tpu_torch.pipeline.stages import Pipeline
 
@@ -2022,24 +2102,38 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
     one_s = mesh_s = 0.0
     n_hits = 0
     b_counts = {}
-    for b in (full / "data" / "batches.txt").read_text().split():
-        didx = iocobs.load_device_index(full / "cobs_device_cache" / b, mmap=True)
-        t0 = time.perf_counter()
-        one = Matcher.from_device_index(didx, "cuda").score_hits_raw(raw, thr, topn)
-        torch.cuda.synchronize()
-        one_s += time.perf_counter() - t0
-        got, secs = drive("b", lambda: Matcher.from_device_index(didx, "cuda", mesh=mesh).score_hits_raw(raw, thr, topn))
-        mesh_s += secs
-        b_counts = {k: b_counts.get(k, 0) + v for k, v in counts["b"].items()}
-        if not _same_hits(got, one):
-            raise AssertionError(f"mesh score_hits_raw on {b} differs from the 1x1 card run")
-        n_hits += sum(len(h) for h in got[0])
+    merge_calls = []  # the first B5d call, held to its plain version after (b)
+    orig_merge = dist.merge_windows
+
+    def capture_merge(*a):
+        if not merge_calls:
+            merge_calls.append(a)
+        return orig_merge(*a)
+
+    dist.merge_windows = capture_merge
+    try:
+        for b in (full / "data" / "batches.txt").read_text().split():
+            didx = iocobs.load_device_index(full / "cobs_device_cache" / b, mmap=True)
+            t0 = time.perf_counter()
+            one = Matcher.from_device_index(didx, "cuda").score_hits_raw(raw, thr, topn)
+            torch.cuda.synchronize()
+            one_s += time.perf_counter() - t0
+            got, secs = drive("b", lambda: Matcher.from_device_index(didx, "cuda", mesh=mesh).score_hits_raw(raw, thr, topn))
+            mesh_s += secs
+            b_counts = {k: b_counts.get(k, 0) + v for k, v in counts["b"].items()}
+            if not _same_hits(got, one):
+                raise AssertionError(f"mesh score_hits_raw on {b} differs from the 1x1 card run")
+            n_hits += sum(len(h) for h in got[0])
+    finally:
+        dist.merge_windows = orig_merge
     last = got  # the last batch's mesh hits: (e)'s reference
     counts["b"] = b_counts
-    if not counts["b"]["match_popcount_b2"]:
-        raise AssertionError(f"the 2x2 mesh did not launch B2: {counts['b']}")
+    if not all(counts["b"][k] for k in ("match_popcount_b2", *MESH_B5)):
+        raise AssertionError(f"the 2x2 mesh did not launch B2, B5b and B5d: {counts['b']}")
     emit("mesh_match", mesh="2x2", devices=P8_MESH, batches=4, reads=len(seqs), hits=n_hits,
          one_device_s=one_s, mesh_s=mesh_s, launches=counts["b"], one_device="equal", card=label)
+    b5d = merge_epilogue(*merge_calls[0])
+    emit("mesh_merge", card=label, **b5d)
 
     # (c) phase 6's fixture through Pipeline.run_all on the 2x2 mesh
     wd = work / "fixture_mesh"
@@ -2050,9 +2144,11 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
     got, want = _outputs(wd), _outputs(work / "fixture_all_cuda")
     if got != want:
         raise AssertionError(f"fixture on the 2x2 mesh differs from phase 6 in {[k for k in want if got.get(k) != want[k]]}")
-    # a mesh ships the full cold rows (no compaction), as the JAX mesh path
-    # does, and takes its top-k per doc shard (no B5)
-    if not all(v for k, v in counts["c"].items() if k not in ("compact_cold", *B5_KERNELS)):
+    # a mesh ships the full cold rows (no compaction) and packs its hits on
+    # the host (no B5a, B5c), as the JAX mesh path does; the accumulating
+    # and keep instances belong to the chunked pass and match_step
+    off_path = ("compact_cold", "hash_rows", "pack_hits", "match_popcount_acc", "match_popcount_keep")
+    if not all(v for k, v in counts["c"].items() if k not in off_path):
         raise AssertionError(f"the fixture on the 2x2 mesh did not launch every kernel: {counts['c']}")
     emit("mesh_fixture", mesh="2x2", files=len(got), seconds=secs, launches=counts["c"],
          one_device="identical", card=label)
@@ -2088,9 +2184,11 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
         tdist.destroy_process_group()
     if not _same_hits(pg, last):
         raise AssertionError("the one-rank nccl mesh differs from the in-process mesh")
+    if not all(counts["e"][k] for k in MESH_B5):
+        raise AssertionError(f"the one-rank nccl mesh did not launch B5b and B5d: {counts['e']}")
     emit("mesh_nccl", mesh="2x2", backend="nccl", world_size=1, batch=b, seconds=secs,
          hits=sum(len(h) for h in last[0]), launches=counts["e"], in_process_mesh="equal", card=label)
-    return {k: sum(c.get(k, 0) for c in counts.values()) for k in counts["c"]}
+    return {k: sum(c.get(k, 0) for c in counts.values()) for k in counts["c"]}, b5d
 
 
 
@@ -2101,6 +2199,19 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
 #: the slots hit at H = 1, 1.6% at H = 3)
 P9_STEP = {1: 0.3, 3: 0.02}
 P9_Q, P9_K = 2048, 128
+
+
+def parent_step(words, rows, nk, threshold: float):
+    """match_step as the parent commit spelled it on the card: B1/B2, then
+    the float32 cut and keep mask in torch ops."""
+    import torch
+
+    from phylign_tpu_torch.ops import match as opm
+
+    scores = opm.match_scores(words, rows)
+    cut = nk.to(torch.float32) * torch.tensor(threshold, dtype=torch.float32)
+    keep = scores.to(torch.float32) >= cut[:, None]
+    return scores, torch.logical_and(keep, nk[:, None] > 0)
 
 
 def run_cli(argv: list[str]) -> str:
@@ -2175,7 +2286,7 @@ def source_scores(didx, seqs: list[bytes], docs: list[int]):
     return np.where(nk > 0, scores, 0), nk
 
 
-def phase_cli(work: Path, label: str, p7: dict) -> dict:
+def phase_cli(work: Path, label: str, p7: dict) -> tuple[dict, dict]:
     """(a) build-index + inspect-index on phase 7's tars; (b) download over
     loopback + preflight; (c) ``cli all`` on the card over the self-built
     indexes with phase 7's reads; (d) its 2,048-read subset through the
@@ -2371,9 +2482,14 @@ def phase_cli(work: Path, label: str, p7: dict) -> dict:
         rows[(slot[None, :] >= nk[:, None])] = S
         scores, keep = drive(f"f{h}", lambda: match_step(words, rows, nk, thr_h))
         counts["f"] = {k: counts["f"].get(k, 0) + v for k, v in counts[f"f{h}"].items()}
+        if {k: v for k, v in counts[f"f{h}"].items() if v} != {"match_popcount_keep": 1}:
+            raise AssertionError(f"match_step at H={h} was not one launch of the keep instance: {counts[f'f{h}']}")
         ref = opm.match_scores_ref(words, rows)
         if not torch.equal(scores, ref):
             raise AssertionError(f"match_step at H={h} differs from match_scores_ref")
+        plain = opm.match_scores_keep_ref(words, rows, nk, thr_h)
+        if not (torch.equal(scores, plain[0]) and torch.equal(keep, plain[1])):
+            raise AssertionError(f"match_step at H={h} differs from match_scores_keep_ref")
         sc, nkn = scores.cpu().numpy(), nk.cpu().numpy()
         cut = np.float32(thr_h) * nkn.astype(np.float32)
         want = (sc.astype(np.float32) >= cut[:, None]) & (nkn[:, None] > 0)
@@ -2382,18 +2498,266 @@ def phase_cli(work: Path, label: str, p7: dict) -> dict:
         on_cut = int(((sc == np.ceil(cut)[:, None]) & (nkn[:, None] > 0)).sum())
         if on_cut == 0 or not (nkn == 0).any():
             raise AssertionError(f"match_step at H={h}: no score on the cut ({on_cut}) or no empty query")
-        ms = cuda_ms(lambda i: match_step(words, rows, nk, thr_h), 20)
-        step[f"h{h}"] = dict(q=P9_Q, k=P9_K, threshold=thr_h, kernel=opm.select_kernel(P9_K, h),
+        turns = [(who, cuda_ms(lambda i: (parent_step if who == "parent" else match_step)(words, rows, nk, thr_h),
+                               20)) for who in ("parent", "new", "new", "parent")]
+        # bytes: B1/B2's, the keep bytes and n_kmers; operations: an AND or
+        # add a gathered word, a convert and a compare a column
+        b = gather_bound(rows, WP)
+        b = bound(b["bytes"] + P9_Q * 32 * WP + 4 * P9_Q, P9_Q * P9_K * h * WP + 2 * P9_Q * 32 * WP)
+        ms = min(t for w, t in turns if w == "new")
+        step[f"h{h}"] = dict(q=P9_Q, k=P9_K, threshold=thr_h, instance=opm.select_kernel(P9_K, h),
                              empty_queries=int((nkn == 0).sum()), scores_on_cut=on_cut,
-                             kept=int(want.sum()), ms=ms, max_abs_err=0)
+                             kept=int(want.sum()), ms=ms, parent_ms=min(t for w, t in turns if w == "parent"),
+                             turns=turns, plain_ms=cuda_ms(lambda i: opm.match_scores_keep_ref(words, rows, nk, thr_h), 2),
+                             parent_launches=device_launches(lambda: parent_step(words, rows, nk, thr_h)),
+                             launches_per_call=device_launches(lambda: match_step(words, rows, nk, thr_h)),
+                             max_abs_err=0, bound_share=b["bound_ms"] / ms, **b)
     del words
     torch.cuda.empty_cache()
-    if not (counts["f"]["match_popcount_b1"] and counts["f"]["match_popcount_b2"]):
-        raise AssertionError(f"match_step did not launch B1 and B2: {counts['f']}")
+    if counts["f"]["match_popcount_keep"] != len(P9_STEP):
+        raise AssertionError(f"match_step did not launch the keep instance once a call: {counts['f']}")
     res["f"] = dict(S=S, Wp=WP, **step, launches=counts["f"])
     total = {k: sum(counts[c].get(k, 0) for c in ("c", "e", "f")) for k in counts["c"]}
     emit("cli", card=label, **res, launches=total)
-    return total
+    return total, step
+
+
+# --- phase 10: an oversized index, streamed row-chunked -------------------------
+
+#: phase 10 (a): the largest real batch, pseudomonas_aeruginosa__01 (10.59 GB
+#: decompressed, SURVEY.md), as Bloom rows of phase 2's 68 words
+S10 = 39_000_000
+#: host memory phase 10 (a) leaves free beside its index (GiB)
+P10_HEADROOM_GB = 16
+
+
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo in bytes (0 where it cannot be read)."""
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def acc_bound(idx, r0: int, r1: int, wp: int) -> dict:
+    """The accumulating instance's least time for one block: each distinct
+    row of the window read once, the row indices once, the accumulator
+    read and written once (bytes); an AND or add a word of each slot in the
+    window and an add a count (operations)."""
+    import torch
+
+    q, k = idx.shape[:2]
+    inside = (idx >= r0) & (idx < r1)
+    distinct = int(torch.unique(idx[inside]).numel())
+    slots = int(inside.sum())
+    return bound(distinct * 4 * wp + 4 * q * k + 2 * 4 * q * 32 * wp, slots * wp + q * 32 * wp)
+
+
+def copy_rates(host, slot_rows: int) -> dict:
+    """GB/s of a pinned slot's copy to the card (CUDA events) and of the
+    host's fill of that slot from ``host`` (models/matcher._fill_rows), one
+    STAGE_SLOT_BYTES slot, the best of 5."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from phylign_tpu_torch.models import matcher as tm
+
+    ring = torch.empty((slot_rows, host.shape[1]), dtype=torch.int32, pin_memory=True)
+    dev = torch.empty_like(ring, device="cuda")
+    nbytes = ring.numel() * 4
+    h2d, fill = [], []
+    with ThreadPoolExecutor(tm.FILL_THREADS) as pool:
+        for i in range(5):
+            t0 = time.perf_counter()
+            tm._fill_rows(pool, ring.numpy().view(np.uint32), host, (i * slot_rows) % (host.shape[0] - slot_rows))
+            fill.append(nbytes / (time.perf_counter() - t0) / 1e9)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dev.copy_(ring, non_blocking=True)
+            b.record()
+            torch.cuda.synchronize()
+            h2d.append(nbytes / (a.elapsed_time(b) / 1e3) / 1e9)
+    return dict(slot_bytes=nbytes, pinned_h2d_gb_s=max(h2d), host_fill_gb_s=max(fill), fill_threads=tm.FILL_THREADS)
+
+
+def phase_oversized(work: Path, label: str) -> tuple[dict, dict]:
+    """(a) ChunkedMatcher at the match stage's default chunk budget on a
+    pseudomonas-size index against the resident Matcher; the accumulating
+    kernel on one block in turns with B2 + add_. (b) phase 4's batches
+    through ``cli match`` at device_hbm_gb 1, 03_match byte-identical."""
+    import numpy as np
+    import torch
+
+    from phylign_tpu_torch import cli
+    from phylign_tpu_torch.config import Config
+    from phylign_tpu_torch.io import cobs as iocobs
+    from phylign_tpu_torch.io.fastx import read_fastx_file
+    from phylign_tpu_torch.kmer import cobs_kmer_hashes_batch, encode_seq
+    from phylign_tpu_torch.models import matcher as tm
+    from phylign_tpu_torch.ops import match as opm
+    from phylign_tpu_torch.pipeline.stages import Pipeline
+
+    counts = {}
+    full = work / "full"
+    cfg = Config.from_yaml(full / "config.yaml")
+    thr, topn = cfg.cobs_kmer_thres, cfg.nb_best_hits
+
+    # (a) the index: phase 2's matrix tiled to S10 rows (cut to what the
+    # host's memory holds), every third read planted into a doc
+    avail = mem_available()
+    fit = (avail - P10_HEADROOM_GB * 2**30) // (4 * WP)
+    s10 = S10 if fit >= S10 else max(S, int(fit) // S * S)
+    reduced = None if s10 == S10 else f"S cut from {S10:,} to {s10:,} rows: MemAvailable {avail:,} bytes"
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    base = random_words(gen, S)
+    base_host = base.cpu().numpy().view(np.uint32)
+    host = np.empty((s10, WP), np.uint32)
+    for a in range(0, s10, S):
+        host[a : a + S] = base_host[: min(S, s10 - a)]
+    seqs = [r.seq.encode() for r in read_fastx_file(full / "input" / "reads.fq")]
+    raw = cobs_kmer_hashes_batch([encode_seq(x) for x in seqs], 31, 1)
+    planted = [(i, (7 * i) % N_DOCS) for i in range(0, len(seqs), 3) if raw[i].shape[0]]
+    rows_p = np.concatenate([(raw[i][:, 0] % np.uint64(s10)).astype(np.int64) for i, _ in planted])
+    docs_p = np.concatenate([np.full(raw[i].shape[0], d, np.int64) for i, d in planted])
+    np.bitwise_or.at(host, (rows_p, docs_p // 32), np.uint32(1) << (docs_p % 32).astype(np.uint32))
+    didx = iocobs.DeviceIndex(term_size=31, num_hashes=1, signature_size=s10,
+                              doc_names=[f"{d:04d}_SAMP{d:05d}" for d in range(N_DOCS)], words=host)
+    setup_s = time.perf_counter() - t0
+
+    # the stage's call, at the default config's budget
+    budget = Pipeline(Config(), work / "p10_budget", device="cuda")._chunk_budget_mb()
+    cm = tm.ChunkedMatcher.from_device_index(didx, hbm_budget_mb=budget, device="cuda")
+    blocks = -(-s10 // cm.row_chunk)
+    passes = []
+    orig_pass = tm.ChunkedMatcher._score_pass
+
+    def timed_pass(self, packed):
+        t = time.perf_counter()
+        acc = orig_pass(self, packed)
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t, packed, acc))
+        return acc
+
+    torch.cuda.synchronize()
+    before_mb = torch.cuda.memory_allocated() / 1e6
+    torch.cuda.reset_peak_memory_stats()
+    tm.ChunkedMatcher._score_pass = timed_pass
+    _reset_counts()
+    try:
+        t0 = time.perf_counter()
+        got = cm.score_hits_raw(raw, thr, topn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tm.ChunkedMatcher._score_pass = orig_pass
+    counts["a"] = _kernel_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6 - before_mb
+    if len(passes) != 1 or counts["a"]["match_popcount_acc"] != blocks or not counts["a"]["threshold_topk"]:
+        raise AssertionError(f"the chunked pass: {len(passes)} passes, {blocks} blocks, launches {counts['a']}")
+    if peak_mb > budget:
+        raise AssertionError(f"the chunked pass peaked at {peak_mb:.0f} MB over its {budget} MB budget")
+    pass_s, packed, acc = passes[0]
+    # the same pass again: the pinned ring and the device buffers now come
+    # from torch's caches, so the difference is their first allocation
+    t0 = time.perf_counter()
+    again = cm._score_pass(packed)
+    torch.cuda.synchronize()
+    warm_pass_s = time.perf_counter() - t0
+    if not torch.equal(again, acc):
+        raise AssertionError("a second chunked pass differs from the first")
+    del again
+
+    # the resident Matcher on the same index, on the card
+    words = torch.empty((s10 + 1, WP), dtype=torch.int32, device="cuda")
+    for a in range(0, s10, S):
+        words[a : min(a + S, s10)] = base[: min(S, s10 - a)]
+    words[s10] = 0
+    cells = np.unique(rows_p * WP + docs_p // 32)
+    r_u, c_u = torch.from_numpy(cells // WP).cuda(), torch.from_numpy(cells % WP).cuda()
+    words[r_u, c_u] = torch.from_numpy(host.reshape(-1)[cells].view(np.int32)).cuda()
+    resident = tm.Matcher(term_size=31, num_hashes=1, signature_size=s10, doc_names=didx.doc_names, words=words)
+    one = resident.score_hits_raw(raw, thr, topn)
+    if not _same_hits(got, one):
+        raise AssertionError("the chunked pass's hits differ from the resident Matcher's")
+    idx = torch.from_numpy(np.ascontiguousarray(packed.reshape(packed.shape[0], -1))).cuda()
+    if not torch.equal(acc, opm.match_scores(words, torch.where(idx == cm.pad_row, s10, idx))):
+        raise AssertionError("the chunked pass's scores differ from B2's on the whole index")
+    n_hits = sum(len(h) for h in got[0])
+    if n_hits < len(planted):
+        raise AssertionError(f"{n_hits} hits for {len(planted)} planted reads")
+
+    # the accumulating kernel on the first block, in turns with the
+    # parent's spelling: B2 on the block with a zero row and the rows
+    # remapped, then add_
+    r0, r1 = 0, cm.row_chunk
+    block = words[r0:r1]
+    acc_t = torch.zeros_like(acc)
+    blockz = torch.cat([block, torch.zeros((1, WP), dtype=torch.int32, device="cuda")])
+    loc = torch.where((idx >= r0) & (idx < r1), idx - r0, r1 - r0).to(torch.int32)
+    new = lambda i: opm.match_scores_acc_(acc_t, block, idx, r0, r1)  # noqa: E731
+    parent = lambda i: acc_t.add_(opm.match_scores(blockz, loc))  # noqa: E731
+    one_block = opm.match_scores_acc_(torch.zeros_like(acc), block, idx, r0, r1)
+    if not torch.equal(one_block, opm.match_scores(blockz, loc)):
+        raise AssertionError("the accumulating kernel differs from B2 on the block with a zero row")
+    plain = opm.match_scores_acc_ref_(torch.zeros_like(acc), block, idx, r0, r1)
+    err = int((plain - one_block).abs().max())
+    if err:
+        raise AssertionError(f"the accumulating kernel differs from match_scores_acc_ref_ (max |err| {err})")
+    turns = [(who, cuda_ms(parent if who == "parent" else new, 6)) for who in ("parent", "new", "new", "parent")]
+    plain_ms = cuda_ms(lambda i: opm.match_scores_acc_ref_(acc_t, block, idx, r0, r1), 1)
+    acc_ms = min(t for w, t in turns if w == "new")
+    b = acc_bound(idx, r0, r1, WP)
+    kernel = dict(block_rows=r1 - r0, Q=idx.shape[0], K=idx.shape[1], ms=acc_ms,
+                  parent_ms=min(t for w, t in turns if w == "parent"), turns=turns, plain_ms=plain_ms,
+                  max_abs_err=err, bound_share=b["bound_ms"] / acc_ms, library_ms=None, **b)
+    rates = copy_rates(host, min(tm.STAGE_SLOT_BYTES // (4 * WP), cm.row_chunk))
+    index_bytes = s10 * WP * 4
+    res_a = dict(
+        S=s10, Wp=WP, docs=N_DOCS, index_gb=index_bytes / 1e9, reduced=reduced, reads=len(seqs),
+        unique_queries=idx.shape[0], K=idx.shape[1], planted=len(planted), hits=n_hits, budget_mb=budget,
+        row_chunk=cm.row_chunk, blocks=blocks, setup_s=setup_s, score_hits_raw_s=wall, pass_s=pass_s,
+        h2d_gb_s=index_bytes / pass_s / 1e9, warm_pass_s=warm_pass_s, warm_h2d_gb_s=index_bytes / warm_pass_s / 1e9,
+        **rates, peak_device_mb=peak_mb, resident="equal",
+        launches=counts["a"], acc_kernel=kernel,
+    )
+    emit("oversized_index", card=label, **res_a)
+    del words, block, blockz, acc_t, acc, one_block, plain, base, passes, r_u, c_u, resident
+    del host, didx, cm
+    torch.cuda.empty_cache()
+
+    # (b) phase 4's batches through cli match at device_hbm_gb 1
+    wd = work / "full_chunked"
+    wd.mkdir()
+    for name in ("cobs_device_cache", "data", "input"):
+        (wd / name).symlink_to(full / name)
+    (wd / "config.yaml").write_text((full / "config.yaml").read_text() + "device_hbm_gb: 1\n")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["match", "--workdir", str(wd), "--config", str(wd / "config.yaml"), str(wd / "input" / "reads.fq")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts["b"] = _kernel_counts()
+    batches = (full / "data" / "batches.txt").read_text().split()
+    for bt in batches:
+        want = gzip.open(next((full / "intermediate" / "03_match").glob(f"{bt}____*.gz")), "rb").read()
+        got_b = gzip.open(next((wd / "intermediate" / "03_match").glob(f"{bt}____*.gz")), "rb").read()
+        if got_b != want:
+            raise AssertionError(f"03_match of {bt} at device_hbm_gb 1 differs from phase 4's resident run")
+    chunk_budget = Pipeline(Config.from_yaml(wd / "config.yaml"), work / "p10_budget_b", device="cuda")._chunk_budget_mb()
+    c = counts["b"]
+    if not (c["match_popcount_acc"] and c["threshold_topk"]) or c["match_popcount_b2"]:
+        raise AssertionError(f"cli match at device_hbm_gb 1 did not stream every batch row-chunked: {c}")
+    emit("oversized_cli", card=label, batches=len(batches), device_hbm_gb=1, chunk_budget_mb=chunk_budget,
+         blocks_per_batch=c["match_popcount_acc"] / len(batches), seconds=secs, launches=c,
+         phase4="byte-identical")
+    total = {k: counts["a"].get(k, 0) + c.get(k, 0) for k in c}
+    return total, dict(res_a, cli_seconds=secs, cli_blocks_per_batch=c["match_popcount_acc"] / len(batches))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2461,8 +2825,9 @@ def main(argv: list[str] | None = None) -> int:
         c6 = phase_fixture_all(work)
         c7, p7 = phase_align_geometry(work, label, args.profile)
         mkern = phase_mesh_kernels(label)
-        c8 = phase_mesh(work, label, p7)
-        c9 = phase_cli(work, label, p7)
+        c8, b5d = phase_mesh(work, label, p7)
+        c9, c9_step = phase_cli(work, label, p7)
+        c10, p10 = phase_oversized(work, label)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2476,9 +2841,9 @@ def main(argv: list[str] | None = None) -> int:
         k = kern[case]
         table.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
-            launches=c3[name] + c4[name] + c6[name] + c8[name] + c9[name], launches_phase3=c3[name],
+            launches=c3[name] + c4[name] + c6[name] + c8[name] + c9[name] + c10[name], launches_phase3=c3[name],
             launches_phase4=c4[name], launches_phase6=c6[name], launches_phase8=c8[name],
-            launches_phase9=c9[name],
+            launches_phase9=c9[name], launches_phase10=c10[name],
             case=case, max_abs_err=max(v["max_abs_err"] for v in [*kern.values(), *mkern.values()]
                                        if v["kernel"] == name),
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
@@ -2517,14 +2882,43 @@ def main(argv: list[str] | None = None) -> int:
                      hint_bound_share=hint["bound_share"]) if name == "pack_hits" else {}
         table.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
-            launches=c3[name] + c4[name] + c6[name] + c8[name] + c9[name], launches_phase3=c3[name],
+            launches=c3[name] + c4[name] + c6[name] + c8[name] + c9[name] + c10[name], launches_phase3=c3[name],
             launches_phase4=c4[name], launches_phase6=c6[name], launches_phase8=c8[name],
-            launches_phase9=c9[name], case=f"phase 4's first call: Q={b5['Q']}, K={b5['K']}, d={b5['d']}, "
+            launches_phase9=c9[name], launches_phase10=c10[name], case=f"phase 4's first call: Q={b5['Q']}, K={b5['K']}, d={b5['d']}, "
             f"kk={b5['kk']}, cap={b5['cap']}", max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], plain_launches=k["plain_launches"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], bound_share=k["bound_share"], bytes=k["bytes"],
             operations=k["operations"], library_ms=k["library_ms"], **extra,
         ))
+    acc, keep = p10["acc_kernel"], c9_step["h1"]
+    table.append(dict(
+        name="match_popcount_acc", route="cuda", source=SOURCE["match_popcount_acc"],
+        replaces=REPLACES["match_popcount_acc"], launches=c10["match_popcount_acc"],
+        launches_phase10=c10["match_popcount_acc"],
+        case=f"phase 10 (a)'s first block: {acc['block_rows']:,} of {p10['S']:,} rows x {WP} words, "
+        f"Q={acc['Q']}, K={acc['K']}", max_abs_err=acc["max_abs_err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
+        bound_ms=acc["bound_ms"], bound_by=acc["bound_by"], bound_share=acc["bound_share"], bytes=acc["bytes"],
+        operations=acc["operations"], library_ms=None, parent_ms=acc["parent_ms"],
+    ))
+    table.append(dict(
+        name="match_popcount_keep", route="cuda", source=SOURCE["match_popcount_keep"],
+        replaces=REPLACES["match_popcount_keep"], launches=c9["match_popcount_keep"],
+        launches_phase9=c9["match_popcount_keep"],
+        case=f"phase 9 (f): match_step at H=1 ({keep['instance']}), Q={keep['q']}, K={keep['k']}, S={S:,}",
+        max_abs_err=keep["max_abs_err"], ms=keep["ms"], plain_ms=keep["plain_ms"], bound_ms=keep["bound_ms"],
+        bound_by=keep["bound_by"], bound_share=keep["bound_share"], bytes=keep["bytes"],
+        operations=keep["operations"], library_ms=None, parent_ms=keep["parent_ms"],
+        h3_ms=c9_step["h3"]["ms"], h3_parent_ms=c9_step["h3"]["parent_ms"],
+    ))
+    table.append(dict(
+        name="merge_topk", route="cuda", source=SOURCE["merge_topk"], replaces=REPLACES["merge_topk"],
+        launches=c8["merge_topk"], launches_phase8=c8["merge_topk"],
+        case=f"phase 8 (b)'s first merge: Q={b5d['Q']}, {b5d['shards']} shards of {b5d['w_loc']} columns, "
+        f"kk={b5d['kk']}", max_abs_err=b5d["max_abs_err"], ms=b5d["ms"], plain_ms=b5d["plain_ms"],
+        plain_launches=b5d["plain_launches"], bound_ms=b5d["bound_ms"], bound_by=b5d["bound_by"],
+        bound_share=b5d["bound_share"], bytes=b5d["bytes"], operations=b5d["operations"],
+        library_ms=b5d["library_ms"],
+    ))
     emit("runtime", script_s=time.perf_counter() - t_start, card=label)
     print(json.dumps({"kernels": table}), flush=True)
     print(label, flush=True)

@@ -55,6 +55,22 @@
 //                       tail (out need only be 4-byte aligned). The grid: a
 //                       block a tile, or enough blocks for kPackFillStores
 //                       16-byte stores a thread, at most a block an SM.
+//   B5d merge_topk      _merge_topk_ref. Replaces the second jax.lax.top_k
+//                       of phylign_tpu/parallel/dist.py:dist_topk (:107-133)
+//                       over the windows gathered from nd doc shards: each
+//                       shard's window is sorted (score desc, local doc asc)
+//                       with its qualifying count, shard e's docs are
+//                       columns [e w_loc, (e + 1) w_loc). A warp per query.
+//                       Each taken entry finds its rank in the merged
+//                       window: its position in its own window plus, in
+//                       every other window, the entries ahead of it by a
+//                       binary search (a shard before its own: scores >=
+//                       its score; after: scores > it), which is the order
+//                       (score desc, global doc asc) of jax.lax.top_k over
+//                       the gather in shard order. An entry ranked below kk
+//                       is written there, its doc plus e w_loc; ranks past
+//                       the takes get -1 and doc -1; n_keep is the sum of
+//                       the shards' counts (the psum of dist.py:155).
 //
 // What bounds it on an H100: bytes. B5b reads the [Q, 32 Wp] int32 score
 // matrix B1/B2 wrote (80 MB at Q = 9,216, Wp = 68) and writes the [Q, kk]
@@ -592,6 +608,75 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// B5d: the merge of per-shard windows
+// ---------------------------------------------------------------------------
+
+constexpr int kMergeWarps = 8;
+constexpr int kMaxShards = 16;
+
+// Shard e's window: vals, idx int32 rows of stride[e] words, the first
+// lim[e] entries of a row usable, sorted (score desc, doc asc); n_keep int32
+// [Q] (null: no doc qualifies, an empty window).
+struct Windows {
+  const int32_t* vals[kMaxShards];
+  const int32_t* idx[kMaxShards];
+  const int32_t* n_keep[kMaxShards];
+  int stride[kMaxShards];
+  int lim[kMaxShards];
+};
+
+__device__ __forceinline__ int merge_take(const Windows& w, int e, int64_t row) {
+  const int n = w.n_keep[e] ? w.n_keep[e][row] : 0;
+  return n < 0 ? 0 : (n < w.lim[e] ? n : w.lim[e]);
+}
+
+// entries of a descending run v[0 .. n) above x (or at least x, when ge)
+__device__ __forceinline__ int count_ahead(const int32_t* v, int n, int32_t x, bool ge) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int32_t y = __ldg(v + mid);
+    if (y > x || (ge && y == x)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Output: vals, idx int32 [Q, kk], n_keep int32 [Q].
+__global__ void __launch_bounds__(kMergeWarps * 32)
+    merge_topk_kernel(Windows w, int nd, int w_loc, int q, int kk, int32_t* __restrict__ vals,
+                      int32_t* __restrict__ idx, int32_t* __restrict__ n_keep) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  if (row >= q) return;
+  int32_t* vrow = vals + row * kk;
+  int32_t* irow = idx + row * kk;
+  int total = 0, n_sum = 0;
+  for (int e = 0; e < nd; e++) {
+    const int take = merge_take(w, e, row);
+    const int32_t* ve = w.vals[e] + row * w.stride[e];
+    const int32_t* ie = w.idx[e] + row * w.stride[e];
+    for (int j = lane; j < take; j += 32) {
+      const int32_t x = __ldg(ve + j);
+      int rank = j;
+      for (int f = 0; f < nd && rank < kk; f++)
+        if (f != e) rank += count_ahead(w.vals[f] + row * w.stride[f], merge_take(w, f, row), x, f < e);
+      if (rank < kk) {
+        vrow[rank] = x;
+        irow[rank] = __ldg(ie + j) + e * w_loc;
+      }
+    }
+    total += take;
+    n_sum += w.n_keep[e] ? w.n_keep[e][row] : 0;
+  }
+  for (int r = total + lane; r < kk; r += 32) {
+    vrow[r] = -1;
+    irow[r] = -1;
+  }
+  if (lane == 0) n_keep[row] = n_sum;
+}
+
 }  // namespace
 
 extern "C" {
@@ -661,6 +746,30 @@ int phylign_pack_hits(const void* vals, const void* idx, const void* n_keep,
   pack_hits_kernel<<<(unsigned)grid, kPackThreads, nt * sizeof(int), (cudaStream_t)stream>>>(
       (const int32_t*)vals, (const int32_t*)idx, (const int32_t*)n_keep, q, kk, cap, shift, nt,
       (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// B5d. nd windows (vals[e], idx[e], n_keep[e], stride[e], lim[e]: see
+// Windows; nd <= kMaxShards); out_vals, out_idx int32 [Q, kk]; out_n int32
+// [Q]. The host arrays are read at the call.
+int phylign_merge_topk(int nd, const void* const* vals, const void* const* idx,
+                       const void* const* n_keep, const int* stride, const int* lim, int w_loc,
+                       int q, int kk, void* out_vals, void* out_idx, void* out_n, void* stream) {
+  if (q <= 0) return 0;
+  if (nd < 1 || nd > kMaxShards || kk < 0 || w_loc < 0) return (int)cudaErrorInvalidValue;
+  Windows w{};
+  for (int e = 0; e < nd; e++) {
+    if (stride[e] < lim[e] || lim[e] < 0 || (lim[e] > 0 && (!vals[e] || !idx[e])))
+      return (int)cudaErrorInvalidValue;
+    w.vals[e] = (const int32_t*)vals[e];
+    w.idx[e] = (const int32_t*)idx[e];
+    w.n_keep[e] = (const int32_t*)n_keep[e];
+    w.stride[e] = stride[e];
+    w.lim[e] = lim[e];
+  }
+  const unsigned grid = (unsigned)(((int64_t)q + kMergeWarps - 1) / kMergeWarps);
+  merge_topk_kernel<<<grid, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(
+      w, nd, w_loc, q, kk, (int32_t*)out_vals, (int32_t*)out_idx, (int32_t*)out_n);
   return (int)cudaGetLastError();
 }
 

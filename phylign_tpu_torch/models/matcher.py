@@ -5,7 +5,8 @@ Holds one batch's packed Bloom bit-matrix on the device and scores query
 k-mers against it: hash -> Bloom row, gather + vertical popcount (the
 kernels of ``phylign_tpu_torch.ops.match``), integer threshold, top-k and
 hit compaction on the device (kernel B5, ``csrc/match_epilogue.cu``, on the
-card); only the qualifying hits cross to the host.
+card); only the qualifying hits cross to the host. B5d merges a mesh's
+per-shard windows (``parallel/dist.py``).
 The text postprocessing stays on the host (``phylign_tpu_torch.match``).
 
 Unsigned data live in signed tensors with the same bits: words and the hit
@@ -15,6 +16,8 @@ buffer in int32, each XXH64 hash as two int64 halves below 2**32.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,7 +29,11 @@ from phylign_tpu_torch.ops import _kernels
 from phylign_tpu_torch.ops.match import (
     dedup_rows,
     match_scores,
+    match_scores_acc_,
+    match_scores_acc_ref_,
     match_scores_dedup,
+    match_scores_keep,
+    match_scores_keep_ref,
     pack_row_indices,
     round_up,
 )
@@ -147,7 +154,7 @@ def _pack_hits_ref(
 
 # --- kernel B5, the match epilogue (csrc/match_epilogue.cu) -------------------
 
-_launches = _kernels.LaunchCounts("hash_rows", "threshold_topk", "pack_hits")
+_launches = _kernels.LaunchCounts("hash_rows", "threshold_topk", "pack_hits", "merge_topk")
 
 
 def launch_counts() -> dict[str, int]:
@@ -266,6 +273,88 @@ def pack_hits_cuda(
     return out
 
 
+def _merge_topk_ref(
+    windows: list, lims: list[int], w_loc: int, kk: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The global top-kk window of nd doc shards' windows: ``windows[e]``
+    = (vals int32 [Q, W_e], idx int32 [Q, W_e], n_keep int32 [Q] or None
+    for a shard where nothing qualifies), each row's first min(n_keep,
+    lims[e]) entries taken, sorted (score desc, local doc asc) as B5b
+    leaves them; shard e's local doc j is global doc j + e * w_loc.
+
+    Returns (vals int32 [Q, kk], global doc ids int32 [Q, kk], n_keep
+    int32 [Q], the sum of the shards' counts): the taken entries in the
+    order (score desc, global doc asc), a stable descending sort of their
+    concatenation in shard order, which is jax.lax.top_k's over the gather;
+    -1 and doc -1 past them."""
+    v0 = windows[0][0]
+    q, dev = v0.shape[0], v0.device
+    n_sum = torch.zeros(q, dtype=torch.int32, device=dev)
+    vs, ids = [], []
+    for e, ((v, i, n), lim) in enumerate(zip(windows, lims)):
+        if n is None:
+            continue
+        n_sum = n_sum + n
+        ok = torch.arange(lim, device=dev)[None, :] < torch.clamp(n, 0, lim)[:, None]
+        vs.append(torch.where(ok, v[:, :lim], -1))
+        ids.append(torch.where(ok, i[:, :lim] + e * w_loc, -1))
+    filler = torch.full((q, kk), -1, dtype=torch.int32, device=dev)  # kk columns at least
+    vals, order = torch.sort(torch.cat([*vs, filler], dim=1), dim=1, descending=True, stable=True)
+    vals = vals[:, :kk]
+    idx = torch.cat([*ids, filler], dim=1).gather(1, order[:, :kk])
+    return vals.to(torch.int32), torch.where(vals >= 0, idx, -1).to(torch.int32), n_sum
+
+
+#: the most doc shards kernel B5d merges (its table of windows is a kernel
+#: argument)
+MERGE_MAX_SHARDS = 16
+
+
+def merge_topk_cuda(
+    windows: list, lims: list[int], w_loc: int, kk: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B5d (replaces the second ``jax.lax.top_k`` of
+    ``phylign_tpu/parallel/dist.py:dist_topk``). CUDA tensors on one device
+    only; same contract as _merge_topk_ref for up to MERGE_MAX_SHARDS
+    windows, each a contiguous [Q, W_e] pair."""
+    nd = len(windows)
+    tensors = [t for w in windows for t in w if t is not None]
+    dev = _on_one_cuda_device("merge_topk", *tensors)
+    if not 1 <= nd <= MERGE_MAX_SHARDS or len(lims) != nd:
+        raise ValueError(f"merge_topk takes 1 to {MERGE_MAX_SHARDS} windows with a limit each; got {nd}")
+    q = windows[0][0].shape[0]
+    for (v, i, n), lim in zip(windows, lims):
+        if v.dtype != torch.int32 or i.dtype != torch.int32 or (n is not None and n.dtype != torch.int32):
+            raise TypeError("merge_topk takes int32 windows and counts")
+        if v.dim() != 2 or v.shape[0] != q or i.shape != v.shape or not 0 <= lim <= v.shape[1]:
+            raise ValueError(
+                f"merge_topk: a window must be [Q={q}, W >= limit {lim}] twice; got "
+                f"{tuple(v.shape)}, {tuple(i.shape)}"
+            )
+        if not (v.is_contiguous() and i.is_contiguous()) or (n is not None and (n.shape != (q,) or not n.is_contiguous())):
+            raise ValueError("merge_topk takes contiguous windows and [Q] counts")
+    if not 0 <= kk or not 0 <= w_loc < 1 << 31:
+        raise ValueError(f"merge_topk: kk = {kk}, w_loc = {w_loc}")
+
+    def table(ctype, xs):
+        return (ctype * nd)(*xs)
+
+    ptr = lambda t: None if t is None or t.numel() == 0 else t.data_ptr()  # noqa: E731
+    vals = torch.empty((q, kk), dtype=torch.int32, device=dev)
+    idx = torch.empty((q, kk), dtype=torch.int32, device=dev)
+    n_keep = torch.empty(q, dtype=torch.int32, device=dev)
+    if q:
+        _kernels.launch(
+            _launches, "merge_topk", "match_epilogue", "phylign_merge_topk",
+            nd, table(ctypes.c_void_p, [ptr(w[0]) for w in windows]),
+            table(ctypes.c_void_p, [ptr(w[1]) for w in windows]),
+            table(ctypes.c_void_p, [ptr(w[2]) for w in windows]),
+            table(ctypes.c_int, [w[0].shape[1] for w in windows]), table(ctypes.c_int, lims),
+            int(w_loc), q, kk, vals, idx, n_keep,
+        )
+    return vals, idx, n_keep
+
+
 def _by_device(t: torch.Tensor, plain, kernel, *args):
     """The plain version for a CPU tensor, the kernel for a CUDA tensor;
     any other device raises."""
@@ -296,6 +385,13 @@ def _pack_hits(
 ) -> torch.Tensor:
     """_pack_hits_ref on a CPU tensor, kernel B5c on a CUDA tensor."""
     return _by_device(n_keep, _pack_hits_ref, pack_hits_cuda, vals, idx, n_keep, kk, cap)
+
+
+def _merge_topk(
+    windows: list, lims: list[int], w_loc: int, kk: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """_merge_topk_ref on CPU tensors, kernel B5d on CUDA tensors."""
+    return _by_device(windows[0][0], _merge_topk_ref, merge_topk_cuda, windows, lims, w_loc, kk)
 
 
 def _hash_topk(
@@ -447,18 +543,14 @@ def match_step(
 
     keep[q, d] = score >= threshold * n_kmers[q]  (cobs -t semantics, the
     reference's config.yaml:20), and never for a query without k-mers.
-    Callers slice [:, :num_docs]. The scores come from kernel B1 or B2 on a
-    CUDA tensor and from match_scores_ref on a CPU one. The test is the JAX
-    package's float32 one (``f32(score) >= f32(threshold) * f32(n)``), not
-    the pipeline's float64 _int_cut: the two can differ at a score on the
-    cut."""
-    scores = match_scores(words, row_idx)
-    # a 0-dim host tensor: the float32 threshold goes to the kernel as an
-    # argument, with no copy to the device
-    cut = n_kmers.to(torch.float32) * torch.tensor(threshold, dtype=torch.float32)
-    keep = scores.to(torch.float32) >= cut[:, None]
-    keep = torch.logical_and(keep, n_kmers[:, None] > 0)
-    return scores, keep
+    Callers slice [:, :num_docs]. On a CUDA tensor one launch of the keep
+    instance of B1/B2 computes both; on a CPU one match_scores_keep_ref. The
+    test is the JAX package's float32 one (``f32(score) >= f32(threshold) *
+    f32(n)``), not the pipeline's float64 _int_cut: the two can differ at a
+    score on the cut."""
+    return _by_device(
+        words, match_scores_keep_ref, match_scores_keep, words, row_idx, n_kmers, threshold
+    )
 
 
 def _mesh_lane(mesh) -> int:
@@ -960,10 +1052,25 @@ class Matcher:
 
 
 def _acc_chunk_scores(
-    acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor
+    acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor, r0: int, r1: int
 ) -> torch.Tensor:
-    """acc += this row block's partial scores, in place."""
-    return acc.add_(match_scores(words, row_idx))
+    """acc += the partial scores of the row block [r0, r1) that ``words``
+    holds, in place; ``row_idx`` holds global rows and a row outside the
+    block counts as a zero row (the JAX package remaps them to the block's
+    zero row). The accumulating instance of B1/B2 on a CUDA tensor,
+    match_scores_acc_ref_ on a CPU one."""
+    return _by_device(
+        acc, match_scores_acc_ref_, match_scores_acc_, acc, words, row_idx, r0, r1
+    )
+
+
+#: the row-chunked pass's pinned staging ring: STAGE_SLOTS slots of at most
+#: STAGE_SLOT_BYTES, 1 GB of pinned host memory in all, reused by every
+#: block (and by later passes, through torch's pinned-memory cache)
+STAGE_SLOT_BYTES = 256 << 20
+STAGE_SLOTS = 4
+#: threads that copy a slot's rows out of ``words_host`` together
+FILL_THREADS = 4
 
 
 @dataclass
@@ -971,11 +1078,13 @@ class ChunkedMatcher:
     """Row-chunked match model: scores an index LARGER than the device
     budget.
 
-    The signature rows stream through the device in fixed blocks: each
-    query k-mer row index is remapped into the current block (or to the
-    block's zero padding row when it falls outside), the block is scored
-    with the SAME kernels, and per-(query, doc) scores accumulate on the
-    device across blocks. Exact vs Matcher for num_hashes == 1 (the 661k
+    The signature rows stream through the device in fixed blocks: the
+    accumulating instance of the SAME kernels scores each block's rows
+    (a query k-mer row outside the block counts as a zero row), and
+    per-(query, doc) scores accumulate on the device across blocks. On a
+    card two device block buffers alternate: block i + 1's upload (through
+    a bounded pinned staging ring, on a side stream) overlaps block i's
+    kernel. Exact vs Matcher for num_hashes == 1 (the 661k
     database's value) because a 1-hash score is a plain sum over k-mer rows;
     multi-hash indexes need the AND of rows that may straddle blocks and
     must use Matcher.
@@ -1027,7 +1136,7 @@ class ChunkedMatcher:
     @property
     def pad_row(self) -> int:
         """GLOBAL padding sentinel: outside every block's [r0, r1) range, so
-        padding slots always remap to the block's zero row."""
+        padding slots always count as zero rows."""
         return 1 << 30
 
     def _score_pass(self, packed: np.ndarray) -> torch.Tensor:
@@ -1035,19 +1144,75 @@ class ChunkedMatcher:
         s, w = self.words_host.shape
         q = packed.shape[0]
         acc = torch.zeros((q, 32 * w), dtype=torch.int32, device=self.device)
-        idx2 = packed.reshape(q, -1)  # [Q, K] int32 global rows (H == 1)
+        rows = np.ascontiguousarray(packed.reshape(q, -1), np.int32)  # global rows (H == 1)
+        if not (q and w):
+            return acc
+        if self.device.type == "cuda":
+            return self._stream_blocks(acc, rows)
+        idx = torch.from_numpy(rows)
         for r0 in range(0, s, self.row_chunk):
             r1 = min(r0 + self.row_chunk, s)
-            block = np.zeros((self.row_chunk + 1, w), np.uint32)
-            block[: r1 - r0] = self.words_host[r0:r1]
-            # rows outside this block -> the block's zero padding row
-            loc = np.where((idx2 >= r0) & (idx2 < r1), idx2 - r0, self.row_chunk)
-            # the host prepares the next block while this one's kernel runs
-            _acc_chunk_scores(
-                acc,
-                _to_device(block.view(np.int32), self.device),
-                _to_device(loc.astype(np.int32), self.device),
-            )
+            block = np.ascontiguousarray(self.words_host[r0:r1]).view(np.int32)
+            _acc_chunk_scores(acc, torch.from_numpy(block), idx, r0, r1)
+        return acc
+
+    def _stream_blocks(self, acc: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
+        """_score_pass on a card. Two device block buffers of row_chunk rows,
+        allocated once a pass (the 2 blocks from_device_index sizes for),
+        take turns. A block goes up slot by slot through the pinned ring:
+        the host copies rows into a slot (after that slot's last copy to the
+        device has finished), then a side stream copies the slot into the
+        block's buffer (after the kernel that last read that buffer, on the
+        current stream, has finished); the current stream waits for the
+        block's copies, then launches its accumulating kernel. So block
+        i + 1's upload overlaps block i's kernel, and the host's copies
+        overlap the link's. The caching allocator stays right with events
+        alone: every side-stream use of a buffer is ordered before a
+        current-stream kernel, so the buffers' frees at the end follow all
+        of their uses (and, should the pass stop early, the current stream
+        waits for the side stream); the pinned slots' copies record their
+        own events."""
+        dev = self.device
+        s, w = self.words_host.shape
+        starts = range(0, s, self.row_chunk)
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        idx = torch.from_numpy(rows).pin_memory().to(dev, non_blocking=True)
+        bufs = [
+            torch.empty((min(self.row_chunk, s), w), dtype=torch.int32, device=dev)
+            for _ in range(min(2, len(starts)))
+        ]
+        slot_rows = max(1, min(STAGE_SLOT_BYTES // (4 * w), self.row_chunk, s))
+        n_slots = min(STAGE_SLOTS, -(-s // slot_rows))
+        ring = torch.empty((n_slots, slot_rows, w), dtype=torch.int32, pin_memory=True)
+        ring_u32 = ring.numpy().view(np.uint32)
+        copied: list = [None] * n_slots  # each slot's last copy to the device
+        read: list = [None] * len(bufs)  # each buffer's last kernel
+        n = 0
+        try:
+            with ThreadPoolExecutor(FILL_THREADS) as pool:
+                for i, r0 in enumerate(starts):
+                    r1 = min(r0 + self.row_chunk, s)
+                    b = i % len(bufs)
+                    if read[b] is not None:
+                        side.wait_event(read[b])
+                    for a in range(r0, r1, slot_rows):
+                        e = min(a + slot_rows, r1)
+                        j = n % n_slots
+                        n += 1
+                        if copied[j] is not None:
+                            copied[j].synchronize()
+                        _fill_rows(pool, ring_u32[j, : e - a], self.words_host, a)
+                        with torch.cuda.stream(side):
+                            bufs[b][a - r0 : e - r0].copy_(ring[j, : e - a], non_blocking=True)
+                        copied[j] = side.record_event()
+                    main.wait_event(side.record_event())
+                    _acc_chunk_scores(acc, bufs[b], idx, r0, r1)
+                    read[b] = main.record_event()
+        finally:
+            # a pass cut short by an error leaves copies in flight: the
+            # buffers are freed to the current stream only after them
+            main.wait_stream(side)
         return acc
 
     def score_rows(
@@ -1148,6 +1313,15 @@ class ChunkedMatcher:
                 )
                 n_keep_out.append(m)
         return hits, np.asarray(n_keep_out, np.int32)
+
+
+def _fill_rows(pool: ThreadPoolExecutor, dst: np.ndarray, src: np.ndarray, a: int) -> None:
+    """dst[:] = src[a : a + len(dst)], in FILL_THREADS parts copied by the
+    pool together (numpy copies without the GIL)."""
+    n = dst.shape[0]
+    step = -(-n // FILL_THREADS)
+    parts = [(x, min(x + step, n)) for x in range(0, n, step)]
+    list(pool.map(lambda p: np.copyto(dst[p[0] : p[1]], src[a + p[0] : a + p[1]]), parts))
 
 
 def _dedup_row_sets(

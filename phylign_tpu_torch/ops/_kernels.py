@@ -154,6 +154,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             # words, n_rows, wp, row_idx, q, k, h, planes, qt, wt, staged,
             # via_smem, out, stream
             fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32, i32, i32, i32, p, p]
+        lib.phylign_match_popcount_acc.restype = i32
+        # words, r0, r1, wp, row_idx, q, k, h, planes, qt, wt, staged,
+        # via_smem, acc, stream
+        lib.phylign_match_popcount_acc.argtypes = [p, i32, i32, i32, p, *[i32] * 8, p, p]
+        lib.phylign_match_popcount_keep.restype = i32
+        # words, n_rows, wp, row_idx, q, k, h, planes, qt, wt, staged,
+        # via_smem, n_kmers, threshold, out, keep, stream
+        lib.phylign_match_popcount_keep.argtypes = [
+            p, i64, i32, p, *[i32] * 8, p, ctypes.c_float, p, p, p,
+        ]
     elif name == "chain_scan":
         lib.phylign_chain_scan.restype = i32
         # rpos, qpos, q16, cost, p, a, w, lanes, k, max_gap, bandwidth, f,
@@ -197,6 +207,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.phylign_threshold_topk.argtypes = [p, i64, p, i32, i32, i32, p, p, p, p, p]
         # vals, idx, n_keep, q, kk, cap, out, stream
         lib.phylign_pack_hits.argtypes = [p, p, p, i32, i32, i32, p, p]
+        if hasattr(lib, "phylign_merge_topk"):  # not in a source older than B5d
+            lib.phylign_merge_topk.restype = i32
+            # nd, vals[nd], idx[nd], n_keep[nd], stride[nd], lim[nd], w_loc,
+            # q, kk, out_vals, out_idx, out_n, stream
+            lib.phylign_merge_topk.argtypes = [i32, p, p, p, p, p, i32, i32, i32, p, p, p, p]
     lib.phylign_cuda_error_string.restype = ctypes.c_char_p
     lib.phylign_cuda_error_string.argtypes = [i32]
 

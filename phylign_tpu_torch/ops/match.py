@@ -24,6 +24,12 @@ Both kernels are one CUDA kernel (csrc/match_popcount.cu) that counts in
 carry-save bit planes.
 ``match_scores`` picks by the tensor's device: the plain version for a CPU
 tensor, a kernel for a CUDA tensor, never one for the other.
+
+The same kernel has two more epilogues, each with its plain version:
+  * ``match_scores_acc_`` (``match_scores_acc_ref_``)  acc += the scores of
+        the rows a block of the index holds (the row-chunked matcher).
+  * ``match_scores_keep`` (``match_scores_keep_ref``)  the scores and
+        ``match_step``'s float32 keep mask in one pass.
 """
 
 from __future__ import annotations
@@ -112,9 +118,38 @@ def match_scores_ref(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor
     return out
 
 
+def match_scores_acc_ref_(
+    acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor, r0: int, r1: int
+) -> torch.Tensor:
+    """acc += the scores of the global rows [r0, r1), which ``words``
+    holds at row r - r0 (at least r1 - r0 rows); a slot row outside the
+    window counts as the zero row. ``row_idx`` holds global rows. In place;
+    returns acc."""
+    n = r1 - r0
+    loc = row_idx.long() - r0
+    loc = torch.where((loc >= 0) & (loc < n), loc, n).to(torch.int32)
+    block = torch.cat([words[:n], words.new_zeros((1, words.shape[1]))])
+    return acc.add_(match_scores_ref(block, loc))
+
+
+def match_scores_keep_ref(
+    words: torch.Tensor, row_idx: torch.Tensor, n_kmers: torch.Tensor, threshold: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scores int32 [Q, 32*Wp], keep bool [Q, 32*Wp]) with keep = f32(score)
+    >= f32(threshold) * f32(n_kmers[q]), and n_kmers[q] > 0: the JAX
+    package's float32 test (``phylign_tpu/models/matcher.py:match_step``)."""
+    scores = match_scores_ref(words, row_idx)
+    # a 0-dim host tensor: the float32 threshold, with no copy to the device
+    cut = n_kmers.to(torch.float32) * torch.tensor(threshold, dtype=torch.float32)
+    keep = scores.to(torch.float32) >= cut[:, None]
+    return scores, torch.logical_and(keep, n_kmers[:, None] > 0)
+
+
 # --- hand-written CUDA kernels -------------------------------------------------
 
-_launches = _kernels.LaunchCounts("match_popcount_b1", "match_popcount_b2")
+_launches = _kernels.LaunchCounts(
+    "match_popcount_b1", "match_popcount_b2", "match_popcount_acc", "match_popcount_keep"
+)
 
 
 def launch_counts() -> dict[str, int]:
@@ -210,6 +245,67 @@ def match_scores_b2(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
             f"K < 2**{B2_PLANES[-1]}; got K={k}, H={h}"
         )
     return _launch("match_popcount_b2", words, r3)
+
+
+def match_scores_acc_(
+    acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor, r0: int, r1: int
+) -> torch.Tensor:
+    """The accumulating instance of B1/B2 (replaces the jitted
+    ``phylign_tpu/models/matcher.py:_acc_chunk_scores``): same contract as
+    match_scores_acc_ref_, in one pass over acc. CUDA tensors only; acc
+    int32 [Q, 32*Wp], contiguous and 16-byte aligned."""
+    r3 = _check_kernel_args(words, row_idx, "match_popcount_acc")
+    q, k, h = r3.shape
+    wp = words.shape[1]
+    if acc.device != words.device or acc.dtype != torch.int32 or acc.shape != (q, 32 * wp):
+        raise ValueError(
+            f"match_popcount_acc: acc must be int32 [{q}, {32 * wp}] on {words.device}; got "
+            f"{acc.dtype} {tuple(acc.shape)} on {acc.device}"
+        )
+    if not acc.is_contiguous() or acc.data_ptr() % 16:
+        raise ValueError("match_popcount_acc takes a contiguous, 16-byte aligned acc")
+    if not 0 <= r0 < r1 < 1 << 31 or words.shape[0] < r1 - r0:
+        raise ValueError(
+            f"match_popcount_acc: rows [{r0}, {r1}) need 0 <= r0 < r1 and "
+            f"{r1 - r0} rows of words; got {words.shape[0]}"
+        )
+    if q and k * h:
+        qt, wt, staged, via_smem = launch_geometry(wp, k, h)
+        _kernels.launch(
+            _launches, "match_popcount_acc", "match_popcount", "phylign_match_popcount_acc",
+            words, int(r0), int(r1), wp, r3, q, k, h, b2_planes(k), qt, wt, staged, via_smem, acc,
+        )
+    return acc
+
+
+def match_scores_keep(
+    words: torch.Tensor, row_idx: torch.Tensor, n_kmers: torch.Tensor, threshold: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keep instance of B1/B2 (replaces the jitted
+    ``phylign_tpu/models/matcher.py:match_step``): same contract as
+    match_scores_keep_ref, in one launch. CUDA tensors only; n_kmers [Q]."""
+    r3 = _check_kernel_args(words, row_idx, "match_popcount_keep")
+    q, k, h = r3.shape
+    wp = words.shape[1]
+    if n_kmers.device != words.device or n_kmers.shape != (q,):
+        raise ValueError(
+            f"match_popcount_keep: n_kmers must be [{q}] on {words.device}; got "
+            f"{tuple(n_kmers.shape)} on {n_kmers.device}"
+        )
+    if k * h == 0:
+        raise ValueError("match_popcount_keep takes K * H > 0 slots")
+    nk = n_kmers.to(torch.int32).contiguous()
+    out = torch.empty((q, 32 * wp), dtype=torch.int32, device=words.device)
+    keep = torch.empty((q, 32 * wp), dtype=torch.bool, device=words.device)
+    if q == 0:
+        return out, keep
+    qt, wt, staged, via_smem = launch_geometry(wp, k, h)
+    _kernels.launch(
+        _launches, "match_popcount_keep", "match_popcount", "phylign_match_popcount_keep",
+        words, words.shape[0], wp, r3, q, k, h, b2_planes(k), qt, wt, staged, via_smem, nk,
+        float(np.float32(threshold)), out, keep,
+    )
+    return out, keep
 
 
 def select_kernel(k: int, h: int) -> str:

@@ -5,10 +5,11 @@ counterpart of ``phylign_tpu/parallel/dist.py``).
     Scoring needs no communication: every doc shard gathers k-mer rows of
     its own contiguous column slice and scores its own documents (kernels
     B1/B2 on CUDA, the plain version on the CPU).
-  * The filter's global top-k is the one real collective: a local top-K
-    per doc shard, a gather of (value, global doc id, qualifying count)
-    over "d", and the re-top-K. K = nb_best_hits + TIE_SLACK extra slots
-    so ties at the cutoff survive; the caller re-scores a query whose
+  * The filter's global top-k is the one real collective: a local
+    threshold + top-K per doc shard (kernel B5b on CUDA), a gather of each
+    shard's window and qualifying count over "d", and their merge (kernel
+    B5d), in jax.lax.top_k's order. K = nb_best_hits + TIE_SLACK extra
+    slots so ties at the cutoff survive; the caller re-scores a query whose
     qualifying count exceeds the window (``Matcher._window_hits``).
   * Chaining and extension are data-parallel over "q" (kernels B3/B4 on
     each query shard's pairs); their results are concatenated over "q" on
@@ -28,6 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from phylign_tpu_torch.models.matcher import _merge_topk as merge_windows
+from phylign_tpu_torch.models.matcher import _topk_scores
 from phylign_tpu_torch.ops.chain import ChainResult, chain_anchors, chain_anchors_packed
 from phylign_tpu_torch.ops.extend import (
     ExtendResult,
@@ -222,10 +225,43 @@ def dist_match_scores(mesh: Mesh, words, row_idx) -> Sharded:
     return _from_cells(mesh, (AXIS_QUERY, AXIS_DOC), (rows.shape[0], 32 * words.shape[1]), local)
 
 
-def _merge_topk(mesh: Mesh, local: dict[Cell, tuple], k: int):
-    """Gather each cell's (local top values, global doc ids[, counts]) over
-    "d" and take the top k again; per column this process owns a cell of:
-    (values, ids, summed counts or None), on that cell's device."""
+def _shard_windows(mesh: Mesh, scores: Sharded, cut, d: int, kk: int):
+    """Each local cell's threshold + top-k over its own columns (B5b on
+    CUDA, _topk_scores_ref on the CPU): (vals, local doc ids, qualifying
+    count), the window min(kk, d_loc) wide, where d_loc = the cell's
+    columns below ``d``; a shard wholly past d takes no launch and gives an
+    empty window and no count. ``cut``: a Sharded int32 [Q] split over
+    "q", or None for a cut of 0 (every score qualifies). Across processes
+    every window is padded to min(kk, w_loc) and every count made, so the
+    gather's cells agree in shape. Returns (cells, each shard's limit)."""
+    w_loc = scores.shape[1] // mesh.nd
+    d_loc = [min(max(d - e * w_loc, 0), w_loc) for e in range(mesh.nd)]
+    lims = [min(kk, x) for x in d_loc]
+    kl = min(kk, w_loc)
+    local = {}
+    for c in mesh.local_cells():
+        s = scores.at(*c)
+        q, dev = s.shape[0], s.device
+        lim = lims[c[0]]
+        if lim:
+            ct = torch.zeros(q, dtype=torch.int32, device=dev) if cut is None else cut.at(*c).to(torch.int32)
+            v, i, n = _topk_scores(s, ct, lim, d_loc[c[0]])
+        else:
+            v = i = torch.empty((q, 0), dtype=torch.int32, device=dev)
+            n = None
+        if mesh.group is not None:
+            pad = (0, kl - lim)
+            v, i = torch.nn.functional.pad(v, pad, value=-1), torch.nn.functional.pad(i, pad, value=-1)
+            n = torch.zeros(q, dtype=torch.int32, device=dev) if n is None else n
+        local[c] = (v, i, n)
+    return local, lims
+
+
+def _merge_topk(mesh: Mesh, local: dict[Cell, tuple], lims: list[int], w_loc: int, kk: int):
+    """Gather each cell's window (values, local doc ids, count) over "d"
+    and merge the nd windows of each query column (B5d on CUDA,
+    _merge_topk_ref on the CPU) on the column's first local cell's device:
+    {column: (values [Q, kk], global doc ids [Q, kk], summed counts [Q])}."""
     cells = _all_cells(mesh, local)
     merged = {}
     for q in range(mesh.nq):
@@ -233,12 +269,8 @@ def _merge_topk(mesh: Mesh, local: dict[Cell, tuple], k: int):
         if c is None:
             continue
         dev = mesh.device(*c)
-        parts = [tuple(t.to(dev) for t in cells[(d, q)]) for d in range(mesh.nd)]
-        vg = torch.cat([p[0] for p in parts], dim=1)
-        ig = torch.cat([p[1] for p in parts], dim=1)
-        v2, sel = torch.topk(vg, min(k, vg.shape[1]), dim=1)
-        nk = sum(p[2] for p in parts) if len(parts[0]) > 2 else None
-        merged[q] = (v2, ig.gather(1, sel), nk)
+        windows = [tuple(None if t is None else t.to(dev) for t in cells[(d, q)]) for d in range(mesh.nd)]
+        merged[q] = merge_windows(windows, lims, w_loc, kk)
     return merged
 
 
@@ -249,55 +281,47 @@ def _replicated(mesh: Mesh, shape, per_q: dict[int, torch.Tensor]) -> Sharded:
     return _from_cells(mesh, (AXIS_QUERY,) + (None,) * (len(shape) - 1), shape, local)
 
 
-def dist_topk(mesh: Mesh, scores: Sharded, n_best: int, k_total: int | None = None):
-    """Global per-query top-K across doc shards: a local top-min(K, w_loc)
-    per doc shard, global doc id = local column + d * w_loc, a gather over
-    "d", the re-top-K. scores [Q, D] split (q, d). Returns (values [Q, K],
-    global doc ids [Q, K]), split over "q" and whole over "d". K = n_best +
-    TIE_SLACK, or exactly ``k_total`` when given. torch.topk orders equal
-    values freely, so the window is the same SET as the JAX function's."""
-    k = k_total if k_total is not None else n_best + TIE_SLACK
+def _top(mesh: Mesh, scores: Sharded, cut, d: int, kk: int):
+    """Threshold + top-kk over the doc shards, merged: the results split
+    over "q" and whole over "d" (values, ids, counts), kk cut to nd *
+    min(kk, w_loc), the width JAX's re-top-k gives."""
     w_loc = scores.shape[1] // mesh.nd
-    local = {}
-    for c in mesh.local_cells():
-        s = scores.at(*c)
-        v, i = torch.topk(s, min(k, w_loc), dim=1)
-        local[c] = (v, (i + c[0] * w_loc).to(torch.int32))
-    merged = _merge_topk(mesh, local, k)
-    kk = min(k, mesh.nd * min(k, w_loc))
-    shape = (scores.shape[0], kk)
-    return (
-        _replicated(mesh, shape, {q: m[0] for q, m in merged.items()}),
-        _replicated(mesh, shape, {q: m[1] for q, m in merged.items()}),
+    kk = min(kk, mesh.nd * min(kk, w_loc))
+    local, lims = _shard_windows(mesh, scores, cut, d, kk)
+    merged = _merge_topk(mesh, local, lims, w_loc, kk)
+    q_tot = scores.shape[0]
+    shapes = ((q_tot, kk), (q_tot, kk), (q_tot,))
+    return tuple(
+        _replicated(mesh, shape, {q: m[i] for q, m in merged.items()}) for i, shape in enumerate(shapes)
     )
+
+
+def dist_topk(mesh: Mesh, scores: Sharded, n_best: int, k_total: int | None = None):
+    """Global per-query top-K across doc shards: a top-min(K, w_loc) per
+    doc shard (B5b at a cut of 0 on CUDA), global doc id = local column +
+    d * w_loc, a gather over "d", the merge (B5d). scores [Q, D] split
+    (q, d), every score >= 0 (what B1/B2 write). Returns (values [Q, K],
+    global doc ids [Q, K]), split over "q" and whole over "d". K = n_best +
+    TIE_SLACK, or exactly ``k_total`` when given (at most nd * w_loc). The
+    window is the JAX function's word for word: (score desc, global doc
+    asc), jax.lax.top_k's order."""
+    k = k_total if k_total is not None else n_best + TIE_SLACK
+    return _top(mesh, scores, None, scores.shape[1], k)[:2]
 
 
 def dist_threshold_topk(mesh: Mesh, words, row_idx, cut, d: int, kk: int):
     """Sharded match -> threshold -> top-k: zero-communication scoring
-    over doc shards, then ONE gather over "d" of each shard's local top-k
-    window and qualifying count. A doc qualifies when its score >= the
-    query's integer ``cut`` and its column < ``d`` (padding columns do
-    not); the rest are masked to -1. Returns (vals [Q, kk], global doc ids
-    [Q, kk], n_keep [Q]), split over "q" and whole over "d". Runs on meshes
-    that span processes (the gather is then an all_gather_into_tensor)."""
+    over doc shards, B5b on each shard (its columns below ``d``, scores >=
+    the query's integer ``cut``), then ONE gather over "d" of each shard's
+    window and qualifying count and their merge, B5d. Returns (vals [Q,
+    kk], global doc ids [Q, kk], n_keep [Q]), split over "q" and whole over
+    "d". On every row the first min(n_keep, kk) entries equal the JAX
+    function's word for word, in jax.lax.top_k's order (score desc, global
+    doc asc). Past them the port writes -1 values with doc -1, where JAX
+    writes -1 values with the ids of masked columns. Runs on meshes that
+    span processes (the gather is then an all_gather_into_tensor)."""
     scores = dist_match_scores(mesh, words, row_idx)
-    cut = _as_sharded(mesh, cut, (AXIS_QUERY,))
-    w_loc = scores.shape[1] // mesh.nd
-    local = {}
-    for c in mesh.local_cells():
-        s = scores.at(*c)
-        cols = c[0] * w_loc + torch.arange(w_loc, device=s.device)
-        ok = (s >= cut.at(*c)[:, None].to(s.dtype)) & (cols[None, :] < d)
-        v, i = torch.topk(torch.where(ok, s, torch.full_like(s, -1)), min(kk, w_loc), dim=1)
-        local[c] = (v, (i + c[0] * w_loc).to(torch.int32), ok.sum(dim=1, dtype=torch.int32))
-    merged = _merge_topk(mesh, local, kk)
-    q_tot = scores.shape[0]
-    kk = min(kk, mesh.nd * min(kk, w_loc))
-    return (
-        _replicated(mesh, (q_tot, kk), {q: m[0] for q, m in merged.items()}),
-        _replicated(mesh, (q_tot, kk), {q: m[1] for q, m in merged.items()}),
-        _replicated(mesh, (q_tot,), {q: m[2] for q, m in merged.items()}),
-    )
+    return _top(mesh, scores, _as_sharded(mesh, cut, (AXIS_QUERY,)), d, kk)
 
 
 def dist_chain(mesh: Mesh, rpos, qpos, **kw) -> ChainResult:

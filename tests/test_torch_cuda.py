@@ -162,7 +162,7 @@ def test_hash_topk_flat_equals_cpu(cuda, h, kk, cap_frac):
     got = tm._hash_topk_flat(*dev_args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
-    assert tm.launch_counts() == {"hash_rows": 1, "threshold_topk": 1, "pack_hits": 1}
+    assert tm.launch_counts() == {"hash_rows": 1, "threshold_topk": 1, "pack_hits": 1, "merge_topk": 0}
     assert sum(opm.launch_counts().values()) == 1
     assert (int(want[-1]) > kw["cap"]) == (cap_frac < 1)
     kw.pop("cap")
@@ -359,7 +359,8 @@ def test_matcher_top_k_paths_on_card_equal_cpu(cuda):
         for (h_cpu, n_cpu), (h_dev, n_dev) in zip(res["cpu"], res[str(cuda)]):
             assert h_dev == h_cpu
             np.testing.assert_array_equal(n_dev, n_cpu)
-    assert all(tm.launch_counts().values()), tm.launch_counts()
+    # every B5 kernel but the mesh's merge
+    assert all(v for k, v in tm.launch_counts().items() if k != "merge_topk"), tm.launch_counts()
 
 
 def test_b5_library_failure_raises_kernel_error(cuda, monkeypatch):
@@ -416,8 +417,9 @@ def test_pipeline_on_cuda_equals_cpu(cuda, tmp_path):
         pl.match(stem)
         pl.filter(stem)
         counts = opm.launch_counts()
-        if dev == "cuda":
-            assert all(counts.values()), counts
+        if dev == "cuda":  # B1 and B2; the acc and keep instances are not on this path
+            assert counts["match_popcount_b1"] and counts["match_popcount_b2"], counts
+            assert not counts["match_popcount_acc"] and not counts["match_popcount_keep"], counts
         else:
             assert not any(counts.values()), counts
         outs[dev] = {
@@ -833,9 +835,10 @@ def test_nccl_one_rank_gather_equals_in_process_mesh(cuda):
 
 @pytest.mark.parametrize("h,k,thr", [(1, 128, 0.3), (3, 96, 0.02), (1, 120, 0.55)])
 def test_match_step_on_the_card(cuda, h, k, thr):
-    """match_step on CUDA tensors: the kernel's scores (B2 at H = 1 with K
-    a multiple of 32, else B1) equal match_scores_ref, and keep is the
-    float32 test, never true for a query without k-mers."""
+    """match_step on CUDA tensors: one launch of the keep instance of
+    B1/B2; its scores equal match_scores_ref, and keep is the float32 test
+    (match_scores_keep_ref's, bit for bit), never true for a query without
+    k-mers."""
     gen = torch.Generator(device=cuda).manual_seed(h * 1000 + k)
     s, wp, q = 3000, 68, 300
     words = torch.randint(-(2**31), 2**31, (s + 1, wp), dtype=torch.int32, device=cuda, generator=gen)
@@ -845,10 +848,13 @@ def test_match_step_on_the_card(cuda, h, k, thr):
     nk = torch.randint(0, k + 1, (q,), dtype=torch.int32, device=cuda, generator=gen)
     nk[::7] = 0
     rows[torch.arange(k, device=cuda)[None, :] >= nk[:, None]] = s
-    before = opm.launch_counts()[opm.select_kernel(k, h)]
+    before = opm.launch_counts()
     scores, keep = tm.match_step(words, rows, nk, thr)
-    assert opm.launch_counts()[opm.select_kernel(k, h)] == before + 1
+    after = opm.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {"match_popcount_keep": 1}
     assert torch.equal(scores, opm.match_scores_ref(words, rows))
+    ref = opm.match_scores_keep_ref(words, rows, nk, thr)
+    assert torch.equal(scores, ref[0]) and torch.equal(keep, ref[1])
     sc, n = scores.cpu().numpy(), nk.cpu().numpy()
     cut = np.float32(thr) * n.astype(np.float32)
     want = (sc.astype(np.float32) >= cut[:, None]) & (n[:, None] > 0)
@@ -1147,3 +1153,214 @@ def test_select_window_every_instance_equals_plain_version(cuda, n_sup, n_out):
     assert fz.launch_counts()["select_window"] == 1
     for name in ref._fields[:-1]:
         assert torch.equal(getattr(sel, name).to(getattr(ref, name).dtype), getattr(ref, name)), name
+
+
+# --- the match stage's epilogues: accumulate, keep, merge (B1/B2, B5d) ---------
+
+ACC_SHAPES = [
+    # (S, Wp, Q, K, H, r0, r1): the chunked pass's B2 instance (K % 32 == 0,
+    # H = 1) with windows at the start, middle and end, one row; B1's (K %
+    # 32 != 0), H > 1 (a slot counts only when all its rows are in the
+    # window), many queries a block (Wp = 3), words looped over (Wp = 300),
+    # the main path's width at Q past the SM count
+    (1000, 68, 50, 128, 1, 0, 400),
+    (1000, 68, 50, 128, 1, 400, 800),
+    (1000, 68, 50, 128, 1, 800, 1000),
+    (1000, 68, 50, 64, 1, 517, 518),
+    (1000, 68, 50, 120, 1, 100, 900),
+    (500, 68, 40, 96, 3, 0, 300),
+    (100, 3, 370, 64, 1, 30, 70),
+    (500, 300, 9, 512, 1, 200, 500),
+    (3000, 68, 2049, 128, 1, 1000, 2500),
+]
+
+
+def _acc_case(cuda, s, wp, q, k, h, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    words = torch.randint(-(2**31), 2**31, (s, wp), dtype=torch.int32, device=cuda, generator=g)
+    rows = torch.randint(0, s, (q, k, h), dtype=torch.int32, device=cuda, generator=g)
+    rows[:, k // 2 :] = 1 << 30  # padding slots (the chunked matcher's pad row)
+    rows[0, :3] = -5  # rows outside every window
+    acc = torch.randint(0, 1000, (q, 32 * wp), dtype=torch.int32, device=cuda, generator=g)
+    return words, rows, acc
+
+
+@pytest.mark.parametrize("s,wp,q,k,h,r0,r1", ACC_SHAPES)
+def test_match_scores_acc_equals_plain_version(cuda, s, wp, q, k, h, r0, r1):
+    """The accumulating instance of B1/B2 on a block holding rows [r0, r1)
+    (a buffer with more rows than the window, as the chunked pass's last
+    block is) adds what match_scores_acc_ref_ adds, bit for bit, in one
+    launch; and the blocks of a whole pass add up to B1/B2's scores on the
+    whole index."""
+    words, rows, acc = _acc_case(cuda, s, wp, q, k, h, s + wp + q + k + r0)
+    block = torch.cat([words[r0:r1], torch.full((7, wp), -1, dtype=torch.int32, device=cuda)])
+    want = opm.match_scores_acc_ref_(acc.clone(), block, rows, r0, r1)
+    before = opm.launch_counts()["match_popcount_acc"]
+    got = opm.match_scores_acc_(acc, block, rows, r0, r1)
+    torch.cuda.synchronize()
+    assert got is acc and torch.equal(acc, want)
+    assert opm.launch_counts()["match_popcount_acc"] == before + 1
+    if h == 1:  # a slot of H > 1 rows may straddle two blocks
+        whole = torch.zeros_like(acc)
+        for a in range(0, s, 317):
+            opm.match_scores_acc_(whole, words[a : a + 317].contiguous(), rows, a, min(a + 317, s))
+        padded = torch.cat([words, torch.zeros((1, wp), dtype=torch.int32, device=cuda)])
+        resident = torch.where((rows >= 0) & (rows < s), rows, s)
+        assert torch.equal(whole, opm.match_scores_ref(padded, resident))
+
+
+@pytest.mark.parametrize(
+    "threads,stage_bytes,out_bytes",
+    [(128, 48 * 1024, 1024), (256, 256, 48 * 1024), (128, 48 * 1024, 48 * 1024)],
+)
+def test_match_scores_acc_geometries(cuda, monkeypatch, threads, stage_bytes, out_bytes):
+    """The accumulating epilogue through shared memory and straight to
+    device memory, indices staged and read in place."""
+    monkeypatch.setattr(opm, "BLOCK_THREADS", threads)
+    monkeypatch.setattr(opm, "STAGE_BYTES", stage_bytes)
+    monkeypatch.setattr(opm, "OUT_BYTES", out_bytes)
+    for s, wp, q, k, h, r0, r1 in ((500, 300, 40, 37, 3, 50, 450), (3000, 68, 300, 128, 1, 7, 2999),
+                                   (3000, 3, 1000, 64, 1, 0, 3000)):
+        words, rows, acc = _acc_case(cuda, s, wp, q, k, h, q + k)
+        block = words[r0:r1].contiguous()
+        want = opm.match_scores_acc_ref_(acc.clone(), block, rows, r0, r1)
+        assert torch.equal(opm.match_scores_acc_(acc, block, rows, r0, r1), want)
+
+
+def test_match_scores_acc_refuses_bad_arguments(cuda):
+    """An acc off 16 bytes, of another shape, or a window the block does not
+    hold is refused before any launch."""
+    words, rows, acc = _acc_case(cuda, 100, 4, 6, 32, 1, 1)
+    before = opm.launch_counts()
+    flat = torch.zeros(6 * 128 + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        opm.match_scores_acc_(flat[1:].view(6, 128), words, rows, 0, 100)
+    with pytest.raises(ValueError, match="acc must be"):
+        opm.match_scores_acc_(acc[:, :64], words, rows, 0, 100)
+    with pytest.raises(ValueError, match="rows"):
+        opm.match_scores_acc_(acc, words, rows, 0, 101)
+    with pytest.raises(ValueError, match="rows"):
+        opm.match_scores_acc_(acc, words, rows, 5, 5)
+    assert opm.launch_counts() == before
+
+
+@pytest.mark.parametrize("s,wp,q,k,h,thr", [(3000, 68, 300, 128, 1, 0.3), (3000, 68, 300, 96, 3, 0.02),
+                                            (1000, 3, 700, 64, 1, 0.55), (500, 300, 9, 120, 1, 0.0)])
+def test_match_scores_keep_equals_plain_version(cuda, s, wp, q, k, h, thr):
+    """The keep instance: scores and keep bit for bit against
+    match_scores_keep_ref (scores on the float32 cut, queries without
+    k-mers, a threshold of 0)."""
+    g = torch.Generator(device=cuda).manual_seed(q + k + h)
+    words = torch.randint(-(2**31), 2**31, (s + 1, wp), dtype=torch.int32, device=cuda, generator=g)
+    words &= torch.randint(-(2**31), 2**31, (s + 1, wp), dtype=torch.int32, device=cuda, generator=g)
+    words[s] = 0
+    rows = torch.randint(0, s, (q, k, h), dtype=torch.int32, device=cuda, generator=g)
+    nk = torch.randint(0, k + 1, (q,), dtype=torch.int32, device=cuda, generator=g)
+    nk[::5] = 0
+    rows[torch.arange(k, device=cuda)[None, :] >= nk[:, None]] = s
+    scores, keep = opm.match_scores_keep(words, rows, nk, thr)
+    want = opm.match_scores_keep_ref(words, rows, nk, thr)
+    assert torch.equal(scores, want[0]) and torch.equal(keep, want[1])
+    assert keep.any() or thr > 0.1
+    with pytest.raises(ValueError, match="n_kmers"):
+        opm.match_scores_keep(words, rows, nk[:-1], thr)
+
+
+def _windows(gen, dev, q, widths, lims, tie_vals, empty=()):
+    """Per-shard windows as B5b leaves them: a threshold + top-k of random
+    (tie-heavy) scores, by the plain version; shards in ``empty`` have
+    none."""
+    out = []
+    for e, (w, lim) in enumerate(zip(widths, lims)):
+        if e in empty:
+            out.append((torch.empty((q, 0), dtype=torch.int32, device=dev),) * 2 + (None,))
+            continue
+        sc = torch.randint(0, tie_vals, (q, max(w, 4)), dtype=torch.int32, device=dev, generator=gen)
+        cut = torch.randint(0, tie_vals, (q,), dtype=torch.int32, device=dev, generator=gen)
+        v, i, n = tm._topk_scores_ref(sc, cut, lim, w)
+        out.append((v.contiguous(), i.contiguous(), n))
+    return out
+
+
+@pytest.mark.parametrize(
+    "q,nd,w_loc,kk,tie_vals,empty",
+    [(50, 2, 64, 32, 4, ()), (50, 4, 64, 160, 3, (3,)), (9, 1, 300, 64, 50, ()),
+     (300, 16, 32, 40, 2, (5, 6)), (9216, 2, 1088, 160, 60, ()), (20, 3, 8, 64, 2, (0, 1, 2))],
+)
+def test_merge_topk_equals_plain_version(cuda, q, nd, w_loc, kk, tie_vals, empty):
+    """B5d against _merge_topk_ref bit for bit: long tie runs across the
+    shards, empty shards, a window wider than the takes (kk > w_loc), the
+    main path's 2 shards of 1,088 columns at kk = 160."""
+    gen = torch.Generator(device=cuda).manual_seed(q + nd)
+    lims = [0 if e in empty else min(kk, w_loc) for e in range(nd)]
+    wins = _windows(gen, cuda, q, [w_loc] * nd, lims, tie_vals, empty)
+    kk_out = min(kk, nd * min(kk, w_loc))
+    before = tm.launch_counts()["merge_topk"]
+    got = tm.merge_topk_cuda(wins, lims, w_loc, kk_out)
+    torch.cuda.synchronize()
+    assert tm.launch_counts()["merge_topk"] == before + 1
+    want = tm._merge_topk_ref(wins, lims, w_loc, kk_out)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_dist_topk_on_card_equals_cpu(cuda):
+    """dist_topk and dist_threshold_topk on 2x2 and 4x1 meshes over the one
+    card equal the CPU meshes word for word (B5b per shard, B5d per column),
+    with a shard wholly past d."""
+    from phylign_tpu_torch.parallel import dist
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(3)
+    s, wp, q, k = 400, 32, 16, 64
+    words = np.zeros((s + 1, wp), np.uint32)
+    words[:s] = rng.integers(0, 2**32, (s, wp), dtype=np.uint32) & rng.integers(0, 2**32, (s, wp), dtype=np.uint32)
+    rows = rng.integers(0, s, (q, k, 1)).astype(np.int32)
+    cut = rng.integers(10, 20, q).astype(np.int32)
+    cut[3] = 1 << 30
+    w32 = words.view(np.int32)
+    for nd, nq in ((2, 2), (4, 1)):
+        res = {}
+        tm.reset_launch_counts()
+        for dev in ("cpu", "cuda"):
+            mesh = make_mesh(nd, nq, devices=dev if dev == "cpu" else ["cuda:0"] * (nd * nq))
+            scores = dist.dist_match_scores(mesh, w32, rows)
+            res[dev] = [dist.fetch(x) for x in (*dist.dist_topk(mesh, scores, n_best=4),
+                                                *dist.dist_threshold_topk(mesh, w32, rows, cut, 600, 48))]
+        for a, b in zip(res["cpu"], res["cuda"]):
+            np.testing.assert_array_equal(a, b)
+        counts = tm.launch_counts()
+        # d = 600: no launch for the last shard at nd = 4 (its columns start
+        # at 768), a partial window on the shard holding column 599
+        assert counts["threshold_topk"] == nd * nq + (nd - (nd == 4)) * nq
+        assert counts["merge_topk"] == 2 * nq
+
+
+def test_chunked_pass_on_card_equals_cpu(cuda, monkeypatch):
+    """ChunkedMatcher on the card with the double buffer: blocks of a
+    third of the index through a ring of 3 slots of 37 rows (several
+    slots a block, the ring wrapping) give the CPU pass's accumulator and
+    hit lists; the accumulating kernel ran once a block."""
+    from phylign_tpu_torch.kmer import cobs_kmer_hashes_batch, encode_seq
+
+    monkeypatch.setattr(tm, "STAGE_SLOT_BYTES", 37 * 4 * 3)
+    monkeypatch.setattr(tm, "STAGE_SLOTS", 3)
+    didx, seqs = _planted_index()
+    raw = cobs_kmer_hashes_batch([encode_seq(x) for x in seqs], 31, 1)
+    s, w = np.asarray(didx.words).shape
+    assert w == 3
+    res = {}
+    for dev in ("cpu", cuda):
+        cm = tm.ChunkedMatcher.from_device_index(didx, 1, device=dev)
+        cm.row_chunk = -(-s // 3)
+        rows = [tm.rows_from_hashes(r, cm.signature_size) for r in raw]
+        packed, _ = opm.pack_row_indices(rows, 128, cm.pad_row)
+        opm.reset_launch_counts()
+        acc = cm._score_pass(packed).cpu()
+        launched = opm.launch_counts()["match_popcount_acc"]
+        res[str(dev)] = (acc, cm.score_hits_raw(raw, 0.7, 5), launched)
+    assert torch.equal(res["cpu"][0], res[str(cuda)][0])
+    assert res["cpu"][1][0] == res[str(cuda)][1][0]
+    np.testing.assert_array_equal(res["cpu"][1][1], res[str(cuda)][1][1])
+    assert res["cpu"][2] == 0 and res[str(cuda)][2] == 3
+

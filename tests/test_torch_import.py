@@ -131,7 +131,9 @@ def test_resolve_device():
 
 def test_launch_counts_reset():
     opm.reset_launch_counts()
-    assert set(opm.launch_counts()) == {"match_popcount_b1", "match_popcount_b2"}
+    assert set(opm.launch_counts()) == {
+        "match_popcount_b1", "match_popcount_b2", "match_popcount_acc", "match_popcount_keep"
+    }
     assert not any(opm.launch_counts().values())
 
 
@@ -185,12 +187,14 @@ def test_unported_commands_exit_nonzero(cmd):
 
 
 KERNEL_ENTRIES = {
-    "match_popcount": ("phylign_match_popcount_b1", "phylign_match_popcount_b2"),
+    "match_popcount": ("phylign_match_popcount_b1", "phylign_match_popcount_b2",
+                       "phylign_match_popcount_acc", "phylign_match_popcount_keep"),
     "chain_scan": ("phylign_chain_scan",),
     "extend_scan": ("phylign_extend_scan",),
     "flush_epilogue": ("phylign_chain_select", "phylign_select_window", "phylign_finish_pack",
                        "phylign_compact_cold"),
-    "match_epilogue": ("phylign_hash_rows", "phylign_threshold_topk", "phylign_pack_hits"),
+    "match_epilogue": ("phylign_hash_rows", "phylign_threshold_topk", "phylign_pack_hits",
+                       "phylign_merge_topk"),
 }
 #: exported sizes a wrapper asks for before its launch (int64_t results)
 KERNEL_QUERIES = {"flush_epilogue": ("phylign_chain_select_workspace",),

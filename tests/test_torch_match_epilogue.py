@@ -549,4 +549,4 @@ def test_cpu_tensors_launch_no_b5_kernel():
         tm.topk_scores_cuda(i32, n, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         tm.pack_hits_cuda(i32, i32, n, 8, 10)
-    assert tm.launch_counts() == {"hash_rows": 0, "threshold_topk": 0, "pack_hits": 0}
+    assert tm.launch_counts() == {"hash_rows": 0, "threshold_topk": 0, "pack_hits": 0, "merge_topk": 0}
