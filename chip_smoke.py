@@ -6,7 +6,11 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
     python3 chip_smoke.py          # from the repository root, one GPU
     python3 chip_smoke.py --kernels-only --baseline-src OLD.cu
                                    # phase 2 only, with the kernels of an
-                                   # older match_popcount.cu timed beside
+                                   # older match_popcount.cu (PR 13's C
+                                   # interface) timed beside
+                                   # (the full run with it also times its
+                                   # keep and accumulating instances in
+                                   # phases 9 (f) and 10 (a))
     python3 chip_smoke.py --profile    # phase 7 aligns once more under
                                    # cProfile + torch.profiler (device time
                                    # and kernels per flush), tables in
@@ -107,8 +111,9 @@ Phases, each printing one JSON line:
     on phase 2's matrix at Q = 2,048, K = 128, H = 1 and 3: one launch of
     the keep instance of B1/B2 a call, scores equal to match_scores_ref,
     keep equal to the float32 formula and to the plain version, with empty
-    queries and scores on the cut; timed in turns with the parent's
-    spelling (B1/B2, then its torch ops);
+    queries and scores on the cut; timed from CUDA graphs (in turns with
+    an older source's keep instance under --baseline-src, both also at
+    4 x Q, over one wave);
  10 an oversized index, row-chunked: (a) the match stage's own call,
     ChunkedMatcher.from_device_index at the default config's chunk budget
     (Pipeline._chunk_budget_mb, 6,656 MB) then score_hits_raw, on an index
@@ -117,8 +122,17 @@ Phases, each printing one JSON line:
     reads planted) with phase 4's 10,240 reads: hits equal to the resident
     Matcher's on the same index on the card, the pass's accumulator equal
     to B2's scores on the whole index; the pass's wall time, its blocks,
-    its H2D rate against a pinned copy's, the accumulating kernel's time a
-    block in turns with B2 + add_, peak device memory against the budget;
+    its H2D rate against a pinned copy's, peak device memory against the
+    budget; then the accumulating kernel's pass again on the resident
+    words, each block bit-exact against its plain version, and from CUDA
+    graphs its first block (bit planes stored), a middle one (planes read,
+    added, stored), the last (the int32 scores stored) and the whole pass,
+    each beside its bound and the pass beside its least work (each block's
+    distinct rows, the indices once a block, the scores written once), in
+    turns with an older source's int32 instance under --baseline-src; the
+    int32 mode (match_scores_acc_) on the first block against its plain
+    version, timed in turns with the older source's on the same slots and
+    on slots compacted beforehand;
     (b) phase 4's batches through ``cli match`` with device_hbm_gb 1 (a
     chunk budget of 256 MB: about 17 blocks a 544 MB index), every
     03_match byte equal to phase 4's resident run.
@@ -309,11 +323,12 @@ def case_rows(gen, q: int, k: int, h: int):
     return rows
 
 
-class Pr2Kernels:
-    """Kernels B1/B2 as the parent commit built them (PR 2's design), from a
-    copy of its csrc/match_popcount.cu given with --baseline-src: built
-    with the same flags, bound with PR 2's interface and launch geometry,
-    and timed beside this tree's kernels on the same inputs."""
+class BaselineMatchKernels:
+    """Kernels B1/B2 of an older csrc/match_popcount.cu with PR 13's C
+    interface, given with --baseline-src: built with this tree's flags and
+    launched at ops/match.launch_geometry's tiles on the same inputs as
+    this tree's, to be timed beside them (its store kernels, its int32
+    accumulating instance and its keep instance)."""
 
     def __init__(self, src: Path):
         import ctypes
@@ -321,7 +336,7 @@ class Pr2Kernels:
 
         from phylign_tpu_torch.ops import _kernels
 
-        out = ROOT / "build" / "chip_smoke_pr2" / "libpr2_match_popcount.so"
+        out = ROOT / "build" / "chip_smoke_baseline" / "libbaseline_match_popcount.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(out), str(src)],
                        check=True, capture_output=True, text=True, timeout=900)
@@ -329,31 +344,68 @@ class Pr2Kernels:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         for fn in (self.lib.phylign_match_popcount_b1, self.lib.phylign_match_popcount_b2):
             fn.restype = i32
-            fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32, p, p]
+            fn.argtypes = [p, i64, i32, p, *[i32] * 8, p, p]
+        self.lib.phylign_match_popcount_acc.restype = i32
+        self.lib.phylign_match_popcount_acc.argtypes = [p, i32, i32, i32, p, *[i32] * 8, p, p]
+        self.lib.phylign_match_popcount_keep.restype = i32
+        self.lib.phylign_match_popcount_keep.argtypes = [p, i64, i32, p, *[i32] * 8, p, ctypes.c_float, p, p, p]
+
+    @staticmethod
+    def _check(err: int, name: str) -> None:
+        if err:
+            raise RuntimeError(f"the baseline's {name} failed to launch: cudaError {err}")
 
     def __call__(self, name: str, words, rows):
+        """The store kernel ``name`` (match_popcount_b1 or _b2)."""
         import torch
+
+        from phylign_tpu_torch.ops import match as opm
 
         q, k, h = rows.shape
         wp = words.shape[1]
-        wt = min(wp, 256)  # PR 2's ops/match.py:launch_geometry
-        qt = min(256 // wt, 48 * 1024 // (4 * k * h))
         out = torch.empty((q, 32 * wp), dtype=torch.int32, device=words.device)
-        arg6 = h if name.endswith("b1") else max(1, k.bit_length())
-        err = getattr(self.lib, f"phylign_{name}")(
-            words.data_ptr(), words.shape[0], wp, rows.data_ptr(), q, k, arg6, qt, wt,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-        if err:
-            raise RuntimeError(f"PR 2's {name} failed to launch: cudaError {err}")
+        self._check(getattr(self.lib, f"phylign_{name}")(
+            words.data_ptr(), words.shape[0], wp, rows.data_ptr(), q, k, h, opm.b2_planes(k),
+            *opm.launch_geometry(wp, k, h), out.data_ptr(), torch.cuda.current_stream().cuda_stream), name)
         return out
 
+    def acc_(self, acc, words, rows, r0: int, r1: int):
+        """PR 13's accumulating instance: acc += the counts of rows [r0, r1)."""
+        import torch
 
-def phase_kernels(label: str, baseline: Pr2Kernels | None) -> dict:
+        from phylign_tpu_torch.ops import match as opm
+
+        r3 = rows if rows.dim() == 3 else rows.unsqueeze(-1)
+        q, k, h = r3.shape
+        wp = words.shape[1]
+        self._check(self.lib.phylign_match_popcount_acc(
+            words.data_ptr(), r0, r1, wp, r3.data_ptr(), q, k, h, opm.b2_planes(k), *opm.launch_geometry(wp, k, h),
+            acc.data_ptr(), torch.cuda.current_stream().cuda_stream), "acc")
+        return acc
+
+    def keep(self, words, rows, nk, threshold: float):
+        """PR 13's keep instance: (scores, keep)."""
+        import numpy as np
+        import torch
+
+        from phylign_tpu_torch.ops import match as opm
+
+        q, k, h = rows.shape
+        wp = words.shape[1]
+        out = torch.empty((q, 32 * wp), dtype=torch.int32, device=words.device)
+        keep = torch.empty((q, 32 * wp), dtype=torch.bool, device=words.device)
+        self._check(self.lib.phylign_match_popcount_keep(
+            words.data_ptr(), words.shape[0], wp, rows.data_ptr(), q, k, h, opm.b2_planes(k),
+            *opm.launch_geometry(wp, k, h), nk.data_ptr(), float(np.float32(threshold)), out.data_ptr(),
+            keep.data_ptr(), torch.cuda.current_stream().cuda_stream), "keep")
+        return out, keep
+
+
+def phase_kernels(label: str, baseline: BaselineMatchKernels | None) -> dict:
     """B1 and B2 against the plain version at the main path's shapes:
     bit-exact on every row set, then timed over ROTATION row sets in turn
-    (and PR 2's design beside them with --baseline-src: PR 2, this tree,
-    this tree, PR 2)."""
+    (and an older source's beside them with --baseline-src: baseline, this
+    tree, this tree, baseline)."""
     import torch
 
     from phylign_tpu_torch.ops import match as opm
@@ -375,11 +427,11 @@ def phase_kernels(label: str, baseline: Pr2Kernels | None) -> dict:
             if int(got[q - 8 :].abs().sum().item()) != 0:
                 raise AssertionError(f"{case}: all-padding queries scored non-zero")
             if baseline is not None and not torch.equal(baseline(name, words, rows), want):
-                raise AssertionError(f"{case}: PR 2's {name} differs from match_scores_ref")
+                raise AssertionError(f"{case}: the baseline's {name} differs from match_scores_ref")
         reps = 6 * ROTATION
         times = []
-        for who in ("pr2", "new", "new", "pr2") if baseline is not None else ("new",):
-            run = (lambda i: baseline(name, words, sets[i])) if who == "pr2" else (lambda i: fn(words, sets[i]))
+        for who in ("baseline", "new", "new", "baseline") if baseline is not None else ("new",):
+            run = (lambda i: baseline(name, words, sets[i])) if who == "baseline" else (lambda i: fn(words, sets[i]))
             times.append((who, cuda_ms(run, reps, ROTATION)))
         ms = min(t for w, t in times if w == "new")
         bounds = [gather_bound(r, WP) for r in sets]
@@ -397,7 +449,7 @@ def phase_kernels(label: str, baseline: Pr2Kernels | None) -> dict:
         )
         if baseline is not None:
             out[case]["times"] = times
-            out[case]["pr2_ms"] = min(t for w, t in times if w == "pr2")
+            out[case]["baseline_ms"] = min(t for w, t in times if w == "baseline")
         emit("kernels", case=case, S=S, Wp=WP, rotation=ROTATION, card=label, **out[case])
         del sets
     del words
@@ -2201,19 +2253,6 @@ P9_STEP = {1: 0.3, 3: 0.02}
 P9_Q, P9_K = 2048, 128
 
 
-def parent_step(words, rows, nk, threshold: float):
-    """match_step as the parent commit spelled it on the card: B1/B2, then
-    the float32 cut and keep mask in torch ops."""
-    import torch
-
-    from phylign_tpu_torch.ops import match as opm
-
-    scores = opm.match_scores(words, rows)
-    cut = nk.to(torch.float32) * torch.tensor(threshold, dtype=torch.float32)
-    keep = scores.to(torch.float32) >= cut[:, None]
-    return scores, torch.logical_and(keep, nk[:, None] > 0)
-
-
 def run_cli(argv: list[str]) -> str:
     """``cli.main(argv)`` in this process, its stdout captured; a
     SystemExit other than 0 fails the phase."""
@@ -2286,12 +2325,14 @@ def source_scores(didx, seqs: list[bytes], docs: list[int]):
     return np.where(nk > 0, scores, 0), nk
 
 
-def phase_cli(work: Path, label: str, p7: dict) -> tuple[dict, dict]:
+def phase_cli(work: Path, label: str, p7: dict, baseline: BaselineMatchKernels | None = None) -> tuple[dict, dict]:
     """(a) build-index + inspect-index on phase 7's tars; (b) download over
     loopback + preflight; (c) ``cli all`` on the card over the self-built
     indexes with phase 7's reads; (d) its 2,048-read subset through the
     console entry point on the card and with --device cpu; (e) ``cli test``
-    and the host subcommands; (f) match_step on phase 2's matrix."""
+    and the host subcommands; (f) match_step on phase 2's matrix, timed
+    from CUDA graphs (in turns with the baseline's keep instance under
+    --baseline-src)."""
     import numpy as np
     import torch
 
@@ -2498,20 +2539,43 @@ def phase_cli(work: Path, label: str, p7: dict) -> tuple[dict, dict]:
         on_cut = int(((sc == np.ceil(cut)[:, None]) & (nkn[:, None] > 0)).sum())
         if on_cut == 0 or not (nkn == 0).any():
             raise AssertionError(f"match_step at H={h}: no score on the cut ({on_cut}) or no empty query")
-        turns = [(who, cuda_ms(lambda i: (parent_step if who == "parent" else match_step)(words, rows, nk, thr_h),
-                               20)) for who in ("parent", "new", "new", "parent")]
+        new = lambda i: match_step(words, rows, nk, thr_h)  # noqa: E731
+        if baseline is not None:
+            old = lambda i: baseline.keep(words, rows, nk, thr_h)  # noqa: E731
+            if not all(torch.equal(a, b) for a, b in zip(old(0), (scores, keep))):
+                raise AssertionError(f"the baseline's keep instance at H={h} differs from match_step")
+            turns = [(who, graph_ms(new if who == "new" else old, 20)) for who in ("baseline", "new", "new", "baseline")]
+            # the keep instance a query at 4 x Q (over one wave), beside Q's
+            g4 = torch.Generator(device="cuda").manual_seed(90 + h)
+            rows4 = case_rows(g4, 4 * P9_Q, P9_K, h)
+            nk4 = torch.randint(1, P9_K + 1, (4 * P9_Q,), generator=g4, device="cuda", dtype=torch.int32)
+            rows4[(slot[None, :] >= nk4[:, None])] = S
+            turns4 = [(who, graph_ms(lambda i: (match_step if who == "new" else baseline.keep)(words, rows4, nk4, thr_h),
+                                     20)) for who in ("baseline", "new", "new", "baseline")]
+            del rows4, nk4
+        else:
+            turns = [("new", graph_ms(new, 20))]
+            turns4 = []
         # bytes: B1/B2's, the keep bytes and n_kmers; operations: an AND or
         # add a gathered word, a convert and a compare a column
         b = gather_bound(rows, WP)
         b = bound(b["bytes"] + P9_Q * 32 * WP + 4 * P9_Q, P9_Q * P9_K * h * WP + 2 * P9_Q * 32 * WP)
         ms = min(t for w, t in turns if w == "new")
+        split = opm.keep_split(WP, P9_K, h, P9_Q, opm.resident_threads(words.device))
         step[f"h{h}"] = dict(q=P9_Q, k=P9_K, threshold=thr_h, instance=opm.select_kernel(P9_K, h),
+                             split=split, geometry=list(opm.keep_geometry(WP, P9_K, h, split)),
                              empty_queries=int((nkn == 0).sum()), scores_on_cut=on_cut,
-                             kept=int(want.sum()), ms=ms, parent_ms=min(t for w, t in turns if w == "parent"),
+                             kept=int(want.sum()), ms=ms,
+                             baseline_ms=min((t for w, t in turns if w == "baseline"), default=None),
                              turns=turns, plain_ms=cuda_ms(lambda i: opm.match_scores_keep_ref(words, rows, nk, thr_h), 2),
-                             parent_launches=device_launches(lambda: parent_step(words, rows, nk, thr_h)),
                              launches_per_call=device_launches(lambda: match_step(words, rows, nk, thr_h)),
                              max_abs_err=0, bound_share=b["bound_ms"] / ms, **b)
+        if turns4:
+            step[f"h{h}"].update(q4_turns=turns4, q4_ms=min(t for w, t in turns4 if w == "new"),
+                                 q4_baseline_ms=min(t for w, t in turns4 if w == "baseline"),
+                                 q4_split=opm.keep_split(WP, P9_K, h, 4 * P9_Q, opm.resident_threads(words.device)))
+            for who in ("", "baseline_"):
+                step[f"h{h}"][f"{who}per_query_q_over_4q"] = 4 * step[f"h{h}"][f"{who}ms"] / step[f"h{h}"][f"q4_{who}ms"]
     del words
     torch.cuda.empty_cache()
     if counts["f"]["match_popcount_keep"] != len(P9_STEP):
@@ -2542,18 +2606,41 @@ def mem_available() -> int:
     return 0
 
 
-def acc_bound(idx, r0: int, r1: int, wp: int) -> dict:
-    """The accumulating instance's least time for one block: each distinct
-    row of the window read once, the row indices once, the accumulator
-    read and written once (bytes); an AND or add a word of each slot in the
-    window and an add a count (operations)."""
+def acc_bound(idx, r0: int, r1: int, wp: int, mode: str) -> dict:
+    """The accumulating instance's least time for one block of a pass in
+    ``mode``: each distinct row of the window read once and the row
+    indices once, then the accumulator: add reads and writes the int32
+    counts; first writes bit_length(K) planes a word; middle reads and
+    writes the planes of the words of queries with a slot in the window
+    (the others add nothing); last reads the planes and writes the int32
+    counts (bytes).
+    An AND or add a word of each slot in the window and an add a count
+    (operations)."""
     import torch
+
+    from phylign_tpu_torch.ops import match as opm
 
     q, k = idx.shape[:2]
     inside = (idx >= r0) & (idx < r1)
     distinct = int(torch.unique(idx[inside]).numel())
     slots = int(inside.sum())
-    return bound(distinct * 4 * wp + 4 * q * k + 2 * 4 * q * 32 * wp, slots * wp + q * 32 * wp)
+    counts, planes = 4 * q * 32 * wp, 4 * q * wp * opm.b2_planes(k)
+    out = {"add": 2 * counts, "first": planes, "last": planes + counts,
+           "middle": 2 * 4 * int(inside.any(dim=1).sum()) * wp * opm.b2_planes(k)}[mode]
+    return bound(distinct * 4 * wp + 4 * q * k + out, slots * wp + q * 32 * wp)
+
+
+def pass_bound(idx, spans, wp: int) -> dict:
+    """The least work of a row-chunked pass, whatever carries the counts
+    between blocks: each block's distinct rows read once, the row indices
+    once a block and the int32 scores written once (bytes); an AND or add
+    a word of each slot in the index and an add a count (operations)."""
+    import torch
+
+    q, k = idx.shape[:2]
+    rows = sum(int(torch.unique(idx[(idx >= a) & (idx < b)]).numel()) for a, b in spans)
+    slots = int(((idx >= spans[0][0]) & (idx < spans[-1][1])).sum())
+    return bound(rows * 4 * wp + len(spans) * 4 * q * k + 4 * q * 32 * wp, slots * wp + q * 32 * wp)
 
 
 def copy_rates(host, slot_rows: int) -> dict:
@@ -2585,10 +2672,11 @@ def copy_rates(host, slot_rows: int) -> dict:
     return dict(slot_bytes=nbytes, pinned_h2d_gb_s=max(h2d), host_fill_gb_s=max(fill), fill_threads=tm.FILL_THREADS)
 
 
-def phase_oversized(work: Path, label: str) -> tuple[dict, dict]:
+def phase_oversized(work: Path, label: str, baseline: BaselineMatchKernels | None = None) -> tuple[dict, dict]:
     """(a) ChunkedMatcher at the match stage's default chunk budget on a
     pseudomonas-size index against the resident Matcher; the accumulating
-    kernel on one block in turns with B2 + add_. (b) phase 4's batches
+    kernel's block modes and pass on the resident words (in turns with the
+    baseline's int32 instance with --baseline-src). (b) phase 4's batches
     through ``cli match`` at device_hbm_gb 1, 03_match byte-identical."""
     import numpy as np
     import torch
@@ -2692,30 +2780,105 @@ def phase_oversized(work: Path, label: str) -> tuple[dict, dict]:
     if n_hits < len(planted):
         raise AssertionError(f"{n_hits} hits for {len(planted)} planted reads")
 
-    # the accumulating kernel on the first block, in turns with the
-    # parent's spelling: B2 on the block with a zero row and the rows
-    # remapped, then add_
-    r0, r1 = 0, cm.row_chunk
-    block = words[r0:r1]
-    acc_t = torch.zeros_like(acc)
-    blockz = torch.cat([block, torch.zeros((1, WP), dtype=torch.int32, device="cuda")])
-    loc = torch.where((idx >= r0) & (idx < r1), idx - r0, r1 - r0).to(torch.int32)
-    new = lambda i: opm.match_scores_acc_(acc_t, block, idx, r0, r1)  # noqa: E731
-    parent = lambda i: acc_t.add_(opm.match_scores(blockz, loc))  # noqa: E731
-    one_block = opm.match_scores_acc_(torch.zeros_like(acc), block, idx, r0, r1)
-    if not torch.equal(one_block, opm.match_scores(blockz, loc)):
-        raise AssertionError("the accumulating kernel differs from B2 on the block with a zero row")
-    plain = opm.match_scores_acc_ref_(torch.zeros_like(acc), block, idx, r0, r1)
-    err = int((plain - one_block).abs().max())
-    if err:
-        raise AssertionError(f"the accumulating kernel differs from match_scores_acc_ref_ (max |err| {err})")
-    turns = [(who, cuda_ms(parent if who == "parent" else new, 6)) for who in ("parent", "new", "new", "parent")]
-    plain_ms = cuda_ms(lambda i: opm.match_scores_acc_ref_(acc_t, block, idx, r0, r1), 1)
-    acc_ms = min(t for w, t in turns if w == "new")
-    b = acc_bound(idx, r0, r1, WP)
-    kernel = dict(block_rows=r1 - r0, Q=idx.shape[0], K=idx.shape[1], ms=acc_ms,
-                  parent_ms=min(t for w, t in turns if w == "parent"), turns=turns, plain_ms=plain_ms,
-                  max_abs_err=err, bound_share=b["bound_ms"] / acc_ms, library_ms=None, **b)
+    # the accumulating kernel's pass on the device-resident words, block by
+    # block: each block mode bit for bit against its plain version, the
+    # pass against B2 on the whole index; then from CUDA graphs the first
+    # block, a middle one, the last and the pass's launches, in turns with
+    # the baseline's int32 accumulating instance on the same blocks (its
+    # pass from a zeroed accumulator, as the parent ran it)
+    spans = [(a, min(a + cm.row_chunk, s10)) for a in range(0, s10, cm.row_chunk)]
+    nb = len(spans)
+    acc_t = torch.full_like(acc, -1)
+
+    def run_block(i: int):
+        a, b = spans[i]
+        return opm.match_scores_acc_planes_(acc_t, words[a:b], idx, a, b, i == 0, i == nb - 1)
+
+    plain_ms = {}
+    for i, (a, b) in enumerate(spans):
+        t0 = time.perf_counter()
+        want = opm.match_scores_acc_planes_ref_(acc_t.clone(), words[a:b], idx, a, b, i == 0, i == nb - 1)
+        torch.cuda.synchronize()
+        plain_ms[i] = (time.perf_counter() - t0) * 1e3
+        run_block(i)
+        if not torch.equal(acc_t, want):
+            raise AssertionError(f"the accumulating kernel's block {i} of {nb} differs from match_scores_acc_planes_ref_")
+    if not torch.equal(acc_t, acc):
+        raise AssertionError("the accumulating kernel's pass on the resident words differs from B2's scores")
+    del want
+    cases = {"first": [0], "middle": [1] if nb > 2 else [], "last": [nb - 1] if nb > 1 else [],
+             "pass": list(range(nb))}
+    acc_b = torch.zeros_like(acc)
+
+    def old_run(ids):
+        def run(_):
+            if len(ids) > 1:
+                acc_b.zero_()
+            for i in ids:
+                baseline.acc_(acc_b, words[spans[i][0] : spans[i][1]], idx, *spans[i])
+        return run
+
+    if baseline is not None:
+        old_run(cases["pass"])(0)
+        if not torch.equal(acc_b, acc):
+            raise AssertionError("the baseline's accumulating pass differs from B2's scores")
+    kernel = {}
+    for name, ids in cases.items():
+        if not ids:
+            continue
+        new = lambda _, ids=ids: [run_block(i) for i in ids]  # noqa: E731
+        reps = 10 if name == "pass" else 20
+        if baseline is not None:
+            turns = [(who, graph_ms(new if who == "new" else old_run(ids), reps))
+                     for who in ("baseline", "new", "new", "baseline")]
+        else:
+            turns = [("new", graph_ms(new, reps))]
+        ms = min(t for w, t in turns if w == "new")
+        if name == "pass":
+            b = pass_bound(idx, spans, WP)
+        else:
+            b = acc_bound(idx, *spans[ids[0]], WP, name)
+        kernel[name] = dict(blocks=[list(spans[i]) for i in ids], ms=ms, turns=turns,
+                            baseline_ms=min((t for w, t in turns if w == "baseline"), default=None),
+                            plain_ms=sum(plain_ms[i] for i in ids), bound_share=b["bound_ms"] / ms, **b)
+    # the int32 mode (match_scores_acc_, the contract of JAX's
+    # _acc_chunk_scores) on the first block, from a non-zero accumulator:
+    # bit for bit against match_scores_acc_ref_, timed in turns with the
+    # baseline's on the same slots and on slots compacted beforehand by
+    # torch ops (each query's rows in the block first, K cut to the most
+    # such rows rounded up to 8: what compaction alone saves the baseline)
+    a0, a1 = spans[0]
+    acc_i = torch.full_like(acc, 3)
+    t0 = time.perf_counter()
+    want = opm.match_scores_acc_ref_(acc_i.clone(), words[a0:a1], idx, a0, a1)
+    torch.cuda.synchronize()
+    add_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(opm.match_scores_acc_(acc_i, words[a0:a1], idx, a0, a1), want):
+        raise AssertionError("the accumulating kernel's int32 mode differs from match_scores_acc_ref_")
+    runs = {"new": lambda _: opm.match_scores_acc_(acc_i, words[a0:a1], idx, a0, a1)}
+    order, extra = ("new",), {}
+    if baseline is not None:
+        inside = (idx >= a0) & (idx < a1)
+        kc = -(-int(inside.sum(1).max()) // 8) * 8
+        keys = torch.sort((~inside).to(torch.uint8), dim=1, stable=True).indices
+        compact = torch.gather(idx, 1, keys)[:, :kc].contiguous()
+        if not torch.equal(baseline.acc_(torch.full_like(acc, 3), words[a0:a1], compact, a0, a1), want):
+            raise AssertionError("the baseline on the host-compacted slots differs from match_scores_acc_ref_")
+        runs["baseline"] = lambda _: baseline.acc_(acc_i, words[a0:a1], idx, a0, a1)
+        runs["baseline_compacted"] = lambda _: baseline.acc_(acc_i, words[a0:a1], compact, a0, a1)
+        order = ("baseline", "baseline_compacted", "new", "new", "baseline_compacted", "baseline")
+        extra = dict(compacted_k=kc, slots_in_block_mean=float(inside.sum(1).float().mean()))
+    del want
+    turns = [(who, graph_ms(runs[who], 20)) for who in order]
+    ms = min(t for w, t in turns if w == "new")
+    b = acc_bound(idx, a0, a1, WP, "add")
+    kernel["add"] = dict(blocks=[list(spans[0])], ms=ms, turns=turns,
+                         baseline_ms=min((t for w, t in turns if w == "baseline"), default=None),
+                         baseline_compacted_ms=min((t for w, t in turns if w == "baseline_compacted"), default=None),
+                         plain_ms=add_plain_ms, bound_share=b["bound_ms"] / ms, **extra, **b)
+    kernel = dict(block_rows=spans[0][1], Q=idx.shape[0], K=idx.shape[1], max_abs_err=0, library_ms=None,
+                  **kernel["first"], by_mode=kernel)
+    del acc_t, acc_b, acc_i, runs
     rates = copy_rates(host, min(tm.STAGE_SLOT_BYTES // (4 * WP), cm.row_chunk))
     index_bytes = s10 * WP * 4
     res_a = dict(
@@ -2727,7 +2890,7 @@ def phase_oversized(work: Path, label: str) -> tuple[dict, dict]:
         launches=counts["a"], acc_kernel=kernel,
     )
     emit("oversized_index", card=label, **res_a)
-    del words, block, blockz, acc_t, acc, one_block, plain, base, passes, r_u, c_u, resident
+    del words, acc, base, passes, r_u, c_u, resident
     del host, didx, cm
     torch.cuda.empty_cache()
 
@@ -2767,8 +2930,9 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-src", type=Path, default=None,
-                    help="a copy of the parent commit's csrc/match_popcount.cu: time "
-                    "PR 2's kernels beside this tree's in phase 2")
+                    help="an older csrc/match_popcount.cu with PR 13's C interface: time its "
+                    "store kernels beside this tree's in phase 2, its keep instance in phase "
+                    "9 (f) and its int32 accumulating instance in phase 10 (a)")
     ap.add_argument("--baseline-align", type=Path, default=None,
                     help="a directory holding PR 4's csrc/chain_scan.cu and "
                     "csrc/extend_scan.cu: time them beside this tree's B3/B4 in phase 5")
@@ -2800,7 +2964,7 @@ def main(argv: list[str] | None = None) -> int:
 
     label = gpu_label()
     build_s = _kernels.build_all()
-    baseline = Pr2Kernels(args.baseline_src) if args.baseline_src else None
+    baseline = BaselineMatchKernels(args.baseline_src) if args.baseline_src else None
     emit("environment", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, card=label, build_seconds=build_s)
 
@@ -2826,8 +2990,8 @@ def main(argv: list[str] | None = None) -> int:
         c7, p7 = phase_align_geometry(work, label, args.profile)
         mkern = phase_mesh_kernels(label)
         c8, b5d = phase_mesh(work, label, p7)
-        c9, c9_step = phase_cli(work, label, p7)
-        c10, p10 = phase_oversized(work, label)
+        c9, c9_step = phase_cli(work, label, p7, baseline)
+        c10, p10 = phase_oversized(work, label, baseline)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2891,6 +3055,8 @@ def main(argv: list[str] | None = None) -> int:
             operations=k["operations"], library_ms=k["library_ms"], **extra,
         ))
     acc, keep = p10["acc_kernel"], c9_step["h1"]
+    modes = {f"{m}_{key}": v[key] for m, v in acc["by_mode"].items() if m != "first"
+             for key in ("ms", "baseline_ms", "bound_ms", "bound_share")}
     table.append(dict(
         name="match_popcount_acc", route="cuda", source=SOURCE["match_popcount_acc"],
         replaces=REPLACES["match_popcount_acc"], launches=c10["match_popcount_acc"],
@@ -2898,7 +3064,7 @@ def main(argv: list[str] | None = None) -> int:
         case=f"phase 10 (a)'s first block: {acc['block_rows']:,} of {p10['S']:,} rows x {WP} words, "
         f"Q={acc['Q']}, K={acc['K']}", max_abs_err=acc["max_abs_err"], ms=acc["ms"], plain_ms=acc["plain_ms"],
         bound_ms=acc["bound_ms"], bound_by=acc["bound_by"], bound_share=acc["bound_share"], bytes=acc["bytes"],
-        operations=acc["operations"], library_ms=None, parent_ms=acc["parent_ms"],
+        operations=acc["operations"], library_ms=None, baseline_ms=acc["baseline_ms"], **modes,
     ))
     table.append(dict(
         name="match_popcount_keep", route="cuda", source=SOURCE["match_popcount_keep"],
@@ -2907,8 +3073,9 @@ def main(argv: list[str] | None = None) -> int:
         case=f"phase 9 (f): match_step at H=1 ({keep['instance']}), Q={keep['q']}, K={keep['k']}, S={S:,}",
         max_abs_err=keep["max_abs_err"], ms=keep["ms"], plain_ms=keep["plain_ms"], bound_ms=keep["bound_ms"],
         bound_by=keep["bound_by"], bound_share=keep["bound_share"], bytes=keep["bytes"],
-        operations=keep["operations"], library_ms=None, parent_ms=keep["parent_ms"],
-        h3_ms=c9_step["h3"]["ms"], h3_parent_ms=c9_step["h3"]["parent_ms"],
+        operations=keep["operations"], library_ms=None, baseline_ms=keep["baseline_ms"],
+        h3_ms=c9_step["h3"]["ms"], h3_baseline_ms=c9_step["h3"]["baseline_ms"],
+        h3_bound_ms=c9_step["h3"]["bound_ms"],
     ))
     table.append(dict(
         name="merge_topk", route="cuda", source=SOURCE["merge_topk"], replaces=REPLACES["merge_topk"],

@@ -47,24 +47,52 @@
 //
 // Three epilogues share that body (the template parameter EP):
 //   store  out = the counts (B1, B2).
-//   acc    out += the counts, out being the row-chunked matcher's
-//          accumulator (replaces the jitted _acc_chunk_scores,
-//          phylign_tpu/models/matcher.py:838-841, around B2). `words`
-//          holds only the global rows [r0, r1) of the index, row r at
-//          r - r0, and row_idx holds global rows: a slot row outside the
-//          window reads nothing (counts as a zero row), so the block needs
-//          no zero row and the indices are not remapped per block. Each
-//          16-byte piece of out is loaded, added to and stored once, where
-//          a store then an add_ would pass over the matrix four times.
+//   acc    the row-chunked matcher's accumulator out [Q, 32*Wp] (replaces
+//          the jitted _acc_chunk_scores, phylign_tpu/models/matcher.py:
+//          838-841, around B2). `words` holds only the global rows
+//          [r0, r1) of the index, row r at r - r0, and row_idx holds
+//          global rows: a slot counts only when its H rows all lie in the
+//          window (a row outside is the JAX package's zero row), so the
+//          block needs no zero row and the indices are not remapped per
+//          block. Its modes (Epi::mode):
+//            add     out += the counts, each 16-byte piece of out loaded,
+//                    added to and stored once (match_scores_acc_);
+//            first, middle, last, only: a pass over the blocks of the
+//                    index (match_scores_acc_planes_). A pass's counts never
+//                    exceed K < 2**np (np = bit_length(K)), so between its
+//                    blocks the thread of word w keeps them as np bit planes
+//                    in the first np int32 of out[q, 32w : 32w+32]: 4*np
+//                    bytes, where int32 counts take 128. `first` stores the
+//                    block's planes and reads nothing (out may be
+//                    uninitialised); `middle` reads them, adds the block's
+//                    by a ripple-carry add and stores them back, and skips
+//                    both where the block adds nothing; `last` reads, adds
+//                    and stores the 32 int32 counts; `only` (a one-block
+//                    pass) stores the counts.
+//          With the indices staged, each warp first compacts its queries'
+//          slots that lie in the window (ballot and popcount prefix, in
+//          order) into shared memory, the tail padded to a multiple of 8
+//          with slots that read nothing: the threads then walk only those,
+//          8 loads in flight a group, where a walk over all K slots spends
+//          a latency round on nearly every group (a block of a third of the
+//          index holds a third of a query's rows).
 //   keep   out = the counts and keep[q, c] = f32(count) >= f32(threshold)
 //          * f32(n_kmers[q]) and n_kmers[q] > 0, one byte a column
 //          (replaces the jitted match_step, phylign_tpu/models/matcher.py:
 //          252-268: the four elementwise ops after B1/B2). The product is
 //          rounded once (__fmul_rn, never contracted), as XLA computes it.
+//          match_step's Q = 2,048 fills half of the card's threads with
+//          one thread a (query, word), each walking 16 groups in turn: so
+//          a (query, word) takes `split` = s threads, adjacent lanes of a
+//          warp, each counting a contiguous s-th of the slots in its own
+//          planes; the partial planes are summed by carry-save (ripple)
+//          addition through warp shuffles, and the first of the s threads
+//          stores.
 //
-// Launch geometry (chosen by the caller, ops/match.py:launch_geometry): a
-// block of qt queries x wt threads (qt * wt <= 256); thread t serves query
-// qt*blockIdx.x + t/wt and words t%wt, t%wt + wt, ...; `staged` says the
+// Launch geometry (chosen by the caller, ops/match.py:launch_geometry, and
+// keep_split and keep_geometry for the split): a block of qt queries x wt x s threads
+// (qt * wt * s <= 256); thread t serves query qt*blockIdx.x + t/(wt*s),
+// slot share t%s and words (t%(wt*s))/s, that + wt, ...; `staged` says the
 // indices fit shared memory, `via_smem` that the counts do.
 
 #include <cuda_runtime.h>
@@ -112,6 +140,24 @@ struct Planes {
     csa(t[0], p[2], p[2], t[0], t[1]);
     ripple<3>(t[0]);
   }
+  // this += the P-bit vertical numbers b, a ripple-carry add (no count
+  // reaches 2**P, so no carry leaves plane P - 1)
+  __device__ __forceinline__ void add(const uint32_t (&b)[P]) {
+    uint32_t c = 0u;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const uint32_t u = p[j] ^ b[j];
+      const uint32_t carry = (p[j] & b[j]) | (u & c);
+      p[j] = u ^ c;
+      c = carry;
+    }
+  }
+  __device__ __forceinline__ bool any() const {
+    uint32_t x = 0u;
+#pragma unroll
+    for (int j = 0; j < P; ++j) x |= p[j];
+    return x != 0u;
+  }
   // the 32 counts of the word, several per register: LANE-bit lanes
   __device__ __forceinline__ void unpack(int32_t (&cnt)[32]) const {
     constexpr int LANE = P <= 8 ? 8 : 16;
@@ -129,6 +175,39 @@ struct Planes {
   }
 };
 
+// planes 0..np-1 of a word from / to the first np int32 of its 128-byte
+// span (16-byte pieces where whole; planes np..P-1 read as 0)
+template <int P>
+__device__ __forceinline__ void load_planes(const int32_t* span, int np, uint32_t (&b)[P]) {
+#pragma unroll
+  for (int j = 0; j < P; j += 4) {
+    if (j + 4 <= np) {
+      const int4 v = *reinterpret_cast<const int4*>(span + j);
+      b[j] = v.x;
+      b[j + 1] = v.y;
+      b[j + 2] = v.z;
+      b[j + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) b[j + i] = j + i < np ? (uint32_t)span[j + i] : 0u;
+    }
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void store_planes(int32_t* span, int np, const uint32_t (&b)[P]) {
+#pragma unroll
+  for (int j = 0; j < P; j += 4) {
+    if (j + 4 <= np) {
+      *reinterpret_cast<int4*>(span + j) = make_int4(b[j], b[j + 1], b[j + 2], b[j + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (j + i < np) span[j + i] = (int32_t)b[j + i];
+    }
+  }
+}
+
 __device__ __forceinline__ int32_t clamp_row(int32_t r, int32_t last) {
   // clamp into [0, S] as XLA's gather does: a bad index reads a real row
   // (the zero row when too large), never outside the table
@@ -138,28 +217,58 @@ __device__ __forceinline__ int32_t clamp_row(int32_t r, int32_t last) {
 // The epilogues (see the head of the file) and what each takes beyond the
 // counts' pointer `out`.
 enum Epilogue { kStore = 0, kAcc = 1, kKeep = 2 };
+enum AccMode { kAdd = 0, kFirst = 1, kMiddle = 2, kLast = 3, kOnly = 4 };
 struct Epi {
   int32_t r0;                   // kAcc: words holds global rows [r0, r0 + n)
   uint32_t n;
+  int mode;                     // kAcc: an AccMode
+  int np;                       // kAcc: planes a word keeps, bit_length(K)
   const int32_t* n_kmers;       // kKeep: [Q]
   float threshold;              // kKeep: already rounded to f32
   uint8_t* keep;                // kKeep: [Q, 32 * Wp], 16-byte aligned
 };
 
-// kAcc: word w of global row g, or 0 where g lies outside the window
-__device__ __forceinline__ uint32_t window_word(const uint32_t* col, int32_t g, const Epi& e, int wp) {
-  const uint32_t r = (uint32_t)g - (uint32_t)e.r0;  // wraps past n for g < r0
-  return r < e.n ? __ldg(col + (int64_t)r * wp) : 0u;
+// kAcc: whether global row g lies in the window (wrapping past n for g < r0)
+__device__ __forceinline__ bool in_window(int32_t g, const Epi& e) {
+  return (uint32_t)g - (uint32_t)e.r0 < e.n;
 }
 
-// 16 bytes of 4 counts, added to what `at` holds under kAcc
-template <int EP>
-__device__ __forceinline__ void put4(int4* at, int4 v) {
-  if constexpr (EP == kAcc) {
+// kAcc: word w of global row g, or 0 where g lies outside the window
+__device__ __forceinline__ uint32_t window_word(const uint32_t* col, int32_t g, const Epi& e, int wp) {
+  return in_window(g, e) ? __ldg(col + (int64_t)((uint32_t)g - (uint32_t)e.r0) * wp) : 0u;
+}
+
+// 16 bytes of 4 counts, added to what `at` holds when `add`
+__device__ __forceinline__ void put4(int4* at, int4 v, bool add) {
+  if (add) {
     const int4 a = *at;
     v = make_int4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
   }
   *at = v;
+}
+
+// kAcc, staged: one warp (or the block's last, partial warp: nl lanes)
+// writes the slots of row_idx's query that lie wholly in the window, in
+// order, to dst, pads them to a multiple of 8 (at most K) with slots whose
+// rows are r1 (outside: read as nothing) and returns their count
+__device__ __forceinline__ int compact_slots(const int32_t* __restrict__ src, int32_t* dst, int k,
+                                             int hh, const Epi& e, int lane, int nl, unsigned mask) {
+  int n = 0;
+  for (int base = 0; base < k; base += nl) {
+    const int j = base + lane;
+    bool in = j < k;
+    for (int t = 0; in && t < hh; ++t) in = in_window(src[j * hh + t], e);
+    const unsigned b = __ballot_sync(mask, in);
+    if (in) {
+      const int at = n + __popc(b & ((1u << lane) - 1u));
+      for (int t = 0; t < hh; ++t) dst[at * hh + t] = src[j * hh + t];
+    }
+    n += __popc(b);
+  }
+  const int np = min((n + kGroup - 1) / kGroup * kGroup, k);
+  const int32_t out = e.r0 + (int32_t)e.n;
+  for (int i = n * hh + lane; i < np * hh; i += nl) dst[i] = out;
+  return np;
 }
 
 // HC: H at compile time (1 or 3), or 0 for a runtime h.
@@ -167,27 +276,54 @@ template <int P, int HC, int EP>
 __global__ void __launch_bounds__(kMaxThreads)
 match_popcount_kernel(const uint32_t* __restrict__ words, int32_t n_rows,
                       int wp, const int32_t* __restrict__ row_idx, int q,
-                      int k, int h, int qt, int wt, int staged, int via_smem,
-                      Epi e, int32_t* __restrict__ out) {
-  // shared memory: [qt, K*H] row indices (when staged), then [qt, 32*Wp]
-  // counts (when via_smem), 16-byte aligned
+                      int k, int h, int qt, int wt, int split, int staged,
+                      int via_smem, Epi e, int32_t* __restrict__ out) {
+  // shared memory: [qt, K*H] row indices (when staged), under kAcc then
+  // [qt] slot counts, then [qt, 32*Wp] counts (when via_smem), each 16-byte
+  // aligned
   extern __shared__ int4 smem[];
   const int hh = HC ? HC : h;
   const int kh = k * hh;
+  const int s = EP == kKeep ? split : 1;
   const int q0 = blockIdx.x * qt;
   const int nq = min(qt, q - q0);
   const int32_t last = n_rows - 1;
+  const bool compacted = EP == kAcc && staged;
   int32_t* rows_s = reinterpret_cast<int32_t*>(smem);
-  int4* out_s = smem + (staged ? (qt * kh + 3) / 4 : 0);
+  int* n_slots = reinterpret_cast<int*>(smem + (staged ? (qt * kh + 3) / 4 : 0));
+  int4* out_s = reinterpret_cast<int4*>(n_slots) + (compacted ? (qt + 3) / 4 : 0);
   if (staged) {
     const int32_t* src = row_idx + (int64_t)q0 * kh;
-    for (int i = threadIdx.x; i < nq * kh; i += blockDim.x)
-      rows_s[i] = EP == kAcc ? src[i] : clamp_row(src[i], last);
+    if (compacted) {
+      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+      const int nl = min(32, (int)blockDim.x - 32 * warp);
+      const unsigned mask = nl == 32 ? 0xffffffffu : (1u << nl) - 1u;
+      for (int ql = warp; ql < nq; ql += (blockDim.x + 31) >> 5) {
+        const int n = compact_slots(src + ql * kh, rows_s + ql * kh, k, hh, e, lane, nl, mask);
+        if (lane == 0) n_slots[ql] = n;
+      }
+    } else {
+      for (int i = threadIdx.x; i < nq * kh; i += blockDim.x) rows_s[i] = clamp_row(src[i], last);
+    }
     __syncthreads();
   }
-  const int ql = threadIdx.x / wt;
+  const bool add = EP == kAcc && e.mode == kAdd;
+  const bool counts_out = EP != kAcc || e.mode == kAdd || e.mode == kLast || e.mode == kOnly;
+  const int tpq = wt * s;
+  const int ql = threadIdx.x / tpq;
   if (ql < nq) {
+    const int g = threadIdx.x % s;
     const int32_t* my = staged ? rows_s + ql * kh : row_idx + (int64_t)(q0 + ql) * kh;
+    // this thread's slots [j0, j1): all of them, or under a split a run of
+    // whole groups, its s-th share (s is 1 at compile time but under kKeep,
+    // so the store instances keep their loop from slot 0 to K)
+    const int ns = compacted ? n_slots[ql] : k;
+    int j0 = 0, j1 = ns;
+    if (s > 1) {
+      const int share = (ns + s * kGroup - 1) / (s * kGroup) * kGroup;
+      j0 = min(ns, g * share);
+      j1 = min(ns, j0 + share);
+    }
     float cut = 0.f;
     bool any = false;
     if constexpr (EP == kKeep) {
@@ -195,14 +331,22 @@ match_popcount_kernel(const uint32_t* __restrict__ words, int32_t n_rows,
       cut = __fmul_rn(e.threshold, __int2float_rn(n));
       any = n > 0;
     }
-    for (int w = threadIdx.x % wt; w < wp; w += wt) {
+    for (int w = (threadIdx.x % tpq) / s; w < wp; w += wt) {
       const uint32_t* col = words + w;
-      // the AND of slot j's H rows; the zero row (under kAcc: a row outside
-      // the window) is not read (a predicated load: the group's loads still
-      // go out together)
+      // the AND of slot j's H rows. Compacted: every row lies in the window
+      // but a pad's (its first row r1: not read); under kAcc otherwise a
+      // row outside the window reads nothing; else the zero row is not
+      // read (a predicated load: the group's loads still go out together)
       auto slot = [&](int j) -> uint32_t {
         const int32_t* rj = my + j * hh;
         if constexpr (EP == kAcc) {
+          if (compacted) {
+            const uint32_t r = (uint32_t)rj[0] - (uint32_t)e.r0;
+            if (r >= e.n) return 0u;
+            uint32_t x = __ldg(col + (int64_t)r * wp);
+            for (int t = 1; t < hh; ++t) x &= __ldg(col + (int64_t)((uint32_t)rj[t] - (uint32_t)e.r0) * wp);
+            return x;
+          }
           uint32_t x = window_word(col, rj[0], e, wp);
           for (int t = 1; t < hh; ++t) x &= window_word(col, rj[t], e, wp);
           return x;
@@ -219,14 +363,44 @@ match_popcount_kernel(const uint32_t* __restrict__ words, int32_t n_rows,
       };
       Planes<P> acc;
       acc.init();
-      int j = 0;
-      for (; j + kGroup <= k; j += kGroup) {
+      int j = j0;
+      for (; j + kGroup <= j1; j += kGroup) {
         uint32_t d[kGroup];
 #pragma unroll
         for (int r = 0; r < kGroup; ++r) d[r] = slot(j + r);
         acc.add8(d);
       }
-      for (; j < k; ++j) acc.add1(slot(j));
+      for (; j < j1; ++j) acc.add1(slot(j));
+      if (s > 1) {
+        // the s threads of this (query, word), aligned lanes of one warp:
+        // after log2(s) exchanges each holds the sum of their planes
+        const int lane = threadIdx.x & 31;
+        const unsigned gm = ((1u << s) - 1u) << (lane & ~(s - 1));
+        for (int m = 1; m < s; m <<= 1) {
+          uint32_t o[P];
+#pragma unroll
+          for (int i = 0; i < P; ++i) o[i] = __shfl_xor_sync(gm, acc.p[i], m);
+          acc.add(o);
+        }
+        if (g) continue;
+      }
+      if constexpr (EP == kAcc) {
+        int32_t* span = out + (int64_t)(q0 + ql) * 32 * wp + 32 * w;
+        if (e.mode == kFirst) {
+          store_planes<P>(span, e.np, acc.p);
+          continue;
+        }
+        if (e.mode == kMiddle || e.mode == kLast) {
+          if (e.mode == kMiddle && !acc.any()) continue;
+          uint32_t o[P];
+          load_planes<P>(span, e.np, o);
+          acc.add(o);
+          if (e.mode == kMiddle) {
+            store_planes<P>(span, e.np, acc.p);
+            continue;
+          }
+        }
+      }
       int32_t cnt[32];
       acc.unpack(cnt);
       if constexpr (EP == kKeep) {
@@ -250,24 +424,26 @@ match_popcount_kernel(const uint32_t* __restrict__ words, int32_t n_rows,
       for (int i = 0; i < 8; ++i) {
         const int4 v = make_int4(cnt[4 * i], cnt[4 * i + 1], cnt[4 * i + 2], cnt[4 * i + 3]);
         if (via_smem) dst[i] = v;
-        else put4<EP>(dst + i, v);
+        else put4(dst + i, v, add);
       }
     }
   }
-  if (via_smem) {
+  if (via_smem && counts_out) {
     // the block's queries are contiguous in out: whole lines, in order
     __syncthreads();
     int4* o4 = reinterpret_cast<int4*>(out + (int64_t)q0 * 32 * wp);
-    for (int i = threadIdx.x; i < nq * 8 * wp; i += blockDim.x) put4<EP>(o4 + i, out_s[i]);
+    for (int i = threadIdx.x; i < nq * 8 * wp; i += blockDim.x) put4(o4 + i, out_s[i], add);
   }
 }
 
 template <int P, int HC, int EP>
 cudaError_t launch(const void* words, int64_t n_rows, int wp,
                    const void* row_idx, int q, int k, int h, int qt, int wt,
-                   int staged, int via_smem, const Epi& e, void* out, void* stream) {
+                   int split, int staged, int via_smem, const Epi& e, void* out,
+                   void* stream) {
   const auto kernel = match_popcount_kernel<P, HC, EP>;
   const size_t smem = (staged ? ((size_t)qt * k * h + 3) / 4 * 16 : 0) +
+                      (EP == kAcc && staged ? ((size_t)qt + 3) / 4 * 16 : 0) +
                       (via_smem ? (size_t)qt * wp * 128 : 0);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   static bool attr_set = false;  // per instance; the value is the same
@@ -278,43 +454,46 @@ cudaError_t launch(const void* words, int64_t n_rows, int wp,
     attr_set = true;
   }
   const unsigned grid = (unsigned)((q + qt - 1) / qt);
-  kernel<<<grid, qt * wt, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, qt * wt * split, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)words, (int32_t)n_rows, wp, (const int32_t*)row_idx, q,
-      k, h, qt, wt, staged, via_smem, e, (int32_t*)out);
+      k, h, qt, wt, split, staged, via_smem, e, (int32_t*)out);
   return cudaGetLastError();
 }
 
 template <int P, int EP>
 cudaError_t launch_h(const void* words, int64_t n_rows, int wp,
                      const void* row_idx, int q, int k, int h, int qt, int wt,
-                     int staged, int via_smem, const Epi& e, void* out, void* stream) {
+                     int split, int staged, int via_smem, const Epi& e, void* out,
+                     void* stream) {
   switch (h) {
     case 1:
-      return launch<P, 1, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, staged, via_smem, e, out, stream);
+      return launch<P, 1, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, split, staged, via_smem, e, out, stream);
     case 3:
-      return launch<P, 3, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, staged, via_smem, e, out, stream);
+      return launch<P, 3, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, split, staged, via_smem, e, out, stream);
     default:
-      return launch<P, 0, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, staged, via_smem, e, out, stream);
+      return launch<P, 0, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, split, staged, via_smem, e, out, stream);
   }
 }
 
 template <int EP>
 cudaError_t launch_any(const void* words, int64_t n_rows, int wp,
                        const void* row_idx, int q, int k, int h, int planes,
-                       int qt, int wt, int staged, int via_smem, const Epi& e,
-                       void* out, void* stream) {
+                       int qt, int wt, int split, int staged, int via_smem,
+                       const Epi& e, void* out, void* stream) {
   if (q <= 0) return cudaSuccess;
   if (wp <= 0 || k <= 0 || h <= 0 || qt <= 0 || wt <= 0 ||
-      qt * wt > kMaxThreads || n_rows <= 0 || n_rows >= (int64_t(1) << 31) ||
+      (split != 1 && split != 2 && split != 4) || (EP != kKeep && split != 1) ||
+      qt * wt * split > kMaxThreads || n_rows <= 0 || n_rows >= (int64_t(1) << 31) ||
       planes < 1 || planes > 16 || k > (1 << planes) - 1 ||
       (int64_t)qt * k * h >= (int64_t(1) << 31) || ((uintptr_t)out & 15u) ||
+      (EP == kAcc && (e.mode < kAdd || e.mode > kOnly)) ||
       (EP == kKeep && (e.n_kmers == nullptr || ((uintptr_t)e.keep & 15u))))
     return cudaErrorInvalidValue;
   if (planes <= 8)
-    return launch_h<8, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, staged, via_smem, e, out, stream);
+    return launch_h<8, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, split, staged, via_smem, e, out, stream);
   if (planes <= 12)
-    return launch_h<12, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, staged, via_smem, e, out, stream);
-  return launch_h<16, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, staged, via_smem, e, out, stream);
+    return launch_h<12, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, split, staged, via_smem, e, out, stream);
+  return launch_h<16, EP>(words, n_rows, wp, row_idx, q, k, h, qt, wt, split, staged, via_smem, e, out, stream);
 }
 
 }  // namespace
@@ -327,7 +506,7 @@ int phylign_match_popcount_b1(const void* words, int64_t n_rows, int wp,
                               const void* row_idx, int q, int k, int h,
                               int planes, int qt, int wt, int staged,
                               int via_smem, void* out, void* stream) {
-  return (int)launch_any<kStore>(words, n_rows, wp, row_idx, q, k, h, planes, qt, wt,
+  return (int)launch_any<kStore>(words, n_rows, wp, row_idx, q, k, h, planes, qt, wt, 1,
                                  staged, via_smem, Epi{}, out, stream);
 }
 
@@ -337,31 +516,36 @@ int phylign_match_popcount_b2(const void* words, int64_t n_rows, int wp,
                               int planes, int qt, int wt, int staged,
                               int via_smem, void* out, void* stream) {
   if (h != 1 || k % 32) return (int)cudaErrorInvalidValue;
-  return (int)launch_any<kStore>(words, n_rows, wp, row_idx, q, k, 1, planes, qt, wt,
+  return (int)launch_any<kStore>(words, n_rows, wp, row_idx, q, k, 1, planes, qt, wt, 1,
                                  staged, via_smem, Epi{}, out, stream);
 }
 
-// The accumulating instance: acc int32 [Q, 32 * Wp] (16-byte aligned) +=
-// the counts of the slots' rows that lie in [r0, r1); words holds those
-// rows, row r at r - r0 (at least r1 - r0 rows); row_idx holds global
-// rows. 0 <= r0 < r1.
+// The accumulating instance on acc int32 [Q, 32 * Wp] (16-byte aligned):
+// the counts of the slots whose rows all lie in [r0, r1), under `mode` (an
+// AccMode: acc += the counts, or a pass's first, middle, last or only
+// block, the counts kept as bit_length(K) = `planes` bit planes between
+// them); words holds those rows, row r at r - r0 (at least r1 - r0 rows);
+// row_idx holds global rows. 0 <= r0 < r1.
 int phylign_match_popcount_acc(const void* words, int r0, int r1, int wp,
                                const void* row_idx, int q, int k, int h,
                                int planes, int qt, int wt, int staged,
-                               int via_smem, void* acc, void* stream) {
+                               int via_smem, int mode, void* acc, void* stream) {
   if (r0 < 0 || r1 <= r0) return (int)cudaErrorInvalidValue;
   Epi e{};
   e.r0 = r0;
   e.n = (uint32_t)(r1 - r0);
-  return (int)launch_any<kAcc>(words, r1 - r0, wp, row_idx, q, k, h, planes, qt, wt,
+  e.mode = mode;
+  e.np = planes;
+  return (int)launch_any<kAcc>(words, r1 - r0, wp, row_idx, q, k, h, planes, qt, wt, 1,
                                staged, via_smem, e, acc, stream);
 }
 
 // The keep instance: out as B1/B2, and keep uint8 [Q, 32 * Wp] (16-byte
-// aligned) = count >= threshold * n_kmers[q] in float32, and n_kmers[q] > 0.
+// aligned) = count >= threshold * n_kmers[q] in float32, and n_kmers[q] > 0;
+// `split` (1, 2 or 4) threads a (query, word).
 int phylign_match_popcount_keep(const void* words, int64_t n_rows, int wp,
                                 const void* row_idx, int q, int k, int h,
-                                int planes, int qt, int wt, int staged,
+                                int planes, int qt, int wt, int split, int staged,
                                 int via_smem, const void* n_kmers,
                                 float threshold, void* out, void* keep,
                                 void* stream) {
@@ -369,7 +553,7 @@ int phylign_match_popcount_keep(const void* words, int64_t n_rows, int wp,
   e.n_kmers = (const int32_t*)n_kmers;
   e.threshold = threshold;
   e.keep = (uint8_t*)keep;
-  return (int)launch_any<kKeep>(words, n_rows, wp, row_idx, q, k, h, planes, qt, wt,
+  return (int)launch_any<kKeep>(words, n_rows, wp, row_idx, q, k, h, planes, qt, wt, split,
                                 staged, via_smem, e, out, stream);
 }
 

@@ -30,6 +30,8 @@ from phylign_tpu_torch.ops.match import (
     dedup_rows,
     match_scores,
     match_scores_acc_,
+    match_scores_acc_planes_,
+    match_scores_acc_planes_ref_,
     match_scores_acc_ref_,
     match_scores_dedup,
     match_scores_keep,
@@ -1064,6 +1066,20 @@ def _acc_chunk_scores(
     )
 
 
+def _acc_chunk_planes(
+    acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor, r0: int, r1: int,
+    first: bool, last: bool,
+) -> torch.Tensor:
+    """One block of the row-chunked pass: _acc_chunk_scores with the
+    pass's counts kept as bit planes in acc between its first and last
+    blocks (match_scores_acc_planes_ref_). The accumulating instance's
+    plane modes on a CUDA tensor, their plain version on a CPU one."""
+    return _by_device(
+        acc, match_scores_acc_planes_ref_, match_scores_acc_planes_,
+        acc, words, row_idx, r0, r1, first, last,
+    )
+
+
 #: the row-chunked pass's pinned staging ring: STAGE_SLOTS slots of at most
 #: STAGE_SLOT_BYTES, 1 GB of pinned host memory in all, reused by every
 #: block (and by later passes, through torch's pinned-memory cache)
@@ -1081,7 +1097,8 @@ class ChunkedMatcher:
     The signature rows stream through the device in fixed blocks: the
     accumulating instance of the SAME kernels scores each block's rows
     (a query k-mer row outside the block counts as a zero row), and
-    per-(query, doc) scores accumulate on the device across blocks. On a
+    per-(query, doc) scores accumulate on the device across blocks, as
+    bit planes in the accumulator's own bytes until the last block. On a
     card two device block buffers alternate: block i + 1's upload (through
     a bounded pinned staging ring, on a side stream) overlaps block i's
     kernel. Exact vs Matcher for num_hashes == 1 (the 661k
@@ -1140,20 +1157,23 @@ class ChunkedMatcher:
         return 1 << 30
 
     def _score_pass(self, packed: np.ndarray) -> torch.Tensor:
-        """Accumulated scores [Q, 32*W] for one query super-pass (device)."""
+        """Accumulated scores [Q, 32*W] for one query super-pass (device).
+        The blocks run _acc_chunk_planes in order: the first writes every
+        word's bit planes (so acc starts uninitialised), the last the int32
+        scores."""
         s, w = self.words_host.shape
         q = packed.shape[0]
-        acc = torch.zeros((q, 32 * w), dtype=torch.int32, device=self.device)
         rows = np.ascontiguousarray(packed.reshape(q, -1), np.int32)  # global rows (H == 1)
-        if not (q and w):
-            return acc
+        if not (q and w and s and rows.shape[1]):
+            return torch.zeros((q, 32 * w), dtype=torch.int32, device=self.device)
+        acc = torch.empty((q, 32 * w), dtype=torch.int32, device=self.device)
         if self.device.type == "cuda":
             return self._stream_blocks(acc, rows)
         idx = torch.from_numpy(rows)
         for r0 in range(0, s, self.row_chunk):
             r1 = min(r0 + self.row_chunk, s)
             block = np.ascontiguousarray(self.words_host[r0:r1]).view(np.int32)
-            _acc_chunk_scores(acc, torch.from_numpy(block), idx, r0, r1)
+            _acc_chunk_planes(acc, torch.from_numpy(block), idx, r0, r1, r0 == 0, r1 == s)
         return acc
 
     def _stream_blocks(self, acc: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
@@ -1207,7 +1227,7 @@ class ChunkedMatcher:
                             bufs[b][a - r0 : e - r0].copy_(ring[j, : e - a], non_blocking=True)
                         copied[j] = side.record_event()
                     main.wait_event(side.record_event())
-                    _acc_chunk_scores(acc, bufs[b], idx, r0, r1)
+                    _acc_chunk_planes(acc, bufs[b], idx, r0, r1, i == 0, r1 == s)
                     read[b] = main.record_event()
         finally:
             # a pass cut short by an error leaves copies in flight: the

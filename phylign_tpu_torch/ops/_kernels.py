@@ -156,13 +156,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             fn.argtypes = [p, i64, i32, p, i32, i32, i32, i32, i32, i32, i32, i32, p, p]
         lib.phylign_match_popcount_acc.restype = i32
         # words, r0, r1, wp, row_idx, q, k, h, planes, qt, wt, staged,
-        # via_smem, acc, stream
-        lib.phylign_match_popcount_acc.argtypes = [p, i32, i32, i32, p, *[i32] * 8, p, p]
+        # via_smem, mode, acc, stream
+        lib.phylign_match_popcount_acc.argtypes = [p, i32, i32, i32, p, *[i32] * 9, p, p]
         lib.phylign_match_popcount_keep.restype = i32
-        # words, n_rows, wp, row_idx, q, k, h, planes, qt, wt, staged,
-        # via_smem, n_kmers, threshold, out, keep, stream
+        # words, n_rows, wp, row_idx, q, k, h, planes, qt, wt, split,
+        # staged, via_smem, n_kmers, threshold, out, keep, stream
         lib.phylign_match_popcount_keep.argtypes = [
-            p, i64, i32, p, *[i32] * 8, p, ctypes.c_float, p, p, p,
+            p, i64, i32, p, *[i32] * 9, p, ctypes.c_float, p, p, p,
         ]
     elif name == "chain_scan":
         lib.phylign_chain_scan.restype = i32

@@ -27,7 +27,10 @@ tensor, a kernel for a CUDA tensor, never one for the other.
 
 The same kernel has two more epilogues, each with its plain version:
   * ``match_scores_acc_`` (``match_scores_acc_ref_``)  acc += the scores of
-        the rows a block of the index holds (the row-chunked matcher).
+        the rows a block of the index holds (the row-chunked matcher), and
+    ``match_scores_acc_planes_`` (``match_scores_acc_planes_ref_``)  the
+        same over a pass of blocks, the counts kept between blocks as
+        bit_length(K) bit planes in the accumulator's own bytes.
   * ``match_scores_keep`` (``match_scores_keep_ref``)  the scores and
         ``match_step``'s float32 keep mask in one pass.
 """
@@ -132,6 +135,53 @@ def match_scores_acc_ref_(
     return acc.add_(match_scores_ref(block, loc))
 
 
+def encode_planes(counts: torch.Tensor, planes: int) -> torch.Tensor:
+    """int32 [Q, Wp, planes] bit planes of int32 counts [Q, 32*Wp] (each
+    below 2**planes): bit b of plane j of word w is bit j of count 32w + b.
+    Built in int64 and wrapped into int32 (torch on the CPU has no ``>>``
+    for uint32)."""
+    q = counts.shape[0]
+    c = counts.reshape(q, -1, 32, 1).to(torch.int64)
+    j = torch.arange(planes, device=counts.device)
+    b = torch.arange(32, device=counts.device)[:, None]
+    p = (((c >> j) & 1) << b).sum(dim=2)  # [Q, Wp, planes], below 2**32
+    return torch.where(p >= 1 << 31, p - (1 << 32), p).to(torch.int32)
+
+
+def decode_planes(planes: torch.Tensor) -> torch.Tensor:
+    """int32 counts [Q, 32*Wp] of int32 bit planes [Q, Wp, P]
+    (encode_planes' inverse)."""
+    q, wp, n = planes.shape
+    b = torch.arange(32, dtype=torch.int32, device=planes.device)[:, None]
+    j = torch.arange(n, dtype=torch.int32, device=planes.device)
+    # (x >> b) & 1 is bit b for negative int32 too (arithmetic shift)
+    bits = (planes.unsqueeze(2) >> b) & 1  # [Q, Wp, 32, P]
+    return (bits << j).sum(dim=3, dtype=torch.int32).reshape(q, 32 * wp)
+
+
+def match_scores_acc_planes_ref_(
+    acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor, r0: int, r1: int,
+    first: bool, last: bool,
+) -> torch.Tensor:
+    """One block of a row-chunked pass: the counts of the global rows
+    [r0, r1) (as match_scores_acc_ref_) added to the pass's counts so far.
+    Between blocks acc[q, 32w : 32w + P] holds the bit planes
+    (encode_planes) of the counts of word w, P = b2_planes(K), and the rest
+    of the row is left as it was; the first block reads nothing, the last
+    one leaves the int32 counts. In place; returns acc."""
+    q = row_idx.shape[0]
+    wp = words.shape[1]
+    planes = b2_planes(row_idx.shape[1])
+    cnt = match_scores_acc_ref_(torch.zeros_like(acc), words, row_idx, r0, r1)
+    view = acc.view(q, wp, 32)
+    if not first:
+        cnt += decode_planes(view[..., :planes])
+    if last:
+        return acc.copy_(cnt)
+    view[..., :planes] = encode_planes(cnt, planes)
+    return acc
+
+
 def match_scores_keep_ref(
     words: torch.Tensor, row_idx: torch.Tensor, n_kmers: torch.Tensor, threshold: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -175,6 +225,41 @@ def launch_geometry(wp: int, k: int, h: int) -> tuple[int, int, int, int]:
     staged = int(fit > 0)
     if staged:
         qt = min(qt, fit)
+    return qt, wt, staged, int(qt * wp * 128 <= OUT_BYTES)
+
+
+#: threads the keep instance may give one (query, word)
+SPLITS = (1, 2, 4)
+
+
+def resident_threads(device: torch.device) -> int:
+    """Threads the card holds at once: its SMs x threads an SM."""
+    p = torch.cuda.get_device_properties(device)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
+
+
+def keep_split(wp: int, k: int, h: int, q: int, resident: int) -> int:
+    """The keep instance's threads a (query, word): the one of SPLITS that
+    brings the grid's Q x ceil(Wp / wt) x wt x split threads nearest (by
+    ratio) to ``resident``, the threads the card holds at once, with
+    wt x split <= 256 threads a query. Under one wave each thread would
+    walk all K slots in turn; split, it walks a share. Threads, not
+    registers, are counted: the card holds fewer of the keep kernel's
+    (PERF.md)."""
+    wt = launch_geometry(wp, k, h)[1]
+    threads = max(q * -(-wp // wt) * wt, 1)
+    return min((s for s in SPLITS if wt * s <= 256), key=lambda s: abs(np.log(threads * s / resident)))
+
+
+def keep_geometry(wp: int, k: int, h: int, split: int) -> tuple[int, int, int, int]:
+    """(qt, wt, staged, via_smem) of the keep instance with ``split``
+    threads a (query, word), each counting a share of the slots:
+    launch_geometry's, with qt x wt x split <= BLOCK_THREADS (one query a
+    block past it)."""
+    qt, wt, staged, _ = launch_geometry(wp, k, h)
+    if split not in SPLITS or wt * split > 256:
+        raise ValueError(f"split {split} must be one of {SPLITS} with {wt} x split <= 256 threads")
+    qt = max(1, min(qt, BLOCK_THREADS // (wt * split)))
     return qt, wt, staged, int(qt * wp * 128 <= OUT_BYTES)
 
 
@@ -247,6 +332,10 @@ def match_scores_b2(words: torch.Tensor, row_idx: torch.Tensor) -> torch.Tensor:
     return _launch("match_popcount_b2", words, r3)
 
 
+#: the accumulating instance's modes (csrc/match_popcount.cu AccMode)
+ACC_ADD, ACC_FIRST, ACC_MIDDLE, ACC_LAST, ACC_ONLY = range(5)
+
+
 def match_scores_acc_(
     acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor, r0: int, r1: int
 ) -> torch.Tensor:
@@ -255,8 +344,15 @@ def match_scores_acc_(
     match_scores_acc_ref_, in one pass over acc. CUDA tensors only; acc
     int32 [Q, 32*Wp], contiguous and 16-byte aligned."""
     r3 = _check_kernel_args(words, row_idx, "match_popcount_acc")
+    _check_acc(acc, words, r3, r0, r1)
     q, k, h = r3.shape
-    wp = words.shape[1]
+    if q and k * h:
+        _launch_acc(acc, words, r3, r0, r1, ACC_ADD)
+    return acc
+
+
+def _check_acc(acc, words, r3, r0: int, r1: int) -> None:
+    q, wp = r3.shape[0], words.shape[1]
     if acc.device != words.device or acc.dtype != torch.int32 or acc.shape != (q, 32 * wp):
         raise ValueError(
             f"match_popcount_acc: acc must be int32 [{q}, {32 * wp}] on {words.device}; got "
@@ -269,12 +365,35 @@ def match_scores_acc_(
             f"match_popcount_acc: rows [{r0}, {r1}) need 0 <= r0 < r1 and "
             f"{r1 - r0} rows of words; got {words.shape[0]}"
         )
-    if q and k * h:
-        qt, wt, staged, via_smem = launch_geometry(wp, k, h)
-        _kernels.launch(
-            _launches, "match_popcount_acc", "match_popcount", "phylign_match_popcount_acc",
-            words, int(r0), int(r1), wp, r3, q, k, h, b2_planes(k), qt, wt, staged, via_smem, acc,
-        )
+
+
+def _launch_acc(acc, words, r3, r0: int, r1: int, mode: int) -> None:
+    q, k, h = r3.shape
+    wp = words.shape[1]
+    qt, wt, staged, via_smem = launch_geometry(wp, k, h)
+    _kernels.launch(
+        _launches, "match_popcount_acc", "match_popcount", "phylign_match_popcount_acc",
+        words, int(r0), int(r1), wp, r3, q, k, h, b2_planes(k), qt, wt, staged, via_smem, mode, acc,
+    )
+
+
+def match_scores_acc_planes_(
+    acc: torch.Tensor, words: torch.Tensor, row_idx: torch.Tensor, r0: int, r1: int,
+    first: bool, last: bool,
+) -> torch.Tensor:
+    """The accumulating instance over one block of a row-chunked pass: same
+    contract as match_scores_acc_planes_ref_ (the counts between blocks as
+    bit planes in acc's own bytes; ``first`` reads nothing, so acc may be
+    uninitialised), in one launch. CUDA tensors only; acc as
+    match_scores_acc_'s; K * H > 0."""
+    r3 = _check_kernel_args(words, row_idx, "match_popcount_acc")
+    _check_acc(acc, words, r3, r0, r1)
+    q, k, h = r3.shape
+    if k * h == 0:
+        raise ValueError("match_popcount_acc's plane modes take K * H > 0 slots")
+    mode = ACC_ONLY if first and last else ACC_FIRST if first else ACC_LAST if last else ACC_MIDDLE
+    if q:
+        _launch_acc(acc, words, r3, r0, r1, mode)
     return acc
 
 
@@ -283,7 +402,8 @@ def match_scores_keep(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The keep instance of B1/B2 (replaces the jitted
     ``phylign_tpu/models/matcher.py:match_step``): same contract as
-    match_scores_keep_ref, in one launch. CUDA tensors only; n_kmers [Q]."""
+    match_scores_keep_ref, in one launch, at keep_split's threads a
+    (query, word) for this card. CUDA tensors only; n_kmers [Q]."""
     r3 = _check_kernel_args(words, row_idx, "match_popcount_keep")
     q, k, h = r3.shape
     wp = words.shape[1]
@@ -299,10 +419,11 @@ def match_scores_keep(
     keep = torch.empty((q, 32 * wp), dtype=torch.bool, device=words.device)
     if q == 0:
         return out, keep
-    qt, wt, staged, via_smem = launch_geometry(wp, k, h)
+    sp = keep_split(wp, k, h, q, resident_threads(words.device))
+    qt, wt, staged, via_smem = keep_geometry(wp, k, h, sp)
     _kernels.launch(
         _launches, "match_popcount_keep", "match_popcount", "phylign_match_popcount_keep",
-        words, words.shape[0], wp, r3, q, k, h, b2_planes(k), qt, wt, staged, via_smem, nk,
+        words, words.shape[0], wp, r3, q, k, h, b2_planes(k), qt, wt, sp, staged, via_smem, nk,
         float(np.float32(threshold)), out, keep,
     )
     return out, keep

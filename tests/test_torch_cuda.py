@@ -1244,6 +1244,105 @@ def test_match_scores_acc_refuses_bad_arguments(cuda):
     assert opm.launch_counts() == before
 
 
+@pytest.mark.parametrize("mode", ["first", "middle", "last", "only"])
+@pytest.mark.parametrize("s,wp,q,k,h,r0,r1", ACC_SHAPES)
+def test_match_scores_acc_planes_equal_plain_version(cuda, s, wp, q, k, h, r0, r1, mode):
+    """Each block mode of the row-chunked pass (the counts kept as
+    bit_length(K) bit planes in the accumulator's words between blocks)
+    bit for bit against match_scores_acc_planes_ref_, every int32 of the
+    accumulator included, in one launch; a middle block's planes are the
+    earlier ones' sum with the block's."""
+    words, rows, acc = _acc_case(cuda, s, wp, q, k, h, s + wp + q + k + r0 + 1)
+    planes = opm.b2_planes(k)
+    before = torch.randint(0, 2**planes - k, acc.shape, dtype=torch.int32, device=cuda)
+    acc.view(q, wp, 32)[..., :planes] = opm.encode_planes(before, planes)
+    block = torch.cat([words[r0:r1], torch.full((7, wp), -1, dtype=torch.int32, device=cuda)])
+    first, last = mode in ("first", "only"), mode in ("last", "only")
+    want = opm.match_scores_acc_planes_ref_(acc.clone(), block, rows, r0, r1, first, last)
+    n = opm.launch_counts()["match_popcount_acc"]
+    got = opm.match_scores_acc_planes_(acc, block, rows, r0, r1, first, last)
+    torch.cuda.synchronize()
+    assert got is acc and torch.equal(acc, want)
+    assert opm.launch_counts()["match_popcount_acc"] == n + 1
+    if not first:
+        block_counts = opm.match_scores_acc_ref_(torch.zeros_like(acc), block, rows, r0, r1)
+        total = opm.decode_planes(acc.view(q, wp, 32)[..., :planes]) if not last else acc
+        assert torch.equal(total, before + block_counts)
+
+
+def test_match_scores_acc_planes_refuses_bad_arguments(cuda):
+    """The plane modes refuse what the int32 mode refuses, and K * H = 0."""
+    words, rows, acc = _acc_case(cuda, 100, 4, 6, 32, 1, 1)
+    before = opm.launch_counts()
+    with pytest.raises(ValueError, match="acc must be"):
+        opm.match_scores_acc_planes_(acc[:, :64], words, rows, 0, 100, True, False)
+    with pytest.raises(ValueError, match="rows"):
+        opm.match_scores_acc_planes_(acc, words, rows, 0, 101, False, True)
+    with pytest.raises(ValueError, match="K \\* H > 0"):
+        opm.match_scores_acc_planes_(acc, words, rows[:, :0], 0, 100, True, True)
+    assert opm.launch_counts() == before
+
+
+def test_stream_blocks_pass_equals_b2_on_the_resident_index(cuda, monkeypatch):
+    """A whole _stream_blocks pass (first, middle and last blocks through
+    the plane modes, 4 blocks on the double buffer and a ring of 3 slots)
+    at the main path's width equals B2 on the whole index with its zero
+    row; a one-block pass (only) too."""
+    monkeypatch.setattr(tm, "STAGE_SLOT_BYTES", 3001 * 68 * 4)
+    monkeypatch.setattr(tm, "STAGE_SLOTS", 3)
+    rng = np.random.default_rng(14)
+    s, wp, q, k = 40_000, 68, 700, 128
+    words = rng.integers(0, 2**32, (s, wp), dtype=np.uint32) & rng.integers(0, 2**32, (s, wp), dtype=np.uint32)
+    rows = rng.integers(0, s, (q, k, 1)).astype(np.int32)
+    rows[:, 120:] = 1 << 30
+    # every 9th query's 128 slots in the first two blocks, on rows whose
+    # word 0 has bit 0 set: that count reaches 128, plane 7, by a middle
+    # block's carry
+    rows[::9] = rng.integers(0, 20_000, rows[::9].shape)
+    words[:20_000, 0] |= 1
+    padded = torch.from_numpy(np.concatenate([words, np.zeros((1, wp), np.uint32)]).view(np.int32)).to(cuda)
+    want = opm.match_scores_b2(padded, torch.from_numpy(np.where(rows == 1 << 30, s, rows)).to(cuda))
+    for chunk in (10_000, s):
+        cm = tm.ChunkedMatcher(term_size=31, num_hashes=1, signature_size=s, doc_names=[str(d) for d in range(32 * wp)],
+                               words_host=words, row_chunk=chunk, device=cuda)
+        n = opm.launch_counts()["match_popcount_acc"]
+        got = cm._score_pass(rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert opm.launch_counts()["match_popcount_acc"] == n + -(-s // chunk)
+    assert int(want.max()) == k
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("s,wp,q,k,h,thr", [(3000, 40, 300, 128, 1, 0.3), (3000, 40, 300, 96, 3, 0.02),
+                                            (1000, 3, 700, 64, 1, 0.55), (500, 60, 9, 120, 1, 0.0),
+                                            (500, 5, 40, 33, 2, 0.05)])
+def test_match_scores_keep_split_equals_plain_version(cuda, monkeypatch, s, wp, q, k, h, thr, split):
+    """The keep instance with each (query, word) over 1, 2 and 4 threads
+    (their planes summed through shuffles; K off the 8-slot group gives a
+    short or empty last share): scores and keep bit for bit against
+    match_scores_keep_ref, in one launch. Each split is reached by the
+    card's thread count keep_split reads: Q's grid split that many times
+    is one wave."""
+    wt = opm.launch_geometry(wp, k, h)[1]
+    monkeypatch.setattr(opm, "resident_threads", lambda device: q * -(-wp // wt) * wt * split)
+    assert opm.keep_split(wp, k, h, q, opm.resident_threads(cuda)) == split
+    g = torch.Generator(device=cuda).manual_seed(q + k + h + split)
+    words = torch.randint(-(2**31), 2**31, (s + 1, wp), dtype=torch.int32, device=cuda, generator=g)
+    words &= torch.randint(-(2**31), 2**31, (s + 1, wp), dtype=torch.int32, device=cuda, generator=g)
+    words[s] = 0
+    rows = torch.randint(0, s, (q, k, h), dtype=torch.int32, device=cuda, generator=g)
+    nk = torch.randint(0, k + 1, (q,), dtype=torch.int32, device=cuda, generator=g)
+    nk[::5] = 0
+    rows[torch.arange(k, device=cuda)[None, :] >= nk[:, None]] = s
+    n = opm.launch_counts()["match_popcount_keep"]
+    scores, keep = opm.match_scores_keep(words, rows, nk, thr)
+    torch.cuda.synchronize()
+    assert opm.launch_counts()["match_popcount_keep"] == n + 1
+    want = opm.match_scores_keep_ref(words, rows, nk, thr)
+    assert torch.equal(scores, want[0]) and torch.equal(keep, want[1])
+
+
 @pytest.mark.parametrize("s,wp,q,k,h,thr", [(3000, 68, 300, 128, 1, 0.3), (3000, 68, 300, 96, 3, 0.02),
                                             (1000, 3, 700, 64, 1, 0.55), (500, 300, 9, 120, 1, 0.0)])
 def test_match_scores_keep_equals_plain_version(cuda, s, wp, q, k, h, thr):
