@@ -27,7 +27,8 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
                                    # flush_epilogue.cu (the same C
                                    # interface) beside this tree's
     python3 chip_smoke.py --baseline-match OLD.cu
-                                   # phase 4 also times B5a, B5b and B5c
+                                   # phase 4 also times B5a, B5b, B5c and
+                                   # B5d (dense) and phase 8 B5d (sparse)
                                    # of an older match_epilogue.cu (the
                                    # same C interface) beside this tree's
 
@@ -56,7 +57,10 @@ Phases, each printing one JSON line:
     from CUDA graphs over ROTATION input sets beside its bound, with the
     plain versions' times and kernel counts, torch.topk's time, the
     kernels and device time of one _hash_topk_flat call, and each B5
-    kernel's registers and local memory (cuobjdump);
+    kernel's registers and local memory (cuobjdump); then B5d, the merge
+    of a mesh's doc-shard windows, at dist_topk's cut of 0 over two doc
+    shards of the call's scores (every row takes kk from each), bit-exact
+    and timed the same way;
   5 kernels B3 (chain DP scan) and B4 (banded extension scan) against their
     plain versions at the align stage's shapes and at every lane count each
     is built for, bit-exact on every input set (B4 also at bands 256 and
@@ -109,11 +113,12 @@ Phases, each printing one JSON line:
     ``test`` on the card, then ``stats``, ``report``, ``index-sizes``,
     ``config``, ``check-cluster`` and ``clean --all``; (f) ``match_step``
     on phase 2's matrix at Q = 2,048, K = 128, H = 1 and 3: one launch of
-    the keep instance of B1/B2 a call, scores equal to match_scores_ref,
-    keep equal to the float32 formula and to the plain version, with empty
-    queries and scores on the cut; timed from CUDA graphs (in turns with
-    an older source's keep instance under --baseline-src, both also at
-    4 x Q, over one wave);
+    the keep instance of B1/B2 a call (the launch counters, and one kernel
+    in a CUDA graph of a call), scores equal to match_scores_ref, keep
+    equal to the float32 formula and to the plain version, with empty
+    queries and scores on the cut; timed from CUDA graphs, also at 4 x Q,
+    beside each one's bound (in turns with an older source's keep instance
+    under --baseline-src);
  10 an oversized index, row-chunked: (a) the match stage's own call,
     ChunkedMatcher.from_device_index at the default config's chunk budget
     (Pipeline._chunk_budget_mb, 6,656 MB) then score_hits_raw, on an index
@@ -778,9 +783,10 @@ def match_epilogue(args, kw, baseline: BaselineLib | None = None) -> dict:
     events and their kernel counts (profiler); torch.topk on the masked
     scores (B5b's library call); B5c's time on an empty call (its launch
     alone); kernels and device time per _hash_topk_flat call; each B5
-    kernel's registers and local memory.
-    With ``baseline``, its library's B5a, B5b and B5c are held to the plain
-    versions on the same calls and timed beside this tree's in turns
+    kernel's registers and local memory; B5d on dist_topk's cut of 0 over
+    two doc shards of the call's scores (dense_merge).
+    With ``baseline``, its library's B5a, B5b, B5c and B5d are held to the
+    plain versions on the same calls and timed beside this tree's in turns
     (baseline, new, new, baseline)."""
     import torch
 
@@ -886,9 +892,10 @@ def match_epilogue(args, kw, baseline: BaselineLib | None = None) -> dict:
     res["pack_hits"]["empty_call_ms"] = min(graph_ms(empty, reps) for _ in range(2))
     if baseline is not None:
         res["pack_hits"]["empty_call_turns"] = in_turns(baseline, empty, reps, 1)
+    merge_dense = dense_merge(scores, d, kk, baseline)
     whole_ms = min(graph_ms(lambda i: tm._hash_topk_flat(*args, **kw), 12) for _ in range(2))
     b2_ms = min(graph_ms(lambda i: opm.match_scores(words, rows), 12) for _ in range(2))
-    per_call = device_launches(lambda: tm._hash_topk_flat(*args, **kw))
+    per_call = graph_launches(lambda: tm._hash_topk_flat(*args, **kw))
     plain_epi = (lambda: tm._pack_hits_ref(*tm._topk_scores_ref(
         opm.match_scores(words, tm._hash_rows_ref(hi, lo, nk, s, pad_row)), cut, kk, d), kk, cap))
     plain_per_call = device_launches(plain_epi)
@@ -900,7 +907,7 @@ def match_epilogue(args, kw, baseline: BaselineLib | None = None) -> dict:
         resources = dict(new=resources, baseline=kernel_resources(baseline.path))
     return dict(
         Q=q, K=hi.shape[1], H=hi.shape[2], d=d, kk=kk, cap=cap, hint_cap=hint, calls=checked, kernels=res,
-        resources=resources,
+        merge_dense=merge_dense, resources=resources,
         kernels_per_call=per_call, plain_kernels_per_call=plain_per_call, whole_ms=whole_ms, b2_ms=b2_ms,
         b5_ms=sum(res[n]["ms"] for n in B5_KERNELS),
         b5_hint_cap_ms=sum(res[n]["ms"] for n in ("hash_rows", "threshold_topk", "pack_hits_hint_cap")),
@@ -1323,7 +1330,9 @@ def kernel_count(dev: dict) -> int:
 def device_launches(fn, calls: int = 3) -> int:
     """CUDA kernels one call of fn launches (torch.profiler): the count over
     `calls` calls in one profile, divided and rounded (a trace has been
-    seen to miss its first kernel)."""
+    seen to miss its first kernel). After phase 4's warm profiled match,
+    this process's profiles drop most kernels (PERF.md §6):
+    graph_launches counts a call that a CUDA graph can capture."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1333,6 +1342,38 @@ def device_launches(fn, calls: int = 3) -> int:
             fn()
         torch.cuda.synchronize()
     return round(kernel_count(device_table(prof)) / calls)
+
+
+def graph_launches(fn) -> int:
+    """CUDA kernels one call of fn launches, as a CUDA graph captures them:
+    the kernel nodes of a graph of one call (cudaGraphGetNodes and
+    cudaGraphNodeGetType, through the CUDA runtime torch loaded); exact
+    where the profiler's count is not (device_launches)."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")  # torch's, already loaded
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(g, None, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if rt.cudaGraphGetNodes(g, nodes, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    kind = ctypes.c_int(0)
+    kernels = 0
+    for node in nodes:
+        if rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cudaGraphNodeGetType failed")
+        kernels += kind.value == 0  # cudaGraphNodeTypeKernel
+    del graph
+    return kernels
 
 
 def launched_kernel(fn, key: str) -> dict:
@@ -1420,13 +1461,16 @@ class BaselineLib:
 
     def __init__(self, source: str, src: Path):
         import ctypes
+        import hashlib
 
         from phylign_tpu_torch.ops import _kernels
 
         out = ROOT / "build" / f"chip_smoke_baseline_{source}"
         out.mkdir(parents=True, exist_ok=True)
         self.source = source
-        self.path = out / f"libbaseline_{source}.so"
+        # one library a source text: the loader would hand a second copy at
+        # the same path back as the first
+        self.path = out / f"libbaseline_{source}_{hashlib.sha256(src.read_bytes()).hexdigest()[:12]}.so"
         res = subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(self.path), str(src)],
                              capture_output=True, text=True, timeout=900)
         if res.returncode:
@@ -1449,8 +1493,8 @@ class BaselineLib:
 def kernel_resources(lib: Path) -> dict:
     """Registers, stack, shared and local memory of each instance of the B5
     and B6 kernels in a built library (``cuobjdump -res-usage``): B5's
-    hash_rows, threshold_topk and pack_hits; B6a's chain_select<qpos,
-    index> and chain_select_warp<qpos, slots a lane>, B6b's
+    hash_rows, threshold_topk, pack_hits and merge_topk; B6a's
+    chain_select<qpos, index> and chain_select_warp<qpos, slots a lane>, B6b's
     select_window<n_sup, n_out>, B6c's finish_pack<one tile> and the
     compaction's compact_cold<n_out> (an older source's kernels by their
     own names and arguments); {} when cuobjdump is missing or prints no
@@ -1468,7 +1512,7 @@ def kernel_resources(lib: Path) -> dict:
     for name, reg, stack, shared, local in re.findall(
             r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", res.stdout):
         m = re.search(r"(select_window|compact_cold|chain_select_warp|chain_select|finish_pack|hash_rows"
-                      r"|threshold_topk|pack_hits)_kernel"
+                      r"|threshold_topk|pack_hits|merge_topk)_kernel"
                       r"(I(?:L[a-z]\d+E|[a-z])+E)?", name)
         if m:  # template arguments: a type letter, or L, its type's letter, the value, E
             args = ",".join(n or types.get(t, t) for n, t in re.findall(r"L[a-z](\d+)E|([a-z])",
@@ -2065,19 +2109,44 @@ def _same_hits(got, want) -> bool:
 #: the mesh's match epilogue: B5b on each doc shard, B5d merging them
 MESH_B5 = ("threshold_topk", "merge_topk")
 #: operations of B5d's function, counted from its plain version
-#: (_merge_topk_ref) where the data need them: a taken entry's place in the
-#: merge of nd sorted windows, ceil(log2 nd) compares, and the add of its
-#: shard's column offset
+#: (_merge_topk_ref) where the data need them: an output entry's place in
+#: the merge of nd sorted windows, ceil(log2 nd) compares, and the add of
+#: its shard's column offset
 B5D_ALU_ENTRY_PER_LEVEL, B5D_OTHER_ENTRY = 1, 1
 
 
-def merge_epilogue(windows, lims, w_loc: int, kk: int) -> dict:
-    """Kernel B5d at phase 8 (b)'s first merge (one query column of the
-    2x2 mesh): against _merge_topk_ref on the call's windows and on
-    ROTATION sets of them with the queries rolled, timed from CUDA graphs
-    over those sets beside its bound, the plain version (CUDA events, its
-    kernel count) and torch.topk over the gathered windows (the second
-    top-k of the parent's spelling; its library call)."""
+def merge_bytes(windows, lims, w_loc: int, kk: int, out_idx) -> dict:
+    """The bytes B5d's function must move on these windows: each shard's
+    counts read, the outputs written ([Q, kk] twice and n_keep), and of
+    the taken entries only those that reach the output (score and doc)
+    plus, for each row and shard that takes more than reach it, the score
+    of its first one left out (the compare that ends the merge there).
+    ``out_idx`` is the plain version's global doc ids."""
+    import torch
+
+    q = out_idx.shape[0]
+    reach = int((out_idx >= 0).sum())
+    edges = 0
+    for e, ((_, _, n), lim) in enumerate(zip(windows, lims)):
+        if n is not None:
+            used = ((out_idx >= e * w_loc) & (out_idx < (e + 1) * w_loc)).sum(1)
+            edges += int((used < torch.clamp(n, 0, lim)).sum())
+    counts = sum(w[2] is not None for w in windows)
+    return dict(reach=reach, edges=edges, bytes=8 * reach + 4 * edges + 4 * q * counts + 8 * q * kk + 4 * q)
+
+
+def merge_epilogue(windows, lims, w_loc: int, kk: int, baseline: BaselineLib | None = None) -> dict:
+    """Kernel B5d on one merge call (phase 8 (b)'s first merge, one query
+    column of the 2x2 mesh: few taken entries; or phase 4's dense call,
+    dist_topk's cut of 0 over two doc shards: every row takes kk from
+    each): against _merge_topk_ref on the call's windows and on ROTATION
+    sets of them with the queries rolled, timed from CUDA graphs over
+    those sets beside its bound, the plain version (CUDA events, its
+    kernels from a CUDA graph) and torch.topk over the gathered windows
+    (the second top-k of the parent's spelling; its library call). With
+    ``baseline``, its library's B5d is held to the plain version on every
+    set and timed beside this tree's in turns (baseline, new, new,
+    baseline)."""
     import torch
 
     from phylign_tpu_torch.models import matcher as tm
@@ -2087,9 +2156,12 @@ def merge_epilogue(windows, lims, w_loc: int, kk: int) -> dict:
     sets = [[tuple(None if t is None else torch.roll(t, (997 * i) % q, 0) for t in w) for w in windows]
             for i in range(ROTATION)]
     for ws in sets:
-        got, want = tm.merge_topk_cuda(ws, lims, w_loc, kk), tm._merge_topk_ref(ws, lims, w_loc, kk)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError("B5d merge_topk differs from its plain version")
+        want = tm._merge_topk_ref(ws, lims, w_loc, kk)
+        for who in ("", "the baseline's ") if baseline is not None else ("",):
+            with baseline.active() if who else contextlib.nullcontext():
+                got = tm.merge_topk_cuda(ws, lims, w_loc, kk)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{who}B5d merge_topk differs from its plain version")
     reps = 4 * ROTATION
     kern = lambda i: tm.merge_topk_cuda(sets[i], lims, w_loc, kk)  # noqa: E731
     plain = lambda i: tm._merge_topk_ref(sets[i], lims, w_loc, kk)  # noqa: E731
@@ -2103,20 +2175,45 @@ def merge_epilogue(windows, lims, w_loc: int, kk: int) -> dict:
         gathered.append(torch.cat(parts, dim=1))
     takes = sum(int(torch.clamp(n, 0, lim).sum()) for (_, _, n), lim in zip(windows, lims) if n is not None)
     levels = max(1, (nd - 1).bit_length())
-    b = bound(8 * takes + 4 * q * sum(w[2] is not None for w in windows) + 8 * q * kk + 4 * q,
-              B5D_ALU_ENTRY_PER_LEVEL * levels * takes, B5D_OTHER_ENTRY * takes)
+    need = merge_bytes(windows, lims, w_loc, kk, tm._merge_topk_ref(windows, lims, w_loc, kk)[1])
+    b = bound(need["bytes"], B5D_ALU_ENTRY_PER_LEVEL * levels * need["reach"] + need["edges"],
+              B5D_OTHER_ENTRY * need["reach"])
     ms = min(graph_ms(kern, reps, ROTATION) for _ in range(2))
-    return dict(
-        Q=q, shards=nd, w_loc=w_loc, kk=kk, lims=list(lims), taken=takes, ms=ms,
+    res = dict(
+        Q=q, shards=nd, w_loc=w_loc, kk=kk, lims=list(lims), taken=takes, reach_output=need["reach"],
+        edge_compares=need["edges"], ms=ms,
         plain_ms=min(cuda_ms(plain, reps, ROTATION) for _ in range(2)),
-        plain_launches=device_launches(lambda: plain(0)), max_abs_err=0,
+        plain_launches=graph_launches(lambda: plain(0)), max_abs_err=0,
         library_ms=min(graph_ms(lambda i: torch.topk(gathered[i], min(kk, gathered[i].shape[1]), dim=1), reps,
                                 ROTATION) for _ in range(2)),
         bound_share=b["bound_ms"] / ms, **b,
     )
+    if baseline is not None:
+        res.update(in_turns(baseline, kern, reps, ROTATION))
+        res["turns_bound_share"] = b["bound_ms"] / res["turns_new_ms"]
+        res["baseline_bound_share"] = b["bound_ms"] / res["baseline_ms"]
+    return res
 
 
-def phase_mesh(work: Path, label: str, p7: dict) -> dict:
+def dense_merge(scores, d: int, kk: int, baseline: BaselineLib | None = None) -> dict:
+    """B5d at dist_topk's cut of 0 on a call's scores split over two doc
+    shards (parallel/dist._shard_windows on a 2x1 mesh of the one card:
+    B5b on each shard, every row taking min(kk, w_loc) from each), timed
+    by merge_epilogue."""
+    from phylign_tpu_torch.parallel import dist
+    from phylign_tpu_torch.parallel.mesh import AXIS_DOC, AXIS_QUERY, make_mesh
+
+    mesh = make_mesh(2, 1, devices=["cuda:0"] * 2)
+    w_loc = scores.shape[1] // 2
+    kk = min(kk, 2 * min(kk, w_loc))
+    cells, lims = dist._shard_windows(mesh, dist.global_array(mesh, scores, (AXIS_QUERY, AXIS_DOC)), None, d, kk)
+    windows = [cells[(e, 0)] for e in range(2)]
+    if not all(int(n.min()) >= lim for (_, _, n), lim in zip(windows, lims)):
+        raise AssertionError("the dense merge's rows do not all take kk from each shard")
+    return merge_epilogue(windows, lims, w_loc, kk, baseline)
+
+
+def phase_mesh(work: Path, label: str, p7: dict, b5_base: BaselineLib | None = None) -> dict:
     """(b)-(e): the mesh through the port's entry points, each against the
     1x1 card run; kernel launches counted in each drive."""
     import socket
@@ -2184,7 +2281,7 @@ def phase_mesh(work: Path, label: str, p7: dict) -> dict:
         raise AssertionError(f"the 2x2 mesh did not launch B2, B5b and B5d: {counts['b']}")
     emit("mesh_match", mesh="2x2", devices=P8_MESH, batches=4, reads=len(seqs), hits=n_hits,
          one_device_s=one_s, mesh_s=mesh_s, launches=counts["b"], one_device="equal", card=label)
-    b5d = merge_epilogue(*merge_calls[0])
+    b5d = merge_epilogue(*merge_calls[0], b5_base)
     emit("mesh_merge", card=label, **b5d)
 
     # (c) phase 6's fixture through Pipeline.run_all on the 2x2 mesh
@@ -2540,22 +2637,25 @@ def phase_cli(work: Path, label: str, p7: dict, baseline: BaselineMatchKernels |
         if on_cut == 0 or not (nkn == 0).any():
             raise AssertionError(f"match_step at H={h}: no score on the cut ({on_cut}) or no empty query")
         new = lambda i: match_step(words, rows, nk, thr_h)  # noqa: E731
+        # the keep instance a query at 4 x Q (over one wave), beside Q's
+        g4 = torch.Generator(device="cuda").manual_seed(90 + h)
+        rows4 = case_rows(g4, 4 * P9_Q, P9_K, h)
+        nk4 = torch.randint(1, P9_K + 1, (4 * P9_Q,), generator=g4, device="cuda", dtype=torch.int32)
+        rows4[(slot[None, :] >= nk4[:, None])] = S
+        new4 = lambda i: match_step(words, rows4, nk4, thr_h)  # noqa: E731
         if baseline is not None:
             old = lambda i: baseline.keep(words, rows, nk, thr_h)  # noqa: E731
             if not all(torch.equal(a, b) for a, b in zip(old(0), (scores, keep))):
                 raise AssertionError(f"the baseline's keep instance at H={h} differs from match_step")
+            old4 = lambda i: baseline.keep(words, rows4, nk4, thr_h)  # noqa: E731
             turns = [(who, graph_ms(new if who == "new" else old, 20)) for who in ("baseline", "new", "new", "baseline")]
-            # the keep instance a query at 4 x Q (over one wave), beside Q's
-            g4 = torch.Generator(device="cuda").manual_seed(90 + h)
-            rows4 = case_rows(g4, 4 * P9_Q, P9_K, h)
-            nk4 = torch.randint(1, P9_K + 1, (4 * P9_Q,), generator=g4, device="cuda", dtype=torch.int32)
-            rows4[(slot[None, :] >= nk4[:, None])] = S
-            turns4 = [(who, graph_ms(lambda i: (match_step if who == "new" else baseline.keep)(words, rows4, nk4, thr_h),
-                                     20)) for who in ("baseline", "new", "new", "baseline")]
-            del rows4, nk4
+            turns4 = [(who, graph_ms(new4 if who == "new" else old4, 20)) for who in ("baseline", "new", "new", "baseline")]
         else:
             turns = [("new", graph_ms(new, 20))]
-            turns4 = []
+            turns4 = [("new", graph_ms(new4, 20))]
+        b4 = gather_bound(rows4, WP)
+        b4 = bound(b4["bytes"] + 4 * P9_Q * 32 * WP + 16 * P9_Q, 4 * P9_Q * P9_K * h * WP + 8 * P9_Q * 32 * WP)
+        del rows4, nk4
         # bytes: B1/B2's, the keep bytes and n_kmers; operations: an AND or
         # add a gathered word, a convert and a compare a column
         b = gather_bound(rows, WP)
@@ -2568,16 +2668,21 @@ def phase_cli(work: Path, label: str, p7: dict, baseline: BaselineMatchKernels |
                              kept=int(want.sum()), ms=ms,
                              baseline_ms=min((t for w, t in turns if w == "baseline"), default=None),
                              turns=turns, plain_ms=cuda_ms(lambda i: opm.match_scores_keep_ref(words, rows, nk, thr_h), 2),
-                             launches_per_call=device_launches(lambda: match_step(words, rows, nk, thr_h)),
+                             launches_per_call=graph_launches(lambda: match_step(words, rows, nk, thr_h)),
+                             profiler_launches_per_call=device_launches(lambda: match_step(words, rows, nk, thr_h)),
                              max_abs_err=0, bound_share=b["bound_ms"] / ms, **b)
-        if turns4:
-            step[f"h{h}"].update(q4_turns=turns4, q4_ms=min(t for w, t in turns4 if w == "new"),
-                                 q4_baseline_ms=min(t for w, t in turns4 if w == "baseline"),
-                                 q4_split=opm.keep_split(WP, P9_K, h, 4 * P9_Q, opm.resident_threads(words.device)))
-            for who in ("", "baseline_"):
-                step[f"h{h}"][f"{who}per_query_q_over_4q"] = 4 * step[f"h{h}"][f"{who}ms"] / step[f"h{h}"][f"q4_{who}ms"]
+        q4_ms = min(t for w, t in turns4 if w == "new")
+        step[f"h{h}"].update(q4_turns=turns4, q4_ms=q4_ms,
+                             q4_baseline_ms=min((t for w, t in turns4 if w == "baseline"), default=None),
+                             q4_split=opm.keep_split(WP, P9_K, h, 4 * P9_Q, opm.resident_threads(words.device)),
+                             q4_bound_ms=b4["bound_ms"], q4_bound_by=b4["bound_by"], q4_bytes=b4["bytes"],
+                             q4_bound_share=b4["bound_ms"] / q4_ms)
+        for who in ("", "baseline_") if baseline is not None else ("",):
+            step[f"h{h}"][f"{who}per_query_q_over_4q"] = 4 * step[f"h{h}"][f"{who}ms"] / step[f"h{h}"][f"q4_{who}ms"]
     del words
     torch.cuda.empty_cache()
+    if any(step[f"h{h}"]["launches_per_call"] != 1 for h in P9_STEP):
+        raise AssertionError(f"match_step's graph is not one kernel: {[step[f'h{h}']['launches_per_call'] for h in P9_STEP]}")
     if counts["f"]["match_popcount_keep"] != len(P9_STEP):
         raise AssertionError(f"match_step did not launch the keep instance once a call: {counts['f']}")
     res["f"] = dict(S=S, Wp=WP, **step, launches=counts["f"])
@@ -2941,7 +3046,7 @@ def main(argv: list[str] | None = None) -> int:
                     "time its B6a, B6b, B6c and compaction beside this tree's in phase 5")
     ap.add_argument("--baseline-match", type=Path, default=None,
                     help="an older csrc/match_epilogue.cu with this tree's C interface: "
-                    "time its B5a, B5b and B5c beside this tree's in phase 4")
+                    "time its B5a, B5b, B5c and B5d beside this tree's in phases 4 and 8")
     ap.add_argument("--align-kernels-only", action="store_true",
                     help="phase 5 only (no kernel table, no ok line)")
     ap.add_argument("--kernels-only", action="store_true",
@@ -2989,7 +3094,7 @@ def main(argv: list[str] | None = None) -> int:
         c6 = phase_fixture_all(work)
         c7, p7 = phase_align_geometry(work, label, args.profile)
         mkern = phase_mesh_kernels(label)
-        c8, b5d = phase_mesh(work, label, p7)
+        c8, b5d = phase_mesh(work, label, p7, b5_base)
         c9, c9_step = phase_cli(work, label, p7, baseline)
         c10, p10 = phase_oversized(work, label, baseline)
     finally:
@@ -3084,7 +3189,10 @@ def main(argv: list[str] | None = None) -> int:
         f"kk={b5d['kk']}", max_abs_err=b5d["max_abs_err"], ms=b5d["ms"], plain_ms=b5d["plain_ms"],
         plain_launches=b5d["plain_launches"], bound_ms=b5d["bound_ms"], bound_by=b5d["bound_by"],
         bound_share=b5d["bound_share"], bytes=b5d["bytes"], operations=b5d["operations"],
-        library_ms=b5d["library_ms"],
+        library_ms=b5d["library_ms"], baseline_ms=b5d.get("baseline_ms"),
+        **{f"dense_{k}": b5["merge_dense"].get(k) for k in (
+            "Q", "w_loc", "kk", "taken", "ms", "baseline_ms", "plain_ms", "plain_launches", "bound_ms",
+            "bound_by", "bound_share", "library_ms")},
     ))
     emit("runtime", script_s=time.perf_counter() - t_start, card=label)
     print(json.dumps({"kernels": table}), flush=True)

@@ -60,26 +60,45 @@
 //                       over the windows gathered from nd doc shards: each
 //                       shard's window is sorted (score desc, local doc asc)
 //                       with its qualifying count, shard e's docs are
-//                       columns [e w_loc, (e + 1) w_loc). A warp per query.
-//                       Each taken entry finds its rank in the merged
-//                       window: its position in its own window plus, in
-//                       every other window, the entries ahead of it by a
-//                       binary search (a shard before its own: scores >=
-//                       its score; after: scores > it), which is the order
-//                       (score desc, global doc asc) of jax.lax.top_k over
-//                       the gather in shard order. An entry ranked below kk
-//                       is written there, its doc plus e w_loc; ranks past
-//                       the takes get -1 and doc -1; n_keep is the sum of
-//                       the shards' counts (the psum of dist.py:155).
+//                       columns [e w_loc, (e + 1) w_loc). The merged window
+//                       is a stable descending sort of the takes in shard
+//                       order: (score desc, global doc asc), jax.lax.top_k's
+//                       order over the gather. A warp a query row, each on
+//                       its own (no block barrier); blocks of 8 rows,
+//                       halved while the blocks would not give every SM
+//                       one. Lane e loads shard e's count; n_keep is their
+//                       sum (the psum of dist.py:155), written once. A row
+//                       uses min(n_keep, lim, kk) entries of each shard. At
+//                       2 shards the first kMergeHeads entries of both
+//                       windows load with the counts; a row that uses no
+//                       more of either ranks them in registers (an entry's
+//                       place plus the other shard's entries ahead of it,
+//                       by shuffles), any other by merge path over the
+//                       windows in device memory: lane l finds the split
+//                       of its diagonal and merges a run of ceil(n / 32)
+//                       output ranks in order, shard 0 first on ties. At
+//                       more, an entry's rank is its place plus, in every
+//                       other window, the entries ahead of it by a binary
+//                       search in device memory (a shard before its own:
+//                       scores >= its score; after: >). The ranked entries
+//                       (docs plus e w_loc) go to the warp's slice of
+//                       shared memory, then the row goes out in 16-byte
+//                       stores, scalar stores for the head and tail, -1
+//                       and doc -1 from registers past the entries (in
+//                       chunks of kMergeChunk ranks past it). An empty row
+//                       ranks nothing and stores fillers only.
 //
 // What bounds it on an H100: bytes. B5b reads the [Q, 32 Wp] int32 score
 // matrix B1/B2 wrote (80 MB at Q = 9,216, Wp = 68) and writes the [Q, kk]
 // window; B5a reads the int64 hash halves (16 bytes a slot) and writes the
 // int32 rows; B5c reads n_keep and the taken entries and writes the flat
-// buffer. The design reads every score once in the usual case (n_keep <=
-// kk), keeps one row's work inside one warp (no block barrier, no atomics
-// to device memory), and launches each kernel once a call: 4 kernels a
-// _hash_topk_flat call with B1/B2, against about 59 torch kernels.
+// buffer; B5d writes the [Q, kk] windows whole, fillers included (most of
+// a sparse merge's bytes), and reads about the entries that reach them. The
+// design reads every score once in the usual case (n_keep <= kk), keeps
+// one row's work inside one warp (no atomics to device memory; B5c's
+// block barriers only share a tile's counts), and
+// launches each kernel once a call: 4 kernels a _hash_topk_flat call with
+// B1/B2, against about 59 torch kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -612,8 +631,19 @@ __global__ void __launch_bounds__(kPackThreads)
 // B5d: the merge of per-shard windows
 // ---------------------------------------------------------------------------
 
-constexpr int kMergeWarps = 8;
 constexpr int kMaxShards = 16;
+// rows a block at most (a warp a row, no block barrier)
+constexpr int kMergeRows = 8;
+// output ranks a warp builds in shared memory at once; a row of kk above
+// it goes out in chunks of it (its slice: 2 KB for each of values and doc
+// ids)
+constexpr int kMergeChunk = 508;
+// entries of each of 2 shards a row loads with its counts, and ranks in
+// registers when it uses no more of either
+constexpr int kMergeHeads = 4;
+// blocks of 8 rows an SM holds at once (at most 48 registers a thread):
+// 660 on an H100, so a sparse merge's 541 blocks run in one wave
+constexpr int kMergeMinBlocks = 5;
 
 // Shard e's window: vals, idx int32 rows of stride[e] words, the first
 // lim[e] entries of a row usable, sorted (score desc, doc asc); n_keep int32
@@ -626,10 +656,9 @@ struct Windows {
   int lim[kMaxShards];
 };
 
-__device__ __forceinline__ int merge_take(const Windows& w, int e, int64_t row) {
-  const int n = w.n_keep[e] ? w.n_keep[e][row] : 0;
-  return n < 0 ? 0 : (n < w.lim[e] ? n : w.lim[e]);
-}
+// Words of a warp's slice for each of values and doc ids: a chunk of
+// output ranks from any word of 16 bytes on, rounded to 16 bytes
+__host__ __device__ __forceinline__ int merge_slot(int chunk) { return (chunk + 6) & ~3; }
 
 // entries of a descending run v[0 .. n) above x (or at least x, when ge)
 __device__ __forceinline__ int count_ahead(const int32_t* v, int n, int32_t x, bool ge) {
@@ -643,38 +672,175 @@ __device__ __forceinline__ int count_ahead(const int32_t* v, int n, int32_t x, b
   return lo;
 }
 
-// Output: vals, idx int32 [Q, kk], n_keep int32 [Q].
-__global__ void __launch_bounds__(kMergeWarps * 32)
-    merge_topk_kernel(Windows w, int nd, int w_loc, int q, int kk, int32_t* __restrict__ vals,
-                      int32_t* __restrict__ idx, int32_t* __restrict__ n_keep) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
-  if (row >= q) return;
-  int32_t* vrow = vals + row * kk;
-  int32_t* irow = idx + row * kk;
-  int total = 0, n_sum = 0;
-  for (int e = 0; e < nd; e++) {
-    const int take = merge_take(w, e, row);
-    const int32_t* ve = w.vals[e] + row * w.stride[e];
-    const int32_t* ie = w.idx[e] + row * w.stride[e];
-    for (int j = lane; j < take; j += 32) {
-      const int32_t x = __ldg(ve + j);
-      int rank = j;
-      for (int f = 0; f < nd && rank < kk; f++)
-        if (f != e) rank += count_ahead(w.vals[f] + row * w.stride[f], merge_take(w, f, row), x, f < e);
-      if (rank < kk) {
-        vrow[rank] = x;
-        irow[rank] = __ldg(ie + j) + e * w_loc;
+// Output ranks [lo, hi) of the merge of two runs in device memory (a before
+// b on ties) into rv, ri (rank c at c - c0; doc ids plus add_a, add_b), by
+// merge path: lane l takes a run of ceil((hi - lo) / 32) ranks from its
+// diagonal's split and merges it in order, each head's score and doc
+// loaded together
+__device__ __forceinline__ void merge_two(const int32_t* __restrict__ av, const int32_t* __restrict__ ai,
+                                          int a, int add_a, const int32_t* __restrict__ bv,
+                                          const int32_t* __restrict__ bi, int b, int add_b, int lo, int hi,
+                                          int c0, int32_t* rv, int32_t* ri, int lane) {
+  const int per = (hi - lo + 31) >> 5;
+  int d = lo + lane * per;
+  const int d1 = min(d + per, hi);
+  if (d >= d1) return;
+  // a's entries among the first d outputs: a[i] is one iff a[i] >= b[d - 1 - i]
+  int i = max(0, d - b), i1 = min(d, a);
+  while (i < i1) {
+    const int mid = (i + i1) >> 1;
+    if (__ldg(av + mid) >= __ldg(bv + d - 1 - mid)) i = mid + 1;
+    else i1 = mid;
+  }
+  int j = d - i;
+  int32_t x = 0, xi = 0, y = 0, yi = 0;
+  if (i < a) {
+    x = __ldg(av + i);
+    xi = __ldg(ai + i);
+  }
+  if (j < b) {
+    y = __ldg(bv + j);
+    yi = __ldg(bi + j);
+  }
+  for (; d < d1; d++) {
+    if (j >= b || (i < a && x >= y)) {
+      rv[d - c0] = x;
+      ri[d - c0] = xi + add_a;
+      if (++i < a) {
+        x = __ldg(av + i);
+        xi = __ldg(ai + i);
+      }
+    } else {
+      rv[d - c0] = y;
+      ri[d - c0] = yi + add_b;
+      if (++j < b) {
+        y = __ldg(bv + j);
+        yi = __ldg(bi + j);
       }
     }
-    total += take;
-    n_sum += w.n_keep[e] ? w.n_keep[e][row] : 0;
   }
-  for (int r = total + lane; r < kk; r += 32) {
-    vrow[r] = -1;
-    irow[r] = -1;
+}
+
+// n output words of a row to device memory at dst, which sits at word m of
+// its 16 bytes: word k is s[m + k] (s 16-byte aligned) for k < nv, else -1
+// (a filler, from registers); 16-byte stores from dst's first 16-byte
+// boundary on, scalar stores for the head and tail; by one warp
+__device__ __forceinline__ void store_row(int32_t* __restrict__ dst, const int32_t* s, int n, int nv, int m,
+                                          int lane) {
+  const int head = min(n, (4 - m) & 3);
+  const int nb = (n - head) >> 2;
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  const int4* s4 = reinterpret_cast<const int4*>(s + m + head);
+  for (int g = lane; g < nb; g += 32) {
+    const int k = head + 4 * g;
+    int4 x = make_int4(-1, -1, -1, -1);
+    if (k < nv) {
+      x = s4[g];
+      if (k + 1 >= nv) x.y = -1;
+      if (k + 2 >= nv) x.z = -1;
+      if (k + 3 >= nv) x.w = -1;
+    }
+    d4[g] = x;
   }
-  if (lane == 0) n_keep[row] = n_sum;
+  const int tail = head + 4 * nb;
+  const int k = lane < head ? lane : (lane >= 4 && lane < 4 + n - tail ? tail + lane - 4 : -1);
+  if (k >= 0) dst[k] = k < nv ? s[m + k] : -1;
+}
+
+// Output: vals, idx int32 [Q, kk] (16-byte aligned), n_keep int32 [Q]. A
+// block of `rows` warps, a warp a query row, each warp on its own (no
+// block barrier); output ranks in chunks of `chunk`.
+__global__ void __launch_bounds__(kMergeRows * 32, kMergeMinBlocks)
+    merge_topk_kernel(Windows w, int nd, int w_loc, int q, int kk, int rows, int chunk,
+                      int32_t* __restrict__ vals, int32_t* __restrict__ idx, int32_t* __restrict__ n_keep) {
+  extern __shared__ int4 merge_smem[];
+  __shared__ int cnt_s[kMergeRows][kMaxShards];
+  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * rows + wp;
+  if (row >= q) return;
+  const int slot = merge_slot(chunk);
+  int32_t* rv = reinterpret_cast<int32_t*>(merge_smem) + 2 * wp * slot;
+  int32_t* ri = rv + slot;
+
+  // 1. the row's counts, lane e shard e's; n_keep, their sum. At 2 shards
+  // the heads load with them: lane l < 2 kMergeHeads holds entry l %
+  // kMergeHeads of shard l / kMergeHeads
+  const int32_t nk = lane < nd && w.n_keep[lane] ? __ldg(w.n_keep[lane] + row) : 0;
+  const int he = lane / kMergeHeads, hk = lane % kMergeHeads;
+  int32_t hv = 0, hid = 0;
+  if (nd == 2 && he < 2 && hk < w.lim[he]) {
+    hv = __ldg(w.vals[he] + row * w.stride[he] + hk);
+    hid = __ldg(w.idx[he] + row * w.stride[he] + hk);
+  }
+  const int c = lane < nd ? min(max(nk, 0), min(w.lim[lane], kk)) : 0;  // entries used
+  const int total = __reduce_add_sync(kFull, c);
+  const int sum = __reduce_add_sync(kFull, nk);
+  if (lane == 0) n_keep[row] = sum;
+  if (lane < nd) cnt_s[wp][lane] = c;
+  __syncwarp();
+
+  // 2. a row of 2 shards that uses at most kMergeHeads of each ranks its
+  // entries from the heads: its place in its run plus the other run's
+  // entries ahead of it (for shard 0: scores > its score; for shard 1: >=)
+  const int n0 = __shfl_sync(kFull, c, 0), n1 = __shfl_sync(kFull, c, 1);
+  const bool from_heads = nd == 2 && n0 <= kMergeHeads && n1 <= kMergeHeads;
+  int hrank = -1;
+  if (from_heads && total > 0) {  // the same for the whole warp
+    const int other = he ? n0 : n1;
+    int rank = hk;
+#pragma unroll
+    for (int m = 0; m < kMergeHeads; m++) {
+      const int32_t y = __shfl_sync(kFull, hv, (1 - he) * kMergeHeads + m);
+      rank += m < other && (he ? y >= hv : y > hv);
+    }
+    if (he < 2 && hk < (he ? n1 : n0)) hrank = rank;
+  }
+
+  // 3. each chunk of output ranks: the row's entries placed in the warp's
+  // slice (doc + e w_loc) at the row's word of 16 bytes, then the chunk
+  // written in 16-byte stores, fillers from registers past the entries. An
+  // empty row places nothing.
+  const int valid = min(total, kk);
+  for (int c0 = 0; c0 < kk; c0 += chunk) {
+    const int c1 = min(c0 + chunk, kk), hi = min(c1, valid);
+    const int64_t o = row * kk + c0;
+    const int m = (int)(o & 3);
+    if (hi > c0) {
+      if (from_heads) {
+        if (hrank >= c0 && hrank < hi) {
+          rv[m + hrank - c0] = hv;
+          ri[m + hrank - c0] = hid + he * w_loc;
+        }
+      } else if (nd == 2) {
+        merge_two(w.vals[0] + row * w.stride[0], w.idx[0] + row * w.stride[0], n0, 0,
+                  w.vals[1] + row * w.stride[1], w.idx[1] + row * w.stride[1], n1, w_loc, c0, hi, c0 - m, rv,
+                  ri, lane);
+      } else {
+        // an entry's rank: its place in its own run plus, in every other
+        // run, the entries ahead of it by a binary search (a shard before
+        // its own: scores >= its score; after: scores > it)
+        for (int e = 0; e < nd; e++) {
+          const int n = min(cnt_s[wp][e], hi);
+          const int32_t* ve = w.vals[e] + row * w.stride[e];
+          const int32_t* ie = w.idx[e] + row * w.stride[e];
+          for (int j = lane; j < n; j += 32) {
+            const int32_t x = __ldg(ve + j);
+            int rank = j;
+            for (int f = 0; f < nd && rank < hi; f++)
+              if (f != e) rank += count_ahead(w.vals[f] + row * w.stride[f], cnt_s[wp][f], x, f < e);
+            if (rank >= c0 && rank < hi) {
+              rv[m + rank - c0] = x;
+              ri[m + rank - c0] = __ldg(ie + j) + e * w_loc;
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+    store_row(vals + o, rv, c1 - c0, hi - c0, m, lane);
+    store_row(idx + o, ri, c1 - c0, hi - c0, m, lane);
+    if (c1 < kk) __syncwarp();
+  }
 }
 
 }  // namespace
@@ -750,13 +916,16 @@ int phylign_pack_hits(const void* vals, const void* idx, const void* n_keep,
 }
 
 // B5d. nd windows (vals[e], idx[e], n_keep[e], stride[e], lim[e]: see
-// Windows; nd <= kMaxShards); out_vals, out_idx int32 [Q, kk]; out_n int32
-// [Q]. The host arrays are read at the call.
+// Windows; nd <= kMaxShards); out_vals, out_idx int32 [Q, kk], 16-byte
+// aligned; out_n int32 [Q]. The host arrays are read at the call. Rows a
+// block: 8, halved while the blocks would not give every SM of the card
+// one; output ranks a chunk: kk, at most kMergeChunk.
 int phylign_merge_topk(int nd, const void* const* vals, const void* const* idx,
                        const void* const* n_keep, const int* stride, const int* lim, int w_loc,
                        int q, int kk, void* out_vals, void* out_idx, void* out_n, void* stream) {
   if (q <= 0) return 0;
-  if (nd < 1 || nd > kMaxShards || kk < 0 || w_loc < 0) return (int)cudaErrorInvalidValue;
+  if (nd < 1 || nd > kMaxShards || kk < 0 || w_loc < 0 || (((uintptr_t)out_vals | (uintptr_t)out_idx) & 15))
+    return (int)cudaErrorInvalidValue;
   Windows w{};
   for (int e = 0; e < nd; e++) {
     if (stride[e] < lim[e] || lim[e] < 0 || (lim[e] > 0 && (!vals[e] || !idx[e])))
@@ -767,9 +936,17 @@ int phylign_merge_topk(int nd, const void* const* vals, const void* const* idx,
     w.stride[e] = stride[e];
     w.lim[e] = lim[e];
   }
-  const unsigned grid = (unsigned)(((int64_t)q + kMergeWarps - 1) / kMergeWarps);
-  merge_topk_kernel<<<grid, kMergeWarps * 32, 0, (cudaStream_t)stream>>>(
-      w, nd, w_loc, q, kk, (int32_t*)out_vals, (int32_t*)out_idx, (int32_t*)out_n);
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  int rows = kMergeRows;
+  while (rows > 1 && ((int64_t)q + rows - 1) / rows < n_sm) rows >>= 1;
+  const int chunk = kk < 1 ? 1 : (kk < kMergeChunk ? kk : kMergeChunk);
+  const int smem = rows * 2 * merge_slot(chunk) * 4;
+  const unsigned grid = (unsigned)(((int64_t)q + rows - 1) / rows);
+  merge_topk_kernel<<<grid, rows * 32, smem, (cudaStream_t)stream>>>(
+      w, nd, w_loc, q, kk, rows, chunk, (int32_t*)out_vals, (int32_t*)out_idx, (int32_t*)out_n);
   return (int)cudaGetLastError();
 }
 

@@ -318,7 +318,10 @@ def merge_topk_cuda(
     """Kernel B5d (replaces the second ``jax.lax.top_k`` of
     ``phylign_tpu/parallel/dist.py:dist_topk``). CUDA tensors on one device
     only; same contract as _merge_topk_ref for up to MERGE_MAX_SHARDS
-    windows, each a contiguous [Q, W_e] pair."""
+    windows, each a contiguous [Q, W_e] pair. A warp a query row, blocks
+    of up to 8 (fewer where Q leaves an SM of the card without a block); at
+    2 shards ranks from each row's first entries or by merge path, at more
+    by binary searches; each row written in 16-byte stores."""
     nd = len(windows)
     tensors = [t for w in windows for t in w if t is not None]
     dev = _on_one_cuda_device("merge_topk", *tensors)

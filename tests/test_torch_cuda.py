@@ -1384,12 +1384,28 @@ def _windows(gen, dev, q, widths, lims, tie_vals, empty=()):
 @pytest.mark.parametrize(
     "q,nd,w_loc,kk,tie_vals,empty",
     [(50, 2, 64, 32, 4, ()), (50, 4, 64, 160, 3, (3,)), (9, 1, 300, 64, 50, ()),
-     (300, 16, 32, 40, 2, (5, 6)), (9216, 2, 1088, 160, 60, ()), (20, 3, 8, 64, 2, (0, 1, 2))],
+     (300, 16, 32, 40, 2, (5, 6)), (9216, 2, 1088, 160, 60, ()), (20, 3, 8, 64, 2, (0, 1, 2)),
+     # 16 x 64 entries a row, each ranked by 15 binary searches (blocks of
+     # 8 rows: Q >= 8 x 132)
+     (1100, 16, 64, 64, 2, ()),
+     # kk odd: blocks of one row, rows at every word offset
+     (37, 2, 100, 33, 5, ()),
+     # Q not a multiple of the block's 8 rows
+     (1061, 2, 64, 40, 4, ()),
+     # 16 shards, kk odd, blocks of 8 rows
+     (1100, 16, 24, 45, 3, (4,)),
+     # kk past a warp's slice: chunks of output ranks
+     (1100, 2, 600, 521, 50, ()),
+     # rows using at most 4 of each shard (ranked from their heads) beside
+     # rows using more
+     (1100, 2, 16, 32, 10, ())],
 )
 def test_merge_topk_equals_plain_version(cuda, q, nd, w_loc, kk, tie_vals, empty):
     """B5d against _merge_topk_ref bit for bit: long tie runs across the
     shards, empty shards, a window wider than the takes (kk > w_loc), the
-    main path's 2 shards of 1,088 columns at kk = 160."""
+    main path's 2 shards of 1,088 columns at kk = 160; the kernel's edges:
+    16 shards, rows off a 16-byte boundary, a last block short of rows, a
+    chunked output, rows ranked from their heads."""
     gen = torch.Generator(device=cuda).manual_seed(q + nd)
     lims = [0 if e in empty else min(kk, w_loc) for e in range(nd)]
     wins = _windows(gen, cuda, q, [w_loc] * nd, lims, tie_vals, empty)
@@ -1401,6 +1417,22 @@ def test_merge_topk_equals_plain_version(cuda, q, nd, w_loc, kk, tie_vals, empty
     want = tm._merge_topk_ref(wins, lims, w_loc, kk_out)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nd", [2, 5])
+def test_merge_topk_every_row_empty(cuda, nd):
+    """No row takes anything (a cut above every score): B5d writes fillers
+    only and n_keep 0, as _merge_topk_ref does."""
+    gen = torch.Generator(device=cuda).manual_seed(nd)
+    wins = []
+    for _ in range(nd):
+        sc = torch.randint(0, 4, (1500, 30), dtype=torch.int32, device=cuda, generator=gen)
+        wins.append(tm._topk_scores_ref(sc, torch.full((1500,), 4, dtype=torch.int32, device=cuda), 21, 30))
+    got = tm.merge_topk_cuda(wins, [21] * nd, 30, 21)
+    want = tm._merge_topk_ref(wins, [21] * nd, 30, 21)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[0] == -1).all() and (got[2] == 0).all()
 
 
 def test_dist_topk_on_card_equals_cpu(cuda):
