@@ -75,7 +75,13 @@ Phases, each printing one JSON line:
     against the plain versions, timed, with the plain versions' times and
     kernel counts, each kernel's launches per call and the registers and
     local memory of every B6 kernel instance (cuobjdump), and the whole
-    epilogue plain against B6 in turns;
+    epilogue plain against B6 in turns; B4's packed instance (2-bit codes
+    and [lo, hi) bounds read in the kernel) at the delegated extension's
+    shape (L = 256, band 128, the P of phase 7's delegated chunks: score,
+    plane and -A 200 -B 150 passes), bit-exact against extend_ref on the
+    unpacked inputs at every lane count, timed beside the parent's eager
+    unpack + mask + B4 from CUDA graphs (with that path's kernel count),
+    and the registers and local memory of every B4 instance;
   6 phase 3's fixture (with an assembly tar for its 3-hash batch) end to end
     through ``python -m phylign_tpu_torch.cli all`` on the card and again
     with ``--device cpu``: 05_map, sam_summary and stats must be identical,
@@ -85,7 +91,10 @@ Phases, each printing one JSON line:
     device_pair_chunk 16,384); >= 95% of the non-chimeric reads must map to
     their planted position, and a 2,048-read subset must give the same
     records on the CPU; with the needed cold rows of each flush (against
-    COLD_CAP), and under --profile each B6 kernel's device time a flush;
+    COLD_CAP), the delegated extension's passes (score and plane, each one
+    launch of B4's packed instance: equal counts, or the phase fails) and
+    their pair counts, and under --profile each B6 kernel's device time a
+    flush;
   8 the device mesh (parallel/) on the one card, every cell on cuda:0:
     (a) B1/B2 on the doc-shard slices of phase 2's geometry (68 words pad
     to 80 at 2 doc shards, 40 a shard), bit-exact and timed; (b) phase 4's
@@ -166,6 +175,7 @@ SOURCE = {
     "match_popcount_b2": "phylign_tpu_torch/csrc/match_popcount.cu",
     "chain_scan": "phylign_tpu_torch/csrc/chain_scan.cu",
     "extend_scan": "phylign_tpu_torch/csrc/extend_scan.cu",
+    "extend_scan_packed": "phylign_tpu_torch/csrc/extend_scan.cu",
     "chain_select": "phylign_tpu_torch/csrc/flush_epilogue.cu",
     "select_window": "phylign_tpu_torch/csrc/flush_epilogue.cu",
     "finish_pack": "phylign_tpu_torch/csrc/flush_epilogue.cu",
@@ -183,6 +193,9 @@ REPLACES = {
     # XLA scans, not Pallas kernels: the lax.scan of each function
     "chain_scan": "phylign_tpu/ops/chain.py:181",
     "extend_scan": "phylign_tpu/ops/extend.py:237",
+    # the jitted programs of the delegated extension around the scan
+    # (extend_banded_scores_packed and extend_banded_packed, :118-151)
+    "extend_scan_packed": "phylign_tpu/ops/extend.py:118",
     # B6, the jitted flush epilogue (phylign_tpu/align/fused.py:377): the
     # chain tail compiled after the scan, the selection, the checks and
     # packing, the compaction
@@ -945,6 +958,18 @@ B4_CASES = [
 ]
 #: the case of each align kernel in the kernel table: its main-path call
 MAIN_ALIGN_CASE = {"chain_scan": "b3_a32", "extend_scan": "b4_score"}
+#: the delegated extension's pairs a pass (engine._extend_items: a chunk
+#: of gapped primaries, supplementary segments and MAPQ probes, bucketed to
+#: a power of two): of phase 7's 4 score and 4 plane passes at L = 256, 3
+#: of each run P = 512 and 1 P = 256 (NVIDIA H100 80GB HBM3, 700.00 W)
+DELEGATED_P = 512
+#: phase 5's cases of B4's packed instance: (name, P, L, band, plane,
+#: scoring): the delegated chunk's shape (150 bp reads in L = 256 rows)
+B4P_CASES = [
+    ("b4p_score", DELEGATED_P, 256, 128, False, "sr"),
+    ("b4p_plane", DELEGATED_P, 256, 128, True, "sr"),
+    ("b4p_wide", DELEGATED_P, 256, 128, False, "wide"),
+]
 #: -A 200 -B 150: match and mismatch outside a signed byte (B4's int32
 #: substitution)
 WIDE_SCORING = (200, 150)
@@ -1220,6 +1245,7 @@ def phase_align_kernels(label: str, pr4: Pr4AlignKernels | None) -> dict:
         emit("align_kernels", case=name, card=label, **row)
         del sets
     out["b4_wide"] = wide_scoring(rng, label)
+    out.update(packed_extension(rng, label))
     torch.cuda.empty_cache()
     return out
 
@@ -1263,6 +1289,136 @@ def wide_scoring(rng, label: str) -> dict:
                sr_byte_ms=min(t for w, t in times if w == "byte"), times=times)
     emit("align_kernels", case="b4_wide", card=label, **row)
     return row
+
+
+def packed_inputs(rng, p: int, l: int, band: int):
+    """extend_inputs' reads as the delegated extension uploads them: codes
+    2-bit packed, the window's contig bounds [lo, hi) (the left edge cut in
+    1 of 16 windows, the right in another 1 of 16), the last eighth of the
+    rows padding as _extend_dispatch pads a chunk (q_len 0, lo = hi = 0).
+    Returns (q, q_len, r, mask, q_pack, r_pack, lo, hi)."""
+    import numpy as np
+
+    from phylign_tpu_torch.ops import extend as ope
+
+    wlen = l + band
+    q, q_len, r, _ = extend_inputs(rng, p, l, band)
+    rows = np.arange(p)
+    lo = np.where(rows % 16 == 5, band // 4, 0).astype(np.int32)
+    hi = np.where(rows % 16 == 9, wlen - band // 4, wlen).astype(np.int32)
+    pad = rows >= p - p // 8
+    q[pad], q_len[pad], r[pad], lo[pad], hi[pad] = 0, 0, 0, 0, 0
+    v = (np.arange(wlen)[None, :] >= lo[:, None]) & (np.arange(wlen)[None, :] < hi[:, None])
+    return q, q_len, r, v, ope.pack2bit(q), ope.pack2bit(r), lo, hi
+
+
+def b4p_bound(q_len, p: int, l: int, band: int, plane: bool) -> dict:
+    """b4_bound's operations; bytes: the packs, q_len, lo, hi, score, end_d
+    (and the plane) once each."""
+    rows = p * l if plane else int(q_len.clip(0, l).sum())
+    nbytes = p * (-(-l // 4) + 4 + -(-(l + band) // 4) + 8 + 8) + (4 * p * l * band if plane else 0)
+    return bound(nbytes, rows * band * B4_ALU_CELL, rows * band * B4_OTHER_CELL)
+
+
+def eager_packed(q_pack, q_len, r_pack, lo, hi, l: int, wlen: int, scoring, plane: bool):
+    """The parent's delegated pass: the packs unpacked and the mask built by
+    torch ops on the card, then B4's unpacked instance."""
+    from phylign_tpu_torch.ops import extend as ope
+
+    q, r = ope._unpack2bit(q_pack, l), ope._unpack2bit(r_pack, wlen)
+    return ope.extend_cuda(q, q_len, r, ope._window_mask(lo, hi, wlen), scoring, plane)
+
+
+def extend_resources() -> dict:
+    """Registers, stack and local memory of every B4 instance in the built
+    library, by <lanes, cells a lane, wide, packed>; fails when a packed
+    instance spills (local memory or a stack) or when the packed and
+    unpacked instances of one geometry differ in local memory."""
+    import re
+
+    from phylign_tpu_torch.ops import _kernels
+
+    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-res-usage", str(_kernels.build("extend_scan"))], capture_output=True,
+                         text=True, timeout=120)
+    out = {}
+    for name, reg, stack, local in re.findall(
+            r"Function (\S*extend_scan_kernel\S*):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", res.stdout):
+        args = ",".join(re.findall(r"L[a-z](\d+)E", name))
+        out[f"extend_scan<{args}>"] = dict(registers=int(reg), stack_bytes=int(stack), local_bytes=int(local))
+    if len(out) != 28:
+        raise AssertionError(f"cuobjdump listed {len(out)} B4 instances, not 28: {sorted(out)}\n{res.stdout[-2000:]}")
+    for k, v in out.items():
+        twin = out[k[:-2] + "0>"]
+        if k.endswith(",1>") and (v["local_bytes"] or v["stack_bytes"] or twin["local_bytes"] != v["local_bytes"]):
+            raise AssertionError(f"B4's packed instance {k} spills: {v} (unpacked: {twin})")
+    return out
+
+
+def packed_extension(rng, label: str) -> dict:
+    """B4's packed instance at the delegated extension's shape (B4P_CASES):
+    bit-exact against extend_ref on the unpacked inputs at every lane count
+    (and against the parent's eager path), one launch a call; timed from
+    CUDA graphs over ROTATION input sets beside the parent's eager unpack
+    + mask + B4 (turns eager, packed, packed, eager), with that path's
+    kernels a call; the plain version (the unpack, the mask and
+    extend_ref) over 2 calls."""
+    import torch
+
+    from phylign_tpu_torch.ops import extend as ope
+
+    out = {}
+    resources = extend_resources()
+    emit("align_kernels", case="b4_resources", card=label, instances=resources)
+    for name, p, l, band, plane, kind in B4P_CASES:
+        wlen = l + band
+        scoring = ope.SrScoring(*WIDE_SCORING) if kind == "wide" else ope.SrScoring()
+        host = [packed_inputs(rng, p, l, band) for _ in range(ROTATION)]
+        sets = [[torch.from_numpy(x).cuda() for x in h] for h in host]
+        packs = [s[4:5] + s[1:2] + s[5:] for s in sets]  # q_pack, q_len, r_pack, lo, hi
+        err = 0.0
+        for s, pk in zip(sets, packs):
+            want = ope.extend_ref(*s[:4], scoring, collect_plane=plane)
+            runs = {g: ope.extend_cuda_packed(*pk, l, wlen, scoring, plane, lanes=g) for g in ope.KERNEL_LANES[band]}
+            runs["eager"] = eager_packed(*pk, l, wlen, scoring, plane)
+            torch.cuda.synchronize()
+            for g, got in runs.items():
+                err = max([err] + [max_abs_diff(x, y) for x, y in zip(got, want)])
+                if err != 0 or not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"{name}: extend_scan_packed ({g}) differs from extend_ref (max |err| {err})")
+            if int((want.score >= 125 * scoring.match).sum()) < p // 2:
+                raise AssertionError(f"{name}: planted reads did not score as aligned")
+
+        def packed(i):
+            return ope.extend_cuda_packed(*packs[i], l, wlen, scoring, plane)
+
+        def eager(i):
+            return eager_packed(*packs[i], l, wlen, scoring, plane)
+
+        turns = [(who, graph_ms(packed if who == "packed" else eager, 4 * ROTATION, ROTATION))
+                 for who in ("eager", "packed", "packed", "eager")]
+        g0 = ope.extend_lanes(band, plane)
+        row = dict(kernel="extend_scan_packed", P=p, L=l, band=band, plane=plane, scoring=kind,
+                   max_abs_err=err, lanes=g0, cells_per_lane=band // g0,
+                   blocks=-(-p // (ope.BLOCK_THREADS // g0)), checked_lanes=list(ope.KERNEL_LANES[band]),
+                   ms=min(t for w, t in turns if w == "packed"),
+                   parent_eager_ms=min(t for w, t in turns if w == "eager"), turns=turns,
+                   kernels_per_call=graph_launches(lambda: packed(0)),
+                   parent_eager_kernels_per_call=graph_launches(lambda: eager(0)))
+        if row["kernels_per_call"] != 1:
+            raise AssertionError(f"{name}: the packed pass launched {row['kernels_per_call']} kernels, not 1")
+        row["plain_ms"] = cuda_ms(lambda i: ope.extend_ref(
+            ope._unpack2bit(packs[i][0], l), packs[i][1], ope._unpack2bit(packs[i][2], wlen),
+            ope._window_mask(packs[i][3], packs[i][4], wlen), scoring, plane), 2, 2)
+        bounds = [b4p_bound(h[1], p, l, band, plane) for h in host]
+        row.update({k: (sum(b[k] for b in bounds) / len(bounds) if k != "bound_by" else bounds[0][k]) for k in bounds[0]})
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["resources"] = {k: v for k, v in resources.items() if k.startswith(f"extend_scan<{g0},{band // g0},"
+                                                                                f"{int(kind == 'wide')},")}
+        out[name] = row
+        emit("align_kernels", case=name, rotation=ROTATION, card=label, **row)
+        del sets, packs
+    return out
 
 
 # --- phase 5 (B6): the flush epilogue's kernels ---------------------------------
@@ -1741,7 +1897,9 @@ def _counting_modules() -> tuple:
 
 
 def _kernel_counts() -> dict:
-    return {k: v for m in _counting_modules() for k, v in m.launch_counts().items()}
+    """Launches by kernel since the last reset, every kernel of SOURCE
+    listed (a counter lists some names only once launched)."""
+    return {**dict.fromkeys(SOURCE, 0), **{k: v for m in _counting_modules() for k, v in m.launch_counts().items()}}
 
 
 def _reset_counts() -> None:
@@ -1971,12 +2129,26 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
         return compact(sel)
 
     fz.compact_cold_cuda = count_need
+    # the delegated extension's passes (engine._extend_items): (pass, P)
+    from phylign_tpu_torch.ops import extend as ope
+
+    delegated, entries = [], (ope.extend_banded_scores_packed, ope.extend_banded_packed)
+
+    def passes(kind, fn):
+        def run(q_pack, *a, **kw):
+            delegated.append((kind, int(q_pack.shape[0]), int(a[4])))
+            return fn(q_pack, *a, **kw)
+        return run
+
+    ope.extend_banded_scores_packed = passes("score", entries[0])
+    ope.extend_banded_packed = passes("plane", entries[1])
     t0 = time.perf_counter()
     try:
         maps = pl.align(stem)
         torch.cuda.synchronize()
     finally:
         fz.compact_cold_cuda = compact
+        ope.extend_banded_scores_packed, ope.extend_banded_packed = entries
     align_s = time.perf_counter() - t0
     cold_rows = [dict(pairs=n, needed=int(c)) for n, c in cold_need]
     counts = _kernel_counts()
@@ -1987,6 +2159,13 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
     report_s = time.perf_counter() - t1
     if not all(counts[k] for k in ALIGN_KERNELS):
         raise AssertionError(f"the align stage did not launch B3, B4 and B6: {counts}")
+    if not delegated or counts["extend_scan_packed"] != len(delegated):
+        raise AssertionError(f"{len(delegated)} delegated extension passes launched "
+                             f"{counts['extend_scan_packed']} packed B4 kernels")
+    dele = {kind: dict(passes=sum(k == kind for k, _, _ in delegated),
+                       passes_by_P_L={f"{pp}x{ll}": sum(x == (kind, pp, ll) for x in delegated)
+                                      for pp, ll in sorted({(pp, ll) for k, pp, ll in delegated if k == kind})})
+            for kind in ("score", "plane")}
     # every planted (non-chimeric) read at its position, on its strand
     placed = {}
     for line in gzip.open(summary, "rt"):
@@ -2016,6 +2195,7 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
         pair_chunk=pl.cfg.device_pair_chunk, setup_s=setup_s, align_s=align_s,
         pairs_per_s=pairs / align_s, reads_per_s=P7_READS / align_s, aggregate_stats_s=report_s,
         peak_device_mb=peak_mb, launches=counts, cold_rows_per_flush=cold_rows, cold_cap=fz.COLD_CAP,
+        delegated=dele, delegated_packed_launches=counts["extend_scan_packed"],
         cold_overflows=sum(r["needed"] > fz.COLD_CAP for r in cold_rows),
         planted=len(planted), placed=hit, placed_frac=frac,
         cpu_subset_reads=P7_SUBSET, cpu_subset_s=cpu_s, cpu_subset="identical",
@@ -2295,8 +2475,10 @@ def phase_mesh(work: Path, label: str, p7: dict, b5_base: BaselineLib | None = N
         raise AssertionError(f"fixture on the 2x2 mesh differs from phase 6 in {[k for k in want if got.get(k) != want[k]]}")
     # a mesh ships the full cold rows (no compaction) and packs its hits on
     # the host (no B5a, B5c), as the JAX mesh path does; the accumulating
-    # and keep instances belong to the chunked pass and match_step
-    off_path = ("compact_cold", "hash_rows", "pack_hits", "match_popcount_acc", "match_popcount_keep")
+    # and keep instances belong to the chunked pass and match_step; the
+    # fixture's reads delegate no extension (none in phase 6 either)
+    off_path = ("compact_cold", "hash_rows", "pack_hits", "match_popcount_acc", "match_popcount_keep",
+                "extend_scan_packed")
     if not all(v for k, v in counts["c"].items() if k not in off_path):
         raise AssertionError(f"the fixture on the 2x2 mesh did not launch every kernel: {counts['c']}")
     emit("mesh_fixture", mesh="2x2", files=len(got), seconds=secs, launches=counts["c"],
@@ -3130,6 +3312,21 @@ def main(argv: list[str] | None = None) -> int:
             bound_share=k["bound_share"], bytes=k["bytes"], operations=k["operations"],
             library_ms=None, **shard(name),
         ))
+    k, kp, kw = akern["b4p_score"], akern["b4p_plane"], akern["b4p_wide"]
+    table.append(dict(
+        name="extend_scan_packed", route="cuda", source=SOURCE["extend_scan_packed"],
+        replaces=REPLACES["extend_scan_packed"], launches=sum(c["extend_scan_packed"] for c in (c6, c7, c8, c9)),
+        launches_phase6=c6["extend_scan_packed"], launches_phase7=c7["extend_scan_packed"],
+        launches_phase8=c8["extend_scan_packed"], launches_phase9=c9["extend_scan_packed"],
+        case=f"b4p_score: P={k['P']}, L={k['L']}, band {k['band']}, score-only, {k['lanes']} lanes",
+        max_abs_err=max(v["max_abs_err"] for v in (k, kp, kw)), ms=k["ms"], plain_ms=k["plain_ms"],
+        bound_ms=k["bound_ms"], bound_by=k["bound_by"], bound_share=k["bound_share"], bytes=k["bytes"],
+        operations=k["operations"], library_ms=None, parent_eager_ms=k["parent_eager_ms"],
+        parent_eager_kernels=k["parent_eager_kernels_per_call"],
+        **{f"plane_{x}": kp[x] for x in ("P", "ms", "parent_eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                          "bound_share")},
+        **{f"wide_{x}": kw[x] for x in ("ms", "parent_eager_ms", "bound_ms", "bound_share")},
+    ))
     for name, case in MAIN_B6_CASE.items():
         k = fkern[case] if name == "chain_select" else fkern[case][name]
         checked = [v for v in fkern.values() if v.get("kernel") == ("chain_select" if name == "chain_select"

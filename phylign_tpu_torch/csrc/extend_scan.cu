@@ -14,6 +14,18 @@
 //   end_d   int32 [P]              its band offset, the lowest on ties
 //   plane   f32 [P, L, band]       with `collect`: P = max(diag, I1, I2) of
 //                                  every cell, the traceback's input
+// The packed instance (phylign_extend_scan_packed) replaces the jitted
+// programs phylign_tpu/ops/extend.py:extend_banded_scores_packed and
+// extend_banded_packed, whose unpack and mask XLA fuses into the scan's
+// reads. It takes the delegated extension's upload as it comes:
+//   q_pack  uint8 [P, ceil(L/4)]   query codes, 4 a byte (code j in bits
+//                                  2*(j%4) of byte j/4: ops/extend.pack2bit)
+//   r_pack  uint8 [P, ceil((L + band)/4)]  ref window codes, the same way
+//   lo, hi  int32 [P]              column j lies in the contig iff
+//                                  lo <= j < hi (lo >= hi: none does)
+// and reads code j and its validity in registers where the unpacked
+// instances load rwin[j] and rvalid[j]: the prologue's selectors, the new
+// window column a row and the query code a row. Nothing else differs.
 // Glocal: row -1 is all zeros (free leading ref overhang). Per row,
 // H = max(P, D1, D2) with insertions from row i-1 at d+1 and deletions as
 // an exclusive prefix max of the keyed values P[d'] + d'*e.
@@ -106,9 +118,16 @@ __device__ __forceinline__ float to_f32(int v) {
   return v < kT ? kNeg : __int2float_rn(v);
 }
 
+// code j of a 2-bit packed row: bits 2*(j%4) of byte j/4
+__device__ __forceinline__ uint8_t code2(const uint8_t* row, int j) {
+  return (row[j >> 2] >> (2 * (j & 3))) & 3;
+}
+
 // at 16 cells a lane the compiler takes ~180 registers, 2 blocks an SM;
-// capped for 3 blocks (no spill; measured faster on the score pass)
-template <int G, int CPL, bool kWide>
+// capped for 3 blocks (no spill; measured faster on the score pass).
+// kPacked: q and rwin are 2-bit packed rows and the window's validity is
+// [lo, hi) (rvalid unused); otherwise lo and hi are unused.
+template <int G, int CPL, bool kWide, bool kPacked>
 __global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
     extend_scan_kernel(const uint8_t* __restrict__ q,
                        const int32_t* __restrict__ q_len,
@@ -116,7 +135,9 @@ __global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
                        const uint8_t* __restrict__ rvalid, int p, int l,
                        IScoring sc, int collect, float* __restrict__ score,
                        int32_t* __restrict__ end_d,
-                       float* __restrict__ plane) {
+                       float* __restrict__ plane,
+                       const int32_t* __restrict__ lo_col,
+                       const int32_t* __restrict__ hi_col) {
   constexpr int band = G * CPL;
   const int lane = threadIdx.x & 31;
   const int t = lane & (G - 1);  // lane within the pair's group
@@ -124,9 +145,16 @@ __global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
   const int pair = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
   if (pair >= p) return;  // group-uniform
   const int wlen = l + band;
-  const uint8_t* qrow = q + (int64_t)pair * l;
-  const uint8_t* rrow = rwin + (int64_t)pair * wlen;
-  const uint8_t* vrow = rvalid + (int64_t)pair * wlen;
+  // a packed row of n codes is ceil(n/4) bytes
+  const uint8_t* qrow = q + (int64_t)pair * (kPacked ? (l + 3) >> 2 : l);
+  const uint8_t* rrow = rwin + (int64_t)pair * (kPacked ? (wlen + 3) >> 2 : wlen);
+  const uint8_t* vrow = kPacked ? nullptr : rvalid + (int64_t)pair * wlen;
+  const int lo = kPacked ? lo_col[pair] : 0, hi = kPacked ? hi_col[pair] : 0;
+  // query code i, window column j's code and whether it lies in the contig
+  // (j < wlen and i < l: the packing's padding codes are never read)
+  auto query_code = [&](int i) -> uint8_t { return kPacked ? code2(qrow, i) : qrow[i]; };
+  auto window_code = [&](int j) -> uint8_t { return kPacked ? code2(rrow, j) : rrow[j]; };
+  auto window_valid = [&](int j) -> uint8_t { return kPacked ? (j >= lo && j < hi) : vrow[j]; };
   const int qlen = q_len[pair];
   const int rows = collect ? l : min(l, max(qlen, 0));
   const int d0 = t * CPL;
@@ -141,20 +169,20 @@ __global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
     h[c] = 0;
     i1[c] = kS;
     i2[c] = kS;
-    sel[c] = column_sel(rrow[d0 + c], vrow[d0 + c]);
+    sel[c] = column_sel(window_code(d0 + c), window_valid(d0 + c));
   }
   float best = kNeg;
   int best_d = 0;
   // the next row's query code and new window column, loaded a row ahead
-  uint8_t qc_next = rows > 0 ? qrow[0] : 0;
-  uint8_t code_next = rrow[band], valid_next = vrow[band];
+  uint8_t qc_next = rows > 0 ? query_code(0) : 0;
+  uint8_t code_next = window_code(band), valid_next = window_valid(band);
 
   for (int i = 0; i < rows; i++) {
     const uint8_t qc = qc_next, code = code_next, valid = valid_next;
     if (i + 1 < rows) {
-      qc_next = qrow[i + 1];
-      code_next = rrow[i + band];
-      valid_next = vrow[i + band];
+      qc_next = query_code(i + 1);
+      code_next = window_code(i + band);
+      valid_next = window_valid(i + band);
     }
     if (i > 0) {  // slide the window one column: cell d takes cell d+1's
       const unsigned nxt = __shfl_down_sync(gmask, sel[0], 1, G);
@@ -242,39 +270,34 @@ __global__ void __launch_bounds__(128, CPL >= 16 ? 3 : 1)
   }
 }
 
-template <int G, int CPL>
+template <int G, int CPL, bool kPacked>
 cudaError_t launch(const void* q, const void* q_len, const void* rwin,
-                   const void* rvalid, int p, int l, const IScoring& sc,
-                   int wide, int collect, void* score, void* end_d,
-                   void* plane, void* stream) {
+                   const void* rvalid, const void* lo, const void* hi, int p,
+                   int l, const IScoring& sc, int wide, int collect,
+                   void* score, void* end_d, void* plane, void* stream) {
   constexpr int kThreads = 128;
   const unsigned grid = (unsigned)((p + kThreads / G - 1) / (kThreads / G));
   if (wide)
-    extend_scan_kernel<G, CPL, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    extend_scan_kernel<G, CPL, true, kPacked><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)q, (const int32_t*)q_len, (const uint8_t*)rwin,
         (const uint8_t*)rvalid, p, l, sc, collect, (float*)score,
-        (int32_t*)end_d, (float*)plane);
+        (int32_t*)end_d, (float*)plane, (const int32_t*)lo, (const int32_t*)hi);
   else
-    extend_scan_kernel<G, CPL, false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    extend_scan_kernel<G, CPL, false, kPacked><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)q, (const int32_t*)q_len, (const uint8_t*)rwin,
         (const uint8_t*)rvalid, p, l, sc, collect, (float*)score,
-        (int32_t*)end_d, (float*)plane);
+        (int32_t*)end_d, (float*)plane, (const int32_t*)lo, (const int32_t*)hi);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Returns a cudaError_t (0 on success). (band, lanes) must be one of the
-// instances below; the scoring values are the integers the wrapper checked.
-// wide = 0 takes the byte-permute substitution (match <= 127, mismatch <=
-// 128), wide = 1 the int32 one (any scoring).
-int phylign_extend_scan(const void* q, const void* q_len, const void* rwin,
-                        const void* rvalid, int p, int l, int band, int lanes,
-                        int match, int mismatch, int o1, int e1, int o2,
-                        int e2, int open1, int open2, int wide, int collect,
-                        void* score, void* end_d, void* plane, void* stream) {
+// checks the arguments and launches the (band, lanes) instance
+template <bool kPacked>
+int extend_scan(const void* q, const void* q_len, const void* rwin,
+                const void* rvalid, const void* lo, const void* hi, int p,
+                int l, int band, int lanes, int match, int mismatch, int o1,
+                int e1, int o2, int e2, int open1, int open2, int wide,
+                int collect, void* score, void* end_d, void* plane,
+                void* stream) {
   if (p <= 0) return 0;
   if (l < 1 || match < 0 || mismatch < 0 ||
       (!wide && (match > 127 || mismatch > 128)) ||
@@ -285,8 +308,9 @@ int phylign_extend_scan(const void* q, const void* q_len, const void* rwin,
                     mis * 0x01010101u, ((unsigned)match ^ mis) & 0xffu};
 #define PHYLIGN_B4(G, B)                                                      \
   if (lanes == G && band == B)                                                \
-    return (int)launch<G, B / G>(q, q_len, rwin, rvalid, p, l, sc, wide,     \
-                                 collect, score, end_d, plane, stream);
+    return (int)launch<G, B / G, kPacked>(q, q_len, rwin, rvalid, lo, hi, p,  \
+                                          l, sc, wide, collect, score, end_d, \
+                                          plane, stream);
   PHYLIGN_B4(8, 128)
   PHYLIGN_B4(16, 128)
   PHYLIGN_B4(32, 128)
@@ -296,6 +320,39 @@ int phylign_extend_scan(const void* q, const void* q_len, const void* rwin,
   PHYLIGN_B4(32, 512)
 #undef PHYLIGN_B4
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns a cudaError_t (0 on success). (band, lanes) must be one of the
+// instances above; the scoring values are the integers the wrapper checked.
+// wide = 0 takes the byte-permute substitution (match <= 127, mismatch <=
+// 128), wide = 1 the int32 one (any scoring).
+int phylign_extend_scan(const void* q, const void* q_len, const void* rwin,
+                        const void* rvalid, int p, int l, int band, int lanes,
+                        int match, int mismatch, int o1, int e1, int o2,
+                        int e2, int open1, int open2, int wide, int collect,
+                        void* score, void* end_d, void* plane, void* stream) {
+  return extend_scan<false>(q, q_len, rwin, rvalid, nullptr, nullptr, p, l,
+                            band, lanes, match, mismatch, o1, e1, o2, e2,
+                            open1, open2, wide, collect, score, end_d, plane,
+                            stream);
+}
+
+// The same from the 2-bit packed rows q_pack [P, ceil(l/4)] and r_pack
+// [P, ceil((l + band)/4)] and the window bounds lo, hi [P].
+int phylign_extend_scan_packed(const void* q_pack, const void* q_len,
+                               const void* r_pack, const void* lo,
+                               const void* hi, int p, int l, int band,
+                               int lanes, int match, int mismatch, int o1,
+                               int e1, int o2, int e2, int open1, int open2,
+                               int wide, int collect, void* score,
+                               void* end_d, void* plane, void* stream) {
+  return extend_scan<true>(q_pack, q_len, r_pack, nullptr, lo, hi, p, l, band,
+                           lanes, match, mismatch, o1, e1, o2, e2, open1,
+                           open2, wide, collect, score, end_d, plane, stream);
 }
 
 const char* phylign_cuda_error_string(int err) {

@@ -174,6 +174,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         # q, q_len, rwin, rvalid, p, l, band, lanes, match, mismatch, o1,
         # e1, o2, e2, open1, open2, wide, collect, score, end_d, plane, stream
         lib.phylign_extend_scan.argtypes = [p, p, p, p, *[i32] * 14, p, p, p, p]
+        if hasattr(lib, "phylign_extend_scan_packed"):  # absent from older sources
+            lib.phylign_extend_scan_packed.restype = i32
+            # q_pack, q_len, r_pack, lo, hi, p, l, band, lanes, match,
+            # mismatch, o1, e1, o2, e2, open1, open2, wide, collect, score,
+            # end_d, plane, stream
+            lib.phylign_extend_scan_packed.argtypes = [p, p, p, p, p, *[i32] * 14, p, p, p, p]
     elif name == "flush_epilogue":
         f32 = ctypes.c_float
         for fn in (lib.phylign_chain_select, lib.phylign_select_window,
@@ -225,7 +231,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 class LaunchCounts:
     """Kernel launches by name since the last reset; each module that
-    launches kernels keeps one, and ``launch`` adds to it."""
+    launches kernels keeps one, and ``launch`` adds to it. The names given
+    here are listed from the start; another name from its first launch."""
 
     def __init__(self, *names: str):
         self._lock = threading.Lock()
@@ -233,7 +240,7 @@ class LaunchCounts:
 
     def add(self, name: str) -> None:
         with self._lock:
-            self._counts[name] += 1
+            self._counts[name] = self._counts.get(name, 0) + 1
 
     def snapshot(self) -> dict[str, int]:
         with self._lock:

@@ -23,7 +23,9 @@ f32 or -1e30-based, so "identical" is bit for bit):
   * ``extend_cuda``  CUDA kernel B4 (csrc/extend_scan.cu): the same DP in
                      int32 on Hopper's DPX instructions, G lanes per pair
                      and band/G cells per lane, rows in registers.
-``_extend_impl`` picks by the tensor's device.
+  * ``extend_cuda_packed``  B4's packed instance: the same kernel reading
+                     2-bit packed codes and [lo, hi) window bounds itself.
+``_extend_impl`` and ``_extend_packed_impl`` pick by the tensor's device.
 """
 
 from __future__ import annotations
@@ -156,6 +158,7 @@ def extend_ref(
 
 # --- hand-written CUDA kernel B4 -----------------------------------------------
 
+#: "extend_scan_packed" (extend_cuda_packed) is listed from its first launch
 _launches = _kernels.LaunchCounts("extend_scan")
 
 
@@ -215,6 +218,35 @@ def wide_substitution(match: int, mismatch: int) -> bool:
     return match > 127 or mismatch > 128
 
 
+def _check_lanes(band: int, collect_plane: bool, lanes: int | None) -> int:
+    """The lanes per pair of a launch at this band (KERNEL_LANES)."""
+    g = extend_lanes(band, collect_plane) if lanes is None else lanes
+    if g not in KERNEL_LANES[band]:
+        raise ValueError(f"extend_scan: {g} lanes per pair not built for band {band}")
+    return g
+
+
+def _launch_b4(name, fn, inputs, p, l, band, g, scoring, collect_plane) -> ExtendResult:
+    """Allocate B4's outputs on the inputs' device and launch ``fn`` of
+    csrc/extend_scan.cu, counted as ``name`` (no launch when p or l is 0)."""
+    dev = inputs[0].device
+    isc = kernel_scoring(scoring, l, band)
+    wide = wide_substitution(isc[0], isc[1])
+    score = torch.empty(p, dtype=torch.float32, device=dev)
+    end_d = torch.empty(p, dtype=torch.int32, device=dev)
+    plane = torch.empty((p, l if collect_plane else 0, band), dtype=torch.float32, device=dev)
+    if p == 0:
+        return ExtendResult(score, end_d, plane)
+    if l == 0:
+        return ExtendResult(score.fill_(float(NEG)), end_d.zero_(), plane)
+    _kernels.launch(
+        _launches, name, "extend_scan", fn,
+        *inputs, p, l, band, g, *isc, int(wide), int(collect_plane),
+        score, end_d, plane if collect_plane else None,
+    )
+    return ExtendResult(score, end_d, plane)
+
+
 def extend_cuda(
     q_codes: torch.Tensor,
     q_len: torch.Tensor,
@@ -245,26 +277,57 @@ def extend_cuda(
             f"q {tuple(q_codes.shape)}, rwin {tuple(rwin.shape)}, "
             f"mask {tuple(rwin_valid.shape)}, q_len {tuple(q_len.shape)}"
         )
-    g = extend_lanes(band, collect_plane) if lanes is None else lanes
-    if g not in KERNEL_LANES[band]:
-        raise ValueError(f"extend_scan: {g} lanes per pair not built for band {band}")
+    g = _check_lanes(band, collect_plane, lanes)
     if not all(t.is_contiguous() for t in (q_codes, q_len, rwin, rwin_valid)):
         raise ValueError("extend_scan takes contiguous tensors")
-    isc = kernel_scoring(scoring, l, band)
-    wide = wide_substitution(isc[0], isc[1])
-    score = torch.empty(p, dtype=torch.float32, device=dev)
-    end_d = torch.empty(p, dtype=torch.int32, device=dev)
-    plane = torch.empty((p, l if collect_plane else 0, band), dtype=torch.float32, device=dev)
-    if p == 0:
-        return ExtendResult(score, end_d, plane)
-    if l == 0:
-        return ExtendResult(score.fill_(float(NEG)), end_d.zero_(), plane)
-    _kernels.launch(
-        _launches, "extend_scan", "extend_scan", "phylign_extend_scan",
-        q_codes, q_len, rwin, rwin_valid, p, l, band, g, *isc, int(wide), int(collect_plane),
-        score, end_d, plane if collect_plane else None,
-    )
-    return ExtendResult(score, end_d, plane)
+    return _launch_b4("extend_scan", "phylign_extend_scan", (q_codes, q_len, rwin, rwin_valid),
+                      p, l, band, g, scoring, collect_plane)
+
+
+def extend_cuda_packed(
+    q_pack: torch.Tensor,
+    q_len: torch.Tensor,
+    r_pack: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    l: int,
+    wlen: int,
+    scoring: SrScoring = SrScoring(),
+    collect_plane: bool = False,
+    lanes: int | None = None,
+) -> ExtendResult:
+    """Kernel B4's packed instance (replaces the jitted
+    ``phylign_tpu/ops/extend.py:extend_banded_scores_packed`` and
+    ``extend_banded_packed``): extend_cuda on ``_unpack2bit(q_pack, l)``,
+    ``_unpack2bit(r_pack, wlen)`` and ``_window_mask(lo, hi, wlen)``, with
+    the codes and the mask read inside the kernel. uint8 packs of
+    ceil(l/4) and ceil(wlen/4) bytes a row (``pack2bit``), int32 q_len, lo
+    and hi; CUDA tensors only; counted as ``extend_scan_packed``."""
+    dev = q_pack.device
+    if dev.type != "cuda" or any(t.device != dev for t in (q_len, r_pack, lo, hi)):
+        raise ValueError("extend_scan_packed runs on CUDA tensors on one device")
+    if q_pack.dtype != torch.uint8 or r_pack.dtype != torch.uint8:
+        raise TypeError(f"extend_scan_packed takes uint8 packs; got {q_pack.dtype}, {r_pack.dtype}")
+    if any(t.dtype != torch.int32 for t in (q_len, lo, hi)):
+        raise TypeError("extend_scan_packed takes int32 q_len, lo and hi")
+    p = q_pack.shape[0]
+    band = wlen - l
+    if (
+        band not in KERNEL_LANES
+        or q_pack.shape != (p, -(-l // 4))
+        or r_pack.shape != (p, -(-wlen // 4))
+        or any(t.shape != (p,) for t in (q_len, lo, hi))
+    ):
+        raise ValueError(
+            f"extend_scan_packed: band {band} = wlen {wlen} - l {l} (must be one of "
+            f"{tuple(KERNEL_LANES)}), shapes q_pack {tuple(q_pack.shape)}, r_pack "
+            f"{tuple(r_pack.shape)}, q_len {tuple(q_len.shape)}, lo {tuple(lo.shape)}, hi {tuple(hi.shape)}"
+        )
+    g = _check_lanes(band, collect_plane, lanes)
+    if not all(t.is_contiguous() for t in (q_pack, q_len, r_pack, lo, hi)):
+        raise ValueError("extend_scan_packed takes contiguous tensors")
+    return _launch_b4("extend_scan_packed", "phylign_extend_scan_packed", (q_pack, q_len, r_pack, lo, hi),
+                      p, l, band, g, scoring, collect_plane)
 
 
 def _extend_impl(q_codes, q_len, rwin, rwin_valid, scoring, collect_plane) -> ExtendResult:
@@ -275,6 +338,18 @@ def _extend_impl(q_codes, q_len, rwin, rwin_valid, scoring, collect_plane) -> Ex
     if q_codes.device.type != "cuda":
         raise ValueError(f"no extension kernel for device {q_codes.device}")
     return extend_cuda(q_codes, q_len, rwin, rwin_valid, scoring, collect_plane)
+
+
+def _extend_packed_impl(q_pack, q_len, r_pack, lo, hi, l, wlen, scoring, collect_plane) -> ExtendResult:
+    """Dispatch by device: the plain version on the unpacked codes and the
+    mask for a CPU tensor, B4's packed instance for a CUDA tensor (no torch
+    op before it). Any other device raises."""
+    if q_pack.device.type == "cpu":
+        q, r = _unpack2bit(q_pack, l), _unpack2bit(r_pack, wlen)
+        return extend_ref(q, q_len, r, _window_mask(lo, hi, wlen), scoring, collect_plane)
+    if q_pack.device.type != "cuda":
+        raise ValueError(f"no extension kernel for device {q_pack.device}")
+    return extend_cuda_packed(q_pack, q_len, r_pack, lo, hi, l, wlen, scoring, collect_plane)
 
 
 # --- entry points (those of the JAX module) -----------------------------------
@@ -315,10 +390,9 @@ def extend_banded_scores_packed(
     scoring: SrScoring = SrScoring(),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """extend_banded_scores from transfer-compact inputs: codes 2-bit packed
-    and the validity mask as [lo, hi) bounds, both expanded on the device."""
-    q = _unpack2bit(q_pack, l)
-    r = _unpack2bit(r_pack, wlen)
-    res = _extend_impl(q, q_len, r, _window_mask(lo, hi, wlen), scoring, False)
+    and the validity mask as [lo, hi) bounds, read inside kernel B4 on the
+    card (one launch) and expanded by the plain version on the CPU."""
+    res = _extend_packed_impl(q_pack, q_len, r_pack, lo, hi, l, wlen, scoring, False)
     return res.score, res.end_d
 
 
@@ -332,9 +406,7 @@ def extend_banded_packed(
     wlen: int,
     scoring: SrScoring = SrScoring(),
 ) -> ExtendResult:
-    q = _unpack2bit(q_pack, l)
-    r = _unpack2bit(r_pack, wlen)
-    return _extend_impl(q, q_len, r, _window_mask(lo, hi, wlen), scoring, True)
+    return _extend_packed_impl(q_pack, q_len, r_pack, lo, hi, l, wlen, scoring, True)
 
 
 # --- host traceback ----------------------------------------------------------

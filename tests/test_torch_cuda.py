@@ -622,6 +622,116 @@ def test_extend_scan_wide_scoring_equals_plain_version(cuda, p, l, band, lanes, 
     assert (want.score >= 200 * 16).any()
 
 
+#: (P, L, band) of B4's packed instance: the delegated chunk's L = 256,
+#: widths whose packed rows end in a part-filled byte, every band, more
+#: pairs than a block holds
+PACKED_SHAPES = [(37, 256, 128), (50, 61, 128), (9, 99, 256), (5, 201, 384), (3, 130, 512), (1030, 33, 128)]
+PACKED_CASES = [(p, l, band, g) for p, l, band in PACKED_SHAPES for g in ope.KERNEL_LANES[band]]
+
+
+def _packed_extend_case(rng, p, l, band):
+    """_extend_case's pairs with [lo, hi) bounds cutting both edges of most
+    windows, one window with lo > hi, and the last two rows padding as the
+    engine pads a chunk (codes 0, q_len 0, lo = hi = 0): (q, q_len, r, lo,
+    hi, mask)."""
+    wlen = l + band
+    q, q_len, r, _ = _extend_case(rng, p, l, band)
+    lo = rng.integers(1, band // 4, p).astype(np.int32)
+    hi = (wlen - rng.integers(1, band // 4, p)).astype(np.int32)
+    lo[min(3, p - 1)], hi[min(3, p - 1)] = wlen - 5, 7
+    if p > 5:
+        q[-2:], q_len[-2:], r[-2:], lo[-2:], hi[-2:] = 0, 0, 0, 0, 0
+    cols = np.arange(wlen)[None, :]
+    return q, q_len, r, lo, hi, (cols >= lo[:, None]) & (cols < hi[:, None])
+
+
+def _packed_inputs(cuda, q, q_len, r, lo, hi):
+    return [torch.from_numpy(a).to(cuda) for a in (ope.pack2bit(q), q_len, ope.pack2bit(r), lo, hi)]
+
+
+def _packed_launches() -> int:
+    return ope.launch_counts().get("extend_scan_packed", 0)
+
+
+@pytest.mark.parametrize("p,l,band,lanes,scoring", [
+    *[(*c, ope.SrScoring()) for c in PACKED_CASES], *[(*c, WIDE) for c in PACKED_CASES if c[2] <= 256]])
+@pytest.mark.parametrize("collect", [False, True])
+def test_extend_scan_packed_equals_plain_version(cuda, p, l, band, lanes, collect, scoring):
+    """B4's packed instance (2-bit codes and [lo, hi) read in the kernel)
+    against extend_ref on the unpacked codes and mask, bit for bit, at
+    every lane count of the band, byte and wide (bands 128 and 256)
+    substitution: one launch of extend_scan_packed a call."""
+    rng = np.random.default_rng(11 * p + l + band + lanes)
+    q, q_len, r, lo, hi, v = _packed_extend_case(rng, p, l, band)
+    before = _packed_launches()
+    got = ope.extend_cuda_packed(*_packed_inputs(cuda, q, q_len, r, lo, hi), l, l + band, scoring,
+                                 collect_plane=collect, lanes=lanes)
+    torch.cuda.synchronize()
+    assert _packed_launches() == before + 1
+    want = ope.extend_ref(*[torch.from_numpy(a).to(cuda) for a in (q, q_len, r, v)], scoring, collect_plane=collect)
+    for name in ("score", "end_d", "p_plane"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (want.score > 0).any()
+
+
+def test_packed_entry_points_launch_one_kernel_and_no_aten_op(cuda):
+    """extend_banded_scores_packed and extend_banded_packed on the card:
+    one extend_scan_packed launch a call and no aten op but the outputs'
+    allocations (no unpack, no mask), results equal to the plain version."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    p, l, band = 256, 256, 128
+    q, q_len, r, lo, hi, v = _packed_extend_case(np.random.default_rng(16), p, l, band)
+    packs = _packed_inputs(cuda, q, q_len, r, lo, hi)
+    plain = [torch.from_numpy(a).to(cuda) for a in (q, q_len, r, v)]
+    for fn, collect in ((ope.extend_banded_scores_packed, False), (ope.extend_banded_packed, True)):
+        before = (_packed_launches(), ope.launch_counts()["extend_scan"])
+        with Ops() as mode:
+            got = fn(*packs, l, l + band)
+        torch.cuda.synchronize()
+        assert (_packed_launches(), ope.launch_counts()["extend_scan"]) == (before[0] + 1, before[1])
+        assert mode.ops and {f.overloadpacket for f in mode.ops} <= {torch.ops.aten.empty}, mode.ops
+        want = ope.extend_ref(*plain, collect_plane=collect)
+        assert torch.equal(got[0], want.score) and torch.equal(got[1], want.end_d)
+        if collect:
+            assert torch.equal(got.p_plane, want.p_plane)
+
+
+def test_packed_extension_on_a_mesh_equals_one_device(cuda):
+    """dist_extend_scores_packed and dist_extend_packed over a 1x2 mesh on
+    the one card: each query shard's row slice through the packed
+    instance (one launch a shard), equal to the one-device call."""
+    from phylign_tpu_torch.parallel import dist
+    from phylign_tpu_torch.parallel.mesh import make_mesh
+
+    p, l, band = 64, 256, 128
+    q, q_len, r, lo, hi, _ = _packed_extend_case(np.random.default_rng(17), p, l, band)
+    host = (ope.pack2bit(q), q_len, ope.pack2bit(r), lo, hi)
+    packs = _packed_inputs(cuda, q, q_len, r, lo, hi)
+    mesh = make_mesh(1, 2, devices=["cuda:0"] * 2)
+    one = ope.extend_banded_scores_packed(*packs, l, l + band)
+    before = _packed_launches()
+    got = dist.dist_extend_scores_packed(mesh, *host, l, l + band)
+    torch.cuda.synchronize()
+    assert _packed_launches() == before + 2
+    assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+    one = ope.extend_banded_packed(*packs, l, l + band)
+    got = dist.dist_extend_packed(mesh, *host, l, l + band)
+    torch.cuda.synchronize()
+    assert _packed_launches() == before + 5
+    for name in ("score", "end_d", "p_plane"):
+        assert torch.equal(getattr(got, name), getattr(one, name)), name
+
+
 def test_run_all_on_cuda_equals_cpu(cuda, tmp_path):
     """make_fixture through the port's run_all on the card and on the CPU:
     identical 05_map, sam_summary and stats, and B3/B4 launched on the

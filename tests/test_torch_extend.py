@@ -1,7 +1,9 @@
 """The port's banded extension (``phylign_tpu_torch.ops.extend``, kernel B4's
 plain version and its entry points) held to the JAX package's
 ``phylign_tpu.ops.extend`` on the CPU, and a numpy emulation of kernel B4's
-own per-thread algorithm held to the plain version.
+own per-thread algorithm held to the plain version, with the reads of its
+unpacked instances and of its packed one (2-bit codes and [lo, hi) bounds,
+the delegated extension's inputs).
 
 Tolerance: exact. Every value is an integer-valued f32 or -1e30-based, so
 the score, end_d and the P plane are compared bit for bit.
@@ -173,7 +175,62 @@ def prmt(a, b, sel):
     return out.astype(np.uint32).view(np.int32).astype(np.int64)
 
 
+def plain_reader(q, rwin, rvalid):
+    """How B4's unpacked instances read their inputs: (query(i) -> the
+    pairs' code of row i [P], column(cols) -> the pairs' codes and validity
+    of window columns cols [P, n])."""
+    return (lambda i: q[:, i]), (lambda cols: (rwin[:, cols], rvalid[:, cols]))
+
+
+def packed_reader(q_pack, r_pack, lo, hi, shift=0):
+    """How B4's packed instance reads its inputs: code j of a row is bits
+    2*(j%4) of its byte j/4 (q_pack for the query, r_pack for the window),
+    and window column j lies in the contig iff lo <= j < hi. ``shift``
+    moves each code's bit offset by that many codes (a mutant)."""
+    rows = np.arange(len(lo))[:, None]
+
+    def code(packed, j):
+        j = np.asarray(j)
+        return (packed[rows, j >> 2] >> (2 * ((j & 3) + shift))) & 3
+
+    def query(i):
+        return code(q_pack, np.full((1, 1), i))[:, 0]
+
+    def column(cols):
+        cols = np.asarray(cols)[None, :]
+        return code(r_pack, cols), (cols >= lo[:, None]) & (cols < hi[:, None])
+
+    return query, column
+
+
+def b4_reads(g, band, rows):
+    """The window columns a group of g lanes reads for a pair of ``rows``
+    rows, by lane ([G, n] with -1 for none): lane t's prologue reads its
+    cells' columns t*CPL + c; the last lane then loads column band before
+    the loop and i + band in row i while i + 1 < rows, each a row ahead of
+    its use. And the query rows read: 0 before the loop (rows > 0), i + 1 in
+    row i while i + 1 < rows."""
+    cpl = band // g
+    late = [band] + [i + band for i in range(rows - 1)]
+    cols = np.full((g, cpl + len(late)), -1, np.int64)
+    cols[:, :cpl] = np.arange(g)[:, None] * cpl + np.arange(cpl)[None, :]
+    cols[g - 1, cpl:] = late
+    return cols, np.arange(rows)
+
+
+def emulate_b4_packed(q_pack, q_len, r_pack, lo, hi, l, wlen, sc=te.SrScoring(), collect=False, lanes=8,
+                      wide=None, shift=0):
+    """_emulate_b4 with the packed instance's reads (packed_reader)."""
+    return _emulate_b4(packed_reader(q_pack, r_pack, lo, hi, shift), q_len, l, wlen - l, sc, collect, lanes, wide)
+
+
 def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8, wide=None):
+    """_emulate_b4 with the unpacked instances' reads (plain_reader)."""
+    l = q.shape[1]
+    return _emulate_b4(plain_reader(q, rwin, rvalid), q_len, l, rwin.shape[1] - l, sc, collect, lanes, wide)
+
+
+def _emulate_b4(reader, q_len, l, band, sc, collect, lanes, wide):
     """extend_scan.cu step by step, vectorized over pairs: G = lanes lanes
     per pair of CPL = band/G consecutive cells (d = t*CPL + c); the DP in
     integers with KS for -1e30 and values below KT mapped back to -1e30;
@@ -187,9 +244,10 @@ def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8
     Hillis-Steele scan of the totals, and a second in-lane pass; the row
     argmax in-lane and then an xor-shuffle reduction with ties to the lower
     d. Each pair runs to its own last row (q_len - 1, or L with the
-    plane): the rows of a pair past it are masked."""
-    p, l = q.shape
-    band = rwin.shape[1] - l
+    plane): the rows of a pair past it are masked. ``reader``: the codes
+    and validity as an instance reads them (plain_reader, packed_reader)."""
+    query, column = reader
+    p = len(q_len)
     g = lanes
     cpl = band // g
     t = np.arange(g)
@@ -202,7 +260,7 @@ def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8
     de1, de2 = col0 * e1, col0 * e2
 
     def column_sel(cols):
-        code, ok = rwin[np.arange(p)[:, None], cols], rvalid[np.arange(p)[:, None], cols]
+        code, ok = column(cols)
         return np.where(ok, (code & 3).astype(np.int64) * 0x1111 + 0x8880, 0x5444)
 
     def to_f32(v):
@@ -225,13 +283,14 @@ def emulate_b4(q, q_len, rwin, rvalid, sc=te.SrScoring(), collect=False, lanes=8
             nxt = shfl_down1(sel[:, :, 0])
             nxt[:, g - 1] = column_sel(np.full(1, i - 1 + band))[:, 0]
             sel = np.where(live, np.concatenate([sel[:, :, 1:], nxt[:, :, None]], axis=2), sel)
-        lut = mis4 ^ (mxor << (8 * (q[:, i].astype(np.int64) & 3)))
+        qi = query(i).astype(np.int64) & 3
+        lut = mis4 ^ (mxor << (8 * qi))
         edge = [shfl_down1(a[:, :, 0]) for a in (h, i1, i2)]
         for e_ in edge:
             e_[:, g - 1] = KS
         hn, i1n, i2n = (np.concatenate([a[:, :, 1:], e_[:, :, None]], axis=2) for a, e_ in zip((h, i1, i2), edge))
         if wide:
-            qc = (q[:, i].astype(np.int64) & 3)[:, None, None]
+            qc = qi[:, None, None]
             sub = np.where(sel == 0x5444, KS, np.where((sel & 3) == qc, m, -x))
         else:
             sub = prmt(lut[:, None, None], 0x0000F000, sel)
@@ -403,3 +462,150 @@ def test_align_params_refuse_int32_limit_when_built_for_cuda(tmp_path):
         ont.check_kernel(42_000)
     cfg = Config(minimap_preset="map-ont", minimap_extra_params="-A 200 -B 150")
     assert Pipeline(cfg, tmp_path, device="cpu").align_params(42_000).scoring.match == 200
+
+
+# --- B4's packed instance (the delegated extension's two entry points) ---------
+
+
+def _packed_case(rng, p, l, band):
+    """_case's pairs as the delegated extension uploads them: both contig
+    edges inside most windows (lo > 0, hi < wlen), one window with lo > hi,
+    one wholly valid, and the last two rows padding (codes 0, q_len 0,
+    lo = hi = 0). Returns the unpacked arrays, the packs and the bounds."""
+    wlen = l + band
+    q, ql, r, _, _ = _case(rng, p, l, band)
+    lo = rng.integers(1, band // 3, p).astype(np.int32)
+    hi = (wlen - rng.integers(1, band // 3, p)).astype(np.int32)
+    lo[3], hi[3] = wlen - 5, 7
+    lo[4], hi[4] = 0, wlen
+    q[-2:], ql[-2:], r[-2:], lo[-2:], hi[-2:] = 0, 0, 0, 0, 0
+    return q, ql, r, lo, hi, te.pack2bit(q), te.pack2bit(r)
+
+
+#: (P, L, band): L and L + band not multiples of 4 (1, 2, 3 codes in a
+#: row's last byte)
+PACKED_SHAPES = [(12, 45, 128), (10, 130, 128), (9, 99, 256)]
+
+
+@pytest.mark.parametrize("p,l,band", PACKED_SHAPES)
+class TestPackedEntryPointsVsJax:
+    """Windows cutting both contig edges, lo > hi and padding rows, at
+    widths whose packed rows end in a part-filled byte."""
+
+    def test_extend_banded_scores_packed(self, p, l, band):
+        q, ql, r, lo, hi, qp, rp = _packed_case(np.random.default_rng(20 + p + l + band), p, l, band)
+        js, jd = je.extend_banded_scores_packed(
+            jnp.asarray(qp), jnp.asarray(ql), jnp.asarray(rp), jnp.asarray(lo), jnp.asarray(hi), l, l + band
+        )
+        ts, td = te.extend_banded_scores_packed(*_t(qp, ql, rp, lo, hi), l, l + band)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        assert (ts.numpy() > 0).sum() >= p // 2  # planted reads aligned
+
+    def test_extend_banded_packed(self, p, l, band):
+        q, ql, r, lo, hi, qp, rp = _packed_case(np.random.default_rng(30 + p + l + band), p, l, band)
+        j = je.extend_banded_packed(
+            jnp.asarray(qp), jnp.asarray(ql), jnp.asarray(rp), jnp.asarray(lo), jnp.asarray(hi), l, l + band
+        )
+        t = te.extend_banded_packed(*_t(qp, ql, rp, lo, hi), l, l + band)
+        for name in ("score", "end_d", "p_plane"):
+            np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)), err_msg=name)
+        # padding rows: no valid column, so no diagonal move scores
+        assert (t.score[-2:] == np.float32(-1e30)).all() and (t.p_plane[-2:] < 0).all()
+
+
+@pytest.mark.parametrize("band,lanes", EMULATED)
+@pytest.mark.parametrize("l", [45, 62])
+def test_packed_reads_equal_unpack_and_window_mask(band, lanes, l):
+    """Every window column a lane of the group reads (its prologue's cells,
+    then the last lane's column a row) and every query code a row reads,
+    read from the packs and [lo, hi) as the packed instance reads them,
+    equal _unpack2bit and _window_mask there, the port's and JAX's; no read
+    reaches column wlen or query code l (the packing's padding codes)."""
+    p, wlen = 10, l + band
+    q, ql, r, lo, hi, qp, rp = _packed_case(np.random.default_rng(band + lanes + l), p, l, band)
+    query, column = packed_reader(qp, rp, lo, hi)
+    cols, qrows = b4_reads(lanes, band, l)
+    assert cols.max() < wlen and qrows.max() < l
+    want_r = te._unpack2bit(torch.from_numpy(rp), wlen).numpy()
+    want_v = te._window_mask(*_t(lo, hi), wlen).numpy()
+    want_q = te._unpack2bit(torch.from_numpy(qp), l).numpy()
+    np.testing.assert_array_equal(want_r, np.asarray(je._unpack2bit(jnp.asarray(rp), wlen)))
+    np.testing.assert_array_equal(want_v, np.asarray(je._window_mask(jnp.asarray(lo), jnp.asarray(hi), wlen)))
+    np.testing.assert_array_equal(want_q, np.asarray(je._unpack2bit(jnp.asarray(qp), l)))
+    np.testing.assert_array_equal(want_r, r)
+    for t in range(lanes):
+        lane_cols = cols[t][cols[t] >= 0]
+        code, ok = column(lane_cols)
+        np.testing.assert_array_equal(code, want_r[:, lane_cols], err_msg=f"lane {t}")
+        np.testing.assert_array_equal(ok, want_v[:, lane_cols], err_msg=f"lane {t}")
+    for i in qrows:
+        np.testing.assert_array_equal(query(i), want_q[:, i], err_msg=f"row {i}")
+    assert not want_v[3].any() and want_v[4].all() and not want_v[-2:].any()
+    assert want_v[:3, 0].sum() == 0 and want_v[:3, -1].sum() == 0  # both edges cut
+
+
+def test_packed_reads_catch_a_shifted_code():
+    """A mutant that reads each code one code off in its byte differs from
+    the unpack, in the reads and in the DP's results."""
+    p, l, band = 10, 45, 128
+    q, ql, r, lo, hi, qp, rp = _packed_case(np.random.default_rng(5), p, l, band)
+    query, column = packed_reader(qp, rp, lo, hi, shift=1)
+    cols, _ = b4_reads(8, band, l)
+    code, _ = column(cols[-1][cols[-1] >= 0])
+    assert not np.array_equal(code, r[:, cols[-1][cols[-1] >= 0]])
+    assert not np.array_equal(query(1), q[:, 1])
+    bad = emulate_b4_packed(qp, ql, rp, lo, hi, l, l + band, shift=1)
+    want = te.extend_ref(*_t(q, ql, r, _mask(lo, hi, l + band)))
+    assert not np.array_equal(bad[0], want.score.numpy())
+
+
+@pytest.mark.parametrize("band,lanes", EMULATED)
+@pytest.mark.parametrize("collect", [False, True])
+def test_packed_kernel_emulation_equals_plain_version(band, lanes, collect):
+    """The packed instance's DP, emulated on its own reads, equals the plain
+    version on the unpacked codes and mask: score, end_d and plane."""
+    p, l = 10, 37 if band > 256 else 61
+    q, ql, r, lo, hi, qp, rp = _packed_case(np.random.default_rng(p * l + band + lanes), p, l, band)
+    got = emulate_b4_packed(qp, ql, rp, lo, hi, l, l + band, collect=collect, lanes=lanes)
+    want = te.extend_ref(*_t(q, ql, r, _mask(lo, hi, l + band)), collect_plane=collect)
+    np.testing.assert_array_equal(got[0], want.score.numpy())
+    np.testing.assert_array_equal(got[1], want.end_d.numpy())
+    np.testing.assert_array_equal(got[2], want.p_plane.numpy())
+
+
+@pytest.mark.parametrize("collect", [False, True])
+def test_packed_kernel_emulation_at_wide_scoring(collect):
+    """-A 200 -B 150 (the wide instance) through the packed reads: equal to
+    the plain version and to JAX's packed entry point."""
+    p, l, band = 10, 45, 128
+    q, ql, r, lo, hi, qp, rp = _packed_case(np.random.default_rng(77), p, l, band)
+    got = emulate_b4_packed(qp, ql, rp, lo, hi, l, l + band, WIDE, collect=collect)
+    want = te.extend_ref(*_t(q, ql, r, _mask(lo, hi, l + band)), WIDE, collect_plane=collect)
+    np.testing.assert_array_equal(got[0], want.score.numpy())
+    np.testing.assert_array_equal(got[2], want.p_plane.numpy())
+    args = (jnp.asarray(qp), jnp.asarray(ql), jnp.asarray(rp), jnp.asarray(lo), jnp.asarray(hi), l, l + band)
+    if collect:
+        j = je.extend_banded_packed(*args, scoring=JWIDE)
+        np.testing.assert_array_equal(got[2], np.asarray(j.p_plane))
+    else:
+        j = je.extend_banded_scores_packed(*args, scoring=JWIDE)
+        np.testing.assert_array_equal(got[1], np.asarray(j[1]))
+    np.testing.assert_array_equal(got[0], np.asarray(j[0]))
+
+
+def test_packed_dispatch_by_device():
+    """A CPU tensor takes the plain version (no launch); the packed kernel
+    refuses CPU tensors; any other device raises."""
+    p, l, band = 6, 33, 128
+    q, ql, r, lo, hi, qp, rp = _packed_case(np.random.default_rng(8), p, l, band)
+    before = te.launch_counts()
+    a = te.extend_banded_packed(*_t(qp, ql, rp, lo, hi), l, l + band)
+    b = te.extend_ref(*_t(q, ql, r, _mask(lo, hi, l + band)), collect_plane=True)
+    assert torch.equal(a.p_plane, b.p_plane) and torch.equal(a.score, b.score)
+    assert te.launch_counts() == before
+    with pytest.raises(ValueError, match="CUDA"):
+        te.extend_cuda_packed(*_t(qp, ql, rp, lo, hi), l, l + band)
+    meta = [t.to("meta") for t in _t(qp, ql, rp, lo, hi)]
+    with pytest.raises(ValueError, match="no extension kernel"):
+        te.extend_banded_scores_packed(*meta, l, l + band)
