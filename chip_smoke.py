@@ -21,6 +21,10 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
                                    # DIR/extend_scan.cu (PR 4's design)
                                    # timed beside; the full run takes the
                                    # option too
+    python3 chip_smoke.py --align-kernels-only --baseline-extend OLD.cu
+                                   # phase 5, and B4's unpacked instances
+                                   # held to an older extend_scan.cu's
+                                   # SASS (fails if one differs)
     python3 chip_smoke.py --baseline-flush OLD.cu
                                    # phase 5 also times B6a, B6b, B6c
                                    # and the compaction of an older
@@ -78,10 +82,14 @@ Phases, each printing one JSON line:
     epilogue plain against B6 in turns; B4's packed instance (2-bit codes
     and [lo, hi) bounds read in the kernel) at the delegated extension's
     shape (L = 256, band 128, the P of phase 7's delegated chunks: score,
-    plane and -A 200 -B 150 passes), bit-exact against extend_ref on the
-    unpacked inputs at every lane count, timed beside the parent's eager
-    unpack + mask + B4 from CUDA graphs (with that path's kernel count),
-    and the registers and local memory of every B4 instance;
+    plane and -A 200 -B 150 passes) and at bands 256, 384 and 512: the
+    kernel of each route (the wavefront body, or the row body) bit-exact
+    against extend_ref on the unpacked inputs, against the row body at
+    every lane count and against the parent's eager unpack + mask + B4,
+    the row body timed at every lane count and the route's kernel in turns
+    against the row body at its best lanes, from CUDA graphs, and the
+    registers and local memory of every B4 instance (an instance no route
+    launches fails);
   6 phase 3's fixture (with an assembly tar for its 3-hash batch) end to end
     through ``python -m phylign_tpu_torch.cli all`` on the card and again
     with ``--device cpu``: 05_map, sam_summary and stats must be identical,
@@ -969,6 +977,16 @@ B4P_CASES = [
     ("b4p_score", DELEGATED_P, 256, 128, False, "sr"),
     ("b4p_plane", DELEGATED_P, 256, 128, True, "sr"),
     ("b4p_wide", DELEGATED_P, 256, 128, False, "wide"),
+    ("b4p_plane_wide", DELEGATED_P, 256, 128, True, "wide"),
+    ("b4p_score_p256", DELEGATED_P // 2, 256, 128, False, "sr"),
+    ("b4p_plane_p256", DELEGATED_P // 2, 256, 128, True, "sr"),
+    ("b4p_wide_p256", DELEGATED_P // 2, 256, 128, False, "wide"),
+    # the long-read presets' band (engine.AlignParams: band 512)
+    ("b4p_score_band512", 128, 512, 512, False, "sr"),
+    # the other bands -r can set (256, 384): each route's kernel
+    ("b4p_score_band256", 256, 256, 256, False, "sr"),
+    ("b4p_plane_band256", 256, 256, 256, True, "sr"),
+    ("b4p_score_band384", 128, 384, 384, False, "sr"),
 ]
 #: -A 200 -B 150: match and mismatch outside a signed byte (B4's int32
 #: substitution)
@@ -1164,7 +1182,7 @@ def timed_in_turns(new, old, reps: int, n_args: int) -> dict:
     return out
 
 
-def phase_align_kernels(label: str, pr4: Pr4AlignKernels | None) -> dict:
+def phase_align_kernels(label: str, pr4: Pr4AlignKernels | None, baseline_extend: Path | None = None) -> dict:
     """B3 and B4 against their plain versions at the align stage's shapes:
     bit-exact on every input set at every lane count the kernels are built
     for, then timed over ROTATION input sets in turn at each lane count (the
@@ -1245,7 +1263,7 @@ def phase_align_kernels(label: str, pr4: Pr4AlignKernels | None) -> dict:
         emit("align_kernels", case=name, card=label, **row)
         del sets
     out["b4_wide"] = wide_scoring(rng, label)
-    out.update(packed_extension(rng, label))
+    out.update(packed_extension(rng, label, baseline_extend))
     torch.cuda.empty_cache()
     return out
 
@@ -1331,38 +1349,97 @@ def eager_packed(q_pack, q_len, r_pack, lo, hi, l: int, wlen: int, scoring, plan
 
 def extend_resources() -> dict:
     """Registers, stack and local memory of every B4 instance in the built
-    library, by <lanes, cells a lane, wide, packed>; fails when a packed
-    instance spills (local memory or a stack) or when the packed and
-    unpacked instances of one geometry differ in local memory."""
+    library: the row body by <lanes, cells a lane, wide, packed>, the
+    packed instance's wavefront body by <cells a lane, wide, plane>; fails
+    when a packed or wavefront instance spills (local memory or a stack),
+    or when the instances are not the 14 unpacked ones and those the packed
+    routes launch (ope.packed_lanes: the wavefront's routes, the row body
+    at 32 lanes at every band; each in both substitutions)."""
     import re
 
     from phylign_tpu_torch.ops import _kernels
+    from phylign_tpu_torch.ops import extend as ope
 
     tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
     res = subprocess.run([str(tool), "-res-usage", str(_kernels.build("extend_scan"))], capture_output=True,
                          text=True, timeout=120)
     out = {}
-    for name, reg, stack, local in re.findall(
-            r"Function (\S*extend_scan_kernel\S*):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", res.stdout):
+    for name, kind, reg, stack, local in re.findall(
+            r"Function (\S*extend_(scan|wave)_kernel\S*):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
+            res.stdout):
         args = ",".join(re.findall(r"L[a-z](\d+)E", name))
-        out[f"extend_scan<{args}>"] = dict(registers=int(reg), stack_bytes=int(stack), local_bytes=int(local))
-    if len(out) != 28:
-        raise AssertionError(f"cuobjdump listed {len(out)} B4 instances, not 28: {sorted(out)}\n{res.stdout[-2000:]}")
-    for k, v in out.items():
-        twin = out[k[:-2] + "0>"]
-        if k.endswith(",1>") and (v["local_bytes"] or v["stack_bytes"] or twin["local_bytes"] != v["local_bytes"]):
-            raise AssertionError(f"B4's packed instance {k} spills: {v} (unpacked: {twin})")
+        out[f"extend_{kind}<{args}>"] = dict(registers=int(reg), stack_bytes=int(stack), local_bytes=int(local))
+    unpacked = {k for k in out if k.startswith("extend_scan<") and k.endswith(",0>")}
+    packed_rows = {k for k in out if k.startswith("extend_scan<") and k.endswith(",1>")}
+    waves = {k for k in out if k.startswith("extend_wave<")}
+    routes = ope.PACKED_ROUTES.items()
+    if (len(unpacked) != 14
+            or packed_rows != {f"extend_scan<32,{b // 32},{w},1>" for b in ope.KERNEL_LANES for w in (0, 1)}
+            or waves != {f"extend_wave<{b // 32},{w},{int(c)}>" for (b, c), g in routes if not g for w in (0, 1)}):
+        raise AssertionError(f"cuobjdump listed B4 instances other than the routes': {sorted(out)}\n"
+                             f"{res.stdout[-2000:]}")
+    for k in (*packed_rows, *waves):
+        if out[k]["local_bytes"] or out[k]["stack_bytes"]:
+            raise AssertionError(f"B4's instance {k} spills: {out[k]}")
     return out
 
 
-def packed_extension(rng, label: str) -> dict:
+def unpacked_sass(lib: Path) -> dict:
+    """The SASS of each unpacked row-body instance of B4 in a built
+    library (cuobjdump -sass), by <lanes, cells a lane, wide>, each
+    instruction line without its address."""
+    import re
+
+    from phylign_tpu_torch.ops import _kernels
+
+    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, timeout=300)
+    out = {}
+    for chunk in res.stdout.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        args = re.findall(r"L[a-z](\d+)E", name)
+        if "extend_scan_kernel" in name and args[-1] == "0":
+            out[",".join(args[:-1])] = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split() for ln in chunk.splitlines()[1:]
+                                       if "/*" in ln and ";" in ln]
+    return out
+
+
+def unpacked_sass_against(old_src: Path) -> dict:
+    """--baseline-extend: an older csrc/extend_scan.cu built with the same
+    flags; fails unless each of its 14 unpacked instances has this tree's
+    SASS, instruction for instruction."""
+    from phylign_tpu_torch.ops import _kernels
+
+    out_dir = ROOT / "build" / "chip_smoke_baseline_extend"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "libbaseline_extend_scan.so"
+    res = subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(lib), str(old_src)],
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode:
+        raise RuntimeError(f"{old_src} failed to build:\n{res.stdout}{res.stderr}")
+    old, new = unpacked_sass(lib), unpacked_sass(_kernels.build("extend_scan"))
+    if len(new) != 14 or sorted(old) != sorted(new):
+        raise AssertionError(f"unpacked B4 instances: {sorted(old)} in {old_src}, {sorted(new)} here")
+    differ = sorted(k for k in new if old[k] != new[k])
+    if differ:
+        raise AssertionError(f"unpacked B4 instances whose SASS differs from {old_src}: {differ}")
+    return dict(baseline=str(old_src), instances=sorted(new), instructions={k: len(v) for k, v in new.items()},
+                sass="identical")
+
+
+def packed_extension(rng, label: str, baseline_extend: Path | None = None) -> dict:
     """B4's packed instance at the delegated extension's shape (B4P_CASES):
-    bit-exact against extend_ref on the unpacked inputs at every lane count
-    (and against the parent's eager path), one launch a call; timed from
-    CUDA graphs over ROTATION input sets beside the parent's eager unpack
-    + mask + B4 (turns eager, packed, packed, eager), with that path's
-    kernels a call; the plain version (the unpack, the mask and
-    extend_ref) over 2 calls."""
+    the routed kernel (ope.PACKED_ROUTES: the wavefront body, or the row
+    body at 32 lanes on the other routes) bit-exact against extend_ref
+    on the unpacked inputs, against the row body at every lane count (the
+    PACKED_ROWS_BUILD library: the parent's design) and against the
+    parent's eager unpack + mask + B4, one launch a call; then the row body
+    at every lane count in turns (lanes_ms, step 0's yardstick), and the
+    routed kernel against the row body at its best lane count in turns
+    (row, routed, routed, row), each from a CUDA graph over ROTATION input
+    sets; the eager path and the plain version (the unpack, the mask and
+    extend_ref) beside. With ``baseline_extend`` (an older
+    extend_scan.cu), the unpacked instances' SASS is held to its."""
     import torch
 
     from phylign_tpu_torch.ops import extend as ope
@@ -1370,16 +1447,22 @@ def packed_extension(rng, label: str) -> dict:
     out = {}
     resources = extend_resources()
     emit("align_kernels", case="b4_resources", card=label, instances=resources)
+    if baseline_extend is not None:
+        emit("align_kernels", case="b4_sass", card=label, **unpacked_sass_against(baseline_extend))
+    reps = 4 * ROTATION
     for name, p, l, band, plane, kind in B4P_CASES:
         wlen = l + band
         scoring = ope.SrScoring(*WIDE_SCORING) if kind == "wide" else ope.SrScoring()
+        route = ope.PACKED_ROUTES[band, plane]
+        lanes = ope.KERNEL_LANES[band]
         host = [packed_inputs(rng, p, l, band) for _ in range(ROTATION)]
         sets = [[torch.from_numpy(x).cuda() for x in h] for h in host]
         packs = [s[4:5] + s[1:2] + s[5:] for s in sets]  # q_pack, q_len, r_pack, lo, hi
         err = 0.0
         for s, pk in zip(sets, packs):
             want = ope.extend_ref(*s[:4], scoring, collect_plane=plane)
-            runs = {g: ope.extend_cuda_packed(*pk, l, wlen, scoring, plane, lanes=g) for g in ope.KERNEL_LANES[band]}
+            runs = {"routed": ope.extend_cuda_packed(*pk, l, wlen, scoring, plane)}
+            runs.update({g: ope.extend_cuda_packed(*pk, l, wlen, scoring, plane, lanes=g) for g in lanes})
             runs["eager"] = eager_packed(*pk, l, wlen, scoring, plane)
             torch.cuda.synchronize()
             for g, got in runs.items():
@@ -1389,22 +1472,28 @@ def packed_extension(rng, label: str) -> dict:
             if int((want.score >= 125 * scoring.match).sum()) < p // 2:
                 raise AssertionError(f"{name}: planted reads did not score as aligned")
 
-        def packed(i):
+        def routed(i):
             return ope.extend_cuda_packed(*packs[i], l, wlen, scoring, plane)
 
-        def eager(i):
-            return eager_packed(*packs[i], l, wlen, scoring, plane)
+        def row_body(g):
+            return lambda i: ope.extend_cuda_packed(*packs[i], l, wlen, scoring, plane, lanes=g)
 
-        turns = [(who, graph_ms(packed if who == "packed" else eager, 4 * ROTATION, ROTATION))
-                 for who in ("eager", "packed", "packed", "eager")]
-        g0 = ope.extend_lanes(band, plane)
+        lane_turns = [(g, graph_ms(row_body(g), reps, ROTATION)) for g in (*lanes, *lanes[::-1])]
+        lanes_ms = {g: min(t for w, t in lane_turns if w == g) for g in lanes}
+        best = min(lanes, key=lanes_ms.get)
+        turns = [(who, graph_ms(routed if who == "routed" else row_body(best), reps, ROTATION))
+                 for who in ("row", "routed", "routed", "row")]
+        design = "wavefront, a warp a pair" if route == 0 else f"row body, {route} lanes"
         row = dict(kernel="extend_scan_packed", P=p, L=l, band=band, plane=plane, scoring=kind,
-                   max_abs_err=err, lanes=g0, cells_per_lane=band // g0,
-                   blocks=-(-p // (ope.BLOCK_THREADS // g0)), checked_lanes=list(ope.KERNEL_LANES[band]),
-                   ms=min(t for w, t in turns if w == "packed"),
-                   parent_eager_ms=min(t for w, t in turns if w == "eager"), turns=turns,
-                   kernels_per_call=graph_launches(lambda: packed(0)),
-                   parent_eager_kernels_per_call=graph_launches(lambda: eager(0)))
+                   max_abs_err=err, design=design, route_lanes=route or 32, checked_lanes=list(lanes),
+                   ms=min(t for w, t in turns if w == "routed"), row_lanes=best,
+                   row_ms=min(t for w, t in turns if w == "row"), turns=turns, lanes_ms=lanes_ms,
+                   lane_turns=lane_turns, parent_eager_ms=graph_ms(lambda i: eager_packed(
+                       *packs[i], l, wlen, scoring, plane), reps, ROTATION),
+                   kernels_per_call=graph_launches(lambda: routed(0)),
+                   parent_eager_kernels_per_call=graph_launches(lambda: eager_packed(
+                       *packs[0], l, wlen, scoring, plane)))
+        row["speedup_over_row"] = row["row_ms"] / row["ms"]
         if row["kernels_per_call"] != 1:
             raise AssertionError(f"{name}: the packed pass launched {row['kernels_per_call']} kernels, not 1")
         row["plain_ms"] = cuda_ms(lambda i: ope.extend_ref(
@@ -1413,8 +1502,10 @@ def packed_extension(rng, label: str) -> dict:
         bounds = [b4p_bound(h[1], p, l, band, plane) for h in host]
         row.update({k: (sum(b[k] for b in bounds) / len(bounds) if k != "bound_by" else bounds[0][k]) for k in bounds[0]})
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        row["resources"] = {k: v for k, v in resources.items() if k.startswith(f"extend_scan<{g0},{band // g0},"
-                                                                                f"{int(kind == 'wide')},")}
+        wide = int(kind == "wide")
+        row["resources"] = {k: v for k, v in resources.items() if k == (
+            f"extend_wave<{band // 32},{wide},{int(plane)}>" if route == 0 else
+            f"extend_scan<{route},{band // route},{wide},1>")}
         out[name] = row
         emit("align_kernels", case=name, rotation=ROTATION, card=label, **row)
         del sets, packs
@@ -3229,6 +3320,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--baseline-match", type=Path, default=None,
                     help="an older csrc/match_epilogue.cu with this tree's C interface: "
                     "time its B5a, B5b, B5c and B5d beside this tree's in phases 4 and 8")
+    ap.add_argument("--baseline-extend", type=Path, default=None,
+                    help="an older csrc/extend_scan.cu: hold this tree's unpacked B4 instances "
+                    "to its SASS in phase 5 (fails if one differs)")
     ap.add_argument("--align-kernels-only", action="store_true",
                     help="phase 5 only (no kernel table, no ok line)")
     ap.add_argument("--kernels-only", action="store_true",
@@ -3250,7 +3344,16 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     label = gpu_label()
-    build_s = _kernels.build_all()
+    # the row body's every-geometry build (the packed instance's lanes=
+    # comparison in phase 5) beside the sources' builds
+    from concurrent.futures import ThreadPoolExecutor
+
+    from phylign_tpu_torch.ops import extend as ope
+
+    with ThreadPoolExecutor(1) as pool:
+        rows_build = pool.submit(_kernels.build, "extend_scan", *ope.PACKED_ROWS_BUILD)
+        build_s = _kernels.build_all()
+        rows_build.result()
     baseline = BaselineMatchKernels(args.baseline_src) if args.baseline_src else None
     emit("environment", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, card=label, build_seconds=build_s)
@@ -3259,13 +3362,13 @@ def main(argv: list[str] | None = None) -> int:
     b6_base = BaselineLib("flush_epilogue", args.baseline_flush) if args.baseline_flush else None
     b5_base = BaselineLib("match_epilogue", args.baseline_match) if args.baseline_match else None
     if args.align_kernels_only:
-        phase_align_kernels(label, pr4)
+        phase_align_kernels(label, pr4, args.baseline_extend)
         phase_flush_kernels(label, b6_base)
         return 0
     kern = phase_kernels(label, baseline)
     if args.kernels_only:
         return 0
-    akern = phase_align_kernels(label, pr4)
+    akern = phase_align_kernels(label, pr4, args.baseline_extend)
     fkern = phase_flush_kernels(label, b6_base)
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -3312,20 +3415,22 @@ def main(argv: list[str] | None = None) -> int:
             bound_share=k["bound_share"], bytes=k["bytes"], operations=k["operations"],
             library_ms=None, **shard(name),
         ))
-    k, kp, kw = akern["b4p_score"], akern["b4p_plane"], akern["b4p_wide"]
+    k = akern["b4p_score"]
+    b4p = {n: v for n, v in akern.items() if v["kernel"] == "extend_scan_packed"}
     table.append(dict(
         name="extend_scan_packed", route="cuda", source=SOURCE["extend_scan_packed"],
         replaces=REPLACES["extend_scan_packed"], launches=sum(c["extend_scan_packed"] for c in (c6, c7, c8, c9)),
         launches_phase6=c6["extend_scan_packed"], launches_phase7=c7["extend_scan_packed"],
         launches_phase8=c8["extend_scan_packed"], launches_phase9=c9["extend_scan_packed"],
-        case=f"b4p_score: P={k['P']}, L={k['L']}, band {k['band']}, score-only, {k['lanes']} lanes",
-        max_abs_err=max(v["max_abs_err"] for v in (k, kp, kw)), ms=k["ms"], plain_ms=k["plain_ms"],
-        bound_ms=k["bound_ms"], bound_by=k["bound_by"], bound_share=k["bound_share"], bytes=k["bytes"],
-        operations=k["operations"], library_ms=None, parent_eager_ms=k["parent_eager_ms"],
+        case=f"b4p_score: P={k['P']}, L={k['L']}, band {k['band']}, score-only, {k['design']}",
+        design=k["design"], max_abs_err=max(v["max_abs_err"] for v in b4p.values()), ms=k["ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"], bound_share=k["bound_share"],
+        bytes=k["bytes"], operations=k["operations"], library_ms=None, row_ms=k["row_ms"],
+        row_lanes=k["row_lanes"], row_lanes_ms=k["lanes_ms"], parent_eager_ms=k["parent_eager_ms"],
         parent_eager_kernels=k["parent_eager_kernels_per_call"],
-        **{f"plane_{x}": kp[x] for x in ("P", "ms", "parent_eager_ms", "plain_ms", "bound_ms", "bound_by",
-                                          "bound_share")},
-        **{f"wide_{x}": kw[x] for x in ("ms", "parent_eager_ms", "bound_ms", "bound_share")},
+        **{f"{n[4:]}_{x}": v[x] for n, v in b4p.items() if n != "b4p_score" for x in (
+            "P", "L", "band", "design", "ms", "row_ms", "row_lanes", "lanes_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_share")},
     ))
     for name, case in MAIN_B6_CASE.items():
         k = fkern[case] if name == "chain_select" else fkern[case][name]

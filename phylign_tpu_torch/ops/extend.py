@@ -23,8 +23,10 @@ f32 or -1e30-based, so "identical" is bit for bit):
   * ``extend_cuda``  CUDA kernel B4 (csrc/extend_scan.cu): the same DP in
                      int32 on Hopper's DPX instructions, G lanes per pair
                      and band/G cells per lane, rows in registers.
-  * ``extend_cuda_packed``  B4's packed instance: the same kernel reading
-                     2-bit packed codes and [lo, hi) window bounds itself.
+  * ``extend_cuda_packed``  B4's packed instance: the same DP reading
+                     2-bit packed codes and [lo, hi) window bounds itself,
+                     a warp a pair sweeping the band's anti-diagonals (the
+                     wavefront body) on the routes PACKED_ROUTES gives it.
 ``_extend_impl`` and ``_extend_packed_impl`` pick by the tensor's device.
 """
 
@@ -186,6 +188,40 @@ def extend_lanes(band: int, collect: bool) -> int:
     return EXTEND_LANES.get((band, collect), KERNEL_LANES[band][0])
 
 
+#: the kernel B4's packed instance launches, by (band, plane), for both
+#: substitutions: 0 is the wavefront body (a warp a pair sweeping
+#: anti-diagonals), G the row body at G lanes a pair; each the faster on an
+#: H100 in turns at the delegated pass's shapes (PERF.md): the wavefront at
+#: band 128 and for the score pass at band 256; the row body for the plane
+#: at band 256 (the wavefront's ring of 128 rows takes a block's shared
+#: memory) and at bands 384 and 512 (its sweep's empty triangles); past
+#: the wavefront's shared memory, the row body at 32 lanes (packed_lanes)
+PACKED_ROUTES = {
+    (128, False): 0, (128, True): 0, (256, False): 0, (256, True): 32,
+    (384, False): 32, (384, True): 32, (512, False): 32, (512, True): 32,
+}
+#: a block's shared memory (the wavefront body takes a block a pair)
+WAVE_SHARED_LIMIT = 232448
+
+
+def packed_lanes(band: int, collect: bool, l: int) -> int:
+    """The body B4's packed instance launches for a pass at this band and
+    L: PACKED_ROUTES', or the row body at 32 lanes where the wavefront's
+    shared memory (the plane's ring of band/2 rows, and tables of 8 bytes
+    for each query code, with band/2 of pad at each end, and each window
+    column) would exceed a block's: L past 14,400 at band 128 (12,352 with
+    the plane), 14,272 at band 256."""
+    g = PACKED_ROUTES[band, collect]
+    smem = (band * band * 2 if collect else 0) + (2 * l + 2 * band) * 8
+    return 32 if g == 0 and smem > WAVE_SHARED_LIMIT else g
+
+
+#: the macro of a second build of csrc/extend_scan.cu that holds the row
+#: body's packed instance at every (band, lanes) of KERNEL_LANES: what
+#: extend_cuda_packed's ``lanes`` launches (the comparison with the parent
+#: design); no route launches it
+PACKED_ROWS_BUILD = ("PHYLIGN_B4_PACKED_ROWS",)
+
 #: threads per block of kernel B4 (128 / lanes pairs a block)
 BLOCK_THREADS = 128
 #: the kernel runs the DP in int32 with -2**28 for -1e30; every real value
@@ -226,9 +262,10 @@ def _check_lanes(band: int, collect_plane: bool, lanes: int | None) -> int:
     return g
 
 
-def _launch_b4(name, fn, inputs, p, l, band, g, scoring, collect_plane) -> ExtendResult:
+def _launch_b4(name, fn, inputs, p, l, band, g, scoring, collect_plane, defines=()) -> ExtendResult:
     """Allocate B4's outputs on the inputs' device and launch ``fn`` of
-    csrc/extend_scan.cu, counted as ``name`` (no launch when p or l is 0)."""
+    csrc/extend_scan.cu (built with the macros ``defines``), counted as
+    ``name`` (no launch when p or l is 0)."""
     dev = inputs[0].device
     isc = kernel_scoring(scoring, l, band)
     wide = wide_substitution(isc[0], isc[1])
@@ -242,7 +279,7 @@ def _launch_b4(name, fn, inputs, p, l, band, g, scoring, collect_plane) -> Exten
     _kernels.launch(
         _launches, name, "extend_scan", fn,
         *inputs, p, l, band, g, *isc, int(wide), int(collect_plane),
-        score, end_d, plane if collect_plane else None,
+        score, end_d, plane if collect_plane else None, defines=defines,
     )
     return ExtendResult(score, end_d, plane)
 
@@ -302,7 +339,10 @@ def extend_cuda_packed(
     ``_unpack2bit(r_pack, wlen)`` and ``_window_mask(lo, hi, wlen)``, with
     the codes and the mask read inside the kernel. uint8 packs of
     ceil(l/4) and ceil(wlen/4) bytes a row (``pack2bit``), int32 q_len, lo
-    and hi; CUDA tensors only; counted as ``extend_scan_packed``."""
+    and hi; CUDA tensors only; counted as ``extend_scan_packed``. Launches
+    the body ``packed_lanes`` picks; ``lanes`` forces the row body at that many
+    lanes a pair (one of KERNEL_LANES[band]), from the PACKED_ROWS_BUILD
+    library."""
     dev = q_pack.device
     if dev.type != "cuda" or any(t.device != dev for t in (q_len, r_pack, lo, hi)):
         raise ValueError("extend_scan_packed runs on CUDA tensors on one device")
@@ -323,11 +363,14 @@ def extend_cuda_packed(
             f"{tuple(KERNEL_LANES)}), shapes q_pack {tuple(q_pack.shape)}, r_pack "
             f"{tuple(r_pack.shape)}, q_len {tuple(q_len.shape)}, lo {tuple(lo.shape)}, hi {tuple(hi.shape)}"
         )
-    g = _check_lanes(band, collect_plane, lanes)
+    if lanes is None:
+        g, defines = packed_lanes(band, collect_plane, l), ()
+    else:
+        g, defines = _check_lanes(band, collect_plane, lanes), PACKED_ROWS_BUILD
     if not all(t.is_contiguous() for t in (q_pack, q_len, r_pack, lo, hi)):
         raise ValueError("extend_scan_packed takes contiguous tensors")
     return _launch_b4("extend_scan_packed", "phylign_extend_scan_packed", (q_pack, q_len, r_pack, lo, hi),
-                      p, l, band, g, scoring, collect_plane)
+                      p, l, band, g, scoring, collect_plane, defines)
 
 
 def _extend_impl(q_codes, q_len, rwin, rwin_valid, scoring, collect_plane) -> ExtendResult:

@@ -732,6 +732,85 @@ def test_packed_extension_on_a_mesh_equals_one_device(cuda):
         assert torch.equal(getattr(got, name), getattr(one, name)), name
 
 
+#: B4's packed routes, each with an L: the delegated chunk's 256 at band
+#: 128, others shorter
+PACKED_ROUTE_CASES = sorted(ope.PACKED_ROUTES)
+ROUTE_L = {128: 256, 256: 200, 384: 150, 512: 130}
+
+
+@pytest.mark.parametrize("p", [1, 3, 256, 512, 1000])
+@pytest.mark.parametrize("band,collect", PACKED_ROUTE_CASES)
+@pytest.mark.parametrize("scoring", [ope.SrScoring(), WIDE], ids=["sr", "wide"])
+def test_extend_wave_equals_plain_version_and_row_body(cuda, p, band, collect, scoring):
+    """The packed instance on its route (ope.PACKED_ROUTES: the wavefront
+    body at band 128 and for band 256's score pass, the row body elsewhere)
+    against extend_ref on the unpacked codes and mask and against the row
+    body at 32 lanes (the PACKED_ROWS_BUILD library) on the packs, bit for
+    bit: P of 1, 3, 256, 512 and 1,000 (grids under and over the card's
+    SMs), every band, both passes, byte and wide substitution; one launch a
+    call."""
+    l = ROUTE_L[band]
+    rng = np.random.default_rng(13 * p + band + collect)
+    q, q_len, r, lo, hi, v = _packed_extend_case(rng, max(p, 8), l, band)
+    q, q_len, r, lo, hi, v = (a[:p] for a in (q, q_len, r, lo, hi, v))
+    packs = _packed_inputs(cuda, q, q_len, r, lo, hi)
+    before = _packed_launches()
+    got = ope.extend_cuda_packed(*packs, l, l + band, scoring, collect_plane=collect)
+    torch.cuda.synchronize()
+    assert _packed_launches() == before + 1
+    rows = ope.extend_cuda_packed(*packs, l, l + band, scoring, collect_plane=collect, lanes=32)
+    want = ope.extend_ref(*[torch.from_numpy(a).to(cuda) for a in (q, q_len, r, v)], scoring, collect_plane=collect)
+    for name in ("score", "end_d", "p_plane"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(got, name), getattr(rows, name)), name
+    if p >= 8:
+        assert (want.score > 0).any()
+
+
+def test_extend_packed_query_past_the_wavefronts_shared_memory(cuda):
+    """A query of 14,401 codes at band 128 (tables past a block's shared
+    memory) takes the row body at 32 lanes, equal to extend_ref; 14,400
+    takes the wavefront."""
+    band = 128
+    for l in (14_400, 14_401):
+        q, q_len, r, lo, hi, v = _packed_extend_case(np.random.default_rng(l), 4, l, band)
+        assert ope.packed_lanes(band, False, l) == (0 if l == 14_400 else 32)
+        got = ope.extend_cuda_packed(*_packed_inputs(cuda, q, q_len, r, lo, hi), l, l + band)
+        want = ope.extend_ref(*[torch.from_numpy(a).to(cuda) for a in (q, q_len, r, v)])
+        assert torch.equal(got.score, want.score) and torch.equal(got.end_d, want.end_d)
+
+
+def test_extend_wave_instances_use_no_local_memory(cuda):
+    """Every instance of the wavefront body and of the packed row body in
+    the built library: those the packed routes launch (the row body at 32
+    lanes at every band: the other routes and queries past the
+    wavefront's shared memory) and no other, with no stack and no local
+    memory (cuobjdump -res-usage)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from phylign_tpu_torch.ops import _kernels
+
+    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-res-usage", str(_kernels.build("extend_scan"))], capture_output=True,
+                         text=True, timeout=120, check=True)
+    found = {}
+    for name, kind, stack, local in re.findall(
+            r"Function (\S*extend_(scan|wave)_kernel\S*):\s*REG:\d+ STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", res.stdout):
+        args = tuple(int(a) for a in re.findall(r"L[a-z](\d+)E", name))
+        found[kind, args] = (int(stack), int(local))
+    routes = ope.PACKED_ROUTES.items()
+    waves = {a for k, a in found if k == "wave"}
+    assert waves == {(band // 32, w, int(plane)) for (band, plane), g in routes if not g for w in (0, 1)}
+    packed_rows = {a for k, a in found if k == "scan" and a[-1] == 1}
+    assert packed_rows == {(32, band // 32, w, 1) for band in ope.KERNEL_LANES for w in (0, 1)}
+    assert {g for _, g in routes} == {0, 32}
+    for key, (stack, local) in found.items():
+        if key[0] == "wave" or key[1][-1] == 1:
+            assert stack == 0 and local == 0, key
+
+
 def test_run_all_on_cuda_equals_cpu(cuda, tmp_path):
     """make_fixture through the port's run_all on the card and on the CPU:
     identical 05_map, sam_summary and stats, and B3/B4 launched on the
