@@ -44,6 +44,7 @@ from phylign_tpu_torch.ops import chain as opc
 from phylign_tpu_torch.ops import extend as ope
 from phylign_tpu_torch.ops import minimizer as opm
 from phylign_tpu_torch.parallel import dist
+from phylign_tpu_torch.utils import trace
 from phylign_tpu_torch.utils.platform import resolve_device
 
 
@@ -546,6 +547,7 @@ def _chain_pairs(
     n = len(anchor_sets)
     counts = [len(a.rpos) for a in anchor_sets]
     over = [c for c in counts if c > opc.MAX_ANCHORS]
+    trace.count("align.chain_truncations", len(over))
     if over:
         # no silent caps: truncation beyond the hard ceiling is loud
         log.warning(
@@ -1186,21 +1188,23 @@ def _extend_finish(
         full[rows_u[dropmax > params.zdrop]] = False
 
     if gapped:
-        # fetch the plane pass LAST — every gapless host pass above ran
-        # while the device computed it
-        (p_planes,) = ext.get()
-        # batched plane reconstruction (H/D/I for every gapped pair at once),
-        # then a cheap scalar walk per pair
-        planes_all = ope.reconstruct_planes(
-            p_planes[: len(gapped)], params.scoring
-        )
-        for gj, i in enumerate(gapped):
-            cig, start_d = ope.traceback_walk(
-                tuple(x[gj] for x in planes_all),
-                p_planes[gj], q_codes[i], q_len_l[i], rwin[i], end_l[i],
-                params.scoring, rvalid=rvalid[i],
+        trace.count("align.traceback_pairs", len(gapped))
+        with trace.span("align.extend.traceback"):
+            # fetch the plane pass LAST — every gapless host pass above ran
+            # while the device computed it
+            (p_planes,) = ext.get()
+            # batched plane reconstruction (H/D/I for every gapped pair at
+            # once), then a cheap scalar walk per pair
+            planes_all = ope.reconstruct_planes(
+                p_planes[: len(gapped)], params.scoring
             )
-            cigars[i] = (cig, start_d)
+            for gj, i in enumerate(gapped):
+                cig, start_d = ope.traceback_walk(
+                    tuple(x[gj] for x in planes_all),
+                    p_planes[gj], q_codes[i], q_len_l[i], rwin[i], end_l[i],
+                    params.scoring, rvalid=rvalid[i],
+                )
+                cigars[i] = (cig, start_d)
     full_l = full.tolist()
     best_l = best.tolist()
     neq_l = neq_all.tolist()
@@ -1542,7 +1546,8 @@ def _extend_items(
             probes[pti] = max(probes.get(pti, 0), v)
 
     for ck, lb in chunks:
-        inflight.append(_extend_dispatch(tasks, ck, lb, params, device, mesh))
+        with trace.span("align.extend.dispatch"):
+            inflight.append(_extend_dispatch(tasks, ck, lb, params, device, mesh))
         if len(inflight) >= DEPTH:
             drain(inflight.pop(0))
     for ctx in inflight:
@@ -1605,6 +1610,7 @@ def _fused_dispatch(
         a_pad = next(b for b in ANCHOR_BUCKETS if c <= b)
         by_bucket.setdefault(a_pad, []).append(i)
     over = [len(a.rpos) for a in anchor_sets if len(a.rpos) > opc.MAX_ANCHORS]
+    trace.count("align.chain_truncations", len(over))
     if over:
         log.warning(
             "%d anchor set(s) exceed MAX_ANCHORS=%d (largest %d); "
@@ -1886,6 +1892,7 @@ def _fused_finish(
             cold_i[need_rows] = cc_i[: len(need_rows)]
             cold_f[need_rows] = cc_f[: len(need_rows)]
         else:
+            trace.count("align.cold_full_fetches")
             cold_i, cold_f = _HostCopy(list(ctx.cold)).get()
         for i in gap_rows:
             delegated.append(
@@ -2155,6 +2162,8 @@ def flush_pairs_begin(
     import os
 
     device = _resolve(mesh, device)
+    trace.count("align.flushes")
+    trace.count("align.pairs", len(tasks))
     if fused is None:
         fused = FUSED_DEFAULT and os.environ.get(
             "PHYLIGN_TPU_ALIGN_FUSED", "1"
@@ -2178,6 +2187,7 @@ def flush_pairs_begin(
         max_p = max(8, FUSED_MAX_CELLS // lb)
         for off in range(0, len(tis), max_p):
             chunks.append(tis[off : off + max_p])
+    trace.count("align.fused_chunks", len(chunks))
     ff = FusedFlush(
         tasks=tasks, params=params, device=device, mesh=mesh, inflight=[],
         queued=chunks,
@@ -2209,20 +2219,25 @@ def flush_pairs_end_grouped(ff: FusedFlush) -> list[list[SamRecord]]:
     delegated: list = []
     had_chain: set[int] = set()
     while ff.inflight:
-        rec, dele, had = _fused_finish(ff.inflight.pop(0))
+        with trace.span("align.fetch"):
+            rec, dele, had = _fused_finish(ff.inflight.pop(0))
         records.update(rec)
         delegated.extend(dele)
         had_chain.update(had)
         if ff.queued:
-            ff.inflight.append(
-                _fused_dispatch(tasks, ff.queued.pop(0), params, device, mesh)
-            )
+            with trace.span("align.dispatch"):
+                ff.inflight.append(
+                    _fused_dispatch(tasks, ff.queued.pop(0), params, device, mesh)
+                )
+    trace.count("align.delegated_items", len(delegated))
     probes: dict[int, int] = {}
-    if delegated:
-        rec2, probes = _extend_items(tasks, delegated, params, device, mesh)
-        records.update(rec2)
+    with trace.span("align.extend"):
+        if delegated:
+            rec2, probes = _extend_items(tasks, delegated, params, device, mesh)
+            records.update(rec2)
     groups = _group_task_records(tasks, records, params, probes)
-    _reseed_retry(tasks, groups, had_chain, params, device, mesh)
+    with trace.span("align.reseed"):
+        _reseed_retry(tasks, groups, had_chain, params, device, mesh)
     return groups
 
 
@@ -2377,6 +2392,7 @@ def _reseed_retry(
     ]
     if not retry:
         return
+    trace.count("align.reseed_pairs", len(retry))
     # occ_cap == max_occ for the retry params, so a second-level retry is
     # structurally impossible (the guard above goes False)
     retry_params = dataclasses.replace(params, mid_occ=params.max_occ)
@@ -2601,25 +2617,27 @@ def align_batches_pooled(
                 nonlocal pend_q, seg_ref_bytes, gbuf_q
                 if not gbuf:
                     return
-                refs = opm.build_ref_index_batch(
-                    gbuf, params.k, params.w, hpc=params.hpc
-                )
-                for (rname2, _), ref in zip(gbuf, refs):
-                    sks = []
-                    for qi in rname_to_q[rname2]:
-                        sk = sketch_cache.get(qi)
-                        if sk is None:
-                            fq = queries[qi]
-                            sk = sketch_cache.setdefault(
-                                qi,
-                                QuerySketch.make(fq.qname, fq.seq, params),
-                            )
-                        sks.append(sk)
-                    pending.append((ref, sks))
-                    pend_q += len(sks)
-                    seg_ref_bytes += (
-                        ref.codes.nbytes + 2 * ref.sort_hash.nbytes
+                trace.count("align.genomes", len(gbuf))
+                with trace.span("align.ref_index"):
+                    refs = opm.build_ref_index_batch(
+                        gbuf, params.k, params.w, hpc=params.hpc
                     )
+                    for (rname2, _), ref in zip(gbuf, refs):
+                        sks = []
+                        for qi in rname_to_q[rname2]:
+                            sk = sketch_cache.get(qi)
+                            if sk is None:
+                                fq = queries[qi]
+                                sk = sketch_cache.setdefault(
+                                    qi,
+                                    QuerySketch.make(fq.qname, fq.seq, params),
+                                )
+                            sks.append(sk)
+                        pending.append((ref, sks))
+                        pend_q += len(sks)
+                        seg_ref_bytes += (
+                            ref.codes.nbytes + 2 * ref.sort_hash.nbytes
+                        )
                 gbuf.clear()
                 gbuf_q = 0
 
@@ -2627,33 +2645,35 @@ def align_batches_pooled(
                 nonlocal pend_q
                 flush_gbuf()
                 if pending:
-                    seg.extend(make_pairs_multi(pending, params))
+                    with trace.span("align.anchors"):
+                        seg.extend(make_pairs_multi(pending, params))
                     pending.clear()
                     pend_q = 0
 
-            for rname, contigs in iter_assemblies_cached(
-                tar_path, set(rname_to_q), asm_cache_dir
-            ):
-                if stop.is_set():
-                    return
-                gbuf.append((rname, contigs))
-                gbuf_q += len(rname_to_q[rname])
-                # small batches: enough to amortize the native call, small
-                # enough that pair segments keep flowing to the device
-                # consumer (64-genome bursts measurably starved the flush
-                # pipeline at e2e scale)
-                if len(gbuf) >= 16 or gbuf_q >= 256:
-                    flush_gbuf()
-                if (
-                    pend_q >= 256
-                    or pend_q + len(seg) >= pair_chunk
-                    or seg_ref_bytes >= ref_budget
+            with trace.span("align.assemblies"):
+                for rname, contigs in iter_assemblies_cached(
+                    tar_path, set(rname_to_q), asm_cache_dir
                 ):
-                    drain_pending()
-                if len(seg) >= pair_chunk or seg_ref_bytes >= ref_budget:
-                    seg_q.put(_PoolSeg(bi, seg, False))
-                    seg, seg_ref_bytes = [], 0
-            drain_pending()
+                    if stop.is_set():
+                        return
+                    gbuf.append((rname, contigs))
+                    gbuf_q += len(rname_to_q[rname])
+                    # small batches: enough to amortize the native call,
+                    # small enough that pair segments keep flowing to the
+                    # device consumer (64-genome bursts measurably starved
+                    # the flush pipeline at e2e scale)
+                    if len(gbuf) >= 16 or gbuf_q >= 256:
+                        flush_gbuf()
+                    if (
+                        pend_q >= 256
+                        or pend_q + len(seg) >= pair_chunk
+                        or seg_ref_bytes >= ref_budget
+                    ):
+                        drain_pending()
+                    if len(seg) >= pair_chunk or seg_ref_bytes >= ref_budget:
+                        seg_q.put(_PoolSeg(bi, seg, False))
+                        seg, seg_ref_bytes = [], 0
+                drain_pending()
             seg_q.put(_PoolSeg(bi, seg, True))
         except BaseException as e:  # surfaced by the coordinator
             errors.append(e)
@@ -2671,7 +2691,8 @@ def align_batches_pooled(
             bi = next_spec
             next_spec += 1
             t = threading.Thread(
-                target=_produce, args=(bi, *specs[bi]), daemon=True
+                target=_produce, args=(bi, *specs[bi]), daemon=True,
+                name=f"align-producer-{bi}",
             )
             t.start()
             threads.append(t)
@@ -2688,7 +2709,7 @@ def align_batches_pooled(
 
     def _drain(fl: tuple[FusedFlush, list[int]]):
         ff, own = fl
-        with _lk:
+        with trace.span("align.finish"), _lk:
             groups = flush_pairs_end_grouped(ff)
         for bi, grp in zip(own, groups):
             results[bi].extend(grp)
@@ -2696,7 +2717,7 @@ def align_batches_pooled(
 
     def _flush_now():
         nonlocal inflight, pool, owners
-        with _lk:
+        with trace.span("align.dispatch"), _lk:
             nxt = flush_pairs_begin(pool, params, mesh, device=device)
         prev, inflight = inflight, (nxt, owners)
         pool, owners = [], []
@@ -2711,7 +2732,9 @@ def align_batches_pooled(
 
     try:
         while n_final < len(specs):
-            seg = seg_q.get()
+            with trace.span("align.wait"):
+                seg = seg_q.get()
+            trace.count("align.segments")
             if errors:
                 raise errors[0]
             if seg.tasks:

@@ -40,6 +40,7 @@ from phylign_tpu_torch.ops.match import (
     round_up,
 )
 from phylign_tpu_torch.parallel.mesh import AXIS_DOC
+from phylign_tpu_torch.utils import trace
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -588,14 +589,17 @@ def upload_words(
     s, w = words.shape
     c0, c1 = (0, max(w, 1)) if cols is None else cols
     n = max(0, min(w, c1) - c0)
-    host = torch.empty(
-        (s + 1, c1 - c0), dtype=torch.int32, pin_memory=dev.type == "cuda"
-    )
-    h = host.numpy()
-    h[:s, :n] = np.asarray(words)[:, c0 : c0 + n].view(np.int32)
-    h[s] = 0
-    h[:s, n:] = 0
-    return host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+    pin = dev.type == "cuda"
+    with trace.span("match.upload.pin"):
+        host = torch.empty((s + 1, c1 - c0), dtype=torch.int32, pin_memory=pin)
+    trace.count("match.pinned_allocs", int(pin))
+    trace.count("match.upload_bytes", host.nbytes)
+    with trace.span("match.upload.stage"):
+        h = host.numpy()
+        h[:s, :n] = np.asarray(words)[:, c0 : c0 + n].view(np.int32)
+        h[s] = 0
+        h[:s, n:] = 0
+    return host.to(dev, non_blocking=True) if pin else host
 
 
 @dataclass
@@ -922,6 +926,7 @@ class Matcher:
         re-dispatch is serialized against other device work."""
         if not redo:
             return
+        trace.count("match.redo_queries", len(redo))
         lock = device_lock if device_lock is not None else contextlib.nullcontext()
         with lock:
             scores, keep, _ = self.score_rows(
@@ -1023,6 +1028,7 @@ class Matcher:
                 device_lock=device_lock,
             )
             return hits[:q_real], nk[:q_real]
+        trace.count("match.cap_overflows")
         lock = device_lock if device_lock is not None else contextlib.nullcontext()
         with lock:
             vals, idx, n_keep = (

@@ -27,6 +27,9 @@ import time
 from concurrent.futures import Future
 from pathlib import Path
 
+# each kernel module counts its launches in one of the program's counters
+from phylign_tpu_torch.utils.trace import Counters as LaunchCounts
+
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "phylign_tpu_torch"
@@ -240,29 +243,6 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.phylign_cuda_error_string(err).decode(errors="replace")
         raise KernelError(f"{what} launch failed: cudaError {err} ({msg})")
-
-
-class LaunchCounts:
-    """Kernel launches by name since the last reset; each module that
-    launches kernels keeps one, and ``launch`` adds to it. The names given
-    here are listed from the start; another name from its first launch."""
-
-    def __init__(self, *names: str):
-        self._lock = threading.Lock()
-        self._counts = dict.fromkeys(names, 0)
-
-    def add(self, name: str) -> None:
-        with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + 1
-
-    def snapshot(self) -> dict[str, int]:
-        with self._lock:
-            return dict(self._counts)
-
-    def reset(self) -> None:
-        with self._lock:
-            for name in self._counts:
-                self._counts[name] = 0
 
 
 def launch(counts: LaunchCounts, name: str, source: str, fn: str, *args,

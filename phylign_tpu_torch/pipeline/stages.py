@@ -57,6 +57,7 @@ from phylign_tpu_torch.models.matcher import (
 from phylign_tpu_torch.ops._kernels import KernelError, build_all
 from phylign_tpu_torch.parallel.launch import shard_batches
 from phylign_tpu_torch.utils.bench import RamSampler, benchmark
+from phylign_tpu_torch.utils import trace
 from phylign_tpu_torch.utils.platform import resolve_device
 
 log = logging.getLogger("phylign_tpu_torch.pipeline")
@@ -141,9 +142,11 @@ class _IndexCache:
             it = self.items.get(key)
             if it is None:
                 self.misses += 1
+                trace.count("match.index_cache_misses")
                 return None
             self.items.move_to_end(key)
             self.hits += 1
+            trace.count("match.index_cache_hits")
             return it[0]
 
     def put(self, key, matcher, mb: int) -> bool:
@@ -294,6 +297,7 @@ class Pipeline:
 
     # --- stage 0+1: preprocess & merge --------------------------------------
 
+    @trace.spanned("stage.preprocess")
     def preprocess(self, inputs: Sequence[str]) -> str:
         stem, records = normalize_and_merge(inputs)
         self._longest_read[stem] = max((len(r.seq) for r in records), default=0)
@@ -349,6 +353,7 @@ class Pipeline:
             self._query_cache[key] = qs
         return qs
 
+    @trace.spanned("match.write")
     def _commit_match_output(
         self, batch: str, stem: str, qs: QuerySet, hits_u, nk_u, doc_names,
     ) -> Path:
@@ -371,7 +376,8 @@ class Pipeline:
         if self.manifest.done("match", f"{batch}____{stem}", [str(out)]):
             return out
         with benchmark(self.logs, "run_cobs", f"{batch}____{stem}"):
-            didx = self._load_index(batch)
+            with trace.span("match.load"):
+                didx = self._load_index(batch)
             qs = self._query_set(stem, didx.term_size, didx.num_hashes)
             hits_u, nk_u = self._score_batch(didx, qs)
             if self.mesh() is None or self.mesh().rank == 0:
@@ -464,6 +470,7 @@ class Pipeline:
         d.mkdir(parents=True, exist_ok=True)
         return str(d)
 
+    @trace.spanned("match.drop")
     def drop_index_cache(self, batch: str | None = None) -> None:
         """Remove cached decompressed indexes (keep_cobs_indexes=False
         semantics)."""
@@ -559,6 +566,8 @@ class Pipeline:
         many batches together (_match_pipelined). The device memory
         accountant bounds how many transient indexes are resident at once."""
         records = qs.records
+        trace.count("match.batches")
+        trace.count("match.queries_scored", len(qs.uraw))
         use_device = didx.num_docs > 0 and len(records) > 0
         if not use_device:
             return {"sync": ([[] for _ in qs.uraw], [0] * len(qs.uraw))}
@@ -583,7 +592,8 @@ class Pipeline:
             self.sched.hbm.acquire(hbm_mb)
         try:
             if matcher is None:
-                matcher = Matcher.from_device_index(didx, self.device, mesh=mesh)
+                with trace.span("match.upload"):
+                    matcher = Matcher.from_device_index(didx, self.device, mesh=mesh)
             matcher.dedup = self.cfg.match_dedup
             chunk = self.cfg.device_query_chunk
             if not isinstance(chunk, int):  # "auto": bound the transient
@@ -609,7 +619,7 @@ class Pipeline:
             # dispatch under the device lock, fetch + assemble OUTSIDE it;
             # slots keep chunk order even if some chunks take the
             # synchronous paths
-            with self.sched.device_lock:
+            with trace.span("match.dispatch"), self.sched.device_lock:
                 for off in range(0, len(qs.uraw), chunk):
                     if use_hashes:
                         dqc = qs.device_chunk(off, chunk)
@@ -643,6 +653,7 @@ class Pipeline:
             "hbm_mb": hbm_mb,
         }
 
+    @trace.spanned("match.assemble")
     def _score_batch_end(
         self, st: dict, fetched: dict | None = None, qs: QuerySet | None = None
     ) -> tuple[list[list[tuple[int, int]]], list[int]]:
@@ -738,6 +749,7 @@ class Pipeline:
             "row-chunked scoring",
             didx.doc_names[0] if didx.doc_names else "?", budget_mb,
         )
+        trace.count("match.chunked_batches")
         cm = ChunkedMatcher.from_device_index(
             didx, hbm_budget_mb=budget_mb, device=self.device
         )
@@ -779,6 +791,7 @@ class Pipeline:
             Pipeline._index_hash_memo[memo_key] = digest
         return digest
 
+    @trace.spanned("stage.match")
     def match(self, stem: str, batches: list[str] | None = None) -> list[Path]:
         batches = batches if batches is not None else self.batches()
         if self.mesh() is None:
@@ -859,7 +872,8 @@ class Pipeline:
                     next_turn[0] += 1
                     turn.notify_all()
             try:
-                return self._load_index(b), mem
+                with trace.span("match.load"):
+                    return self._load_index(b), mem
             except BaseException:
                 self.sched.ram.release(mem)
                 raise
@@ -885,14 +899,15 @@ class Pipeline:
             gi = 0
             try:
                 # wait for every pending hit-buffer copy of the group
-                fetched_all = {
-                    (g2, si): payload.fetch()
-                    for g2, it in enumerate(group)
-                    for si, (kind, payload) in enumerate(
-                        it["st"].get("slots", ())
-                    )
-                    if kind == "pending"
-                }
+                with trace.span("match.fetch"):
+                    fetched_all = {
+                        (g2, si): payload.fetch()
+                        for g2, it in enumerate(group)
+                        for si, (kind, payload) in enumerate(
+                            it["st"].get("slots", ())
+                        )
+                        if kind == "pending"
+                    }
                 for gi, it in enumerate(group):
                     b = it["batch"]
                     fetched = {
@@ -935,11 +950,13 @@ class Pipeline:
                         nb = todo[j]
                         if nb not in futs:
                             futs[nb] = pool.submit(load_one, j, nb)
-                    didx, mem = futs.pop(b).result()
+                    with trace.span("match.load_wait"):
+                        didx, mem = futs.pop(b).result()
                     try:
-                        qs = self._query_set(
-                            stem, didx.term_size, didx.num_hashes
-                        )
+                        with trace.span("match.queries"):
+                            qs = self._query_set(
+                                stem, didx.term_size, didx.num_hashes
+                            )
                         # never enter a blocking device-memory acquire while
                         # holding dispatched-but-unflushed work only THIS
                         # thread can release: flush first if the pool looks
@@ -1030,6 +1047,7 @@ class Pipeline:
 
     # --- stage 4: filter -----------------------------------------------------
 
+    @trace.spanned("stage.filter")
     def filter(self, stem: str, batches: list[str] | None = None) -> Path:
         batches = batches if batches is not None else self.batches()
         out = self.filter_path(stem)
@@ -1198,9 +1216,10 @@ class Pipeline:
                     device=self.device,
                 )
             )
-            tmp, commit = atomic_write_via(out)
-            write_batch_sam(tmp, records)
-            commit()
+            with trace.span("align.write"):
+                tmp, commit = atomic_write_via(out)
+                write_batch_sam(tmp, records)
+                commit()
         self.manifest.mark("map", f"{batch}____{stem}", [str(out)])
         if self.cfg.asm_cache:
             self._enforce_cache_budget()
@@ -1231,6 +1250,7 @@ class Pipeline:
             params.check_kernel(longest)
         return params
 
+    @trace.spanned("stage.align")
     def align(self, stem: str, batches: list[str] | None = None) -> list[Path]:
         batches = batches if batches is not None else self.batches()
         outs: dict[str, Path] = {}
@@ -1283,7 +1303,7 @@ class Pipeline:
                     # batch_align_pooled row
                     with benchmark(
                         self.logs, "batch_align", f"{bname}____{stem}"
-                    ):
+                    ), trace.span("align.write"):
                         out = self.map_path(bname, stem)
                         tmp, commit = atomic_write_via(out)
                         write_batch_sam(tmp, records)
@@ -1296,6 +1316,7 @@ class Pipeline:
 
     # --- stage 6: aggregate + stats ------------------------------------------
 
+    @trace.spanned("stage.aggregate")
     def aggregate(self, stem: str, batches: list[str] | None = None) -> Path:
         batches = batches if batches is not None else self.batches()
         out = self.out / f"{stem}.sam_summary.gz"
@@ -1315,6 +1336,7 @@ class Pipeline:
             commit()
         return out
 
+    @trace.spanned("stage.stats")
     def stats(self, stem: str) -> Path:
         out = self.out / f"{stem}.sam_summary.stats"
         with benchmark(self.logs, "final_stats", stem):
