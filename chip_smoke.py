@@ -194,6 +194,7 @@ SOURCE = {
     "match_popcount_acc": "phylign_tpu_torch/csrc/match_popcount.cu",
     "match_popcount_keep": "phylign_tpu_torch/csrc/match_popcount.cu",
     "merge_topk": "phylign_tpu_torch/csrc/match_epilogue.cu",
+    "traceback_walk": "phylign_tpu_torch/csrc/traceback_walk.cu",
 }
 REPLACES = {
     "match_popcount_b1": "phylign_tpu/ops/match.py:276",
@@ -221,6 +222,9 @@ REPLACES = {
     "match_popcount_acc": "phylign_tpu/models/matcher.py:838",
     "match_popcount_keep": "phylign_tpu/models/matcher.py:252",
     "merge_topk": "phylign_tpu/parallel/dist.py:107",
+    # host code, not a device program: the gapped pairs' walk over a
+    # fetched plane, reconstruct_planes (:276) + traceback_walk (:310)
+    "traceback_walk": "phylign_tpu/ops/extend.py:276",
 }
 #: kernel B5's three kernels, launched by every hash-path match call
 B5_KERNELS = ("hash_rows", "threshold_topk", "pack_hits")
@@ -1265,6 +1269,8 @@ def phase_align_kernels(label: str, pr4: Pr4AlignKernels | None, baseline_extend
     out["b4_wide"] = wide_scoring(rng, label)
     out.update(packed_extension(rng, label, baseline_extend))
     torch.cuda.empty_cache()
+    out.update(traceback_kernel(rng, label))
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1509,6 +1515,130 @@ def packed_extension(rng, label: str, baseline_extend: Path | None = None) -> di
         out[name] = row
         emit("align_kernels", case=name, rotation=ROTATION, card=label, **row)
         del sets, packs
+    return out
+
+
+#: the traceback walk's cases (csrc/traceback_walk.cu): (name, L, band,
+#: gapped pairs): the map cell's row buckets of genes (256 to 3,328 rows,
+#: band 128) at about a plane pass's gapped pairs, and the widest band
+TB_CASES = [
+    ("tb_256", 256, 128, 256),
+    ("tb_1024", 1024, 128, 256),
+    ("tb_3328", 3328, 128, 128),
+    ("tb_1024_band512", 1024, 512, 128),
+]
+MAIN_TB_CASE = "tb_1024"
+#: pairs of each case's first input set also walked on the host, the path
+#: the kernel replaces (the plane's copy, reconstruct_planes, traceback_walk)
+TB_HOST_PAIRS = 48
+
+
+def gene_inputs(rng, n: int, l: int, band: int):
+    """n gapped pairs at (L, band) as the engine uploads them for the
+    plane pass: a gene of L - 8..L bases, 30 bp short of its window at
+    offset band/2 (the map cell's deleted genes), 1% substitutions; the
+    window's left edge cut at band/4 in 1 of 16 pairs, its right edge just
+    past the gene in another 1 of 16 (-1e30 cells at the band's edges).
+    Returns (q, q_len, r, lo, hi)."""
+    import numpy as np
+
+    wlen, off = l + band, band // 2
+    r = rng.integers(0, 4, (n, wlen)).astype(np.uint8)
+    q = np.zeros((n, l), np.uint8)
+    q_len = np.zeros(n, np.int32)
+    for j in range(n):
+        qlen = l - int(rng.integers(0, 8))
+        a = int(rng.integers(qlen // 4, 3 * qlen // 4))
+        s = np.concatenate([r[j, off : off + a], r[j, off + a + 30 :]])[:qlen].copy()
+        flip = rng.random(len(s)) < 0.01
+        s[flip] = (s[flip] + 1) % 4
+        q[j, : len(s)] = s
+        q_len[j] = len(s)
+    rows = np.arange(n)
+    lo = np.where(rows % 16 == 5, band // 4, 0).astype(np.int32)
+    hi = np.where(rows % 16 == 9, np.minimum(off + q_len + 35, wlen), wlen).astype(np.int32)
+    return q, q_len, r, lo, hi
+
+
+def tb_bound(q_len, n_ops: int, n: int, l: int, band: int) -> dict:
+    """The walk's bytes: the plane's rows below q_len read once, their
+    direction bytes written once and read back once, the packs, q_len, lo,
+    hi and end_d read and the ops and meta written."""
+    rows = int(q_len.clip(0, l).astype("int64").sum())
+    nbytes = rows * band * (4 + 1 + 1) + n * (-(-l // 4) + -(-(l + band) // 4) + 16 + 8) + n_ops
+    return bound(nbytes, 0)
+
+
+def traceback_kernel(rng, label: str) -> dict:
+    """The traceback walk (traceback_cuda) at the map cell's shapes
+    (TB_CASES), over B4's plane pass on the card as the engine leaves it:
+    its meta and the ops each pair uses byte for byte against the plain
+    version (traceback_ref, on the same tensors) on every input set, and
+    its CIGARs and start_d against the host walk (reconstruct_planes +
+    traceback_walk) on TB_HOST_PAIRS pairs of the first; then timed from
+    CUDA graphs over ROTATION input sets, with the plain version's time a
+    call and the host path's a pair beside."""
+    import numpy as np
+    import torch
+
+    from phylign_tpu_torch.ops import extend as ope
+
+    out = {}
+    for name, l, band, n in TB_CASES:
+        wlen = l + band
+        host = [gene_inputs(rng, n, l, band) for _ in range(ROTATION)]
+        sets = []
+        for q, q_len, r, lo, hi in host:
+            ins = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                   for a in (ope.pack2bit(q), q_len, ope.pack2bit(r), lo, hi)]
+            ext = ope.extend_banded_packed(*ins, l, wlen)
+            sets.append((ext.p_plane, *ins, ext.end_d, n))
+        plain_ms, n_ops = [], []
+        for k, args in enumerate(sets):
+            tb = ope.traceback_cuda(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = ope.traceback_ref(*args)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            meta, want_meta = tb.meta.cpu(), ref.meta.cpu()
+            used = torch.arange(2 * l + band)[None, :] >= (2 * l + band - want_meta[:, :1])
+            if not torch.equal(meta, want_meta) or not torch.equal(tb.ops.cpu()[used], ref.ops.cpu()[used]):
+                raise AssertionError(f"{name}: traceback_walk differs from traceback_ref on input set {k}")
+            if int((want_meta[:, 0] < 0).sum()):
+                raise AssertionError(f"{name}: {int((want_meta[:, 0] < 0).sum())} walks failed")
+            n_ops.append(int(want_meta[:, 0].sum()))
+            if k == 0:
+                got = ope.decode_traceback(tb.ops.cpu().numpy()[:TB_HOST_PAIRS], meta.numpy()[:TB_HOST_PAIRS])
+        # the host path it replaces, on the first set's first TB_HOST_PAIRS
+        q, q_len, r, lo, hi = host[0]
+        m = min(n, TB_HOST_PAIRS)
+        t0 = time.perf_counter()
+        plane = sets[0][0][:m].cpu().numpy()
+        end_d = sets[0][6][:m].cpu().numpy()
+        planes = ope.reconstruct_planes(plane)
+        valid = (np.arange(wlen)[None, :] >= lo[:m, None]) & (np.arange(wlen)[None, :] < hi[:m, None])
+        want = [ope.traceback_walk(tuple(x[j] for x in planes), plane[j], q[j], int(q_len[j]), r[j],
+                                   int(end_d[j]), rvalid=valid[j]) for j in range(m)]
+        host_ms = (time.perf_counter() - t0) * 1e3 / m
+        if got != want:
+            raise AssertionError(f"{name}: traceback_walk's CIGARs differ from the host walk's")
+        gapped = sum(any(op in ("I", "D") for _, op in runs) for runs, _ in want)
+        turns = [graph_ms(lambda i: ope.traceback_cuda(*sets[i]), 4 * ROTATION, ROTATION) for _ in range(2)]
+        bounds = [tb_bound(h[1], k, n, l, band) for h, k in zip(host, n_ops)]
+        row = dict(kernel="traceback_walk", L=l, band=band, pairs=n, max_abs_err=0, checked_sets=len(sets),
+                   host_checked_pairs=m, host_gapped_pairs=gapped, ms=min(turns), turns=turns,
+                   plain_ms=min(plain_ms), host_ms_per_pair=host_ms,
+                   kernels_per_call=graph_launches(lambda: ope.traceback_cuda(*sets[0])),
+                   plane_bytes=int(sets[0][0].numel() * 4),
+                   ops_bytes=int(n * (2 * l + band) + 8 * n))
+        if row["kernels_per_call"] != 1:
+            raise AssertionError(f"{name}: traceback_cuda launched {row['kernels_per_call']} kernels, not 1")
+        row.update({k: (sum(b[k] for b in bounds) / len(bounds) if k != "bound_by" else bounds[0][k]) for k in bounds[0]})
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+        emit("align_kernels", case=name, rotation=ROTATION, card=label, **row)
+        del sets
     return out
 
 
@@ -2253,6 +2383,9 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
     if not delegated or counts["extend_scan_packed"] != len(delegated):
         raise AssertionError(f"{len(delegated)} delegated extension passes launched "
                              f"{counts['extend_scan_packed']} packed B4 kernels")
+    plane_passes = sum(kind == "plane" for kind, _, _ in delegated)
+    if counts["traceback_walk"] != plane_passes:
+        raise AssertionError(f"{plane_passes} plane passes launched {counts['traceback_walk']} traceback walks")
     dele = {kind: dict(passes=sum(k == kind for k, _, _ in delegated),
                        passes_by_P_L={f"{pp}x{ll}": sum(x == (kind, pp, ll) for x in delegated)
                                       for pp, ll in sorted({(pp, ll) for k, pp, ll in delegated if k == kind})})
@@ -2287,6 +2420,7 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
         pairs_per_s=pairs / align_s, reads_per_s=P7_READS / align_s, aggregate_stats_s=report_s,
         peak_device_mb=peak_mb, launches=counts, cold_rows_per_flush=cold_rows, cold_cap=fz.COLD_CAP,
         delegated=dele, delegated_packed_launches=counts["extend_scan_packed"],
+        traceback_launches=counts["traceback_walk"],
         cold_overflows=sum(r["needed"] > fz.COLD_CAP for r in cold_rows),
         planted=len(planted), placed=hit, placed_frac=frac,
         cpu_subset_reads=P7_SUBSET, cpu_subset_s=cpu_s, cpu_subset="identical",
@@ -2567,9 +2701,10 @@ def phase_mesh(work: Path, label: str, p7: dict, b5_base: BaselineLib | None = N
     # a mesh ships the full cold rows (no compaction) and packs its hits on
     # the host (no B5a, B5c), as the JAX mesh path does; the accumulating
     # and keep instances belong to the chunked pass and match_step; the
-    # fixture's reads delegate no extension (none in phase 6 either)
+    # fixture's reads delegate no extension (none in phase 6 either), and a
+    # mesh walks the traceback on the host
     off_path = ("compact_cold", "hash_rows", "pack_hits", "match_popcount_acc", "match_popcount_keep",
-                "extend_scan_packed")
+                "extend_scan_packed", "traceback_walk")
     if not all(v for k, v in counts["c"].items() if k not in off_path):
         raise AssertionError(f"the fixture on the 2x2 mesh did not launch every kernel: {counts['c']}")
     emit("mesh_fixture", mesh="2x2", files=len(got), seconds=secs, launches=counts["c"],
@@ -3431,6 +3566,20 @@ def main(argv: list[str] | None = None) -> int:
         **{f"{n[4:]}_{x}": v[x] for n, v in b4p.items() if n != "b4p_score" for x in (
             "P", "L", "band", "design", "ms", "row_ms", "row_lanes", "lanes_ms", "plain_ms", "bound_ms",
             "bound_by", "bound_share")},
+    ))
+    k = akern[MAIN_TB_CASE]
+    tbk = {n: v for n, v in akern.items() if v["kernel"] == "traceback_walk"}
+    table.append(dict(
+        name="traceback_walk", route="cuda", source=SOURCE["traceback_walk"],
+        replaces=REPLACES["traceback_walk"], launches=sum(c["traceback_walk"] for c in (c6, c7, c8, c9)),
+        launches_phase6=c6["traceback_walk"], launches_phase7=c7["traceback_walk"],
+        launches_phase8=c8["traceback_walk"], launches_phase9=c9["traceback_walk"],
+        case=f"{MAIN_TB_CASE}: {k['pairs']} gapped pairs, L={k['L']}, band {k['band']}, over B4's plane pass",
+        max_abs_err=0, ms=k["ms"], plain_ms=k["plain_ms"], host_ms_per_pair=k["host_ms_per_pair"],
+        bound_ms=k["bound_ms"], bound_by=k["bound_by"], bound_share=k["bound_share"], bytes=k["bytes"],
+        operations=k["operations"], library_ms=None,
+        **{f"{n}_{x}": v[x] for n, v in tbk.items() if n != MAIN_TB_CASE for x in (
+            "L", "band", "pairs", "ms", "plain_ms", "host_ms_per_pair", "bound_ms", "bound_by", "bound_share")},
     ))
     for name, case in MAIN_B6_CASE.items():
         k = fkern[case] if name == "chain_select" else fkern[case][name]

@@ -8,8 +8,11 @@ chained and extended as fixed-shape device batches:
 
   host:   tar streaming, minimizer sketching (numpy), anchor lookup
   device: chain DP over [P, A] anchor tensors (ops.chain, kernel B3), banded
-          dual-affine extension over [P, L, band] (ops.extend, kernel B4)
-  host:   traceback, CIGAR/flag/POS emission
+          dual-affine extension over [P, L, band] (ops.extend, kernel B4),
+          the gapped pairs' traceback over B4's plane (ops.extend,
+          traceback_cuda) on one card
+  host:   the traceback of a plane on the CPU or over a mesh, CIGAR/flag/POS
+          emission
 
 Device work runs on ``device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels). Each group of host arrays goes up in one
@@ -945,7 +948,8 @@ class _ExtCtx:
     Produced by _extend_dispatch, consumed by _extend_finish. Splitting the
     two lets flush_pairs dispatch chunk i+1's device pass before fetching
     chunk i's results, so device compute overlaps the host half (fetch,
-    gapless check, traceback, record assembly) instead of serializing."""
+    gapless check, the traceback's fetch or walk, record assembly) instead
+    of serializing."""
 
     tasks: list
     items: list
@@ -984,7 +988,7 @@ def _extend_dispatch(
     everything, then (in _extend_finish) a traceback-plane pass ONLY for
     pairs whose optimal score cannot be realized gaplessly on the end
     diagonal. Short-read alignments are overwhelmingly gapless, so the
-    expensive [P, L, BAND] plane transfer runs for a small remainder.
+    [P, L, BAND] plane is computed for a small remainder.
     """
     p = _bucket_pairs(len(items), _mesh_q(mesh))
     n = len(items)
@@ -1065,11 +1069,24 @@ def _extend_dispatch(
     )
 
 
+def _walk_on_device(device: torch.device, mesh) -> bool:
+    """Whether the gapped pairs' traceback runs where their plane is: on
+    one card (the kernel, ops/extend.traceback_cuda), or, for a plane on
+    the CPU or over a mesh's shards, on the host (reconstruct_planes +
+    traceback_walk)."""
+    return mesh is None and device.type == "cuda"
+
+
 def _extend_finish(
     ctx: _ExtCtx,
 ) -> tuple[dict[tuple[int, int], SamRecord], dict[int, int]]:
     """Fetch + post-process a dispatched extension chunk: gapless check,
-    traceback-plane pass for the gapped remainder, SAM record assembly.
+    traceback-plane pass for the gapped remainder and its walk, SAM record
+    assembly. On one card the walk runs on the card over the plane where
+    the plane pass left it (ops/extend.traceback_cuda) and only the ops
+    come back; a plane on the CPU or over a mesh comes to the host, which
+    rebuilds H/I/D (reconstruct_planes) and walks each pair
+    (traceback_walk). Both give the same CIGAR and start_d.
     Returns (records, probes): items with seg == PROBE_SEG produce no
     record, only their alignment's Kadane-best DP score (mm2's dp_max2,
     gated at min_dp_score the way mm_filter_regs drops weak regions)."""
@@ -1104,6 +1121,7 @@ def _extend_finish(
     # (async), so its device time overlaps all the gapless host work below
     gapped = np.flatnonzero(~diag_ok).tolist()
     ext = None
+    on_card = _walk_on_device(device, mesh)
     if gapped:
         gi = np.asarray(gapped)
         gp = _bucket_pairs(len(gapped), _mesh_q(mesh))
@@ -1124,11 +1142,21 @@ def _extend_finish(
             g_ext = dist.dist_extend_packed(
                 mesh, *g_in, lmax, wlen, scoring=params.scoring
             )
+            ext = _HostCopy([g_ext.p_plane])
         else:
+            g_dev = _upload(g_in + ((pad(end_ds),) if on_card else ()), device)
             g_ext = ope.extend_banded_packed(
-                *_upload(g_in, device), lmax, wlen, scoring=params.scoring
+                *g_dev[:5], lmax, wlen, scoring=params.scoring
             )
-        ext = _HostCopy([g_ext.p_plane])
+            if on_card:
+                # the walk reads the plane where the plane pass left it,
+                # and only the ops come back
+                tb = ope.traceback_cuda(
+                    g_ext.p_plane, *g_dev, len(gapped), params.scoring
+                )
+                ext = _HostCopy([tb.meta, tb.ops])
+            else:
+                ext = _HostCopy([g_ext.p_plane])
     # ALL per-record scalars converted host-side in bulk (a python-int list
     # indexes ~100x faster than per-element numpy scalar conversion)
     q_len_l = q_len[:n].tolist()
@@ -1190,21 +1218,30 @@ def _extend_finish(
     if gapped:
         trace.count("align.traceback_pairs", len(gapped))
         with trace.span("align.extend.traceback"):
-            # fetch the plane pass LAST — every gapless host pass above ran
-            # while the device computed it
-            (p_planes,) = ext.get()
-            # batched plane reconstruction (H/D/I for every gapped pair at
-            # once), then a cheap scalar walk per pair
-            planes_all = ope.reconstruct_planes(
-                p_planes[: len(gapped)], params.scoring
-            )
-            for gj, i in enumerate(gapped):
-                cig, start_d = ope.traceback_walk(
-                    tuple(x[gj] for x in planes_all),
-                    p_planes[gj], q_codes[i], q_len_l[i], rwin[i], end_l[i],
-                    params.scoring, rvalid=rvalid[i],
+            if on_card:
+                # fetch the walks LAST — every gapless host pass above ran
+                # while the device computed them
+                meta, ops = ext.get()
+                for i, walked in zip(gapped, ope.decode_traceback(ops, meta)):
+                    cigars[i] = walked
+            else:
+                # fetch the plane pass LAST — every gapless host pass above ran
+                # while the device computed it
+                (p_planes,) = ext.get()
+                # batched plane reconstruction (H/D/I for every gapped pair at
+                # once), then a cheap scalar walk per pair
+                planes_all = ope.reconstruct_planes(
+                    p_planes[: len(gapped)], params.scoring
                 )
-                cigars[i] = (cig, start_d)
+                for gj, i in enumerate(gapped):
+                    cig, start_d = ope.traceback_walk(
+                        tuple(x[gj] for x in planes_all),
+                        p_planes[gj], q_codes[i], q_len_l[i], rwin[i], end_l[i],
+                        params.scoring, rvalid=rvalid[i],
+                    )
+                    cigars[i] = (cig, start_d)
+        if on_card:
+            trace.count("align.device_traceback_pairs", len(gapped))
     full_l = full.tolist()
     best_l = best.tolist()
     neq_l = neq_all.tolist()

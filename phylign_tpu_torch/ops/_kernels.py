@@ -196,6 +196,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             # mismatch, o1, e1, o2, e2, open1, open2, wide, collect, score,
             # end_d, plane, stream
             lib.phylign_extend_scan_packed.argtypes = [p, p, p, p, p, *[i32] * 14, p, p, p, p]
+    elif name == "traceback_walk":
+        lib.phylign_traceback_walk.restype = i32
+        # plane, q_pack, q_len, r_pack, lo, hi, end_d, n, l, band, match,
+        # mismatch, o1, e1, o2, e2, open1, open2, dirs, ops, meta, stream
+        lib.phylign_traceback_walk.argtypes = [*[p] * 7, *[i32] * 3, *[ctypes.c_float] * 8, p, p, p, p]
     elif name == "flush_epilogue":
         f32 = ctypes.c_float
         for fn in (lib.phylign_chain_select, lib.phylign_select_window,

@@ -13,8 +13,12 @@ last query row). Within a row, deletions are solved with the prefix-max
 trick:
     D[d] = max_{d'<d} (P[d'] + d'*E) - O - d*E
 where P = max(diag-move H, I). The device emits each pair's last-row score
-and band offset, and optionally the per-cell P plane; the host rebuilds the
-H/I/D planes and walks the traceback (gaps are rare).
+and band offset, and optionally the per-cell P plane. The traceback (gaps
+are rare) runs where the plane is: on one card a second kernel rebuilds
+H/I/D a row at a time from the plane and walks it, and only the ops come
+back (``traceback_cuda``); a plane on the CPU or over a mesh's shards comes
+to the host, which rebuilds the planes and walks there
+(``reconstruct_planes`` + ``traceback_walk``).
 
 Implementations with identical results (every value is an integer-valued
 f32 or -1e30-based, so "identical" is bit for bit):
@@ -28,6 +32,17 @@ f32 or -1e30-based, so "identical" is bit for bit):
                      a warp a pair sweeping the band's anti-diagonals (the
                      wavefront body) on the routes PACKED_ROUTES gives it.
 ``_extend_impl`` and ``_extend_packed_impl`` pick by the tensor's device.
+
+The traceback's implementations, each with traceback_walk's CIGAR and
+start_d for every pair:
+  * ``reconstruct_planes`` + ``traceback_walk``  numpy and Python on the
+                     host, over a fetched plane.
+  * ``traceback_ref``  plain PyTorch: a direction byte a cell from the
+                     plane, then a walk over the bytes; the version the
+                     kernel is held to.
+  * ``traceback_cuda``  the kernel (csrc/traceback_walk.cu): the same, a
+                     warp a pair on the card.
+The align engine picks by where the plane lives (``engine._walk_on_device``).
 """
 
 from __future__ import annotations
@@ -621,6 +636,235 @@ def traceback_one(
     return traceback_walk(
         planes, pp[0], q_codes, qlen, rwin, end_d, scoring, rvalid
     )
+
+
+# --- the traceback on the card (csrc/traceback_walk.cu) -----------------------
+
+#: a cell's direction byte (traceback_dirs_ref, the kernel's sweep): bits
+#: 0-2 the H cell's move (=, X, into I1, I2, D1 or D2), bits 3-4 whether
+#: I1 / I2 opens there, bits 5-6 whether the cell holds its row's running
+#: maximum of D1's / D2's keyed values P + d*e (a deletion's nearest start)
+MV_EQ, MV_X, MV_I1, MV_I2, MV_D1, MV_D2 = range(6)
+OPEN1, OPEN2, RUN1, RUN2 = 8, 16, 32, 64
+#: the op of each code in a walk's output
+TRACE_OPS = (CIG_EQ, CIG_X, CIG_I, CIG_D)
+
+
+class Traceback(NamedTuple):
+    ops: torch.Tensor  # uint8 [n, 2L + band] pair j's op codes (TRACE_OPS), in order in its last meta[j, 0] bytes
+    meta: torch.Tensor  # int32 [n, 2] (number of ops, -1 where the walk failed; start_d)
+
+
+class TracebackError(RuntimeError):
+    """A walk found no path through its planes (traceback_walk's failed
+    assertion)."""
+
+
+def traceback_dirs_ref(
+    p_plane: torch.Tensor,  # f32 [G, L, band]
+    q_codes: torch.Tensor,  # uint8 [G, L]
+    rwin: torch.Tensor,  # uint8 [G, L + band]
+    rvalid: torch.Tensor,  # bool [G, L + band]
+    scoring: SrScoring = SrScoring(),
+) -> torch.Tensor:
+    """The direction byte of every cell (MV_*, OPEN*, RUN*), uint8 [G, L,
+    band], from reconstruct_planes' values in its f32 order and
+    traceback_walk's tie rules: H's move is a D family where H != P (D1
+    where H = D1), else the diagonal where the cell is valid and P = H(i-1,
+    d) + sub (0 on row 0), else I1 where P = I1, I2 where P = I2, else the
+    diagonal; an insertion opens where I = H(i-1, d+1) - o (0 on row 0,
+    -1e30 past the band)."""
+    g, l, band = p_plane.shape
+    dev = p_plane.device
+    s = scoring
+    o1, e1 = float(s.gap_open1 + s.gap_ext1), float(s.gap_ext1)
+    o2, e2 = float(s.gap_open2 + s.gap_ext2), float(s.gap_ext2)
+    d_idx = torch.arange(band, dtype=torch.float32, device=dev)
+    negcol = torch.full((g, l, 1), float(NEG), dtype=torch.float32, device=dev)
+
+    def family(o, e):
+        de = d_idx * e
+        keyed = p_plane + de
+        cm = torch.cummax(keyed, dim=2).values
+        return torch.cat([negcol, cm[:, :, :-1]], dim=2) - (o + de), keyed == cm
+
+    d1, run1 = family(float(s.gap_open1), e1)
+    d2, run2 = family(float(s.gap_open2), e2)
+    h = torch.maximum(p_plane, torch.maximum(d1, d2))
+    low = torch.where(h != p_plane, torch.where(h == d1, MV_D1, MV_D2), -1).to(torch.int8)
+    rv = rvalid.to(torch.bool)
+    neg = torch.full((g, 1), float(NEG), dtype=torch.float32, device=dev)
+    hprev = torch.zeros((g, band), dtype=torch.float32, device=dev)  # row -1
+    i1p = torch.full((g, band), float(NEG), dtype=torch.float32, device=dev)
+    i2p = i1p.clone()
+    dirs = torch.empty((g, l, band), dtype=torch.uint8, device=dev)
+    for i in range(l):
+        hs = torch.cat([hprev[:, 1:], neg], dim=1)
+        i1 = torch.maximum(hs - o1, torch.cat([i1p[:, 1:], neg], dim=1) - e1)
+        i2 = torch.maximum(hs - o2, torch.cat([i2p[:, 1:], neg], dim=1) - e2)
+        hso = torch.zeros_like(hs) if i == 0 else hs
+        p = p_plane[:, i]
+        ok = rv[:, i : i + band]
+        m = ok & (rwin[:, i : i + band] == q_codes[:, i : i + 1])
+        sub = torch.where(m, float(s.match), -float(s.mismatch))
+        diag_mv = torch.where(m, MV_EQ, MV_X)
+        mv = torch.where(
+            ok & (p == hprev + sub), diag_mv,
+            torch.where(p == i1, MV_I1, torch.where(p == i2, MV_I2, diag_mv)),
+        )
+        mv = torch.where(low[:, i] >= 0, low[:, i], mv)
+        dirs[:, i] = (
+            mv
+            | torch.where(i1 == hso - o1, OPEN1, 0)
+            | torch.where(i2 == hso - o2, OPEN2, 0)
+            | torch.where(run1[:, i], RUN1, 0)
+            | torch.where(run2[:, i], RUN2, 0)
+        ).to(torch.uint8)
+        hprev, i1p, i2p = h[:, i], i1, i2
+    return dirs
+
+
+def walk_dirs(dirs: np.ndarray, qlen: int, end_d: int) -> tuple[list[int], int] | None:
+    """Follow one pair's direction bytes (uint8 [L, band]) from (qlen - 1,
+    end_d) to row 0, as the kernel's walk does: its op codes in order and
+    start_d, or None where traceback_walk fails (no gap start, the band
+    left, an insertion at the end)."""
+    band = dirs.shape[1]
+    ops: list[int] = []
+    i, d, state = qlen - 1, int(end_d), "H"
+    if not 0 <= d < band:
+        return None
+    while i >= 0:
+        b = int(dirs[i, d])
+        if state == "H":
+            mv = b & 7
+            if mv in (MV_EQ, MV_X):
+                ops.append(mv)
+                i -= 1
+            else:
+                state = {MV_I1: "I1", MV_I2: "I2", MV_D1: "D1", MV_D2: "D2"}[mv]
+        elif state in ("D1", "D2"):
+            bit = RUN1 if state == "D1" else RUN2
+            dp = d - 1
+            while dp >= 0 and not dirs[i, dp] & bit:
+                dp -= 1
+            if dp < 0:
+                return None
+            ops.extend([3] * (d - dp))
+            d, state = dp, "H"
+        else:
+            ops.append(2)
+            if b & (OPEN1 if state == "I1" else OPEN2):
+                state = "H"
+            i, d = i - 1, d + 1
+            if d >= band and i >= 0:
+                return None
+    if state != "H":
+        return None
+    ops.reverse()
+    return ops, d
+
+
+def traceback_ref(
+    p_plane: torch.Tensor,  # f32 [>= n, L, band] the plane pass's P plane
+    q_pack: torch.Tensor,  # uint8 [>= n, ceil(L/4)]
+    q_len: torch.Tensor,  # int32 [>= n]
+    r_pack: torch.Tensor,  # uint8 [>= n, ceil((L + band)/4)]
+    lo: torch.Tensor,  # int32 [>= n]
+    hi: torch.Tensor,  # int32 [>= n]
+    end_d: torch.Tensor,  # int32 [>= n] the walk's start offset
+    n: int,
+    scoring: SrScoring = SrScoring(),
+) -> Traceback:
+    """The plain version of traceback_cuda (the kernel is held to it, and it
+    to reconstruct_planes + traceback_walk): the direction bytes in plain
+    PyTorch, then a walk over them for each of the first n pairs."""
+    _, l, band = p_plane.shape
+    wlen = l + band
+    dirs = traceback_dirs_ref(
+        p_plane[:n], _unpack2bit(q_pack[:n], l), _unpack2bit(r_pack[:n], wlen),
+        _window_mask(lo[:n], hi[:n], wlen), scoring,
+    ).cpu().numpy()
+    w = 2 * l + band
+    ops = np.zeros((n, w), np.uint8)
+    meta = np.zeros((n, 2), np.int32)
+    q_len_l, end_l = q_len[:n].tolist(), end_d[:n].tolist()
+    for j in range(n):
+        got = walk_dirs(dirs[j], min(q_len_l[j], l), end_l[j])
+        if got is None:
+            meta[j] = (-1, 0)
+            continue
+        codes, start_d = got
+        ops[j, w - len(codes):] = codes
+        meta[j] = (len(codes), start_d)
+    dev = p_plane.device
+    return Traceback(torch.from_numpy(ops).to(dev), torch.from_numpy(meta).to(dev))
+
+
+def traceback_cuda(p_plane, q_pack, q_len, r_pack, lo, hi, end_d, n: int,
+                   scoring: SrScoring = SrScoring()) -> Traceback:
+    """The traceback kernel (csrc/traceback_walk.cu): traceback_ref's
+    output for the first n pairs, from the plane and the packed inputs on
+    the card (the plane never leaves it). CUDA tensors on one device, band
+    in KERNEL_LANES; counted as ``traceback_walk``."""
+    dev = p_plane.device
+    ins = (q_pack, q_len, r_pack, lo, hi, end_d)
+    if dev.type != "cuda" or any(t.device != dev for t in ins):
+        raise ValueError("traceback_walk runs on CUDA tensors on one device")
+    if p_plane.dtype != torch.float32 or q_pack.dtype != torch.uint8 or r_pack.dtype != torch.uint8:
+        raise TypeError("traceback_walk takes an f32 plane and uint8 packs")
+    if any(t.dtype != torch.int32 for t in (q_len, lo, hi, end_d)):
+        raise TypeError("traceback_walk takes int32 q_len, lo, hi and end_d")
+    p, l, band = p_plane.shape
+    if (
+        band not in KERNEL_LANES or not 0 <= n <= p
+        or q_pack.shape != (p, -(-l // 4)) or r_pack.shape != (p, -(-(l + band) // 4))
+        or any(t.shape != (p,) for t in (q_len, lo, hi, end_d))
+    ):
+        raise ValueError(
+            f"traceback_walk: band {band} (must be one of {tuple(KERNEL_LANES)}), n {n}, shapes "
+            f"plane {tuple(p_plane.shape)}, q_pack {tuple(q_pack.shape)}, r_pack {tuple(r_pack.shape)}"
+        )
+    if not all(t.is_contiguous() for t in (p_plane, *ins)) or p_plane.data_ptr() % 16:
+        raise ValueError("traceback_walk takes contiguous tensors and a 16-byte aligned plane")
+    ops = torch.empty((n, 2 * l + band), dtype=torch.uint8, device=dev)
+    meta = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    if n == 0:
+        return Traceback(ops, meta)
+    dirs = torch.empty((n, l, band), dtype=torch.uint8, device=dev)
+    s = scoring
+    _kernels.launch(
+        _launches, "traceback_walk", "traceback_walk", "phylign_traceback_walk",
+        p_plane, q_pack, q_len, r_pack, lo, hi, end_d, n, l, band,
+        float(s.match), float(s.mismatch), float(s.gap_open1 + s.gap_ext1), float(s.gap_ext1),
+        float(s.gap_open2 + s.gap_ext2), float(s.gap_ext2), float(s.gap_open1), float(s.gap_open2),
+        dirs, ops, meta,
+    )
+    return Traceback(ops, meta)
+
+
+def decode_traceback(ops: np.ndarray, meta: np.ndarray) -> list[tuple[list[tuple[int, str]], int]]:
+    """A Traceback fetched to the host -> traceback_walk's (CIGAR run-length
+    list, start_d) for each pair, the runs found with numpy. Raises
+    TracebackError where a walk failed."""
+    n, w = ops.shape
+    n_ops = meta[:, 0].astype(np.int64)
+    bad = np.flatnonzero(n_ops < 0)
+    if len(bad):
+        raise TracebackError(f"deletion traceback failed for pairs {bad[:8].tolist()} of {n}")
+    flat = ops[np.arange(w)[None, :] >= (w - n_ops)[:, None]]
+    pair = np.repeat(np.arange(n), n_ops)
+    brk = np.ones(len(flat), bool)
+    brk[1:] = (flat[1:] != flat[:-1]) | (pair[1:] != pair[:-1])
+    starts = np.flatnonzero(brk)
+    lens = np.diff(np.append(starts, len(flat))).tolist()
+    names = [TRACE_OPS[c] for c in flat[starts].tolist()]
+    per = np.bincount(pair[starts], minlength=n).tolist()
+    out, k = [], 0
+    for j, start_d in enumerate(meta[:, 1].tolist()):
+        out.append((list(zip(lens[k : k + per[j]], names[k : k + per[j]])), start_d))
+        k += per[j]
+    return out
 
 
 def align_oracle(q: np.ndarray, r: np.ndarray, scoring: SrScoring = SrScoring()):

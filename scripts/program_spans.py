@@ -15,7 +15,8 @@ default), and prints the result line that run.py prints, then one line
   a batch searched or seconds a job;
 - ``stage_roots``: each stage root's seconds over the window against the
   benchmark's own span around the same call;
-- ``counts``: the program's counters over the window (those not 0);
+- ``counts``: the program's counters over the window (those not 0, and in
+  a map cell the gapped pairs' walks, all and on the card, even at 0);
 - with ``--trace 1`` on a card: ``idle_gaps``, the device's idle seconds by
   the benchmark span that was open, split after the innermost program span
   open on the client's thread as ``<benchmark span>/<program span>`` (what
@@ -60,6 +61,10 @@ METRICS = {
     "map.extend_host_s": (("align.extend",), "job"),
     "map.write_s": (("align.write",), "job"),
 }
+#: the counters a map cell's report lists even at 0: the gapped pairs'
+#: walks, all of them and those on the card (equal on one card, none on the
+#: CPU or over a mesh)
+MAP_COUNTS = ("align.traceback_pairs", "align.device_traceback_pairs")
 
 
 def run_with_spans(spec: dict, seed: int, seconds: float, trace: bool, spans: bool,
@@ -135,8 +140,14 @@ def split(program: dict, bench_rows: list, per: dict, stage: str) -> dict:
         "stage_roots": {k: {"program_s": total[k], "benchmark_s": bench[b],
                             "ratio": total[k] / bench[b] if bench[b] else None}
                         for k, b in STAGE_ROOTS.items() if k in total},
-        "counts": {k: v for k, v in sorted(program["counts"].items()) if v},
+        "counts": counts(program["counts"], stage),
     }
+
+
+def counts(got: dict[str, int], stage: str) -> dict[str, int]:
+    """The counters not 0, and in a map cell MAP_COUNTS at any value."""
+    keep = MAP_COUNTS if stage == "map" else ()
+    return {k: v for k, v in sorted({**dict.fromkeys(keep, 0), **got}.items()) if v or k in keep}
 
 
 def innermost(program: list[tuple[str, float, float]]) -> list[tuple[float, float, str]]:

@@ -191,6 +191,7 @@ KERNEL_ENTRIES = {
                        "phylign_match_popcount_acc", "phylign_match_popcount_keep"),
     "chain_scan": ("phylign_chain_scan",),
     "extend_scan": ("phylign_extend_scan",),
+    "traceback_walk": ("phylign_traceback_walk",),
     "flush_epilogue": ("phylign_chain_select", "phylign_select_window", "phylign_finish_pack",
                        "phylign_compact_cold"),
     "match_epilogue": ("phylign_hash_rows", "phylign_threshold_topk", "phylign_pack_hits",

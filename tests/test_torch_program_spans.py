@@ -110,6 +110,7 @@ def test_toy_run_reads_every_layers_host_time(cell, stage, tmp_path):
         assert rep["counts"]["align.flushes"] >= jobs
         # genes with deletions: delegated segments, some with a traceback
         assert rep["counts"]["align.delegated_items"] > 0 and rep["counts"]["align.traceback_pairs"] > 0
+        assert rep["counts"]["align.device_traceback_pairs"] == 0  # the CPU walks on the host
         assert rep["split"]["align.extend.dispatch"]["n"] >= 1
         assert rep["split"]["align.extend.traceback"]["n"] >= 1
 
@@ -119,3 +120,19 @@ def test_toy_run_with_spans_off_records_none(tmp_path):
     assert res["correct"]
     assert rep["split"] == {} and rep["metrics"] == {} and rep["stage_roots"] == {}
     assert rep["counts"]["match.batches"] == rep["units"]  # counters are always on
+
+
+@pytest.mark.parametrize("stage,got,want", [
+    ("map", {"align.flushes": 2, "align.traceback_pairs": 5},
+     {"align.device_traceback_pairs": 0, "align.flushes": 2, "align.traceback_pairs": 5}),
+    ("map", {"align.traceback_pairs": 5, "align.device_traceback_pairs": 5, "align.reseed_pairs": 0},
+     {"align.device_traceback_pairs": 5, "align.traceback_pairs": 5}),
+    ("map", {}, {"align.device_traceback_pairs": 0, "align.traceback_pairs": 0}),
+    ("match", {"match.batches": 4, "match.redo_queries": 0}, {"match.batches": 4}),
+])
+def test_counts_keep_the_traceback_counters_of_a_map_cell(stage, got, want):
+    """A map cell's report lists both traceback counters, at 0 too, so that
+    the walks on the card can be held to all the gapped pairs' walks; other
+    counters only when not 0."""
+    assert ps.counts(got, stage) == want
+    assert list(ps.counts(got, stage)) == sorted(want)
