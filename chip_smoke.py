@@ -104,10 +104,10 @@ Phases, each printing one JSON line:
     their pair counts, and under --profile each B6 kernel's device time a
     flush;
   8 the device mesh (parallel/) on the one card, every cell on cuda:0:
-    (a) B1/B2 on the doc-shard slices of phase 2's geometry (68 words pad
-    to 80 at 2 doc shards, 40 a shard), bit-exact and timed; (b) phase 4's
-    batches through Matcher.score_hits_raw on a 2x2 mesh, hits equal to
-    the 1x1 card run; (c) phase 6's fixture through Pipeline.run_all on a
+    (a) B1/B2 on the doc shards of phase 2's geometry as the four-card
+    mesh lays them out (68 words over 4, 17 a shard), bit-exact and
+    timed; (b) phase 4's batches through Matcher.score_hits_raw on a 2x2
+    mesh, hits equal to the 1x1 card run; (c) phase 6's fixture through Pipeline.run_all on a
     2x2 mesh, every output byte equal to phase 6's card run; (d) phase 7's
     align stage on a 1x2 mesh, 05_map and outputs equal to phase 7's; (e) a
     one-rank nccl process group, the mesh's top-k gather through
@@ -2436,8 +2436,9 @@ def phase_align_geometry(work: Path, label: str, profile: bool) -> dict:
 
 # --- phase 8: the device mesh on the one card ----------------------------------
 
-#: phase 8's doc shards and its 2x2 mesh's devices: every cell on the one card
-P8_ND = 2
+#: phase 8 (a)'s doc shards, the four-card cell's (phase 2's 68 words: 17 a
+#: shard); phase 8 (b)-(e)'s 2x2 mesh's devices, every cell on the one card
+P8_ND = 4
 P8_MESH = ["cuda:0"] * 4
 #: phase 8 (a)'s cases, phase 2's main-path calls on one doc shard's slice
 P8_CASES = {
@@ -2452,22 +2453,27 @@ SHARD_CASE = {
 
 
 def phase_mesh_kernels(label: str) -> dict:
-    """(a) B1 and B2 on doc-shard slices: phase 2's words padded to a
-    multiple of 8 * P8_ND columns (the mesh layout: 68 -> 80), each shard's
-    contiguous [S+1, 40] slice; bit-exact against the plain version on the
-    slice for every row set, the shards side by side against the full
-    width on the first; timed over ROTATION row sets on shard 0."""
+    """(a) B1 and B2 on doc shards as the mesh lays them out
+    (models/matcher.DocShards: phase 2's 68 words over P8_ND shards, 17
+    words each and no padding): each shard's [S+1, width] block holds its
+    words and zeros past them; bit-exact against the plain version on the
+    block for every row set, the shards' words side by side against the
+    full width on the first; timed over ROTATION row sets on shard 0."""
     import torch
 
+    from phylign_tpu_torch.models.matcher import DocShards
     from phylign_tpu_torch.ops import match as opm
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    lane = 8 * P8_ND
-    wpad = -(-WP // lane) * lane
-    words = torch.zeros((S + 1, wpad), dtype=torch.int32, device="cuda")
-    words[:S, :WP] = random_words(gen, S)
-    w_loc = wpad // P8_ND
-    shards = [words[:, d * w_loc : (d + 1) * w_loc].contiguous() for d in range(P8_ND)]
+    layout = DocShards.of(WP, P8_ND)
+    words = torch.zeros((S + 1, WP), dtype=torch.int32, device="cuda")
+    words[:S] = random_words(gen, S)
+    w_loc = layout.width
+    shards = []
+    for c0, n in zip(layout.starts, layout.words):
+        sh = torch.zeros((S + 1, w_loc), dtype=torch.int32, device="cuda")
+        sh[:, :n] = words[:, c0 : c0 + n]
+        shards.append(sh)
     out = {}
     for case, (name, q, k, h) in P8_CASES.items():
         sets = [case_rows(gen, q, k, h) for _ in range(ROTATION)]
@@ -2477,14 +2483,16 @@ def phase_mesh_kernels(label: str) -> dict:
             for d, (sh, got) in enumerate(zip(shards, parts)):
                 if not torch.equal(got, opm.match_scores_ref(sh, rows)):
                     raise AssertionError(f"{case}: {name} on doc shard {d} differs from match_scores_ref")
-            if i == 0 and not torch.equal(torch.cat(parts, dim=1), opm.match_scores_ref(words, rows)):
+            real = torch.cat([p[:, : 32 * n] for p, n in zip(parts, layout.words)], dim=1)
+            if i == 0 and not torch.equal(real, opm.match_scores_ref(words, rows)):
                 raise AssertionError(f"{case}: the doc shards side by side differ from the full width")
         torch.cuda.synchronize()
         ms = min(cuda_ms(lambda i: fn(shards[0], sets[i]), 6 * ROTATION, ROTATION) for _ in range(2))
         bounds = [gather_bound(r, w_loc) for r in sets]
         bound_ms = sum(b["bound_ms"] for b in bounds) / ROTATION
         out[case] = dict(
-            kernel=name, q=q, k=k, h=h, S=S, Wp=WP, Wp_padded=wpad, doc_shards=P8_ND, shard_words=w_loc,
+            kernel=name, q=q, k=k, h=h, S=S, Wp=WP, doc_shards=P8_ND, shard_words=w_loc,
+            padding_words=layout.padding_words,
             max_abs_err=0, ms=ms, plain_ms=cuda_ms(lambda i: opm.match_scores_ref(shards[0], sets[i]), 2, 2),
             bytes=sum(b["bytes"] for b in bounds) / ROTATION, bound_ms=bound_ms,
             bound_by=bounds[0]["bound_by"], bound_share=bound_ms / ms,

@@ -446,12 +446,10 @@ cudaError_t launch(const void* words, int64_t n_rows, int wp,
                       (EP == kAcc && staged ? ((size_t)qt + 3) / 4 * 16 : 0) +
                       (via_smem ? (size_t)qt * wp * 128 : 0);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  static bool attr_set = false;  // per instance; the value is the same
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    attr_set = true;
   }
   const unsigned grid = (unsigned)((q + qt - 1) / qt);
   kernel<<<grid, qt * wt * split, smem, (cudaStream_t)stream>>>(

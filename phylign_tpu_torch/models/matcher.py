@@ -559,30 +559,67 @@ def match_step(
     )
 
 
-def _mesh_lane(mesh) -> int:
-    """Word-column multiple of a mesh's padded matrix: every doc shard
-    takes an equal, 8-word aligned contiguous slice (the JAX layout)."""
-    return 8 * mesh.shape[AXIS_DOC]
+@dataclass(frozen=True)
+class DocShards:
+    """A batch's word columns dealt over a mesh's doc shards: shard e holds
+    ``width`` words, the ``words[e]`` real words from word ``starts[e]`` of
+    the batch and then zeros. The real counts differ by at most one, so
+    every shard holds documents while the batch has a word for each, and
+    the padding is under one word a shard (none at 68 words over 2 or 4
+    shards, 17 words a card at 4). Kernels B2 and B5b take any width, so
+    no lane is kept: the JAX layout's 8-word lanes would leave the fourth
+    of four cards only padding at 68 words."""
+
+    width: int
+    words: tuple[int, ...]
+
+    @classmethod
+    def of(cls, num_words: int, nd: int) -> "DocShards":
+        base, extra = divmod(max(num_words, 1), nd)
+        return cls(base + (extra > 0), tuple(base + (e < extra) for e in range(nd)))
+
+    @property
+    def starts(self) -> tuple[int, ...]:
+        return tuple(int(x) for x in np.cumsum((0,) + self.words[:-1]))
+
+    @property
+    def padding_words(self) -> int:
+        """Zero words a row over all the shards."""
+        return len(self.words) * self.width - sum(self.words)
+
+    def docs(self, d: int) -> list[int]:
+        """Each shard's documents of the batch's ``d``: its leading columns."""
+        return [min(max(d - 32 * s, 0), 32 * n) for s, n in zip(self.starts, self.words)]
+
+    def columns(self, d: int) -> np.ndarray | None:
+        """The padded matrix's column of each of the ``d`` documents, or
+        None where they are its first d columns."""
+        cols = np.concatenate(
+            [np.arange(n) + 32 * self.width * e for e, n in enumerate(self.docs(d))]
+        )
+        return None if np.array_equal(cols, np.arange(d)) else cols
 
 
 def device_index_bytes(didx: DeviceIndex, mesh=None) -> int:
     """Exact device footprint of the word matrix an index occupies once
     uploaded, summed over a mesh's doc shards: from_device_index keeps the
-    exact word width (padded to _mesh_lane on a mesh) and adds one zero
+    exact word width (on a mesh DocShards' width a shard) and adds one zero
     row. The pipeline's HBM accountant admits uploads by it."""
     wp = max(didx.num_words, 1)
     if mesh is not None:
-        wp = round_up(wp, _mesh_lane(mesh))
+        wp = mesh.nd * DocShards.of(wp, mesh.nd).width
     return (didx.signature_size + 1) * wp * 4
 
 
 def upload_words(
-    words: np.ndarray, device: str | torch.device, cols: tuple[int, int] | None = None
+    words: np.ndarray, device: str | torch.device, cols: tuple[int, int] | None = None,
+    width: int | None = None,
 ) -> torch.Tensor:
     """uint32 [S, W] host words (array or read-only memmap) -> int32
     [S+1, max(W, 1)] on ``device`` with a zero padding row; with ``cols``
-    = (c0, c1) only word columns [c0, c1), those past W zero (a doc
-    shard's slice of a mesh's padded matrix). For CUDA the words are
+    = (c0, c1) only word columns [c0, c1), those past W zero, in a block
+    ``width`` words wide (c1 - c0 by default) whose further columns are
+    zero (a doc shard's block of a mesh's matrix). For CUDA the words are
     copied once into a pinned host tensor and sent with a non-blocking
     copy; a memmap is only read."""
     dev = torch.device(device)
@@ -591,7 +628,7 @@ def upload_words(
     n = max(0, min(w, c1) - c0)
     pin = dev.type == "cuda"
     with trace.span("match.upload.pin"):
-        host = torch.empty((s + 1, c1 - c0), dtype=torch.int32, pin_memory=pin)
+        host = torch.empty((s + 1, c1 - c0 if width is None else width), dtype=torch.int32, pin_memory=pin)
     trace.count("match.pinned_allocs", int(pin))
     trace.count("match.upload_bytes", host.nbytes)
     with trace.span("match.upload.stage"):
@@ -642,6 +679,7 @@ class Matcher:
     #: Opt-in (config match_dedup); scores are identical either way.
     dedup: bool = False
     mesh: object | None = None  # parallel.mesh.Mesh or None
+    shards: DocShards | None = None  # the word columns' split over the mesh's doc axis
 
     @property
     def device(self) -> torch.device:
@@ -666,15 +704,24 @@ class Matcher:
         """Upload ``didx``'s words to ``device``, or with a mesh each doc
         shard's contiguous column slice to its cells (a process of a mesh
         that spans processes uploads only its own shards)."""
+        shards = None
         if mesh is None:
             words = upload_words(didx.words, device)
         else:
             from phylign_tpu_torch.parallel.dist import shard_blocks
 
-            wp = round_up(max(didx.num_words, 1), _mesh_lane(mesh))
+            shards = DocShards.of(didx.num_words, mesh.nd)
+
+            def upload_shard(sl, dev):
+                e = sl[1].start // shards.width
+                c0 = shards.starts[e]
+                trace.count("match.mesh_shards")
+                trace.count("match.mesh_padding_words", shards.width - shards.words[e])
+                with trace.span("match.mesh.upload"):
+                    return upload_words(didx.words, dev, (c0, c0 + shards.words[e]), shards.width)
+
             words = shard_blocks(
-                mesh, (didx.signature_size + 1, wp), (None, AXIS_DOC),
-                lambda sl, dev: upload_words(didx.words, dev, (sl[1].start, sl[1].stop)),
+                mesh, (didx.signature_size + 1, mesh.nd * shards.width), (None, AXIS_DOC), upload_shard
             )
         return cls(
             term_size=didx.term_size,
@@ -683,6 +730,7 @@ class Matcher:
             doc_names=didx.doc_names,
             words=words,
             mesh=mesh,
+            shards=shards,
         )
 
     @property
@@ -751,6 +799,9 @@ class Matcher:
                 from phylign_tpu_torch.parallel.dist import dist_match_scores, fetch
 
                 seg_scores = fetch(dist_match_scores(self.mesh, self.words, packed))
+                cols = self.shards.columns(d)
+                if cols is not None:  # the padded matrix's columns -> documents
+                    seg_scores = seg_scores[:, cols]
             else:
                 dev_scores = self._device_scores(packed)
                 max_score = k_pack  # per-segment count <= valid k-mer slots
@@ -878,14 +929,22 @@ class Matcher:
             [_int_cut(threshold, n_kmers), np.full(pad_q, 1 << 30, np.int32)]
         )
         kk_eff = min(kk, 32 * self.words.shape[1])
-        vals, ids, n_keep = fetch(
-            dist_threshold_topk(self.mesh, self.words, packed, cut, d, kk_eff)
+        window = dist_threshold_topk(
+            self.mesh, self.words, packed, cut, self.shards.docs(d), kk_eff
         )
+        with trace.span("match.mesh.merge"):  # the merged window's fetch
+            vals, ids, n_keep = fetch(window)
         q = len(n_kmers)
-        keep = vals[:q, :kk] >= 0
+        vals, ids = vals[:q, :kk], ids[:q, :kk]
+        keep = vals >= 0
+        cols = self.shards.columns(d)
+        if cols is not None:  # the padded matrix's columns -> documents, in order
+            doc_of = np.zeros(32 * self.words.shape[1], ids.dtype)
+            doc_of[cols] = np.arange(d)
+            ids = doc_of[np.maximum(ids, 0)]
         return (
-            np.where(keep, vals[:q, :kk], 0),
-            np.where(keep, ids[:q, :kk], 0),
+            np.where(keep, vals, 0),
+            np.where(keep, ids, 0),
             n_keep[:q],
         )
 

@@ -42,6 +42,7 @@ from phylign_tpu_torch.ops.extend import (
 )
 from phylign_tpu_torch.ops.match import match_scores
 from phylign_tpu_torch.parallel.mesh import AXIS_DOC, AXIS_QUERY, Mesh
+from phylign_tpu_torch.utils import trace
 
 TIE_SLACK = 28
 
@@ -198,8 +199,12 @@ def fetch(x):
     gathered so that each process receives the full value."""
     if isinstance(x, Sharded):
         local = {c: (x.at(*c),) for c in x.mesh.local_cells()}
-        out = None
+        out, done = None, set()
         for c, (t,) in _all_cells(x.mesh, local).items():
+            key = tuple((s.start, s.stop) for s in x.block(*c))
+            if key in done:  # a block whole over an axis: fetched once
+                continue
+            done.add(key)
             if out is None:
                 out = np.empty(x.shape, t.cpu().numpy().dtype)
             out[x.block(*c)] = t.cpu().numpy()
@@ -225,17 +230,22 @@ def dist_match_scores(mesh: Mesh, words, row_idx) -> Sharded:
     return _from_cells(mesh, (AXIS_QUERY, AXIS_DOC), (rows.shape[0], 32 * words.shape[1]), local)
 
 
-def _shard_windows(mesh: Mesh, scores: Sharded, cut, d: int, kk: int):
+def _shard_windows(mesh: Mesh, scores: Sharded, cut, d, kk: int):
     """Each local cell's threshold + top-k over its own columns (B5b on
     CUDA, _topk_scores_ref on the CPU): (vals, local doc ids, qualifying
     count), the window min(kk, d_loc) wide, where d_loc = the cell's
-    columns below ``d``; a shard wholly past d takes no launch and gives an
-    empty window and no count. ``cut``: a Sharded int32 [Q] split over
-    "q", or None for a cut of 0 (every score qualifies). Across processes
-    every window is padded to min(kk, w_loc) and every count made, so the
-    gather's cells agree in shape. Returns (cells, each shard's limit)."""
+    documents: its columns below ``d``, or with ``d`` a list of each doc
+    shard's count, its first d[e] columns. A shard without documents
+    takes no launch and gives an empty window and no count. ``cut``: a
+    Sharded int32 [Q] split over "q", or None for a cut of 0 (every score
+    qualifies). Across processes every window is padded to min(kk, w_loc)
+    and every count made, so the gather's cells agree in shape. Returns
+    (cells, each shard's limit)."""
     w_loc = scores.shape[1] // mesh.nd
-    d_loc = [min(max(d - e * w_loc, 0), w_loc) for e in range(mesh.nd)]
+    if np.ndim(d) == 0:
+        d_loc = [min(max(d - e * w_loc, 0), w_loc) for e in range(mesh.nd)]
+    else:
+        d_loc = [int(x) for x in d]
     lims = [min(kk, x) for x in d_loc]
     kl = min(kk, w_loc)
     local = {}
@@ -262,16 +272,20 @@ def _merge_topk(mesh: Mesh, local: dict[Cell, tuple], lims: list[int], w_loc: in
     and merge the nd windows of each query column (B5d on CUDA,
     _merge_topk_ref on the CPU) on the column's first local cell's device:
     {column: (values [Q, kk], global doc ids [Q, kk], summed counts [Q])}."""
-    cells = _all_cells(mesh, local)
-    merged = {}
-    for q in range(mesh.nq):
-        c = _column_cell(mesh, q)
-        if c is None:
-            continue
-        dev = mesh.device(*c)
-        windows = [tuple(None if t is None else t.to(dev) for t in cells[(d, q)]) for d in range(mesh.nd)]
-        merged[q] = merge_windows(windows, lims, w_loc, kk)
-    return merged
+    with trace.span("match.mesh.gather"):
+        cells = _all_cells(mesh, local)
+        columns, moved = {}, 0
+        for q in range(mesh.nq):
+            c = _column_cell(mesh, q)
+            if c is None:
+                continue
+            dev = mesh.device(*c)
+            columns[q] = [tuple(None if t is None else t.to(dev) for t in cells[(d, q)]) for d in range(mesh.nd)]
+            moved += sum(t.nbytes for d in range(mesh.nd) for t in cells[(d, q)]
+                         if t is not None and t.device != dev)
+        trace.count("match.mesh_gather_bytes", moved)
+    with trace.span("match.mesh.merge"):
+        return {q: merge_windows(w, lims, w_loc, kk) for q, w in columns.items()}
 
 
 def _replicated(mesh: Mesh, shape, per_q: dict[int, torch.Tensor]) -> Sharded:
@@ -281,15 +295,19 @@ def _replicated(mesh: Mesh, shape, per_q: dict[int, torch.Tensor]) -> Sharded:
     return _from_cells(mesh, (AXIS_QUERY,) + (None,) * (len(shape) - 1), shape, local)
 
 
-def _top(mesh: Mesh, scores: Sharded, cut, d: int, kk: int):
-    """Threshold + top-kk over the doc shards, merged: the results split
-    over "q" and whole over "d" (values, ids, counts), kk cut to nd *
-    min(kk, w_loc), the width JAX's re-top-k gives."""
+def _windows(mesh: Mesh, scores: Sharded, cut, d, kk: int):
+    """The doc shards' windows (_shard_windows) with kk cut to nd *
+    min(kk, w_loc), the width JAX's re-top-k gives: (cells, limits, w_loc,
+    kk)."""
     w_loc = scores.shape[1] // mesh.nd
     kk = min(kk, mesh.nd * min(kk, w_loc))
-    local, lims = _shard_windows(mesh, scores, cut, d, kk)
+    return (*_shard_windows(mesh, scores, cut, d, kk), w_loc, kk)
+
+
+def _top(mesh: Mesh, q_tot: int, local, lims: list[int], w_loc: int, kk: int):
+    """The windows gathered and merged: the results split over "q" and
+    whole over "d" (values, ids, counts)."""
     merged = _merge_topk(mesh, local, lims, w_loc, kk)
-    q_tot = scores.shape[0]
     shapes = ((q_tot, kk), (q_tot, kk), (q_tot,))
     return tuple(
         _replicated(mesh, shape, {q: m[i] for q, m in merged.items()}) for i, shape in enumerate(shapes)
@@ -306,22 +324,27 @@ def dist_topk(mesh: Mesh, scores: Sharded, n_best: int, k_total: int | None = No
     window is the JAX function's word for word: (score desc, global doc
     asc), jax.lax.top_k's order."""
     k = k_total if k_total is not None else n_best + TIE_SLACK
-    return _top(mesh, scores, None, scores.shape[1], k)[:2]
+    return _top(mesh, scores.shape[0], *_windows(mesh, scores, None, scores.shape[1], k))[:2]
 
 
-def dist_threshold_topk(mesh: Mesh, words, row_idx, cut, d: int, kk: int):
+def dist_threshold_topk(mesh: Mesh, words, row_idx, cut, d, kk: int):
     """Sharded match -> threshold -> top-k: zero-communication scoring
-    over doc shards, B5b on each shard (its columns below ``d``, scores >=
-    the query's integer ``cut``), then ONE gather over "d" of each shard's
-    window and qualifying count and their merge, B5d. Returns (vals [Q,
-    kk], global doc ids [Q, kk], n_keep [Q]), split over "q" and whole over
-    "d". On every row the first min(n_keep, kk) entries equal the JAX
-    function's word for word, in jax.lax.top_k's order (score desc, global
-    doc asc). Past them the port writes -1 values with doc -1, where JAX
-    writes -1 values with the ids of masked columns. Runs on meshes that
-    span processes (the gather is then an all_gather_into_tensor)."""
-    scores = dist_match_scores(mesh, words, row_idx)
-    return _top(mesh, scores, _as_sharded(mesh, cut, (AXIS_QUERY,)), d, kk)
+    over doc shards, B5b on each shard (its columns below ``d``, or with
+    ``d`` a list of each doc shard's documents its first d[e] columns;
+    scores >= the query's integer ``cut``), then ONE gather over "d" of
+    each shard's window and qualifying count and their merge, B5d. Returns
+    (vals [Q, kk], global doc ids [Q, kk], n_keep [Q]), split over "q" and
+    whole over "d"; a global id is a column of the sharded matrix (local
+    column + d * w_loc). On every row the first min(n_keep, kk) entries
+    equal the JAX function's word for word, in jax.lax.top_k's order
+    (score desc, global doc asc). Past them the port writes -1 values with
+    doc -1, where JAX writes -1 values with the ids of masked columns. Runs
+    on meshes that span processes (the gather is then an
+    all_gather_into_tensor)."""
+    with trace.span("match.mesh.score"):
+        scores = dist_match_scores(mesh, words, row_idx)
+        win = _windows(mesh, scores, _as_sharded(mesh, cut, (AXIS_QUERY,)), d, kk)
+    return _top(mesh, scores.shape[0], *win)
 
 
 def dist_chain(mesh: Mesh, rpos, qpos, **kw) -> ChainResult:

@@ -15,8 +15,10 @@ default), and prints the result line that run.py prints, then one line
   a batch searched or seconds a job;
 - ``stage_roots``: each stage root's seconds over the window against the
   benchmark's own span around the same call;
-- ``counts``: the program's counters over the window (those not 0, and in
-  a map cell the gapped pairs' walks, all and on the card, even at 0);
+- ``counts``: the program's counters over the window (those not 0, in a
+  map cell the gapped pairs' walks, all and on the card, even at 0, and in
+  a match cell on a mesh its shards, gathered bytes and padding words, even
+  at 0);
 - with ``--trace 1`` on a card: ``idle_gaps``, the device's idle seconds by
   the benchmark span that was open, split after the innermost program span
   open on the client's thread as ``<benchmark span>/<program span>`` (what
@@ -55,6 +57,10 @@ METRICS = {
     "match.fetch_wait_ms_per_batch": (("match.fetch",), "batch"),
     "match.assemble_ms_per_batch": (("match.assemble",), "batch"),
     "match.write_ms_per_batch": (("match.write",), "batch"),
+    "match.mesh_upload_ms_per_batch": (("match.mesh.upload",), "batch"),
+    "match.mesh_score_ms_per_batch": (("match.mesh.score",), "batch"),
+    "match.mesh_gather_ms_per_batch": (("match.mesh.gather",), "batch"),
+    "match.mesh_merge_ms_per_batch": (("match.mesh.merge",), "batch"),
     "map.segment_wait_s": (("align.wait",), "job"),
     "map.seed_thread_s": (("align.ref_index", "align.anchors"), "job"),
     "map.fetch_assemble_s": (("align.fetch",), "job"),
@@ -65,6 +71,10 @@ METRICS = {
 #: walks, all of them and those on the card (equal on one card, none on the
 #: CPU or over a mesh)
 MAP_COUNTS = ("align.traceback_pairs", "align.device_traceback_pairs")
+#: the counters a match cell on a mesh (one that uploaded doc shards) lists
+#: even at 0: its shards, the windows' bytes gathered between devices and
+#: the zero words uploaded (0 where the words split evenly over the shards)
+MESH_COUNTS = ("match.mesh_shards", "match.mesh_gather_bytes", "match.mesh_padding_words")
 
 
 def run_with_spans(spec: dict, seed: int, seconds: float, trace: bool, spans: bool,
@@ -145,8 +155,9 @@ def split(program: dict, bench_rows: list, per: dict, stage: str) -> dict:
 
 
 def counts(got: dict[str, int], stage: str) -> dict[str, int]:
-    """The counters not 0, and in a map cell MAP_COUNTS at any value."""
-    keep = MAP_COUNTS if stage == "map" else ()
+    """The counters not 0, in a map cell MAP_COUNTS at any value, and in a
+    match cell on a mesh MESH_COUNTS at any value."""
+    keep = MAP_COUNTS if stage == "map" else MESH_COUNTS if got.get("match.mesh_shards") else ()
     return {k: v for k, v in sorted({**dict.fromkeys(keep, 0), **got}.items()) if v or k in keep}
 
 

@@ -207,8 +207,14 @@ def planted_index():
 def test_score_hits_equals_jax_mesh_and_one_device(planted_index, nd, nq):
     jd, td, seqs = planted_index
     mesh = cpu_mesh(nd, nq)
-    assert device_index_bytes(td, mesh=mesh) == jax_index_bytes(jd, mesh=jax_mesh(nd, nq))
-    got_hits, got_n = Matcher.from_device_index(td, "cpu", mesh=mesh).score_hits(seqs, 0.7, topn=5)
+    # the port's doc shards are ceil(W / nd) words wide (JAX's: 8 words,
+    # W rounded up to 8 * nd); the footprint is what the shards upload
+    mat = Matcher.from_device_index(td, "cpu", mesh=mesh)
+    width = -(-td.num_words // nd)
+    uploaded = sum(mat.words.at(d, 0).numel() for d in range(nd)) * 4
+    assert device_index_bytes(td, mesh=mesh) == uploaded == (td.signature_size + 1) * nd * width * 4
+    assert jax_index_bytes(jd, mesh=jax_mesh(nd, nq)) == (td.signature_size + 1) * 8 * nd * 4
+    got_hits, got_n = mat.score_hits(seqs, 0.7, topn=5)
     one_hits, one_n = Matcher.from_device_index(td, "cpu").score_hits(seqs, 0.7, topn=5)
     jhits, jn = JaxMatcher.from_device_index(jd, mesh=jax_mesh(nd, nq)).score_hits(seqs, 0.7, topn=5)
     for q in range(len(seqs)):
