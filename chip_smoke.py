@@ -30,6 +30,9 @@ GPU, and hold every hand-written kernel against its plain PyTorch version.
                                    # and the compaction of an older
                                    # flush_epilogue.cu (the same C
                                    # interface) beside this tree's
+    python3 chip_smoke.py --ref-index-only
+                                   # phase 11 only (ref_sketch, ref_sort
+                                   # and one amr-genes.map job)
     python3 chip_smoke.py --baseline-match OLD.cu
                                    # phase 4 also times B5a, B5b, B5c and
                                    # B5d (dense) and phase 8 B5d (sparse)
@@ -158,6 +161,16 @@ Phases, each printing one JSON line:
     (b) phase 4's batches through ``cli match`` with device_hbm_gb 1 (a
     chunk budget of 256 MB: about 17 blocks a 544 MB index), every
     03_match byte equal to phase 4's resident run.
+ 11 a candidate genome's minimizer table (kernels ref_sketch and ref_sort):
+    the device route of build_ref_index at the map cell's genome sizes
+    (2.75 Mb in one contig, 4.25 Mb in two) and on a repetitive genome,
+    byte for byte against the native host path, each kernel against its
+    plain version; timed from CUDA graphs beside its bound (the least
+    bytes), the plain version's time and torch.sort(stable=True)'s as the
+    library's, the route's wall time a genome against the host path's; the
+    kernels' registers (local memory fails the phase); then one
+    amr-genes.map job with the program's spans on: every genome's table
+    built on the card (align.device_ref_genomes == align.genomes).
 Then the script's runtime, the kernel table, the card's label, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure, or no CUDA device, exits
 non-zero without that line. All data are made from fixed seeds.
@@ -195,6 +208,8 @@ SOURCE = {
     "match_popcount_keep": "phylign_tpu_torch/csrc/match_popcount.cu",
     "merge_topk": "phylign_tpu_torch/csrc/match_epilogue.cu",
     "traceback_walk": "phylign_tpu_torch/csrc/traceback_walk.cu",
+    "ref_sketch": "phylign_tpu_torch/csrc/ref_index.cu",
+    "ref_sort": "phylign_tpu_torch/csrc/ref_index.cu",
 }
 REPLACES = {
     "match_popcount_b1": "phylign_tpu/ops/match.py:276",
@@ -225,6 +240,10 @@ REPLACES = {
     # host code, not a device program: the gapped pairs' walk over a
     # fetched plane, reconstruct_planes (:276) + traceback_walk (:310)
     "traceback_walk": "phylign_tpu/ops/extend.py:276",
+    # host code: a genome's minimizer table, build_ref_index's native
+    # sketch and np.argsort(h, kind="stable")
+    "ref_sketch": "phylign_tpu/ops/minimizer.py:237",
+    "ref_sort": "phylign_tpu/ops/minimizer.py:237",
 }
 #: kernel B5's three kernels, launched by every hash-path match call
 B5_KERNELS = ("hash_rows", "threshold_topk", "pack_hits")
@@ -2113,8 +2132,9 @@ def _counting_modules() -> tuple:
     from phylign_tpu_torch.ops import chain as opc
     from phylign_tpu_torch.ops import extend as ope
     from phylign_tpu_torch.ops import match as opm
+    from phylign_tpu_torch.ops import minimizer as omz
 
-    return opm, tm, opc, ope, fz
+    return opm, tm, opc, ope, fz, omz
 
 
 def _kernel_counts() -> dict:
@@ -3444,6 +3464,177 @@ def phase_oversized(work: Path, label: str, baseline: BaselineMatchKernels | Non
     return total, dict(res_a, cli_seconds=secs, cli_blocks_per_batch=c["match_popcount_acc"] / len(batches))
 
 
+# --- phase 11: the candidate genome's minimizer table on the card ----------------
+
+#: phase 11's genomes: (name, contig lengths, kind): the map cell's sizes
+#: (2.75 Mb in one contig, 4.25 Mb in two) and a repetitive genome (tandem
+#: repeats and a poly-A run: hundreds of thousands of equal hashes)
+RI_CASES = [
+    ("ri_2.75mb_1c", (2_750_000,), "random"),
+    ("ri_4.25mb_2c", (3_000_000, 1_250_000), "random"),
+    ("ri_repeats", (400_000, 200_000, 400_000), "repeats"),
+]
+MAIN_RI_CASE = "ri_4.25mb_2c"
+#: the map cell, its seed and the window of its one traced job
+RI_CELL, RI_SEED = "amr-genes.map", 2300000023
+
+
+def ri_genome(rng, lens, kind: str):
+    """(name, contigs) of one phase 11 genome."""
+    import numpy as np
+
+    contigs = []
+    for i, n in enumerate(lens):
+        if kind == "repeats" and i == 0:
+            seq = np.tile(rng.integers(0, 4, 37).astype(np.uint8), -(-n // 37))[:n]
+        elif kind == "repeats" and i == 1:
+            seq = np.zeros(n, np.uint8)
+        else:
+            seq = rng.integers(0, 4, n).astype(np.uint8)
+        contigs.append((f"c{i}", seq))
+    return kind, contigs
+
+
+def ri_resources(lib: Path) -> dict:
+    """Registers, stack, shared and local memory of each kernel of
+    ref_index.cu's library (cuobjdump -res-usage); {} without cuobjdump."""
+    import re
+
+    from phylign_tpu_torch.ops import _kernels
+
+    tool = Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    res = subprocess.run([str(tool), "-res-usage", str(lib)], capture_output=True, text=True, timeout=120)
+    out = {}
+    for name, reg, stack, shared, local in re.findall(
+            r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", res.stdout):
+        m = re.search(r"(ref_sketch_kernel|ref_sort_hist_kernel|ref_sort_scatter_kernel|ref_scan_kernel)(I(?:Lb[01]E)+E)?", name)
+        if m:
+            out[m.group(1) + (m.group(2) or "")] = dict(registers=int(reg), stack_bytes=int(stack),
+                                                       shared_bytes=int(shared), local_bytes=int(local))
+    return out
+
+
+def phase_ref_index(work: Path, label: str) -> dict:
+    """(a) ref_sketch and ref_sort at RI_CASES' genomes: the device route's
+    table (build_ref_index on the card) byte for byte against the native
+    host path, each kernel's output against its plain version; each timed
+    from CUDA graphs beside its bound (the least bytes at HBM_BYTES_PER_S:
+    the codes read and the table written; the table read and written), the
+    plain version's time and torch.sort(stable=True)'s as library_ms, the
+    device route's wall time a genome against the host path's; the kernels'
+    registers (a kernel with local memory fails). (b) one RI_CELL job with
+    the program's spans on (scripts/program_spans.py): every genome's table
+    built on the card (align.device_ref_genomes == align.genomes), with the
+    job's align.ref_index, align.anchors and align.wait."""
+    import numpy as np
+    import torch
+
+    from phylign_tpu_torch.ops import _kernels
+    from phylign_tpu_torch.ops import minimizer as omz
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    res = ri_resources(_kernels.build("ref_index"))
+    emit("ref_index_resources", card=label, kernels=res)
+    if not res:
+        raise AssertionError("cuobjdump read no kernel of ref_index.cu")
+    spills = {k: v for k, v in res.items() if v["local_bytes"]}
+    if spills:
+        raise AssertionError(f"ref_index kernels use local memory: {spills}")
+    out = {}
+    for name, lens, kind in RI_CASES:
+        gname, contigs = ri_genome(rng, lens, kind)
+        t0 = time.perf_counter()
+        want = omz.build_ref_index(gname, contigs, 21, 11)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        omz.build_ref_index(gname, contigs, 21, 11, device=dev)  # warm: pinned blocks, the library
+        route_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = omz.build_ref_index(gname, contigs, 21, 11, device=dev)
+            route_ms.append((time.perf_counter() - t0) * 1e3)
+        for f in ("codes", "contig_starts", "contig_lens", "sort_hash", "sort_pos", "sort_strand"):
+            a, b = getattr(got, f), getattr(want, f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"{name}: the device route's {f} differs from the host path's")
+        starts, clens, codes_h = omz._assemble(contigs)
+        st, ln = torch.tensor(starts), torch.tensor(clens)
+        codes = torch.from_numpy(codes_h).to(dev)
+        sk = omz.ref_sketch_cuda(codes, st, ln, 21, 11)
+        t0 = time.perf_counter()
+        sk_ref = omz.ref_sketch_ref(torch.from_numpy(codes_h), st, ln, 21, 11)
+        sketch_plain_ms = (time.perf_counter() - t0) * 1e3
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(sk, sk_ref)):
+            raise AssertionError(f"{name}: ref_sketch differs from ref_sketch_ref")
+        srt = omz.ref_sort_cuda(*sk, 42)
+        t0 = time.perf_counter()
+        srt_ref = omz.ref_sort_ref(*sk_ref, 42)
+        sort_plain_ms = (time.perf_counter() - t0) * 1e3
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(srt, srt_ref)):
+            raise AssertionError(f"{name}: ref_sort differs from ref_sort_ref")
+        m = int(sk[0].numel())
+        # the sketch's two passes at the known size (no wait between them)
+        n_pos = (ln - 20).clamp(min=0)
+        first = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(-(-n_pos // omz.SKETCH_TILE), 0)])
+        n_tiles = int(first[-1])
+        c_start, c_len, first32 = st.to(dev), ln.to(dev), first.to(torch.int32).to(dev)
+        cnt = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
+        outs = [torch.empty(m, dtype=t, device=dev) for t in (torch.int64, torch.int32, torch.uint8)]
+        args = (codes, c_start, c_len, first32, len(starts), n_tiles, omz.SKETCH_TILE, 21, 11)
+
+        def sketch(_):
+            _kernels.launch(omz._launches, "ref_sketch_count", "ref_index", "phylign_ref_sketch", *args, 0, cnt,
+                            None, None, None)
+            _kernels.launch(omz._launches, "ref_sketch", "ref_index", "phylign_ref_sketch", *args, 1, cnt, *outs)
+
+        sketch_ms = min(graph_ms(sketch, 8) for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(outs, sk)):
+            raise AssertionError(f"{name}: the timed sketch passes differ from ref_sketch_cuda")
+        sort_ms = min(graph_ms(lambda _: omz.ref_sort_cuda(*sk, 42), 8) for _ in range(2))
+        library_ms = cuda_ms(lambda _: torch.sort(sk[0], stable=True), 8)
+        sketch_bytes = int((ln.clamp(min=0)).sum()) + 13 * m
+        sort_bytes = 2 * 13 * m
+        row = dict(genome_bases=int(ln.sum()), contigs=len(lens), minimizers=m,
+                   distinct_hashes=int(np.unique(want.sort_hash).size), host_path_ms=host_ms,
+                   device_route_ms=min(route_ms), device_route_turns=route_ms,
+                   sketch=dict(ms=sketch_ms, plain_ms=sketch_plain_ms, bytes=sketch_bytes,
+                               bound_ms=sketch_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                               kernels_per_call=graph_launches(lambda: sketch(0))),
+                   sort=dict(ms=sort_ms, plain_ms=sort_plain_ms, bytes=sort_bytes, library_ms=library_ms,
+                             bound_ms=sort_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                             kernels_per_call=graph_launches(lambda: omz.ref_sort_cuda(*sk, 42))))
+        for k in ("sketch", "sort"):
+            row[k]["bound_share"] = row[k]["bound_ms"] / row[k]["ms"]
+        out[name] = row
+        emit("ref_index", case=name, card=label, **row)
+        del sk, srt, outs, codes
+    # (b) one map job with the spans on
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import program_spans
+    from gpubench import run as gb_run
+
+    spec = gb_run.load_cell(RI_CELL)
+    wd = work / "ri_job"
+    wd.mkdir(parents=True, exist_ok=True)
+    res_cell, rep = program_spans.run_with_spans(spec, RI_SEED, 0.01, False, True, "cuda", wd)
+    counts = rep["counts"]
+    split = {k: rep["split"][k] for k in ("align.ref_index", "align.anchors", "align.wait", "stage.align")
+             if k in rep["split"]}
+    job = dict(cell=RI_CELL, seed=RI_SEED, correct=res_cell.get("correct"), jobs=rep["units"],
+               genomes=counts.get("align.genomes"), device_ref_genomes=counts.get("align.device_ref_genomes"),
+               split=split, map_pairs_per_s=res_cell["metrics"].get("map_pairs_per_s", {}).get("value"))
+    emit("ref_index_job", card=label, **job)
+    if not counts.get("align.genomes") or counts["align.device_ref_genomes"] != counts["align.genomes"]:
+        raise AssertionError(f"{RI_CELL}: {counts.get('align.device_ref_genomes')} of {counts.get('align.genomes')} "
+                             "genomes' tables built on the card")
+    if res_cell.get("correct") is not True:
+        raise AssertionError(f"{RI_CELL}: the job's output is not correct: {res_cell}")
+    out["job"] = job
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -3470,6 +3661,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="phase 5 only (no kernel table, no ok line)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="phase 2 only (no kernel table, no ok line)")
+    ap.add_argument("--ref-index-only", action="store_true",
+                    help="phase 11 only (no kernel table, no ok line)")
     ap.add_argument("--profile", action="store_true",
                     help="phase 7 aligns once more under cProfile and torch.profiler "
                     "(tables in chiprun_out/align_profile.txt)")
@@ -3508,6 +3701,15 @@ def main(argv: list[str] | None = None) -> int:
         phase_align_kernels(label, pr4, args.baseline_extend)
         phase_flush_kernels(label, b6_base)
         return 0
+    if args.ref_index_only:
+        work = ROOT / "build" / "chip_smoke"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        try:
+            phase_ref_index(work, label)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
     kern = phase_kernels(label, baseline)
     if args.kernels_only:
         return 0
@@ -3525,6 +3727,7 @@ def main(argv: list[str] | None = None) -> int:
         c8, b5d = phase_mesh(work, label, p7, b5_base)
         c9, c9_step = phase_cli(work, label, p7, baseline)
         c10, p10 = phase_oversized(work, label, baseline)
+        ri = phase_ref_index(work, label)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3589,6 +3792,19 @@ def main(argv: list[str] | None = None) -> int:
         **{f"{n}_{x}": v[x] for n, v in tbk.items() if n != MAIN_TB_CASE for x in (
             "L", "band", "pairs", "ms", "plain_ms", "host_ms_per_pair", "bound_ms", "bound_by", "bound_share")},
     ))
+    for name, key in (("ref_sketch", "sketch"), ("ref_sort", "sort")):
+        k = ri[MAIN_RI_CASE][key]
+        table.append(dict(
+            name=name, route="cuda", source=SOURCE[name], replaces=REPLACES[name],
+            launches=sum(c[name] for c in (c6, c7, c8, c9)), launches_phase6=c6[name],
+            launches_phase7=c7[name], launches_phase8=c8[name], launches_phase9=c9[name],
+            case=f"{MAIN_RI_CASE}: {ri[MAIN_RI_CASE]['genome_bases']:,} bases in {ri[MAIN_RI_CASE]['contigs']} "
+            f"contigs, {ri[MAIN_RI_CASE]['minimizers']:,} minimizers", max_abs_err=0, ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"], bound_share=k["bound_share"],
+            bytes=k["bytes"], library_ms=k.get("library_ms"),
+            **{f"{n}_{x}": v[key][x] for n, v in ri.items() if n not in (MAIN_RI_CASE, "job")
+               for x in ("ms", "bound_ms", "bound_share")},
+        ))
     for name, case in MAIN_B6_CASE.items():
         k = fkern[case] if name == "chain_select" else fkern[case][name]
         checked = [v for v in fkern.values() if v.get("kernel") == ("chain_select" if name == "chain_select"

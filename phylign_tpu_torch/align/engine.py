@@ -2313,6 +2313,20 @@ def _hard_clip(rec: SamRecord) -> SamRecord:
     )
 
 
+def _count_genomes(n: int, params: AlignParams, device) -> None:
+    """Count ``n`` genomes indexed, and those whose table the card builds
+    (equal on a card, 0 on the CPU and for an hpc preset)."""
+    trace.count("align.genomes", n)
+    if opm.index_on_device(device, params.hpc, params.k, params.w):
+        trace.count("align.device_ref_genomes", n)
+
+
+def _ref_index(rname: str, contigs, params: AlignParams, device) -> "opm.RefIndex":
+    """One genome's RefIndex, on ``device`` where the kernels take it."""
+    _count_genomes(1, params, device)
+    return opm.build_ref_index(rname, contigs, params.k, params.w, hpc=params.hpc, device=device)
+
+
 def align_genome(
     rname: str,
     contigs: list[tuple[str, np.ndarray]],
@@ -2326,7 +2340,7 @@ def align_genome(
     device = _resolve(mesh, device)
     if not sketches:
         return []
-    ref = opm.build_ref_index(rname, contigs, params.k, params.w, hpc=params.hpc)
+    ref = _ref_index(rname, contigs, params, device)
     return flush_pairs(make_pairs_batch(ref, list(sketches), params), params, mesh, device=device)
 
 
@@ -2545,7 +2559,7 @@ def align_batch(
     for rname, contigs in iter_assemblies_cached(
         tar_path, set(rname_to_q), asm_cache_dir
     ):
-        ref = opm.build_ref_index(rname, contigs, params.k, params.w, hpc=params.hpc)
+        ref = _ref_index(rname, contigs, params, device)
         sks = []
         for qi in rname_to_q[rname]:
             if qi not in sketch_cache:
@@ -2654,10 +2668,10 @@ def align_batches_pooled(
                 nonlocal pend_q, seg_ref_bytes, gbuf_q
                 if not gbuf:
                     return
-                trace.count("align.genomes", len(gbuf))
+                _count_genomes(len(gbuf), params, device)
                 with trace.span("align.ref_index"):
                     refs = opm.build_ref_index_batch(
-                        gbuf, params.k, params.w, hpc=params.hpc
+                        gbuf, params.k, params.w, hpc=params.hpc, device=device
                     )
                     for (rname2, _), ref in zip(gbuf, refs):
                         sks = []

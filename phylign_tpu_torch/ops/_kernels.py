@@ -239,6 +239,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             # nd, vals[nd], idx[nd], n_keep[nd], stride[nd], lim[nd], w_loc,
             # q, kk, out_vals, out_idx, out_n, stream
             lib.phylign_merge_topk.argtypes = [i32, p, p, p, p, p, i32, i32, i32, p, p, p, p]
+    elif name == "ref_index":
+        lib.phylign_ref_sketch.restype = i32
+        # codes, c_start, c_len, tile_first, n_contigs, n_tiles, tile, k, w,
+        # write, tile_cnt, out_hash, out_pos, out_strand, stream
+        lib.phylign_ref_sketch.argtypes = [p, p, p, p, *[i32] * 6, p, p, p, p, p]
+        lib.phylign_ref_sort_hist_len.restype = i64
+        lib.phylign_ref_sort_hist_len.argtypes = [i64]
+        lib.phylign_ref_sort.restype = i32
+        # hash, pos, strand, m, bits, keys_a, vals_a, keys_b, vals_b, hist,
+        # out_hash, out_pos, out_strand, stream
+        lib.phylign_ref_sort.argtypes = [p, p, p, i64, i32, *[p] * 9]
     lib.phylign_cuda_error_string.restype = ctypes.c_char_p
     lib.phylign_cuda_error_string.argtypes = [i32]
 

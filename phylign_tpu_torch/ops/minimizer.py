@@ -16,7 +16,10 @@ module is the host-side numpy equivalent of minimap2's sketch + seed-lookup:
 
 All arrays are numpy; genomes are processed once per batch and the resulting
 sorted seed tables feed the device chain/extend kernels
-(phylign_tpu_torch.ops.chain / extend).
+(phylign_tpu_torch.ops.chain / extend). On a CUDA device build_ref_index
+and build_ref_index_batch build each genome's table with the kernels
+ref_sketch and ref_sort (csrc/ref_index.cu), field-identical to the host
+path, which the CPU and the hpc presets keep.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+
+from phylign_tpu_torch.ops import _kernels
 
 _U64 = np.uint64
 KMER_SR = 21
@@ -235,20 +241,11 @@ class RefIndex:
         return self._mid_occ[key]
 
 
-def build_ref_index(
-    name: str,
+def _assemble(
     contigs: list[tuple[str, np.ndarray]],
-    k: int = KMER_SR,
-    w: int = WINDOW_SR,
-    hpc: bool = False,
-) -> RefIndex:
-    """Index a genome: per-contig minimizers in a global guarded coordinate
-    space, sorted by hash for binary-search seeding.
-
-    The guard gap (CONTIG_GUARD 'A's) exceeds every chaining distance bound,
-    so no chain or alignment band can cross a contig boundary; guard-region
-    minimizers are excluded from the table.
-    """
+) -> tuple[list[int], list[int], np.ndarray]:
+    """(contig starts, contig lengths, concatenated codes): each contig
+    followed by CONTIG_GUARD 'A's."""
     starts, lens, parts = [], [], []
     cur = 0
     for _, codes in contigs:
@@ -259,6 +256,51 @@ def build_ref_index(
         parts.append(np.zeros(CONTIG_GUARD, dtype=np.uint8))  # 'A' guard
         cur += CONTIG_GUARD
     allcodes = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    return starts, lens, allcodes
+
+
+def _device_ref_index(
+    name: str, contigs: list[tuple[str, np.ndarray]], k: int, w: int, device
+) -> RefIndex:
+    """build_ref_index's RefIndex with its table from the ref_sketch and
+    ref_sort kernels (index_on_device)."""
+    starts, lens, allcodes = _assemble(contigs)
+    h, p, s = device_tables(allcodes, starts, lens, k, w, device)
+    return RefIndex(
+        name=name,
+        contig_names=[c for c, _ in contigs],
+        contig_starts=np.asarray(starts, np.int64),
+        contig_lens=np.asarray(lens, np.int64),
+        codes=allcodes,
+        sort_hash=h,
+        sort_pos=p,
+        sort_strand=s,
+        k=k,
+        w=w,
+    )
+
+
+def build_ref_index(
+    name: str,
+    contigs: list[tuple[str, np.ndarray]],
+    k: int = KMER_SR,
+    w: int = WINDOW_SR,
+    hpc: bool = False,
+    device=None,
+) -> RefIndex:
+    """Index a genome: per-contig minimizers in a global guarded coordinate
+    space, sorted by hash for binary-search seeding.
+
+    The guard gap (CONTIG_GUARD 'A's) exceeds every chaining distance bound,
+    so no chain or alignment band can cross a contig boundary; guard-region
+    minimizers are excluded from the table.
+
+    device: where index_on_device says so (a CUDA device), the table is
+    built on it by the ref_sketch and ref_sort kernels; else on the host.
+    """
+    if index_on_device(device, hpc, k, w):
+        return _device_ref_index(name, contigs, k, w, device)
+    starts, lens, allcodes = _assemble(contigs)
 
     hs, ps, ss = [], [], []
     for (_, codes), start in zip(contigs, starts):
@@ -289,11 +331,17 @@ def build_ref_index_batch(
     k: int = KMER_SR,
     w: int = WINDOW_SR,
     hpc: bool = False,
+    device=None,
 ) -> "list[RefIndex]":
     """build_ref_index for MANY genomes with ONE threaded native sketching
     call over every contig (minimizers_batch): per-genome sketch-call
     overhead dominates ref indexing when a run streams thousands of small
-    candidate genomes. Field-identical to per-genome build_ref_index."""
+    candidate genomes. Field-identical to per-genome build_ref_index.
+
+    device: where index_on_device says so, each genome's table is built on
+    it (build_ref_index's device route); else the native path above."""
+    if index_on_device(device, hpc, k, w):
+        return [_device_ref_index(name, contigs, k, w, device) for name, contigs in genomes]
     all_codes: list[np.ndarray] = []
     for _, contigs in genomes:
         for _, codes in contigs:
@@ -334,6 +382,256 @@ def build_ref_index_batch(
             )
         )
     return out
+
+
+# --- the table on the card: kernels ref_sketch and ref_sort ----------------------
+
+#: k-mer positions a block of ref_sketch takes (csrc/ref_index.cu's
+#: kSketchTile); the kernels' largest k (2k bits below a u64's top bit) and w
+SKETCH_TILE = 1024
+MAX_K, MAX_W = 31, 255
+#: the bits of a radix pass of ref_sort
+SORT_DIGIT_BITS = 8
+
+_launches = _kernels.LaunchCounts("ref_sketch", "ref_sort")
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, by name: ``ref_sketch_count``
+    (the count pass and its scan), ``ref_sketch`` (the write pass: one a
+    sketch), ``ref_sort`` (one a sort, its passes inside)."""
+    return _launches.snapshot()
+
+
+def reset_launch_counts() -> None:
+    _launches.reset()
+
+
+def index_on_device(device, hpc: bool, k: int, w: int) -> bool:
+    """Whether build_ref_index(_batch) builds the table on ``device`` with
+    the kernels: a CUDA device, a plain sketch (the homopolymer-compressed
+    one of ``hpc`` stays on the host) and k, w within the kernels' MAX_K,
+    MAX_W (minimap2's own limits are k <= 28, w <= 255)."""
+    return (
+        device is not None
+        and torch.device(device).type == "cuda"
+        and not hpc
+        and 1 <= k <= MAX_K
+        and 1 <= w <= MAX_W
+    )
+
+
+def _check_contigs(codes: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor, k: int, w: int) -> None:
+    if codes.dtype != torch.uint8 or codes.dim() != 1:
+        raise TypeError("ref_sketch takes a 1-D uint8 codes tensor")
+    if starts.dtype != torch.int64 or lens.dtype != torch.int64:
+        raise TypeError("ref_sketch takes int64 contig starts and lengths")
+    if starts.device.type != "cpu" or lens.device.type != "cpu":
+        raise ValueError("ref_sketch takes the contig table (starts, lengths) on the host")
+    if starts.dim() != 1 or starts.shape != lens.shape:
+        raise ValueError(f"ref_sketch: starts {tuple(starts.shape)} and lengths {tuple(lens.shape)} differ")
+    if not all(t.is_contiguous() for t in (codes, starts, lens)):
+        raise ValueError("ref_sketch takes contiguous tensors")
+    if not (1 <= k <= MAX_K and 1 <= w <= MAX_W):
+        raise ValueError(f"ref_sketch: k {k} (1..{MAX_K}) or w {w} (1..{MAX_W}) out of range")
+    t = codes.shape[0]
+    if t >= 1 << 31 or bool(((starts < 0) | (lens < 0) | (starts + lens > t)).any()):
+        raise ValueError(f"ref_sketch: a contig lies outside the {t} codes (or they pass 2**31)")
+
+
+def _hash64_ref(x: torch.Tensor, mask: int) -> torch.Tensor:
+    """mm_hash64 masked to ``mask`` (< 2**62) in int64, every sum and shift
+    kept below 2**63 by masking first (the kernel's u64 arithmetic mod
+    2**(2k))."""
+
+    def shl(v, n):
+        return (v & (mask >> n)) << n
+
+    x = ((mask - x) + shl(x, 21)) & mask
+    x = x ^ (x >> 24)
+    x = (((x + shl(x, 3)) & mask) + shl(x, 8)) & mask
+    x = x ^ (x >> 14)
+    x = (((x + shl(x, 2)) & mask) + shl(x, 4)) & mask
+    x = x ^ (x >> 28)
+    return (x + shl(x, 31)) & mask
+
+
+def ref_sketch_ref(
+    codes: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor, k: int, w: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of ref_sketch_cuda (CPU tensors): each contig's
+    minimizers (minimizers' rule over codes[start : start + len]) as
+    (hash int64 [M], global position int32 [M], strand uint8 [M]) in
+    position order."""
+    _check_contigs(codes, starts, lens, k, w)
+    mask = (1 << (2 * k)) - 1
+    inf = torch.iinfo(torch.int64).max  # above every masked hash
+    hs, ps, ss = [], [], []
+    for start, length in zip(starts.tolist(), lens.tolist()):
+        n = length - k + 1
+        if n <= 0:
+            continue
+        c = codes[start : start + length].to(torch.int64)
+        fwd = torch.zeros(n, dtype=torch.int64)
+        rc = torch.zeros(n, dtype=torch.int64)
+        for j in range(k):
+            fwd = (fwd << 2) | c[j : j + n]
+            rc = rc | ((3 - c[j : j + n]) << (2 * j))
+        strand = rc < fwd
+        h = torch.where(fwd == rc, inf, _hash64_ref(torch.where(strand, rc, fwd), mask))
+        wc = min(w, n)
+        nw = n - wc + 1
+        wmin = h.unfold(0, wc, 1).amin(1)
+        sel = torch.zeros(n, dtype=torch.bool)
+        for d in range(wc):
+            sel[d : d + nw] |= h[d : d + nw] == wmin
+        sel &= h != inf
+        pos = torch.nonzero(sel).flatten()
+        hs.append(h[pos])
+        ps.append((pos + start).to(torch.int32))
+        ss.append(strand[pos].to(torch.uint8))
+    if not hs:
+        return (torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.int32),
+                torch.zeros(0, dtype=torch.uint8))
+    return torch.cat(hs), torch.cat(ps), torch.cat(ss)
+
+
+def _check_table(hash_: torch.Tensor, pos: torch.Tensor, strand: torch.Tensor, bits: int) -> None:
+    if hash_.dtype != torch.int64 or pos.dtype != torch.int32 or strand.dtype != torch.uint8:
+        raise TypeError("ref_sort takes int64 hashes, int32 positions and uint8 strands")
+    if hash_.dim() != 1 or pos.shape != hash_.shape or strand.shape != hash_.shape:
+        raise ValueError(
+            f"ref_sort: shapes {tuple(hash_.shape)}, {tuple(pos.shape)}, {tuple(strand.shape)} differ"
+        )
+    if not (pos.device == hash_.device == strand.device):
+        raise ValueError("ref_sort takes its three tensors on one device")
+    if not all(t.is_contiguous() for t in (hash_, pos, strand)):
+        raise ValueError("ref_sort takes contiguous tensors")
+    if not 1 <= bits <= 64:
+        raise ValueError(f"ref_sort: bits {bits} outside 1..64")
+
+
+def ref_sort_ref(
+    hash_: torch.Tensor, pos: torch.Tensor, strand: torch.Tensor, bits: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of ref_sort_cuda (CPU tensors): the kernel's stable
+    LSD passes of SORT_DIGIT_BITS over the hash's low ``bits`` bits, each a
+    histogram, its exclusive sum and a scatter that keeps each digit's
+    items in order; on a position-ordered sketch, np.argsort(h,
+    kind="stable")'s order."""
+    _check_table(hash_, pos, strand, bits)
+    nbins = 1 << SORT_DIGIT_BITS
+    for shift in range(0, bits, SORT_DIGIT_BITS):
+        d = (hash_ >> shift) & (nbins - 1)  # hashes below 2**63 (k <= 31)
+        counts = torch.bincount(d, minlength=nbins)
+        first = torch.cumsum(counts, 0) - counts
+        dest = torch.empty_like(d)
+        for v in torch.nonzero(counts).flatten().tolist():
+            idx = torch.nonzero(d == v).flatten()
+            dest[idx] = first[v] + torch.arange(idx.numel())
+        order = torch.empty_like(d)
+        order[dest] = torch.arange(d.numel())
+        hash_, pos, strand = hash_[order], pos[order], strand[order]
+    return hash_, pos, strand
+
+
+def ref_sketch_cuda(
+    codes: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor, k: int, w: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sketch kernel (csrc/ref_index.cu): ref_sketch_ref's output on
+    ``codes``' device, codes a CUDA uint8 tensor and the contig table
+    (int64 starts and lengths) on the host. Two launches on the current
+    stream (the count pass and its scan, counted as ``ref_sketch_count``;
+    the write pass, ``ref_sketch``), with one wait on that stream between
+    them for the table's size."""
+    _check_contigs(codes, starts, lens, k, w)
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError("ref_sketch_cuda runs on a CUDA codes tensor")
+    n_pos = (lens - k + 1).clamp(min=0)
+    tiles = (n_pos + SKETCH_TILE - 1) // SKETCH_TILE
+    tile_first = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(tiles, 0)])
+    n_tiles = int(tile_first[-1])
+    if n_tiles == 0:
+        return (torch.zeros(0, dtype=torch.int64, device=dev), torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.uint8, device=dev))
+    n_c = starts.shape[0]
+    table = torch.cat([starts, lens, tile_first]).pin_memory().to(dev, non_blocking=True)
+    c_start, c_len = table[:n_c], table[n_c : 2 * n_c]
+    first32 = table[2 * n_c :].to(torch.int32)
+    cnt = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
+    args = (codes, c_start, c_len, first32, n_c, n_tiles, SKETCH_TILE, k, w)
+    _kernels.launch(_launches, "ref_sketch_count", "ref_index", "phylign_ref_sketch", *args, 0, cnt,
+                    None, None, None)
+    m = int(cnt[n_tiles])  # waits on the current stream
+    h = torch.empty(m, dtype=torch.int64, device=dev)
+    p = torch.empty(m, dtype=torch.int32, device=dev)
+    s = torch.empty(m, dtype=torch.uint8, device=dev)
+    _kernels.launch(_launches, "ref_sketch", "ref_index", "phylign_ref_sketch", *args, 1, cnt, h, p, s)
+    return h, p, s
+
+
+def ref_sort_cuda(
+    hash_: torch.Tensor, pos: torch.Tensor, strand: torch.Tensor, bits: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sort kernel (csrc/ref_index.cu): ref_sort_ref's output for CUDA
+    tensors, the hashes below 2**bits; one call of ceil(bits / 8) passes
+    on the current stream, counted as ``ref_sort``."""
+    _check_table(hash_, pos, strand, bits)
+    dev = hash_.device
+    if dev.type != "cuda":
+        raise ValueError("ref_sort_cuda runs on CUDA tensors")
+    m = hash_.shape[0]
+    out = (torch.empty_like(hash_), torch.empty_like(pos), torch.empty_like(strand))
+    if m == 0:
+        return out
+    lib = _kernels.library("ref_index")
+    keys = torch.empty((2, m), dtype=torch.int64, device=dev)
+    vals = torch.empty((2, m), dtype=torch.int32, device=dev)
+    hist = torch.empty(int(lib.phylign_ref_sort_hist_len(m)), dtype=torch.int32, device=dev)
+    _kernels.launch(_launches, "ref_sort", "ref_index", "phylign_ref_sort", hash_, pos, strand, m, bits,
+                    keys[0], vals[0], keys[1], vals[1], hist, *out)
+    return out
+
+
+def ref_sketch(codes, starts, lens, k: int, w: int):
+    """ref_sketch_cuda for CUDA codes, ref_sketch_ref for CPU codes."""
+    if codes.device.type == "cpu":
+        return ref_sketch_ref(codes, starts, lens, k, w)
+    return ref_sketch_cuda(codes, starts, lens, k, w)
+
+
+def ref_sort(hash_, pos, strand, bits: int):
+    """ref_sort_cuda for CUDA tensors, ref_sort_ref for CPU tensors."""
+    if hash_.device.type == "cpu":
+        return ref_sort_ref(hash_, pos, strand, bits)
+    return ref_sort_cuda(hash_, pos, strand, bits)
+
+
+def device_tables(
+    allcodes: np.ndarray, starts: list[int], lens: list[int], k: int, w: int, device
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(sort_hash u64, sort_pos int32, sort_strand u8) of one assembled
+    genome (_assemble's output), by ref_sketch then ref_sort on ``device``
+    (a CPU device runs their plain versions). On a card everything runs on
+    a stream of the call's own, and only that stream is waited on: once
+    for the table's size, once for the table (pinned copies both ways), so
+    a producer thread never waits on another thread's work."""
+    device = torch.device(device)
+    st = torch.tensor(starts, dtype=torch.int64)
+    ln = torch.tensor(lens, dtype=torch.int64)
+    if device.type == "cpu":
+        host = ref_sort(*ref_sketch(torch.from_numpy(allcodes), st, ln, k, w), 2 * k)
+    else:
+        stream = torch.cuda.Stream(device=device)
+        with torch.cuda.stream(stream):
+            codes = torch.from_numpy(allcodes).pin_memory().to(device, non_blocking=True)
+            table = ref_sort(*ref_sketch(codes, st, ln, k, w), 2 * k)
+            host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in table]
+            for dst, src in zip(host, table):
+                dst.copy_(src, non_blocking=True)
+            stream.synchronize()
+    return host[0].numpy().view(np.uint64), host[1].numpy(), host[2].numpy()
 
 
 @dataclass(slots=True)

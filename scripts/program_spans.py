@@ -16,7 +16,8 @@ default), and prints the result line that run.py prints, then one line
 - ``stage_roots``: each stage root's seconds over the window against the
   benchmark's own span around the same call;
 - ``counts``: the program's counters over the window (those not 0, in a
-  map cell the gapped pairs' walks, all and on the card, even at 0, and in
+  map cell the gapped pairs' walks and the genomes indexed, all and on the
+  card, even at 0, and in
   a match cell on a mesh its shards, gathered bytes and padding words, even
   at 0);
 - with ``--trace 1`` on a card: ``idle_gaps``, the device's idle seconds by
@@ -69,8 +70,10 @@ METRICS = {
 }
 #: the counters a map cell's report lists even at 0: the gapped pairs'
 #: walks, all of them and those on the card (equal on one card, none on the
-#: CPU or over a mesh)
-MAP_COUNTS = ("align.traceback_pairs", "align.device_traceback_pairs")
+#: CPU or over a mesh), and the genomes indexed, all of them and those whose
+#: minimizer table the card built (equal on a card, none on the CPU)
+MAP_COUNTS = ("align.traceback_pairs", "align.device_traceback_pairs",
+              "align.genomes", "align.device_ref_genomes")
 #: the counters a match cell on a mesh (one that uploaded doc shards) lists
 #: even at 0: its shards, the windows' bytes gathered between devices and
 #: the zero words uploaded (0 where the words split evenly over the shards)

@@ -192,6 +192,7 @@ KERNEL_ENTRIES = {
     "chain_scan": ("phylign_chain_scan",),
     "extend_scan": ("phylign_extend_scan",),
     "traceback_walk": ("phylign_traceback_walk",),
+    "ref_index": ("phylign_ref_sketch", "phylign_ref_sort"),
     "flush_epilogue": ("phylign_chain_select", "phylign_select_window", "phylign_finish_pack",
                        "phylign_compact_cold"),
     "match_epilogue": ("phylign_hash_rows", "phylign_threshold_topk", "phylign_pack_hits",
@@ -199,7 +200,8 @@ KERNEL_ENTRIES = {
 }
 #: exported sizes a wrapper asks for before its launch (int64_t results)
 KERNEL_QUERIES = {"flush_epilogue": ("phylign_chain_select_workspace",),
-                  "match_epilogue": ("phylign_threshold_topk_workspace",)}
+                  "match_epilogue": ("phylign_threshold_topk_workspace",),
+                  "ref_index": ("phylign_ref_sort_hist_len",)}
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_ENTRIES))

@@ -122,6 +122,7 @@ def test_toy_run_reads_every_layers_host_time(cell, stage, tmp_path):
         # genes with deletions: delegated segments, some with a traceback
         assert rep["counts"]["align.delegated_items"] > 0 and rep["counts"]["align.traceback_pairs"] > 0
         assert rep["counts"]["align.device_traceback_pairs"] == 0  # the CPU walks on the host
+        assert rep["counts"]["align.genomes"] > 0 and rep["counts"]["align.device_ref_genomes"] == 0
         assert rep["split"]["align.extend.dispatch"]["n"] >= 1
         assert rep["split"]["align.extend.traceback"]["n"] >= 1
 
@@ -135,17 +136,22 @@ def test_toy_run_with_spans_off_records_none(tmp_path):
 
 @pytest.mark.parametrize("stage,got,want", [
     ("map", {"align.flushes": 2, "align.traceback_pairs": 5},
-     {"align.device_traceback_pairs": 0, "align.flushes": 2, "align.traceback_pairs": 5}),
-    ("map", {"align.traceback_pairs": 5, "align.device_traceback_pairs": 5, "align.reseed_pairs": 0},
-     {"align.device_traceback_pairs": 5, "align.traceback_pairs": 5}),
-    ("map", {}, {"align.device_traceback_pairs": 0, "align.traceback_pairs": 0}),
+     {"align.device_ref_genomes": 0, "align.device_traceback_pairs": 0, "align.flushes": 2,
+      "align.genomes": 0, "align.traceback_pairs": 5}),
+    ("map", {"align.traceback_pairs": 5, "align.device_traceback_pairs": 5, "align.reseed_pairs": 0,
+             "align.genomes": 16, "align.device_ref_genomes": 16},
+     {"align.device_ref_genomes": 16, "align.device_traceback_pairs": 5, "align.genomes": 16,
+      "align.traceback_pairs": 5}),
+    ("map", {}, {"align.device_ref_genomes": 0, "align.device_traceback_pairs": 0, "align.genomes": 0,
+                 "align.traceback_pairs": 0}),
     ("match", {"match.batches": 4, "match.redo_queries": 0}, {"match.batches": 4}),
     ("match", {"match.batches": 4, "match.mesh_shards": 16, "match.mesh_padding_words": 0},
      {"match.batches": 4, "match.mesh_gather_bytes": 0, "match.mesh_padding_words": 0, "match.mesh_shards": 16}),
 ])
 def test_counts_keep_the_traceback_counters_of_a_map_cell(stage, got, want):
-    """A map cell's report lists both traceback counters, at 0 too, so that
-    the walks on the card can be held to all the gapped pairs' walks, and a
+    """A map cell's report lists both traceback counters and both genome
+    counters, at 0 too, so that the walks on the card can be held to all the
+    gapped pairs' walks and the tables built on the card to all genomes, and a
     match cell on a mesh its three mesh counters; other counters only when
     not 0."""
     assert ps.counts(got, stage) == want
