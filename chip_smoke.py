@@ -1456,15 +1456,14 @@ def packed_extension(rng, label: str, baseline_extend: Path | None = None) -> di
     """B4's packed instance at the delegated extension's shape (B4P_CASES):
     the routed kernel (ope.PACKED_ROUTES: the wavefront body, or the row
     body at 32 lanes on the other routes) bit-exact against extend_ref
-    on the unpacked inputs, against the row body at every lane count (the
-    PACKED_ROWS_BUILD library: the parent's design) and against the
-    parent's eager unpack + mask + B4, one launch a call; then the row body
-    at every lane count in turns (lanes_ms, step 0's yardstick), and the
-    routed kernel against the row body at its best lane count in turns
-    (row, routed, routed, row), each from a CUDA graph over ROTATION input
-    sets; the eager path and the plain version (the unpack, the mask and
-    extend_ref) beside. With ``baseline_extend`` (an older
-    extend_scan.cu), the unpacked instances' SASS is held to its."""
+    on the unpacked inputs, against the row body at 32 lanes (lanes=32,
+    the one packed row geometry the library holds) and against the
+    parent's eager unpack + mask + B4, one launch a call; then the routed
+    kernel against that row body in turns (row, routed, routed, row), each
+    from a CUDA graph over ROTATION input sets; the eager path and the
+    plain version (the unpack, the mask and extend_ref) beside. With
+    ``baseline_extend`` (an older extend_scan.cu), the unpacked instances'
+    SASS is held to its."""
     import torch
 
     from phylign_tpu_torch.ops import extend as ope
@@ -1479,15 +1478,14 @@ def packed_extension(rng, label: str, baseline_extend: Path | None = None) -> di
         wlen = l + band
         scoring = ope.SrScoring(*WIDE_SCORING) if kind == "wide" else ope.SrScoring()
         route = ope.PACKED_ROUTES[band, plane]
-        lanes = ope.KERNEL_LANES[band]
         host = [packed_inputs(rng, p, l, band) for _ in range(ROTATION)]
         sets = [[torch.from_numpy(x).cuda() for x in h] for h in host]
         packs = [s[4:5] + s[1:2] + s[5:] for s in sets]  # q_pack, q_len, r_pack, lo, hi
         err = 0.0
         for s, pk in zip(sets, packs):
             want = ope.extend_ref(*s[:4], scoring, collect_plane=plane)
-            runs = {"routed": ope.extend_cuda_packed(*pk, l, wlen, scoring, plane)}
-            runs.update({g: ope.extend_cuda_packed(*pk, l, wlen, scoring, plane, lanes=g) for g in lanes})
+            runs = {"routed": ope.extend_cuda_packed(*pk, l, wlen, scoring, plane),
+                    32: ope.extend_cuda_packed(*pk, l, wlen, scoring, plane, lanes=32)}
             runs["eager"] = eager_packed(*pk, l, wlen, scoring, plane)
             torch.cuda.synchronize()
             for g, got in runs.items():
@@ -1500,20 +1498,17 @@ def packed_extension(rng, label: str, baseline_extend: Path | None = None) -> di
         def routed(i):
             return ope.extend_cuda_packed(*packs[i], l, wlen, scoring, plane)
 
-        def row_body(g):
-            return lambda i: ope.extend_cuda_packed(*packs[i], l, wlen, scoring, plane, lanes=g)
+        def row_body(i):
+            return ope.extend_cuda_packed(*packs[i], l, wlen, scoring, plane, lanes=32)
 
-        lane_turns = [(g, graph_ms(row_body(g), reps, ROTATION)) for g in (*lanes, *lanes[::-1])]
-        lanes_ms = {g: min(t for w, t in lane_turns if w == g) for g in lanes}
-        best = min(lanes, key=lanes_ms.get)
-        turns = [(who, graph_ms(routed if who == "routed" else row_body(best), reps, ROTATION))
+        turns = [(who, graph_ms(routed if who == "routed" else row_body, reps, ROTATION))
                  for who in ("row", "routed", "routed", "row")]
         design = "wavefront, a warp a pair" if route == 0 else f"row body, {route} lanes"
         row = dict(kernel="extend_scan_packed", P=p, L=l, band=band, plane=plane, scoring=kind,
-                   max_abs_err=err, design=design, route_lanes=route or 32, checked_lanes=list(lanes),
-                   ms=min(t for w, t in turns if w == "routed"), row_lanes=best,
-                   row_ms=min(t for w, t in turns if w == "row"), turns=turns, lanes_ms=lanes_ms,
-                   lane_turns=lane_turns, parent_eager_ms=graph_ms(lambda i: eager_packed(
+                   max_abs_err=err, design=design, route_lanes=route or 32,
+                   ms=min(t for w, t in turns if w == "routed"), row_lanes=32,
+                   row_ms=min(t for w, t in turns if w == "row"), turns=turns,
+                   parent_eager_ms=graph_ms(lambda i: eager_packed(
                        *packs[i], l, wlen, scoring, plane), reps, ROTATION),
                    kernels_per_call=graph_launches(lambda: routed(0)),
                    parent_eager_kernels_per_call=graph_launches(lambda: eager_packed(
@@ -3680,16 +3675,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     label = gpu_label()
-    # the row body's every-geometry build (the packed instance's lanes=
-    # comparison in phase 5) beside the sources' builds
-    from concurrent.futures import ThreadPoolExecutor
-
-    from phylign_tpu_torch.ops import extend as ope
-
-    with ThreadPoolExecutor(1) as pool:
-        rows_build = pool.submit(_kernels.build, "extend_scan", *ope.PACKED_ROWS_BUILD)
-        build_s = _kernels.build_all()
-        rows_build.result()
+    build_s = _kernels.build_all()
     baseline = BaselineMatchKernels(args.baseline_src) if args.baseline_src else None
     emit("environment", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, card=label, build_seconds=build_s)
@@ -3772,10 +3758,10 @@ def main(argv: list[str] | None = None) -> int:
         design=k["design"], max_abs_err=max(v["max_abs_err"] for v in b4p.values()), ms=k["ms"],
         plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"], bound_share=k["bound_share"],
         bytes=k["bytes"], operations=k["operations"], library_ms=None, row_ms=k["row_ms"],
-        row_lanes=k["row_lanes"], row_lanes_ms=k["lanes_ms"], parent_eager_ms=k["parent_eager_ms"],
+        row_lanes=k["row_lanes"], parent_eager_ms=k["parent_eager_ms"],
         parent_eager_kernels=k["parent_eager_kernels_per_call"],
         **{f"{n[4:]}_{x}": v[x] for n, v in b4p.items() if n != "b4p_score" for x in (
-            "P", "L", "band", "design", "ms", "row_ms", "row_lanes", "lanes_ms", "plain_ms", "bound_ms",
+            "P", "L", "band", "design", "ms", "row_ms", "row_lanes", "plain_ms", "bound_ms",
             "bound_by", "bound_share")},
     ))
     k = akern[MAIN_TB_CASE]

@@ -1329,12 +1329,6 @@ def _extend_finish(
     return records, probes
 
 
-#: default align flush implementation: the device-resident fused path
-#: (align.fused). The host path below remains as the A/B oracle and the
-#: fallback (config perf key ``align_fused`` / env PHYLIGN_TPU_ALIGN_FUSED=0).
-FUSED_DEFAULT = True
-
-
 def flush_pairs(
     tasks: list[PairTask],
     params: AlignParams,
@@ -1345,17 +1339,13 @@ def flush_pairs(
     """Chain + extend a pool of pairs -> one record per pair in pool order.
 
     Dispatches to the device-resident fused path (chain -> select -> extend
-    in one device program, see align.fused) unless disabled; the host
-    selection path below produces identical records (tested A/B)."""
-    import os
-
-    if fused is None:
-        fused = FUSED_DEFAULT and os.environ.get(
-            "PHYLIGN_TPU_ALIGN_FUSED", "1"
-        ) != "0"
-    if fused:
-        return flush_pairs_fused(tasks, params, mesh, device=device)
-    return flush_pairs_host(tasks, params, mesh, device=device)
+    in one device program, see align.fused) unless ``fused`` is False or
+    the split-read cap is past what it holds (flush_pairs_begin); the host
+    selection path below produces identical records (tested A/B) and
+    stays as their reference and for those cases."""
+    if fused is False:
+        return flush_pairs_host(tasks, params, mesh, device=device)
+    return flush_pairs_fused(tasks, params, mesh, device=device)
 
 
 def flush_pairs_host(
@@ -2195,21 +2185,15 @@ def flush_pairs_begin(
     fused: bool | None = None,
     device: str | torch.device = "cuda",
 ) -> FusedFlush:
-    """Dispatch a pool's device work (async). Pair with flush_pairs_end."""
-    import os
-
+    """Dispatch a pool's device work (async). Pair with flush_pairs_end.
+    ``fused=None`` takes the fused path unless ``max_segments > 3``;
+    False takes the host path (the fused path's reference)."""
     device = _resolve(mesh, device)
     trace.count("align.flushes")
     trace.count("align.pairs", len(tasks))
-    if fused is None:
-        fused = FUSED_DEFAULT and os.environ.get(
-            "PHYLIGN_TPU_ALIGN_FUSED", "1"
-        ) != "0"
-    if params.max_segments > 3:
-        # the fused flag byte has room for 2 supplementary bits + the probe
-        # bit; larger split-read caps take the host path
-        fused = False
-    if not fused:
+    # the fused flag byte has room for 2 supplementary bits + the probe
+    # bit; larger split-read caps take the host path
+    if fused is False or params.max_segments > 3:
         return FusedFlush(
             tasks=tasks, params=params, device=device, mesh=mesh, inflight=[],
             queued=[],
@@ -2498,92 +2482,21 @@ def align_batch(
     device: str | torch.device = "cuda",
 ) -> Iterator[SamRecord]:
     """Align a batch: stream candidate genomes out of the tar and emit SAM
-    records (mirrors batch_align.py map_queries_to_batch, device-batched).
+    records (mirrors batch_align.py map_queries_to_batch, device-batched),
+    in tar order x filtered-query order. One spec of align_batches_pooled.
 
     queries: filtered queries (candidate accessions in .candidates).
     batch_accessions: the batch's own accession allow-list
     (ref: Snakefile:543-546), or None to accept all.
-    device_lock: optional lock serializing device submissions; held only
-    around the pooled flush dispatch/drain, so tar streaming / ref indexing /
-    anchor collection of OTHER batches overlaps this batch's device work.
-    sketch_cache: optional query-index -> QuerySketch dict SHARED across
-    batches of one run (a read with candidates in several batches is then
-    sketched once, not once per batch); callers must key it to one stable
-    `queries` list. Dict ops are GIL-atomic; a rare duplicate make() under
-    concurrent batch jobs is benign.
+    device_lock, pair_chunk, sketch_cache, asm_cache_dir and device are
+    align_batches_pooled's.
     """
-    import contextlib
-
-    device = _resolve(mesh, device)
-    _lk = device_lock if device_lock is not None else contextlib.nullcontext()
-    rname_to_q: dict[str, list[int]] = {}
-    if sketch_cache is None:
-        sketch_cache = {}
-    for qi, fq in enumerate(queries):
-        for _, acc, _ in fq.candidates:
-            if batch_accessions is not None and acc not in batch_accessions:
-                continue
-            rname_to_q.setdefault(acc, []).append(qi)
-
-    pool: list[PairTask] = []
-    # larger pools amortize the fixed per-flush costs (uploads, copies
-    # back, launches); the 4096 default stays within
-    # MAX_EXT_CELLS for the 256-bucket short-read case so extension still
-    # runs as one call (config: device_pair_chunk)
-    # every pooled PairTask pins its genome's RefIndex (codes + minimizer
-    # table, ~5x genome bytes); a batch where thousands of genomes each
-    # contribute a pair or two would otherwise pin tens of GB before the
-    # pair count triggers a flush, far past the scheduler's reservation.
-    # 256 MB because the one-deep flush pipeline keeps TWO pools alive
-    # (the in-flight one plus the one being built).
-    pool_ref_budget = 256 << 20
-    pool_ref_bytes = 0
-    pool_refs: set[int] = set()
-
-    # one-deep flush pipeline WITHOUT a worker thread: flush i's device
-    # program is DISPATCHED (flush_pairs_begin, async), the next pool's tar
-    # streaming / ref indexing / anchor collection runs while the device
-    # computes, then flush i is drained (flush_pairs_end). The previous
-    # ThreadPoolExecutor version overlapped host python with host python —
-    # pure GIL contention (measured SLOWER than serial at 8k pools).
-    pending: FusedFlush | None = None
-
-    def _begin(p):
-        with _lk:
-            return flush_pairs_begin(p, params, mesh, device=device)
-
-    def _end(ff):
-        with _lk:
-            return flush_pairs_end(ff)
-
-    for rname, contigs in iter_assemblies_cached(
-        tar_path, set(rname_to_q), asm_cache_dir
+    for _, records in align_batches_pooled(
+        [("", tar_path, batch_accessions)], queries, params, mesh=mesh,
+        device_lock=device_lock, pair_chunk=pair_chunk,
+        sketch_cache=sketch_cache, asm_cache_dir=asm_cache_dir, device=device,
     ):
-        ref = _ref_index(rname, contigs, params, device)
-        sks = []
-        for qi in rname_to_q[rname]:
-            if qi not in sketch_cache:
-                fq = queries[qi]
-                sketch_cache[qi] = QuerySketch.make(fq.qname, fq.seq, params)
-            sks.append(sketch_cache[qi])
-        pool.extend(make_pairs_batch(ref, sks, params))
-        if id(ref) not in pool_refs:
-            pool_refs.add(id(ref))
-            pool_ref_bytes += ref.codes.nbytes + ref.sort_hash.nbytes * 2
-        # flush pooled pairs (spanning genomes) once the device batch is
-        # full OR the pinned-genome bytes exceed the pool budget
-        if len(pool) >= pair_chunk or pool_ref_bytes >= pool_ref_budget:
-            nxt = _begin(pool)
-            if pending is not None:
-                yield from _end(pending)
-            pending = nxt
-            pool = []
-            pool_refs.clear()
-            pool_ref_bytes = 0
-    nxt = _begin(pool)
-    if pending is not None:
-        yield from _end(pending)
-    yield from _end(nxt)
+        yield from records
 
 
 @dataclass
@@ -2608,22 +2521,29 @@ def align_batches_pooled(
     asm_cache_dir: str | None = None,
     device: str | torch.device = "cuda",
 ) -> Iterator[tuple[str, list[SamRecord]]]:
-    """Align MANY batches with one shared device-flush pipeline, pooling
-    (query, genome) pairs ACROSS batch boundaries.
+    """Align one batch or many with one shared device-flush pipeline,
+    pooling (query, genome) pairs ACROSS batch boundaries.
 
     The reference's unit of work is one minimap2 process per candidate
-    genome within one batch (scripts/batch_align.py:416-486);
-    per-batch pooling (align_batch) already batches a genome's pairs, but a
-    run over hundreds of batches leaves most flushes far below the device
-    sweet spot — a 305-batch production run degenerates into hundreds of
-    small dispatches whose fixed cost dominates. Batch boundaries are a file
-    -layout artifact, not a device constraint: this coordinator keeps ONE
-    rolling pool fed by ``producers`` threads streaming tar/anchor host work
-    in parallel, flushes at ``pair_chunk`` regardless of which batch the
-    pairs came from, and routes each pair's records back to its source batch
-    (flush_pairs_end_grouped). Yields (batch_name, records) as batches
-    complete (completion order, not spec order); per-batch record order is
-    identical to align_batch's (tar order x filtered-query order).
+    genome within one batch (scripts/batch_align.py:416-486). Batch
+    boundaries are a file-layout artifact, not a device constraint: this
+    coordinator keeps ONE rolling pool fed by ``producers`` threads
+    streaming tar/anchor host work in parallel, flushes at ``pair_chunk``
+    regardless of which batch the pairs came from (a run over hundreds of
+    batches that each contribute a handful of pairs still flushes at the
+    device's sweet spot), and routes each pair's records back to its source
+    batch (flush_pairs_end_grouped). Yields (batch_name, records) as batches
+    complete (completion order, not spec order); each batch's records are in
+    tar order x filtered-query order.
+
+    specs: (batch_name, tar_path, accession allow-list or None) a batch.
+    device_lock: optional lock serializing device submissions; held only
+    around a flush's dispatch and drain, so tar streaming / ref indexing /
+    anchor collection overlap the device work.
+    sketch_cache: optional query-index -> QuerySketch dict shared across
+    calls (a read with candidates in several batches is sketched once);
+    callers must key it to one stable ``queries`` list. Dict ops are
+    GIL-atomic; a rare duplicate make() between producers is benign.
     """
     import contextlib
     import queue as _queue

@@ -619,16 +619,9 @@ int extend_scan(const void* q, const void* q_len, const void* rwin,
   }
   // the row body: every geometry unpacked; packed, 32 lanes at every band
   // (the routes the wavefront leaves to it, and queries whose tables
-  // exceed its shared memory: ops/extend.py packed_lanes), or every
-  // geometry in a build with PHYLIGN_B4_PACKED_ROWS (the wrapper's lanes=
-  // comparison)
-#ifdef PHYLIGN_B4_PACKED_ROWS
-  constexpr bool kRows = true;
-#else
-  constexpr bool kRows = !kPacked;
-#endif
+  // exceed its shared memory: ops/extend.py packed_lanes)
 #define PHYLIGN_B4(G, B, ROUTED)                                                \
-  if constexpr (kRows || ROUTED)                                                \
+  if constexpr (!kPacked || ROUTED)                                             \
     if (lanes == G && band == B)                                                \
       return (int)launch<G, B / G, kPacked>(q, q_len, rwin, rvalid, lo, hi, p,  \
                                             l, sc, wide, collect, score, end_d, \
@@ -666,9 +659,8 @@ int phylign_extend_scan(const void* q, const void* q_len, const void* rwin,
 // The same from the 2-bit packed rows q_pack [P, ceil(l/4)] and r_pack
 // [P, ceil((l + band)/4)] and the window bounds lo, hi [P]. lanes = 0
 // takes the wavefront body (a warp a pair: both passes at band 128, the
-// score pass at band 256, up to its shared memory), lanes = G the row body
-// at G lanes a pair (32 at every band; every geometry only in a build with
-// PHYLIGN_B4_PACKED_ROWS).
+// score pass at band 256, up to its shared memory), lanes = 32 the row body
+// at 32 lanes a pair (every band).
 int phylign_extend_scan_packed(const void* q_pack, const void* q_len,
                                const void* r_pack, const void* lo,
                                const void* hi, int p, int l, int band,

@@ -41,8 +41,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: each build in this process (a source, with its macros: _key), in flight
-#: or done (its path or error)
+#: each source's build in this process, in flight or done (its path or
+#: error)
 _build_lock = threading.Lock()
 _builds: dict[str, Future] = {}
 
@@ -62,39 +62,29 @@ def nvcc_path() -> str:
     raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
-    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-
-
-def _key(name: str, defines: tuple[str, ...]) -> str:
-    """A build's key: the source's name, then its macros."""
-    return " ".join((name, *(f"-D{d}" for d in defines)))
-
-
-def _lib_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+def _lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
     tag = hashlib.blake2b(
-        src + " ".join(_flags(defines)).encode(), digest_size=8
+        src + " ".join(NVCC_FLAGS).encode(), digest_size=8
     ).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-def build(name: str, *defines: str) -> Path:
-    """Compile ``csrc/{name}.cu`` (with the macros ``defines``) unless an
-    up-to-date library exists; returns the library's path. The first call
-    in a process builds; every later or concurrent call returns the same
-    path or raises the same error, so no source is compiled twice and a
-    failed build is not retried."""
-    key = _key(name, defines)
+def build(name: str) -> Path:
+    """Compile ``csrc/{name}.cu`` unless an up-to-date library exists;
+    returns the library's path. The first call in a process builds; every
+    later or concurrent call returns the same path or raises the same
+    error, so no source is compiled twice and a failed build is not
+    retried."""
     with _build_lock:
-        fut = _builds.get(key)
+        fut = _builds.get(name)
         owner = fut is None
         if owner:
-            fut = _builds[key] = Future()
+            fut = _builds[name] = Future()
     if not owner:
         return fut.result()
     try:
-        out = _compile(name, defines)
+        out = _compile(name)
     except BaseException as e:
         fut.set_exception(e)
         raise
@@ -102,16 +92,16 @@ def build(name: str, *defines: str) -> Path:
     return out
 
 
-def _compile(name: str, defines: tuple[str, ...]) -> Path:
+def _compile(name: str) -> Path:
     """Run nvcc unless the library exists. Safe against concurrent
     processes: each compiles to a private file and renames it into place."""
-    out = _lib_path(name, defines)
+    out = _lib_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *_flags(defines), "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
@@ -144,19 +134,17 @@ def build_all() -> dict[str, float]:
     return {n: f.result() for n, f in futs.items()}
 
 
-def library(name: str, *defines: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/{name}.cu`` (built with the macros
-    ``defines``), built at first use."""
-    key = _key(name, defines)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/{name}.cu``, built at first use."""
     with _lock:
-        lib = _libs.get(key)
+        lib = _libs.get(name)
         if lib is None:
             try:
-                lib = ctypes.CDLL(str(build(name, *defines)))
+                lib = ctypes.CDLL(str(build(name)))
             except OSError as e:
                 raise KernelError(f"cannot load the {name} library: {e}") from e
             _bind(name, lib)
-            _libs[key] = lib
+            _libs[name] = lib
         return lib
 
 
@@ -261,17 +249,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise KernelError(f"{what} launch failed: cudaError {err} ({msg})")
 
 
-def launch(counts: LaunchCounts, name: str, source: str, fn: str, *args,
-           defines: tuple[str, ...] = ()) -> None:
-    """Call ``fn`` of ``csrc/{source}.cu``'s library (built with the macros
-    ``defines``) with ``args`` and the current stream of the first tensor's
-    device appended (a tensor passes its data pointer, None a null pointer,
-    anything else itself); raise KernelError if the launch failed, else
-    count one launch of ``name``."""
+def launch(counts: LaunchCounts, name: str, source: str, fn: str, *args) -> None:
+    """Call ``fn`` of ``csrc/{source}.cu``'s library with ``args`` and the
+    current stream of the first tensor's device appended (a tensor passes
+    its data pointer, None a null pointer, anything else itself); raise
+    KernelError if the launch failed, else count one launch of ``name``."""
     import torch
 
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    lib = library(source, *defines)
+    lib = library(source)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, fn)(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)

@@ -231,12 +231,6 @@ def packed_lanes(band: int, collect: bool, l: int) -> int:
     return 32 if g == 0 and smem > WAVE_SHARED_LIMIT else g
 
 
-#: the macro of a second build of csrc/extend_scan.cu that holds the row
-#: body's packed instance at every (band, lanes) of KERNEL_LANES: what
-#: extend_cuda_packed's ``lanes`` launches (the comparison with the parent
-#: design); no route launches it
-PACKED_ROWS_BUILD = ("PHYLIGN_B4_PACKED_ROWS",)
-
 #: threads per block of kernel B4 (128 / lanes pairs a block)
 BLOCK_THREADS = 128
 #: the kernel runs the DP in int32 with -2**28 for -1e30; every real value
@@ -279,8 +273,12 @@ def _check_lanes(band: int, collect_plane: bool, lanes: int | None) -> int:
 
 def _launch_b4(name, fn, inputs, p, l, band, g, scoring, collect_plane, defines=()) -> ExtendResult:
     """Allocate B4's outputs on the inputs' device and launch ``fn`` of
-    csrc/extend_scan.cu (built with the macros ``defines``), counted as
-    ``name`` (no launch when p or l is 0)."""
+    csrc/extend_scan.cu, counted as ``name`` (no launch when p or l is 0).
+    ``defines`` must be empty: a source has one build. The parameter stays
+    because the benchmark's B4 probe (gpubench/trace.py B4Shapes) holds this
+    entry to its parameter names."""
+    if defines:
+        raise ValueError(f"extend_scan has one build; got macros {defines}")
     dev = inputs[0].device
     isc = kernel_scoring(scoring, l, band)
     wide = wide_substitution(isc[0], isc[1])
@@ -294,7 +292,7 @@ def _launch_b4(name, fn, inputs, p, l, band, g, scoring, collect_plane, defines=
     _kernels.launch(
         _launches, name, "extend_scan", fn,
         *inputs, p, l, band, g, *isc, int(wide), int(collect_plane),
-        score, end_d, plane if collect_plane else None, defines=defines,
+        score, end_d, plane if collect_plane else None,
     )
     return ExtendResult(score, end_d, plane)
 
@@ -355,9 +353,11 @@ def extend_cuda_packed(
     the codes and the mask read inside the kernel. uint8 packs of
     ceil(l/4) and ceil(wlen/4) bytes a row (``pack2bit``), int32 q_len, lo
     and hi; CUDA tensors only; counted as ``extend_scan_packed``. Launches
-    the body ``packed_lanes`` picks; ``lanes`` forces the row body at that many
-    lanes a pair (one of KERNEL_LANES[band]), from the PACKED_ROWS_BUILD
-    library."""
+    the body ``packed_lanes`` picks; ``lanes=32`` forces the row body at 32
+    lanes a pair (at every band; the library holds no other packed row
+    geometry, so any other value raises ValueError)."""
+    if lanes not in (None, 32):
+        raise ValueError(f"extend_scan_packed: the row body is built at 32 lanes a pair, not {lanes}")
     dev = q_pack.device
     if dev.type != "cuda" or any(t.device != dev for t in (q_len, r_pack, lo, hi)):
         raise ValueError("extend_scan_packed runs on CUDA tensors on one device")
@@ -378,14 +378,11 @@ def extend_cuda_packed(
             f"{tuple(KERNEL_LANES)}), shapes q_pack {tuple(q_pack.shape)}, r_pack "
             f"{tuple(r_pack.shape)}, q_len {tuple(q_len.shape)}, lo {tuple(lo.shape)}, hi {tuple(hi.shape)}"
         )
-    if lanes is None:
-        g, defines = packed_lanes(band, collect_plane, l), ()
-    else:
-        g, defines = _check_lanes(band, collect_plane, lanes), PACKED_ROWS_BUILD
+    g = packed_lanes(band, collect_plane, l) if lanes is None else lanes
     if not all(t.is_contiguous() for t in (q_pack, q_len, r_pack, lo, hi)):
         raise ValueError("extend_scan_packed takes contiguous tensors")
     return _launch_b4("extend_scan_packed", "phylign_extend_scan_packed", (q_pack, q_len, r_pack, lo, hi),
-                      p, l, band, g, scoring, collect_plane, defines)
+                      p, l, band, g, scoring, collect_plane)
 
 
 def _extend_impl(q_codes, q_len, rwin, rwin_valid, scoring, collect_plane) -> ExtendResult:

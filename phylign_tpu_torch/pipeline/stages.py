@@ -26,7 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from phylign_tpu_torch.align.engine import AlignParams, align_batch
+from phylign_tpu_torch.align.engine import AlignParams, align_batches_pooled
 from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.io import cobs as cobs_io
 from phylign_tpu_torch.io.fastx import (
@@ -1157,7 +1157,7 @@ class Pipeline:
         stem and reused by every batch's align job (the reference re-reads
         the 04_filter FASTA and batch_align.py re-builds its query dicts per
         batch, 305x; ref Snakefile:549-555). The sketch dict is shared
-        across concurrent batch jobs — align_batch fills it lazily."""
+        by the align producers, which fill it lazily."""
         src = self.filter_path(stem)
         st = src.stat()  # mtime+size key: a regenerated file invalidates
         key = ("filtered", stem, st.st_mtime_ns, st.st_size)
@@ -1192,38 +1192,6 @@ class Pipeline:
                 del self._query_cache[k]
             self._query_cache[key] = val
         return val
-
-    def align_one_batch(
-        self, batch: str, stem: str, accessions: set[str] | None
-    ) -> Path:
-        out = self.map_path(batch, stem)
-        if self.manifest.done("map", f"{batch}____{stem}", [str(out)]):
-            return out
-        with benchmark(self.logs, "batch_align", f"{batch}____{stem}"):
-            queries, sketches = self._filtered_query_set(stem)
-            params = self.align_params()
-            records = list(
-                align_batch(
-                    str(self.asms_path(batch)),
-                    queries,
-                    accessions,
-                    params,
-                    mesh=self._align_mesh(),
-                    device_lock=self.sched.flush_slot(),
-                    pair_chunk=self.cfg.device_pair_chunk,
-                    sketch_cache=sketches,
-                    asm_cache_dir=self._asm_cache_dir(),
-                    device=self.device,
-                )
-            )
-            with trace.span("align.write"):
-                tmp, commit = atomic_write_via(out)
-                write_batch_sam(tmp, records)
-                commit()
-        self.manifest.mark("map", f"{batch}____{stem}", [str(out)])
-        if self.cfg.asm_cache:
-            self._enforce_cache_budget()
-        return out
 
     def batch_accessions(self, batch: str) -> set[str] | None:
         """The batch's accession allow-list from data/661k_batches.txt.xz-style
@@ -1261,24 +1229,17 @@ class Pipeline:
                 outs[b] = out
             else:
                 todo.append(b)
-        if todo:  # refuse what kernel B4 cannot run before aligning a batch
+        if todo:
+            # refuse what kernel B4 cannot run before aligning a batch
             queries, sketches = self._filtered_query_set(stem)
             params = self.align_params(max((len(q.seq) for q in queries), default=0))
-        if len(todo) == 1:
-            # single batch: the per-batch scheduler path (identical output)
-            outs[todo[0]] = self.align_one_batch(
-                todo[0], stem, self.batch_accessions(todo[0])
-            )
-        elif todo:
-            # multi-batch: ONE shared flush pipeline pools pairs across
-            # batch boundaries (engine.align_batches_pooled) — flush sizes
+            # ONE shared flush pipeline pools pairs across batch boundaries
+            # (engine.align_batches_pooled), one batch or many — flush sizes
             # stay at device_pair_chunk even when most batches contribute a
             # handful of pairs, instead of one small dispatch per batch
             # (the reference's unit is one minimap2 process per genome,
             # batch_align.py:416-486). Producer threads replace the
             # scheduler's io_heavy jobs for tar/anchor host work.
-            from phylign_tpu_torch.align.engine import align_batches_pooled
-
             specs = [
                 (b, str(self.asms_path(b)), self.batch_accessions(b))
                 for b in todo
@@ -1298,9 +1259,8 @@ class Pipeline:
                     device=self.device,
                 ):
                     # per-batch rows keep the reference's log-file contract
-                    # (logs/benchmarks/batch_align/...); in pooled mode they
-                    # time the output write — stage wall is the
-                    # batch_align_pooled row
+                    # (logs/benchmarks/batch_align/...); they time the
+                    # output write — stage wall is the batch_align_pooled row
                     with benchmark(
                         self.logs, "batch_align", f"{bname}____{stem}"
                     ), trace.span("align.write"):

@@ -199,6 +199,24 @@ def test_align_batch_and_pooled(tmp_path, cache):
     assert got == want and set(got) == {"b", "b2"}
 
 
+def test_align_batch_is_one_spec_of_the_pooled_engine(tmp_path):
+    """align_batch over a tar equals align_batches_pooled over the same one
+    spec, record for record, and runs the pooled coordinator (its
+    align.segments counter moves)."""
+    from phylign_tpu_torch.utils import trace
+
+    tar, qs = _batch_tar(tmp_path)
+    params = tae.AlignParams.from_preset("sr")
+    tq = [TFQ(n, s, c) for n, s, c in qs]
+    accs = {"SAMB0", "SAMB2"}
+    trace.reset()
+    got = [r.to_line() for r in tae.align_batch(str(tar), tq, accs, params, pair_chunk=16, device="cpu")]
+    assert trace.snapshot()["counts"].get("align.segments", 0) > 0
+    pooled = list(tae.align_batches_pooled([("", str(tar), accs)], tq, params, pair_chunk=16, device="cpu"))
+    assert [name for name, _ in pooled] == [""]
+    assert got == [r.to_line() for r in pooled[0][1]] and len(got) == 32
+
+
 def test_align_genome_and_begin_end_grouped():
     rng = np.random.default_rng(41)
     contig = rng.integers(0, 4, 6000).astype(np.uint8)

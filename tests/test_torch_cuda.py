@@ -624,9 +624,10 @@ def test_extend_scan_wide_scoring_equals_plain_version(cuda, p, l, band, lanes, 
 
 #: (P, L, band) of B4's packed instance: the delegated chunk's L = 256,
 #: widths whose packed rows end in a part-filled byte, every band, more
-#: pairs than a block holds
+#: pairs than a block holds; each on its route (lanes None) and on the row
+#: body at 32 lanes, the packed geometries the library holds
 PACKED_SHAPES = [(37, 256, 128), (50, 61, 128), (9, 99, 256), (5, 201, 384), (3, 130, 512), (1030, 33, 128)]
-PACKED_CASES = [(p, l, band, g) for p, l, band in PACKED_SHAPES for g in ope.KERNEL_LANES[band]]
+PACKED_CASES = [(p, l, band, g) for p, l, band in PACKED_SHAPES for g in (None, 32)]
 
 
 def _packed_extend_case(rng, p, l, band):
@@ -658,10 +659,10 @@ def _packed_launches() -> int:
 @pytest.mark.parametrize("collect", [False, True])
 def test_extend_scan_packed_equals_plain_version(cuda, p, l, band, lanes, collect, scoring):
     """B4's packed instance (2-bit codes and [lo, hi) read in the kernel)
-    against extend_ref on the unpacked codes and mask, bit for bit, at
-    every lane count of the band, byte and wide (bands 128 and 256)
-    substitution: one launch of extend_scan_packed a call."""
-    rng = np.random.default_rng(11 * p + l + band + lanes)
+    against extend_ref on the unpacked codes and mask, bit for bit, on its
+    route and on the row body at 32 lanes, byte and wide (bands 128 and
+    256) substitution: one launch of extend_scan_packed a call."""
+    rng = np.random.default_rng(11 * p + l + band + (lanes or 0))
     q, q_len, r, lo, hi, v = _packed_extend_case(rng, p, l, band)
     before = _packed_launches()
     got = ope.extend_cuda_packed(*_packed_inputs(cuda, q, q_len, r, lo, hi), l, l + band, scoring,
@@ -745,7 +746,7 @@ def test_extend_wave_equals_plain_version_and_row_body(cuda, p, band, collect, s
     """The packed instance on its route (ope.PACKED_ROUTES: the wavefront
     body at band 128 and for band 256's score pass, the row body elsewhere)
     against extend_ref on the unpacked codes and mask and against the row
-    body at 32 lanes (the PACKED_ROWS_BUILD library) on the packs, bit for
+    body at 32 lanes (lanes=32) on the packs, bit for
     bit: P of 1, 3, 256, 512 and 1,000 (grids under and over the card's
     SMs), every band, both passes, byte and wide substitution; one launch a
     call."""

@@ -594,6 +594,19 @@ def test_packed_kernel_emulation_at_wide_scoring(collect):
     np.testing.assert_array_equal(got[0], np.asarray(j[0]))
 
 
+@pytest.mark.parametrize("lanes", [0, 8, 16])
+def test_packed_row_body_is_built_at_32_lanes_only(lanes):
+    """extend_cuda_packed's lanes= forces the row body at 32 lanes, the one
+    packed row geometry csrc/extend_scan.cu builds; any other count is
+    refused before a launch."""
+    p, l, band = 6, 33, 128
+    _, ql, _, lo, hi, qp, rp = _packed_case(np.random.default_rng(9), p, l, band)
+    before = te.launch_counts()
+    with pytest.raises(ValueError, match="32 lanes"):
+        te.extend_cuda_packed(*_t(qp, ql, rp, lo, hi), l, l + band, lanes=lanes)
+    assert te.launch_counts() == before
+
+
 def test_packed_dispatch_by_device():
     """A CPU tensor takes the plain version (no launch); the packed kernel
     refuses CPU tensors; any other device raises."""

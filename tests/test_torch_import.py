@@ -274,6 +274,18 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     assert phylign_tpu_torch.__version__
 
 
+def test_each_kernel_source_has_one_build():
+    """build, library and launch take a source's name and no macros, and no
+    source switches its body on a build macro: a source is one library."""
+    import inspect
+
+    assert list(inspect.signature(_kernels.build).parameters) == ["name"]
+    assert list(inspect.signature(_kernels.library).parameters) == ["name"]
+    assert list(inspect.signature(_kernels.launch).parameters) == ["counts", "name", "source", "fn", "args"]
+    for src in _kernels.SRC_DIR.glob("*.cu"):
+        assert "#ifdef PHYLIGN_" not in src.read_text(), src.name
+
+
 def test_benchmark_log_survives_missing_io_counters(tmp_path, monkeypatch):
     """On hosts whose /proc/<pid>/io lacks ``rchar``, psutil's io_counters
     raises ValueError; the port's stage logger writes its row with zero

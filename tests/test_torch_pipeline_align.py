@@ -99,8 +99,10 @@ def test_cli_match_then_map(jax_run, tmp_path, capsys):
 
 
 def test_align_single_batch_job_path(tmp_path):
-    """One batch takes the per-batch path (align_one_batch), many batches
-    the pooled path: the same 05_map bytes."""
+    """Pipeline.align one batch at a time and over all batches at once
+    (both through the pooled loop): the same 05_map bytes, and each
+    one-batch call writes its batch's batch_align log row beside the
+    stage's batch_align_pooled row."""
     ttesting.make_fixture(tmp_path / "a", n_batches=3, seed=42)
     ttesting.make_fixture(tmp_path / "b", n_batches=3, seed=42)
     res = {}
@@ -111,7 +113,13 @@ def test_align_single_batch_job_path(tmp_path):
         pl.match(stem)
         pl.filter(stem)
         if key == "a":
-            paths = [pl.align(stem, [b])[0] for b in pl.batches()]
+            paths = []
+            for b in pl.batches():
+                paths.append(pl.align(stem, [b])[0])
+                rows = (pl.logs / "benchmarks" / "batch_align" / f"{b}____{stem}.txt").read_text()
+                assert len(rows.splitlines()) == 2, rows  # header + this batch's row
+            pooled = (pl.logs / "benchmarks" / "batch_align_pooled" / f"{stem}.txt").read_text()
+            assert len(pooled.splitlines()) == 1 + len(pl.batches())
         else:
             paths = pl.align(stem)
         res[key] = [gzip.open(p, "rb").read() for p in paths]

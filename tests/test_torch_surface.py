@@ -26,6 +26,7 @@ OMITTED = {
     "parallel.dist.shard_map": "jax.shard_map; parallel.dist runs each cell's kernel in turn",
     "utils.jaxcache.enable": "XLA's compilation cache; the kernels' build directory keyed by source",
     "utils.platform.ensure_backend": "JAX backend selection; utils.platform.resolve_device",
+    "pipeline.stages.Pipeline.align_one_batch": "Pipeline.align runs one batch through the pooled loop as it runs many",
 }
 
 
