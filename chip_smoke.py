@@ -2721,12 +2721,12 @@ def phase_mesh(work: Path, label: str, p7: dict, b5_base: BaselineLib | None = N
     got, want = _outputs(wd), _outputs(work / "fixture_all_cuda")
     if got != want:
         raise AssertionError(f"fixture on the 2x2 mesh differs from phase 6 in {[k for k in want if got.get(k) != want[k]]}")
-    # a mesh ships the full cold rows (no compaction) and packs its hits on
-    # the host (no B5a, B5c), as the JAX mesh path does; the accumulating
-    # and keep instances belong to the chunked pass and match_step; the
-    # fixture's reads delegate no extension (none in phase 6 either), and a
-    # mesh walks the traceback on the host
-    off_path = ("compact_cold", "hash_rows", "pack_hits", "match_popcount_acc", "match_popcount_keep",
+    # a mesh ships the full cold rows (no compaction), as the JAX mesh path
+    # does, and matches on the hash path (B5a a cell, B5c on the home
+    # card); the accumulating and keep instances belong to the chunked pass
+    # and match_step; the fixture's reads delegate no extension (none in
+    # phase 6 either), and a mesh walks the traceback on the host
+    off_path = ("compact_cold", "match_popcount_acc", "match_popcount_keep",
                 "extend_scan_packed", "traceback_walk")
     if not all(v for k, v in counts["c"].items() if k not in off_path):
         raise AssertionError(f"the fixture on the 2x2 mesh did not launch every kernel: {counts['c']}")

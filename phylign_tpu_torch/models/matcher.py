@@ -464,10 +464,29 @@ class DeviceQueryHashes:
     # integer cut vector depends only on (nk, threshold), not on the batch
     _nk_dev: torch.Tensor | None = None
     _cut_dev: dict | None = None
+    # the chunk's copies on a mesh's other devices (``on``), by device
+    _copies: dict | None = None
 
     @property
     def device(self) -> torch.device:
         return self.hi.device
+
+    def on(self, device: torch.device) -> "DeviceQueryHashes":
+        """This chunk on ``device``: itself there, else its copy, made at
+        the first call (the hash halves copied from this device) and kept
+        with the chunk, so a mesh's cards receive a job's query hashes once
+        and no query bytes a batch."""
+        if device == self.device:
+            return self
+        if self._copies is None:
+            self._copies = {}
+        twin = self._copies.get(device)
+        if twin is None:
+            twin = self._copies[device] = DeviceQueryHashes(
+                hi=self.hi.to(device), lo=self.lo.to(device), n_kmers=self.n_kmers,
+                raw=self.raw, q_real=self.q_real,
+            )
+        return twin
 
     def nk_dev(self) -> torch.Tensor:
         if self._nk_dev is None:
@@ -937,16 +956,25 @@ class Matcher:
         q = len(n_kmers)
         vals, ids = vals[:q, :kk], ids[:q, :kk]
         keep = vals >= 0
-        cols = self.shards.columns(d)
-        if cols is not None:  # the padded matrix's columns -> documents, in order
-            doc_of = np.zeros(32 * self.words.shape[1], ids.dtype)
-            doc_of[cols] = np.arange(d)
-            ids = doc_of[np.maximum(ids, 0)]
+        doc_of = self._doc_of(d)
+        if doc_of is not None:
+            ids = doc_of[np.maximum(ids, 0)].astype(ids.dtype)
         return (
             np.where(keep, vals, 0),
             np.where(keep, ids, 0),
             n_keep[:q],
         )
+
+    def _doc_of(self, d: int) -> np.ndarray | None:
+        """On a mesh whose padded matrix does not hold the ``d`` documents
+        in its first columns (DocShards.columns), the document of each
+        column (uint32, the columns past the documents 0); else None."""
+        cols = None if self.shards is None else self.shards.columns(d)
+        if cols is None:
+            return None
+        doc_of = np.zeros(32 * self.words.shape[1], np.uint32)
+        doc_of[cols] = np.arange(d)
+        return doc_of
 
     def _window_hits(
         self, vals, idx, n_keep, rows_of, threshold: float, k_max: int,
@@ -999,14 +1027,16 @@ class Matcher:
 
     def _window_hits_flat(
         self, flat, n_keep, rows_of, threshold: float, k_max: int, kk: int,
-        device_lock=None,
+        device_lock=None, doc_of: np.ndarray | None = None,
     ) -> tuple[list[list[tuple[int, int]]], np.ndarray]:
         """_window_hits over the device-compacted flat uint32 (score|doc)
-        buffer (_hash_topk_flat): same hit lists, fewer fetched bytes."""
+        buffer (_hash_topk_flat): same hit lists, fewer fetched bytes.
+        ``doc_of`` maps a mesh's padded-matrix columns to documents."""
         n_keep = np.array(n_keep)
         take = np.minimum(n_keep, kk)
         offs = np.cumsum(take) - take
-        ids = (flat & np.uint32(0xFFFF)).tolist()
+        ids = flat & np.uint32(0xFFFF)
+        ids = (ids if doc_of is None else doc_of[ids]).tolist()
         vals = (flat >> np.uint32(16)).tolist()
         # most queries have NO hits in a batch: share one empty list and
         # touch only hit rows (no consumer mutates a hit list in place)
@@ -1037,10 +1067,21 @@ class Matcher:
 
         ``cap`` bounds the compacted hit buffer; scatter overflow past it
         falls back to the dense window fetch, so a too-small cap costs
-        time, never correctness."""
+        time, never correctness.
+
+        On a mesh of one process the chunk runs on every device of the mesh
+        (``DeviceQueryHashes.on``) through parallel.dist.dist_hash_topk_flat,
+        and the buffer comes from the home device; a mesh that spans
+        processes returns None (its ranks gather in batch order on the
+        serial path)."""
         d = len(self.doc_names)
+        mesh = self.mesh
         if (
-            self.mesh is not None
+            (mesh is not None and (
+                mesh.group is not None
+                or len(dq.n_kmers) % mesh.nq
+                or 32 * self.words.shape[1] > 1 << 16  # a column id in 16 bits
+            ))
             or self.dedup
             or d == 0
             or d > 65535
@@ -1053,10 +1094,21 @@ class Matcher:
         q_real = dq.q_real if dq.q_real >= 0 else len(dq.n_kmers)
         full = q_real * min(kk, topn + 12)
         cap = full if cap is None else max(256, min(int(cap), full))
-        out_dev = _hash_topk_flat(
-            self.words, dq.hi, dq.lo, dq.nk_dev(), dq.cut_dev(threshold),
-            s=self.signature_size, pad_row=self.pad_row, kk=kk, d=d, cap=cap,
-        )
+        if mesh is None:
+            out_dev = _hash_topk_flat(
+                self.words, dq.hi, dq.lo, dq.nk_dev(), dq.cut_dev(threshold),
+                s=self.signature_size, pad_row=self.pad_row, kk=kk, d=d, cap=cap,
+            )
+        else:
+            from phylign_tpu_torch.parallel.dist import dist_hash_topk_flat
+
+            trace.count("match.mesh_hash_chunks")
+            copies = {dev: dq.on(dev) for dev in mesh.devices}
+            out_dev = dist_hash_topk_flat(
+                mesh, self.words,
+                {dev: (c.hi, c.lo, c.nk_dev(), c.cut_dev(threshold)) for dev, c in copies.items()},
+                s=self.signature_size, pad_row=self.pad_row, d=self.shards.docs(d), kk=kk, cap=cap,
+            )
         host, event = _copy_to_host_async(out_dev)
         return _HashDispatch(dq, host, event, threshold, topn, k_max, kk, cap)
 
@@ -1084,19 +1136,26 @@ class Matcher:
         if int(total) <= cap:
             hits, nk = self._window_hits_flat(
                 flat, n_keep, rows_of, threshold, k_max, kk,
-                device_lock=device_lock,
+                device_lock=device_lock, doc_of=self._doc_of(d),
             )
             return hits[:q_real], nk[:q_real]
         trace.count("match.cap_overflows")
         lock = device_lock if device_lock is not None else contextlib.nullcontext()
         with lock:
-            vals, idx, n_keep = (
-                t.cpu().numpy()
-                for t in _hash_topk(
-                    self.words, dq.hi, dq.lo, dq.nk_dev(), dq.cut_dev(threshold),
-                    s=self.signature_size, pad_row=self.pad_row, kk=kk, d=d,
+            if self.mesh is not None:  # the mesh's dense window
+                per_query = [rows_of(q) for q in range(q_real)]
+                k_pack = round_up(max((r.shape[0] for r in per_query), default=1), 64)
+                vals, idx, n_keep = self._mesh_topk(
+                    per_query, dq.n_kmers[:q_real], threshold, kk, d, k_pack
                 )
-            )
+            else:
+                vals, idx, n_keep = (
+                    t.cpu().numpy()
+                    for t in _hash_topk(
+                        self.words, dq.hi, dq.lo, dq.nk_dev(), dq.cut_dev(threshold),
+                        s=self.signature_size, pad_row=self.pad_row, kk=kk, d=d,
+                    )
+                )
         hits, nk = self._window_hits(
             vals, idx, n_keep, rows_of, threshold, k_max, kk,
             device_lock=device_lock,

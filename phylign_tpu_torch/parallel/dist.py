@@ -29,8 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from phylign_tpu_torch.models.matcher import _hash_rows, _pack_hits, _topk_scores
 from phylign_tpu_torch.models.matcher import _merge_topk as merge_windows
-from phylign_tpu_torch.models.matcher import _topk_scores
 from phylign_tpu_torch.ops.chain import ChainResult, chain_anchors, chain_anchors_packed
 from phylign_tpu_torch.ops.extend import (
     ExtendResult,
@@ -345,6 +345,43 @@ def dist_threshold_topk(mesh: Mesh, words, row_idx, cut, d, kk: int):
         scores = dist_match_scores(mesh, words, row_idx)
         win = _windows(mesh, scores, _as_sharded(mesh, cut, (AXIS_QUERY,)), d, kk)
     return _top(mesh, scores.shape[0], *win)
+
+
+def dist_hash_topk_flat(mesh: Mesh, words: Sharded, queries, *, s: int, pad_row: int, d, kk: int, cap: int):
+    """The mesh twin of ``matcher._hash_topk_flat``, on a mesh of one
+    process: on each cell's device B5a maps its query shard's hashes to
+    Bloom rows (every doc shard holds the S+1 rows, so the same ``s`` and
+    ``pad_row``), B2 scores them over the cell's words, B5b keeps the
+    cell's window (``d``: each doc shard's documents, _shard_windows);
+    then the windows' gather to each column's first device and the merge
+    (B5d), the columns concatenated on the home device, and B5c packs the
+    merged window there. ``queries``: {device: (hi, lo, nk, cut)}, the
+    chunk's hash halves, k-mer counts and integer cut on each device of
+    the mesh, their rows a multiple of the query axis. Returns the one
+    int32 buffer [cap hits | Q n_keep | total] of _hash_topk_flat, whose
+    doc ids are columns of the sharded matrix (local column + e * w_loc).
+    A (device, query shard) maps its rows once, however many cells share
+    it."""
+    if mesh.group is not None:
+        raise ValueError("dist_hash_topk_flat runs on a mesh of one process")
+    q_tot = queries[mesh.home][0].shape[0]
+    if q_tot % mesh.nq:
+        raise ValueError(f"{q_tot} query rows do not split over {mesh.nq} query shards")
+    step = q_tot // mesh.nq
+    with trace.span("match.mesh.score"):
+        rows, scores, cuts = {}, {}, {}
+        for c in mesh.local_cells():
+            dev, sl = mesh.device(*c), slice(c[1] * step, (c[1] + 1) * step)
+            hi, lo, nk, cut = queries[dev]
+            if (dev, c[1]) not in rows:
+                rows[dev, c[1]] = _hash_rows(hi[sl], lo[sl], nk[sl], s, pad_row)
+            scores[c] = match_scores(words.at(*c), rows[dev, c[1]])
+            cuts[c] = cut[sl]
+        sc = _from_cells(mesh, (AXIS_QUERY, AXIS_DOC), (q_tot, 32 * words.shape[1]), scores)
+        local, lims, w_loc, kk = _windows(mesh, sc, _from_cells(mesh, (AXIS_QUERY,), (q_tot,), cuts), d, kk)
+    merged = _merge_topk(mesh, local, lims, w_loc, kk)
+    vals, ids, n_keep = merged[0] if mesh.nq == 1 else _concat_q(mesh, merged)
+    return _pack_hits(vals, ids, n_keep, kk, cap)
 
 
 def dist_chain(mesh: Mesh, rpos, qpos, **kw) -> ChainResult:

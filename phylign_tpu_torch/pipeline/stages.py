@@ -71,9 +71,10 @@ class QuerySet:
                (duplicate reads / RC duplicates share canonical k-mer
                multisets, so they score identically against every batch);
     uraw       per-unique-query raw XXH64 hashes (uint64 [n, H]);
-    device_chunk(off, size) lazily uploads a unique-query slice's hashes to
-    the device ONCE (models.matcher.DeviceQueryHashes) — every batch then
-    mods + gathers on the device with no per-batch query upload."""
+    device_chunk(off, size, devices) lazily uploads a unique-query slice's
+    hashes to the device ONCE (models.matcher.DeviceQueryHashes), and copies
+    them to each further device of a mesh once — every batch then mods +
+    gathers on the device(s) with no per-batch query upload."""
 
     def __init__(
         self,
@@ -97,24 +98,28 @@ class QuerySet:
     def raw_per_record(self) -> list[np.ndarray]:
         return [self.uraw[j] for j in self.rep_of]
 
-    def device_chunk(self, off: int, size: int) -> DeviceQueryHashes:
+    def device_chunk(self, off: int, size: int, devices=()) -> DeviceQueryHashes:
+        """The chunk [off, off + size) of the unique queries, with its copy
+        on each of ``devices`` (a mesh's)."""
         key = (off, size)
         with self._lock:
-            hit = self._dq.get(key)
-        if hit is not None:
-            return hit
-        dq = DeviceQueryHashes.build(self.uraw[off : off + size], self.device)
-        with self._lock:
-            # bound device residency: keep at most TWO chunk layouts
-            # (evicting the least-recent layout keeps device memory at ~2x
-            # the query hash set; in-flight users keep their tensors alive
-            # via ordinary references)
-            sizes = {s for (_, s) in self._dq}
-            if size not in sizes and len(sizes) >= 2:
-                drop = next(iter(self._dq))[1]  # oldest layout's size
-                for k in [k for k in self._dq if k[1] == drop]:
-                    del self._dq[k]
-            return self._dq.setdefault(key, dq)
+            dq = self._dq.get(key)
+        if dq is None:
+            dq = DeviceQueryHashes.build(self.uraw[off : off + size], self.device)
+            with self._lock:
+                # bound device residency: keep at most TWO chunk layouts
+                # (evicting the least-recent layout keeps device memory at
+                # ~2x the query hash set; in-flight users keep their tensors
+                # alive via ordinary references)
+                sizes = {s for (_, s) in self._dq}
+                if size not in sizes and len(sizes) >= 2:
+                    drop = next(iter(self._dq))[1]  # oldest layout's size
+                    for k in [k for k in self._dq if k[1] == drop]:
+                        del self._dq[k]
+                dq = self._dq.setdefault(key, dq)
+        for dev in devices:
+            dq.on(dev)
+        return dq
 
 
 class _IndexCache:
@@ -560,8 +565,11 @@ class Pipeline:
         device-resident: the per-batch work is one hash -> kernel -> top-k
         -> compaction sequence plus the hit buffer's copy.
 
-        Paths that must fetch internally (empty batch, oversized/chunked
-        index, mesh, dedup/raw fallback) return a {"sync": results} state;
+        A mesh of one process takes the same hash path on every device of
+        the mesh (Matcher.score_hits_hashes_begin); a mesh that spans
+        processes, dedup and the raw fallback score synchronously. Paths
+        that must fetch internally (empty batch, oversized/chunked index)
+        return a {"sync": results} state;
         the async path returns the dispatched slots so the caller can fetch
         many batches together (_match_pipelined). The device memory
         accountant bounds how many transient indexes are resident at once."""
@@ -605,8 +613,10 @@ class Pipeline:
                 chunk = max(1024, min(32768, (256 << 20) // (wp * 128)))
                 chunk = 1 << (chunk.bit_length() - 1)
             use_hashes = (
-                mesh is None and not matcher.dedup and didx.num_docs <= 65535
+                (mesh is None or mesh.world == 1)
+                and not matcher.dedup and didx.num_docs <= 65535
             )
+            devices = () if mesh is None else mesh.devices
             thr, topn = self.cfg.cobs_kmer_thres, self.cfg.nb_best_hits
             # adaptive fetch cap from this read set's history: 4x the
             # largest per-batch hit total seen, power-of-two quantized. A
@@ -622,7 +632,7 @@ class Pipeline:
             with trace.span("match.dispatch"), self.sched.device_lock:
                 for off in range(0, len(qs.uraw), chunk):
                     if use_hashes:
-                        dqc = qs.device_chunk(off, chunk)
+                        dqc = qs.device_chunk(off, chunk, devices)
                         ctx = matcher.score_hits_hashes_begin(
                             dqc, thr, topn, cap=cap_hint
                         )
@@ -794,23 +804,23 @@ class Pipeline:
     @trace.spanned("stage.match")
     def match(self, stem: str, batches: list[str] | None = None) -> list[Path]:
         batches = batches if batches is not None else self.batches()
-        if self.mesh() is None:
-            try:
-                return self._match_pipelined(stem, batches)
-            except KernelError:
-                raise  # the job path runs the same kernels: never retry them
-            except Exception:
-                # the manifest makes the job path resume where the
-                # pipelined path stopped; the job path adds per-batch
-                # OOM-escalation retries (scheduler.run_one)
-                log.warning(
-                    "pipelined match failed; falling back to the job "
-                    "scheduler", exc_info=True,
-                )
-        elif self._spanning_mesh():
+        if self._spanning_mesh():
             # every rank scores every batch, one at a time in batch order,
             # so each rank's gathers pair with its peers'
             return [self.match_one_batch(b, stem) for b in batches]
+        # one device or a mesh of one process
+        try:
+            return self._match_pipelined(stem, batches)
+        except KernelError:
+            raise  # the job path runs the same kernels: never retry them
+        except Exception:
+            # the manifest makes the job path resume where the pipelined
+            # path stopped; the job path adds per-batch OOM-escalation
+            # retries (scheduler.run_one)
+            log.warning(
+                "pipelined match failed; falling back to the job "
+                "scheduler", exc_info=True,
+            )
         jobs = [
             Job(
                 name=f"match:{b}",
@@ -963,7 +973,7 @@ class Pipeline:
                         # too tight (advisory check; after a flush the only
                         # remaining holders release independently)
                         if group:
-                            need = max(1, device_index_bytes(didx) // 1_000_000)
+                            need = max(1, device_index_bytes(didx, mesh=self.mesh()) // 1_000_000)
                             if (
                                 didx.num_hashes == 1
                                 and need > self._chunk_budget_mb()

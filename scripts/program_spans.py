@@ -18,8 +18,8 @@ default), and prints the result line that run.py prints, then one line
 - ``counts``: the program's counters over the window (those not 0, in a
   map cell the gapped pairs' walks and the genomes indexed, all and on the
   card, even at 0, and in
-  a match cell on a mesh its shards, gathered bytes and padding words, even
-  at 0);
+  a match cell on a mesh its shards, gathered bytes, padding words and hash
+  chunks, even at 0);
 - with ``--trace 1`` on a card: ``idle_gaps``, the device's idle seconds by
   the benchmark span that was open, split after the innermost program span
   open on the client's thread as ``<benchmark span>/<program span>`` (what
@@ -75,9 +75,11 @@ METRICS = {
 MAP_COUNTS = ("align.traceback_pairs", "align.device_traceback_pairs",
               "align.genomes", "align.device_ref_genomes")
 #: the counters a match cell on a mesh (one that uploaded doc shards) lists
-#: even at 0: its shards, the windows' bytes gathered between devices and
-#: the zero words uploaded (0 where the words split evenly over the shards)
-MESH_COUNTS = ("match.mesh_shards", "match.mesh_gather_bytes", "match.mesh_padding_words")
+#: even at 0: its shards, the windows' bytes gathered between devices, the
+#: zero words uploaded (0 where the words split evenly over the shards) and
+#: the query chunks scored on the mesh's hash path (0 where none took it)
+MESH_COUNTS = ("match.mesh_shards", "match.mesh_gather_bytes", "match.mesh_padding_words",
+               "match.mesh_hash_chunks")
 
 
 def run_with_spans(spec: dict, seed: int, seconds: float, trace: bool, spans: bool,

@@ -1,10 +1,11 @@
 """The match stage on a doc-sharded mesh, the deployment of the benchmark
 cell sr-reads.match-4gpu (mesh_shape 4x1): the layout of a batch's word
 columns over the doc shards (``models/matcher.DocShards``) gives every
-shard documents; the mesh's 03_match and 04_filter equal the one-device
-run's and the plain reference's (``gpubench/reference/cobs_ref.py``); the
-mesh's counters. On a machine with four cards (no jax there, so the repo's
-conftest is left out):
+shard documents; the mesh's hash path (``parallel/dist.dist_hash_topk_flat``)
+equals the one-device hash path, and the pipelined loop runs it; the mesh's
+03_match and 04_filter equal the one-device run's and the plain reference's
+(``gpubench/reference/cobs_ref.py``); the mesh's counters. On a machine with
+four cards (no jax there, so the repo's conftest is left out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_mesh4.py
 """
@@ -21,8 +22,8 @@ import torch
 from phylign_tpu_torch import testing as ttesting
 from phylign_tpu_torch.config import Config
 from phylign_tpu_torch.io.cobs import DeviceIndex
-from phylign_tpu_torch.models.matcher import DocShards, Matcher, device_index_bytes
-from phylign_tpu_torch.parallel.mesh import make_mesh
+from phylign_tpu_torch.models.matcher import DeviceQueryHashes, DocShards, Matcher, device_index_bytes
+from phylign_tpu_torch.parallel.mesh import Mesh, make_mesh
 from phylign_tpu_torch.pipeline.stages import Pipeline
 from phylign_tpu_torch.utils import trace
 
@@ -164,6 +165,125 @@ def test_mesh_hits_on_four_cards_equal_one_card():
         torch.cuda.synchronize(i)
     assert opm.launch_counts()["match_popcount_b2"] - b2["match_popcount_b2"] >= 4 + 1
     assert tm.launch_counts()["merge_topk"] - b5["merge_topk"] >= 1
+    assert counts["match.mesh_gather_bytes"] > 0
+
+
+def _hash_hits_equal(mesh_devices, one_device, w: int, d: int, topn: int = 100, cap=None):
+    """score_hits_hashes_begin/_end on an nd x 1 mesh of ``mesh_devices``
+    against score_hits_hashes on ``one_device``, hit for hit and count for
+    count; the query hashes uploaded once to ``one_device``. Returns the
+    mesh run's counters."""
+    didx, raw = _planted(np.random.default_rng(w), 20_011, w, d, 600)
+    dq = DeviceQueryHashes.build(raw, one_device)
+    want = Matcher.from_device_index(didx, one_device).score_hits_hashes(dq, 0.7, topn)
+    mat = Matcher.from_device_index(didx, one_device, mesh=make_mesh(len(mesh_devices), 1, devices=mesh_devices))
+    trace.reset()
+    ctx = mat.score_hits_hashes_begin(dq, 0.7, topn, cap=cap)
+    assert ctx is not None
+    got = mat.score_hits_hashes_end(ctx)
+    counts = trace.snapshot()["counts"]
+    trace.reset()
+    assert list(got[1]) == list(want[1])
+    assert len(got[0]) == len(want[0]) == 600
+    for a, b in zip(got[0], want[0]):
+        assert sorted(a, key=lambda t: (-t[1], t[0])) == sorted(b, key=lambda t: (-t[1], t[0]))
+    assert want[1][5] == 0 and sum(len(h) for h in want[0]) > 600
+    assert counts["match.mesh_hash_chunks"] == 1
+    return counts
+
+
+@pytest.mark.parametrize(
+    "nd,w,case",
+    [(4, 68, "widths"), (4, 5, "widths"), (3, 10, "widths"), (2, 17, "widths"),
+     (4, 68, "cap overflow"), (3, 10, "window overflow")],
+)
+def test_mesh_hash_path_equals_one_device(nd, w, case):
+    """The hash path on an nd x 1 mesh of the CPU (B5a, B2, B5b on each
+    shard, B5d, then B5c on the home device) equals the one-device hash
+    path: at the cell's width, at widths whose columns do not map back one
+    to one, with a cap the hits overflow (the mesh's dense window), and
+    with a window (topn 1: 64 documents) that queries overflow (re-scored
+    by score_rows)."""
+    topn, cap = (1, None) if case == "window overflow" else (100, 256 if case == "cap overflow" else None)
+    counts = _hash_hits_equal(["cpu"] * nd, "cpu", w, 32 * w - 3, topn, cap)
+    assert (counts.get("match.cap_overflows", 0) > 0) == (case == "cap overflow")
+    if case == "window overflow":
+        assert counts["match.redo_queries"] > 0
+
+
+def test_spanning_mesh_keeps_the_serial_route():
+    """A mesh over processes takes no hash dispatch: its ranks gather in
+    batch order on match_one_batch's route."""
+    didx, raw = _planted(np.random.default_rng(3), 101, 2, 50, 8)
+    spanning = Mesh(2, 1, (torch.device("cpu"),), rank=0, world=2, group=object())
+    mat = Matcher.from_device_index(didx, "cpu", mesh=spanning)
+    assert mat.score_hits_hashes_begin(DeviceQueryHashes.build(raw, "cpu"), 0.7, 100) is None
+
+
+def test_mesh_pipeline_runs_the_pipelined_loop(tmp_path, monkeypatch):
+    """Pipeline.match on a one-process 4x1 mesh of the CPU runs
+    _match_pipelined to its end: one mesh hash chunk a batch, no
+    match_one_batch, and 03_match as the one-device run's."""
+    calls = {"pipelined": 0, "one_batch": 0}
+    pipelined, one_batch = Pipeline._match_pipelined, Pipeline.match_one_batch
+
+    def spy_pipelined(self, *a, **k):
+        out = pipelined(self, *a, **k)
+        calls["pipelined"] += 1
+        return out
+
+    def spy_one_batch(self, *a, **k):
+        calls["one_batch"] += 1
+        return one_batch(self, *a, **k)
+
+    monkeypatch.setattr(Pipeline, "_match_pipelined", spy_pipelined)
+    monkeypatch.setattr(Pipeline, "match_one_batch", spy_one_batch)
+    base = tmp_path / "base"
+    ttesting.make_fixture(base, n_batches=3, seed=11)
+    outs = {}
+    for shape, devices in (("4x1", ["cpu"] * 4), ("1x1", None)):
+        wd = tmp_path / shape
+        shutil.copytree(base, wd)
+        cfg = Config.from_yaml(wd / "config.yaml").with_overrides(mesh_shape=shape)
+        pl = Pipeline(cfg, wd, device="cpu", mesh_devices=devices)
+        stem = pl.preprocess(sorted(str(p) for p in (wd / "input").iterdir()))
+        trace.reset()
+        pl.match(stem)
+        counts = trace.snapshot()["counts"]
+        trace.reset()
+        outs[shape] = {k: v for k, v in _outputs(wd).items() if "03_match" in k}
+        if shape == "4x1":
+            assert calls == {"pipelined": 1, "one_batch": 0}
+            assert counts["match.mesh_hash_chunks"] == counts["match.batches"] == 3
+        else:
+            assert counts.get("match.mesh_hash_chunks", 0) == 0
+    assert len(outs["4x1"]) == 3 and outs["4x1"] == outs["1x1"]
+
+
+@pytest.mark.cuda
+def test_mesh_hash_path_on_four_cards_equals_one_card(monkeypatch):
+    """The hash path on a 4x1 mesh of cuda:0-cuda:3 equals the one-card
+    hash path: B5a, B2 and B5b launch on each card, B5d and B5c on cuda:0,
+    the query hashes copied to each card once."""
+    from phylign_tpu_torch.ops import _kernels
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    launched = []
+    launch = _kernels.launch
+
+    def spy(counts, name, *args):
+        launched.append((name, next(a.device for a in args if isinstance(a, torch.Tensor))))
+        return launch(counts, name, *args)
+
+    monkeypatch.setattr(_kernels, "launch", spy)
+    cards = [f"cuda:{i}" for i in range(4)]
+    counts = _hash_hits_equal(cards, torch.device("cuda:0"), 68, 2169)
+    for i in range(4):
+        torch.cuda.synchronize(i)
+    on = lambda name: {dev.index for n, dev in launched if n == name}  # noqa: E731
+    assert on("hash_rows") == on("match_popcount_b2") == on("threshold_topk") == {0, 1, 2, 3}
+    assert on("merge_topk") == on("pack_hits") == {0}
     assert counts["match.mesh_gather_bytes"] > 0
 
 

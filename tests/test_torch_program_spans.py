@@ -93,10 +93,8 @@ def _toy(cell):
 def test_toy_run_reads_every_layers_host_time(cell, stage, tmp_path):
     res, rep = ps.run_with_spans(_toy(cell), 1234567891011, 0.01, False, True, "cpu", tmp_path)
     assert res["correct"], res["checks"]
-    mesh = cell.endswith("4gpu")  # a 4x1 mesh of the one CPU: per-batch jobs, not the pipelined path
-    pipelined = ("match.load_wait_ms_per_batch", "match.fetch_wait_ms_per_batch")
-    want = {k for k in ps.METRICS if k.startswith(stage + ".")
-            and not (k in pipelined if mesh else ".mesh_" in k)}
+    mesh = cell.endswith("4gpu")  # a 4x1 mesh of the one CPU, on the pipelined path as one device
+    want = {k for k in ps.METRICS if k.startswith(stage + ".") and (mesh or ".mesh_" not in k)}
     assert set(rep["metrics"]) == want and all(v >= 0 for v in rep["metrics"].values())
     roots = {"match": ("stage.preprocess", "stage.match", "stage.filter"),
              "map": ("stage.align", "stage.aggregate", "stage.stats")}[stage]
@@ -116,6 +114,7 @@ def test_toy_run_reads_every_layers_host_time(cell, stage, tmp_path):
             assert rep["counts"]["match.mesh_shards"] == 4 * rep["units"]
             assert rep["counts"]["match.mesh_padding_words"] == rep["units"]
             assert rep["counts"]["match.mesh_gather_bytes"] == 0  # one device: nothing copied
+            assert rep["counts"]["match.mesh_hash_chunks"] == rep["units"]  # a chunk a batch
     else:
         assert rep["per"] == "job" and rep["units"] == jobs
         assert rep["counts"]["align.flushes"] >= jobs
@@ -146,13 +145,14 @@ def test_toy_run_with_spans_off_records_none(tmp_path):
                  "align.traceback_pairs": 0}),
     ("match", {"match.batches": 4, "match.redo_queries": 0}, {"match.batches": 4}),
     ("match", {"match.batches": 4, "match.mesh_shards": 16, "match.mesh_padding_words": 0},
-     {"match.batches": 4, "match.mesh_gather_bytes": 0, "match.mesh_padding_words": 0, "match.mesh_shards": 16}),
+     {"match.batches": 4, "match.mesh_gather_bytes": 0, "match.mesh_hash_chunks": 0, "match.mesh_padding_words": 0,
+      "match.mesh_shards": 16}),
 ])
 def test_counts_keep_the_traceback_counters_of_a_map_cell(stage, got, want):
     """A map cell's report lists both traceback counters and both genome
     counters, at 0 too, so that the walks on the card can be held to all the
     gapped pairs' walks and the tables built on the card to all genomes, and a
-    match cell on a mesh its three mesh counters; other counters only when
+    match cell on a mesh its four mesh counters; other counters only when
     not 0."""
     assert ps.counts(got, stage) == want
     assert list(ps.counts(got, stage)) == sorted(want)
